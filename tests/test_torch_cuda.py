@@ -9,16 +9,19 @@ a machine without JAX:
 
 import random
 
+import numpy as np
 import pytest
 import torch
 
-from tokengeex_tpu_torch import Model, ScoredToken
+from tokengeex_tpu_torch import Lattice, Model, ScoredToken
 from tokengeex_tpu_torch.ops import lattice as lat
 from tokengeex_tpu_torch.ops import lattice_cuda as lc
 from tokengeex_tpu_torch.ops import lattice_cuda_fused as lcf
 from tokengeex_tpu_torch.ops.match_table import TokenTable
 from tokengeex_tpu_torch.train import estep_device as ed
 from tokengeex_tpu_torch.utils.packing import pack_samples
+
+TOL = {"a": 1e-5, "marg": 1e-5, "hist": 1e-6}
 
 
 @pytest.fixture
@@ -108,3 +111,86 @@ def test_cuda_encode_matches_cpu(cuda_device, hints):
                                    max_width=1024, device="cpu")
     assert got == want
     assert all(model.decode_bytes(ids) == s for ids, s in zip(got, mixed))
+
+
+def _lse_slab(L, seed):
+    """A seeded (C, L, B) slab with 40 % NEG holes and a step with no
+    candidate, sample boundaries, a history, and forward values and
+    normalisers that keep the backward pass's marginals near [0, 1]."""
+    g = torch.Generator().manual_seed(seed)
+    C, B = 256, 300  # B is not a multiple of the 32-row block
+    s = torch.round(torch.empty(C, L, B).uniform_(-12, -1, generator=g) * 2) / 2
+    s[torch.rand(C, L, B, generator=g) < 0.4] = lc.NEG
+    s[5] = lc.NEG
+    bounds = (torch.rand(C, B, generator=g) < 0.05).float()
+    hist0 = torch.round(torch.empty(L, B).uniform_(-30, 0, generator=g) * 2) / 2
+    a = torch.empty(C, B).uniform_(-1, 0, generator=g)
+    z = torch.empty(C, B).uniform_(0, 1, generator=g)
+    return s, bounds, hist0, a, z
+
+
+def _assert_close(got, want, rtol):
+    got, want = got.cpu(), want.cpu()
+    fin = want > lc.NEG * 0.5
+    assert torch.equal(got > lc.NEG * 0.5, fin)
+    np.testing.assert_allclose(got[fin].numpy(), want[fin].numpy(), rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [8, 13, 32])
+def test_cuda_forward_chunk_matches_twin(cuda_device, L):
+    s, starts, hist0, _, _ = _lse_slab(L, L)
+    want = lc.forward_chunk_plain(s, starts, hist0)
+    before = lc.forward_chunk.launches
+    got = lc.forward_chunk(*(t.to(cuda_device) for t in (s, starts, hist0)))
+    torch.cuda.synchronize()
+    assert lc.forward_chunk.launches == before + 1
+    _assert_close(got[0], want[0], TOL["a"])
+    _assert_close(got[1], want[1], TOL["hist"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [8, 13, 32])
+def test_cuda_backward_chunk_matches_twin(cuda_device, L):
+    s, ends, hist0, a, z = _lse_slab(L, L + 100)
+    want = lc.backward_chunk_plain(s, a, z, ends, hist0)
+    before = lc.backward_chunk.launches
+    got = lc.backward_chunk(*(t.to(cuda_device)
+                              for t in (s, a, z, ends, hist0)))
+    torch.cuda.synchronize()
+    assert lc.backward_chunk.launches == before + 1
+    assert float(want[0].max()) > 1e-3
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].numpy(),
+                               rtol=TOL["marg"], atol=1e-37)
+    _assert_close(got[1], want[1], TOL["hist"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hints,probe", [(None, None), ((16, None), "fast")])
+def test_cuda_e_step_matches_cpu(cuda_device, hints, probe):
+    model, samples = _corpus(600, seed=2)
+    counts = (lc.forward_chunk.launches, lc.backward_chunk.launches)
+    got = ed.run_e_step_device(model, samples, dropout=0.0, max_snippet=1024,
+                               probe=probe, table_hints=hints,
+                               device=cuda_device)
+    assert lc.forward_chunk.launches > counts[0]
+    assert lc.backward_chunk.launches > counts[1]
+    want = ed.run_e_step_device(model, samples, dropout=0.0,
+                                max_snippet=1024, probe=probe,
+                                table_hints=hints, device="cpu")
+    # The kernels equal their plain versions on the card, but the CPU's
+    # exp/log differ from the card's in the last ulp, which now and then
+    # flips the rounding of a forward or backward value; every marginal
+    # downstream moves by that ulp, relative. The tolerance is 4 ulps of
+    # the largest |z| (the f64 oracle's), as in chip_smoke.py's phase 3b,
+    # and the total is held to 1e-5.
+    zmax = 0.0
+    for s in samples:
+        for off in range(0, len(s), ed.DEVICE_EM_SNIPPET):
+            lattice = Lattice(s[off : off + ed.DEVICE_EM_SNIPPET])
+            model.oracle.populate_nodes(lattice, 0.0)
+            z = lattice.populate_marginal([0.0] * model.vocab_size())
+            zmax = max(zmax, abs(z))
+    rtol = 4 * float(np.spacing(np.float32(zmax)))
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=1e-4)
+    assert abs(got.sum() - want.sum()) <= 1e-5 * want.sum()

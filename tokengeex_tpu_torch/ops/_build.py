@@ -33,6 +33,10 @@ KERNELS: Dict[str, Tuple[str, str, tuple]] = {
                       (P, P, P, P, P, P, I, I, I, P)),
     "fused_forward": ("fused_forward.cu", "tgx_fused_forward_viterbi",
                       (P,) * 15 + (I, I, I, I, I, I, U, P)),
+    "forward_chunk": ("forward_chunk.cu", "tgx_forward_chunk",
+                      (P, P, P, P, P, I, I, I, P)),
+    "backward_chunk": ("backward_chunk.cu", "tgx_backward_chunk",
+                       (P, P, P, P, P, P, P, I, I, I, P)),
 }
 
 _LOCK = threading.Lock()

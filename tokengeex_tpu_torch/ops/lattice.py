@@ -1,7 +1,10 @@
-"""Device lattice ops for batched Viterbi encode, in PyTorch.
+"""Device lattice ops for batched Viterbi encode and the EM E-step, in
+PyTorch.
 
-Counterpart of the encode half of tokengeex_tpu/ops/lattice_jax.py. The
-dynamic lattice becomes dense tensors over a packed byte stream:
+Counterpart of tokengeex_tpu/ops/lattice_jax.py (encode, and the
+per-pass E-step: `match_cache`, `forward`, `backward_expected`,
+`fold_expected`). The dynamic lattice becomes dense tensors over a packed
+byte stream:
 
   - substrings are fingerprinted from per-row prefix hashes and matched
     against the vocabulary's hash tables (ops/match_table.py);
@@ -22,6 +25,13 @@ Two routes, picked by table size (`has_vscan`):
 Ties keep the longest token (reference src/model.rs:83-110). Token ids
 are not formed on the device: `backtrack` resolves them on the host from
 the matched byte spans.
+
+The E-step probes each row group once (`match_cache`, start-indexed,
+without dropout), runs the forward log-sum-exp DP (`forward_chunk`) over
+end-indexed views of that cache and the backward DP (`backward_chunk`)
+over it directly, each view masking the dropped candidates of its
+chunk, and adds the marginals into probe-slot bins that the host folds
+to token ids.
 """
 
 from __future__ import annotations
@@ -117,6 +127,11 @@ class DeviceTables:
       t_bucket          (Hb, 16) int32 single-probe buckets of 8
                         interleaved [check, score] entries, or None
       scores            (V,) f32 per-id scores
+      slot_to_id, slot_len        host (2H,) int64 token id (-1 empty) and
+                                  length of each cuckoo slot (T1 then T2)
+      bk_slot_to_id, bk_slot_len  host (8 Hb,) int64, the same per bucket
+                                  slot, or None
+    The slot maps fold slot-indexed E-step counts to token ids.
     """
 
     t1_fast: torch.Tensor
@@ -128,6 +143,10 @@ class DeviceTables:
     t_bucket: Optional[torch.Tensor] = None
     bk_bits: int = 0
     bk_salt: int = 0
+    slot_to_id: Optional[np.ndarray] = None
+    slot_len: Optional[np.ndarray] = None
+    bk_slot_to_id: Optional[np.ndarray] = None
+    bk_slot_len: Optional[np.ndarray] = None
 
     @staticmethod
     def from_table(tbl: TokenTable, device) -> "DeviceTables":
@@ -143,10 +162,22 @@ class DeviceTables:
             return np.stack([fp2.view(np.int32), score.view(np.int32)],
                             axis=1)
 
+        def slots(t: np.ndarray):
+            tid = t[:, 3].astype(np.uint32)
+            empty = tid == np.uint32(0xFFFFFFFF)
+            return (np.where(empty, -1, tid.astype(np.int64)),
+                    np.where(empty, 0, t[:, 2].astype(np.uint32)
+                             .astype(np.int64)))
+
+        ids1, lens1 = slots(tbl.t1)
+        ids2, lens2 = slots(tbl.t2)
         assert tbl.vocab_size < (1 << 24), "id packing needs vocab < 16M"
         return DeviceTables.from_numpy(
             {"t1_fast": fast(tbl.t1), "t2_fast": fast(tbl.t2),
-             "t_bucket": tbl.bk, "scores": tbl.scores},
+             "t_bucket": tbl.bk, "scores": tbl.scores,
+             "slot_to_id": np.concatenate([ids1, ids2]),
+             "slot_len": np.concatenate([lens1, lens2]),
+             "bk_slot_to_id": tbl.bk_ids, "bk_slot_len": tbl.bk_lens},
             (tbl.bits, tbl.max_token_len, tbl.vocab_size, tbl.bk_bits,
              tbl.bk_salt), device)
 
@@ -154,14 +185,20 @@ class DeviceTables:
     def from_numpy(arrays: Mapping[str, Optional[np.ndarray]], meta,
                    device) -> "DeviceTables":
         """Tables from host arrays: `arrays` holds t1_fast, t2_fast,
-        t_bucket (or None / empty) and scores; `meta` is (bits, max_len,
-        vocab_size, bk_bits, bk_salt). With the JAX DeviceTables fields
-        turned into numpy, both packages run on the very same tables."""
+        t_bucket (or None / empty) and scores, and optionally the host
+        slot maps slot_to_id, slot_len, bk_slot_to_id and bk_slot_len;
+        `meta` is (bits, max_len, vocab_size, bk_bits, bk_salt). With the
+        JAX DeviceTables fields turned into numpy, both packages run on the
+        very same tables and fold counts through the same slot maps."""
         bits, max_len, vocab_size, bk_bits, bk_salt = meta
 
         def dev(a, dtype):
             return torch.as_tensor(np.array(a, copy=True),
                                    device=device).to(dtype).contiguous()
+
+        def host(name):
+            a = arrays.get(name)
+            return None if a is None else np.asarray(a, dtype=np.int64)
 
         tb = arrays.get("t_bucket")
         return DeviceTables(
@@ -174,6 +211,9 @@ class DeviceTables:
             t_bucket=(dev(tb, torch.int32)
                       if tb is not None and np.size(tb) else None),
             bk_bits=int(bk_bits), bk_salt=int(bk_salt),
+            slot_to_id=host("slot_to_id"), slot_len=host("slot_len"),
+            bk_slot_to_id=host("bk_slot_to_id"),
+            bk_slot_len=host("bk_slot_len"),
         )
 
     @property
@@ -480,6 +520,68 @@ def _probe_mode(tbl: DeviceTables) -> str:
     return "bucket" if tbl.t_bucket is not None else "fast"
 
 
+def match_cache(
+    tbl: DeviceTables,
+    batch: DeviceBatch,
+    C: int = 512,
+    probe: Optional[str] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Probe the whole batch once: start-indexed (score, slot), each
+    (W, L, B) in the kernels' slab layout (positions major, rows minor),
+    so that `forward` and `backward_expected` share one probe. Column p,
+    row j describes the token of length j+1 beginning at position p;
+    -inf score and slot = the miss index where nothing matches. The
+    cache holds no dropout: `forward` and `backward_expected` mask each
+    chunk they read."""
+    B = batch.p1.shape[0]
+    W = batch.width
+    L = tbl.max_len
+    if W % C:
+        raise ValueError(f"chunk {C} does not divide width {W}")
+    mode = probe or _probe_mode(tbl)
+    dev = batch.p1.device
+    score = torch.empty((W, L, B), dtype=torch.float32, device=dev)
+    slot = torch.empty((W, L, B), dtype=torch.int32, device=dev)
+    for cs in range(0, W, C):
+        s, a = _match_slab(tbl, batch, cs, C, L, mode=mode)
+        score[cs : cs + C] = s.permute(2, 1, 0)
+        slot[cs : cs + C] = a.permute(2, 1, 0)
+    return score, slot
+
+
+def _dropout_keep_window(drop_u: torch.Tensor, dropout: float, L: int,
+                         pad: int, start: int, span: int) -> torch.Tensor:
+    """(span, L, B) keep-mask for start positions [start, start+span) of a
+    dropout-free `match_cache` cache: the coins of `_match_slab`'s
+    dropout (keyed on the token's start position, mixed per length).
+    `start` may reach -L (the end view's left context); pad == L keeps
+    the column index in range."""
+    dev = drop_u.device
+    base = drop_u[:, pad + start : pad + start + span].t()[:, None, :]
+    odd = _len_mix(L, lcf._ODD, dev)[None, :, None]
+    u = H.srl_i32(H.mul_i32(base, odd), 1)
+    lens = torch.arange(1, L + 1, device=dev)[None, :, None]
+    return ~((u < lcf.dropout_threshold_half(dropout)) & (lens > 1))
+
+
+def _cache_end_view(score_cache: torch.Tensor, chunk_start: int, C: int,
+                    L: int, drop_u: Optional[torch.Tensor] = None,
+                    dropout: float = 0.0, pad: int = 0) -> torch.Tensor:
+    """End-indexed (C, L, B) chunk view of a start-indexed (W, L, B)
+    cache: row j at dp step q holds the token of length j+1 beginning at
+    chunk_start + q - j, -inf where that start lies before position 0.
+    With drop_u, the dropout keep-mask is applied here, per chunk."""
+    B = score_cache.shape[2]
+    lo = chunk_start - L
+    slab = score_cache[max(lo, 0) : chunk_start + C]
+    if lo < 0:
+        slab = torch.cat([slab.new_full((-lo, L, B), NEG_INF), slab])
+    if drop_u is not None and dropout > 0.0:
+        keep = _dropout_keep_window(drop_u, dropout, L, pad, lo, C + L)
+        slab = torch.where(keep, slab, NEG_INF)
+    return torch.stack([slab[L - j : L - j + C, j] for j in range(L)], dim=1)
+
+
 # ---------------------------------------------------------------------------
 # Viterbi drivers
 # ---------------------------------------------------------------------------
@@ -512,34 +614,50 @@ def _scan_forward(
     probe: Optional[str] = None,
     carry: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     timer: Optional[PhaseTimer] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Slab route: per chunk of C positions, probe an end-indexed score
-    slab and run `viterbi_chunk` over it; the history carries across
-    chunks. carry = (mask (B,), hist0 (B, L)) chains the DP across
-    fixed-width windows of one long sample (prepare_chained_batch).
-    Returns dp (B, W) f32 (-inf where unreachable) and best_l (B, W)."""
+    kind: str = "viterbi",
+    cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+):
+    """Slab route: per chunk of C positions, take an end-indexed score
+    slab (probed, or viewed from a `match_cache` cache) and run
+    `viterbi_chunk` (kind="viterbi") or `forward_chunk`
+    (kind="logsumexp") over it; the history carries across chunks.
+    carry = (mask (B,), hist0 (B, L)) chains the DP across fixed-width
+    windows of one long sample (prepare_chained_batch).
+    Returns dp (B, W) f32 (-inf where unreachable) and best_l (B, W) for
+    Viterbi, the forward values A (B, W) f32 for log-sum-exp."""
     B = batch.p1.shape[0]
     W = batch.width
     L = tbl.max_len
     if W % C:
         raise ValueError(f"chunk {C} does not divide width {W}")
+    if kind not in ("viterbi", "logsumexp"):
+        raise ValueError(f"unknown kind {kind!r}")
+    step = "kernel" if kind == "viterbi" else "forward"
     mode = probe or _probe_mode(tbl)
     hist = _hist0(batch, L, carry).clamp(min=NEG).t().contiguous()
     starts = batch.is_start[:, 1:].t().to(torch.float32)  # (W, B)
-    dps, bls = [], []
+    outs = []
     for cs in range(0, W, C):
-        with phase(timer, "probe"):
-            score_e, _ = _match_slab(tbl, batch, cs, C, L, drop_u, dropout,
-                                     mode=mode, end_indexed=True)
-            score_e = score_e.clamp(min=NEG).permute(2, 1, 0).contiguous()
-        with phase(timer, "kernel"):
-            dp_c, bl_c, hist = lc.viterbi_chunk(
-                score_e, starts[cs : cs + C].contiguous(), hist)
-        dps.append(dp_c)
-        bls.append(bl_c)
-    dp = torch.cat(dps, dim=0).t()
-    best_l = torch.cat(bls, dim=0).t()
-    return _finish(dp), best_l
+        if cache is None:
+            with phase(timer, "probe"):
+                score_e, _ = _match_slab(tbl, batch, cs, C, L, drop_u,
+                                         dropout, mode=mode, end_indexed=True)
+                score_e = score_e.clamp(min=NEG).permute(2, 1, 0).contiguous()
+        with phase(timer, step):
+            if cache is not None:
+                score_e = _cache_end_view(cache[0], cs, C, L, drop_u,
+                                          dropout, batch.pad).clamp(min=NEG)
+            st = starts[cs : cs + C].contiguous()
+            if kind == "viterbi":
+                dp_c, bl_c, hist = lc.viterbi_chunk(score_e, st, hist)
+                outs.append((dp_c, bl_c))
+            else:
+                a_c, hist = lc.forward_chunk(score_e, st, hist)
+                outs.append((a_c,))
+    parts = [torch.cat(o, dim=0).t() for o in zip(*outs)]
+    if kind == "viterbi":
+        return _finish(parts[0]), parts[1]
+    return _finish(parts[0])
 
 
 def fused_inputs(tbl: DeviceTables, batch: DeviceBatch,
@@ -601,13 +719,125 @@ def viterbi(tbl: DeviceTables, batch: DeviceBatch, C: int = 256,
     return _scan_forward(tbl, batch, C, drop_u, dropout, probe, carry, timer)
 
 
+def forward(tbl: DeviceTables, batch: DeviceBatch,
+            cache: Tuple[torch.Tensor, torch.Tensor], C: int = 512,
+            drop_u: Optional[torch.Tensor] = None, dropout: float = 0.0,
+            timer: Optional[PhaseTimer] = None) -> torch.Tensor:
+    """EM forward pass: A (B, W+1), the log-probability of all
+    segmentations of each prefix of its sample, -inf where no path
+    reaches (reference: src/lattice.rs:245-312), over the `match_cache`
+    result `cache`."""
+    a = _scan_forward(tbl, batch, C, drop_u, dropout, timer=timer,
+                      kind="logsumexp", cache=cache)
+    a0 = torch.where(batch.is_start[:, :1], 0.0, NEG_INF)
+    return torch.cat([a0, a], dim=1)
+
+
+# Scratch bins past the last slot that take the probe misses (marginal 0).
+MISS_BINS = 4096
+
+
+def backward_expected(
+    tbl: DeviceTables,
+    batch: DeviceBatch,
+    A: torch.Tensor,
+    cache: Tuple[torch.Tensor, torch.Tensor],
+    C: int = 512,
+    drop_u: Optional[torch.Tensor] = None,
+    dropout: float = 0.0,
+    probe: Optional[str] = None,
+    nbins: Optional[int] = None,
+    timer: Optional[PhaseTimer] = None,
+) -> torch.Tensor:
+    """Expected-count accumulator: the marginals
+    exp(A[p] + score + beta[p+l] - z) of every matched token occurrence,
+    added into its probe slot (reference: src/lattice.rs:245-312).
+    Chunks of the `match_cache` result `cache` are walked in descending
+    order with `backward_chunk`; A is `forward`'s result over the same
+    cache and dropout words. Returns an f32 (nbins,) slot-indexed tensor
+    (bucket slots in "bucket" mode, cuckoo slots in "fast" mode); fold it
+    to per-token counts with `fold_expected`."""
+    B = batch.p1.shape[0]
+    W = batch.width
+    L = tbl.max_len
+    if W % C:
+        raise ValueError(f"chunk {C} does not divide width {W}")
+    mode = probe or _probe_mode(tbl)
+    check_f32(probe=mode)
+    if nbins is None:
+        nbins = tbl.bk_num_slots if mode == "bucket" else tbl.num_slots
+    dev = A.device
+    with phase(timer, "backward"):
+        # Per-position normaliser z[p] = A[end of the sample holding p].
+        z = torch.gather(A, 1, batch.end_index.long())
+        z = torch.where(torch.isfinite(z) & (z > -1e37), z, 0.0)
+        z = z.t().contiguous()  # (W, B)
+        # A[p] at a boundary holds the PREVIOUS sample's total; tokens
+        # starting at p belong to the next sample, whose forward value is
+        # the post-reset 0.
+        a = torch.where(batch.is_start[:, :W], 0.0, A[:, :W])
+        a = a.clamp(min=NEG).t().contiguous()
+        ends = batch.is_end[:, :W].t().to(torch.float32)
+        # hist[j] = beta[p + 1 + j]; a token ending exactly at W sees
+        # beta[W] = 0 when a sample ends there.
+        hist = torch.full((L, B), NEG, dtype=torch.float32, device=dev)
+        hist[0] = torch.where(batch.is_end[:, W], 0.0, NEG)
+    acc = torch.zeros(nbins + MISS_BINS, dtype=torch.float32, device=dev)
+    # Most probe points miss; sending every miss to one address would
+    # serialise the atomic adds there, so they spread over scratch bins.
+    spread = nbins + (torch.arange(C * L * B, dtype=torch.int32, device=dev)
+                      & (MISS_BINS - 1))
+    for cs in range(W - C, -1, -C):
+        with phase(timer, "backward"):
+            score_s = cache[0][cs : cs + C]
+            slot_s = cache[1][cs : cs + C]
+            if drop_u is not None and dropout > 0.0:
+                keep = _dropout_keep_window(drop_u, dropout, L, batch.pad,
+                                            cs, C)
+                score_s = torch.where(keep, score_s, NEG_INF)
+            matched = score_s > -1.0e37
+            marg, hist = lc.backward_chunk(
+                score_s.clamp(min=NEG).contiguous(),
+                a[cs : cs + C].contiguous(), z[cs : cs + C].contiguous(),
+                ends[cs : cs + C].contiguous(), hist)
+        with phase(timer, "scatter"):
+            bins = slot_s.reshape(-1)
+            bins = torch.where(bins >= nbins, spread, bins)
+            acc.index_add_(0, bins, torch.where(matched, marg, 0.0).reshape(-1))
+    return acc[:nbins]
+
+
+def pick_span_values_device(A: torch.Tensor, rows_idx,
+                            ends_idx) -> torch.Tensor:
+    """A[rows_idx[k], ends_idx[k]] per span, left on A's device."""
+    r = torch.as_tensor(np.asarray(rows_idx, np.int64), device=A.device)
+    e = torch.as_tensor(np.asarray(ends_idx, np.int64), device=A.device)
+    return A[r, e]
+
+
 def pick_span_values(A: torch.Tensor, rows_idx, ends_idx) -> np.ndarray:
     """A[rows_idx[k], ends_idx[k]] per span, on the host."""
     if len(rows_idx) == 0:
         return np.zeros(0, dtype=np.float32)
-    r = torch.as_tensor(np.asarray(rows_idx, np.int64), device=A.device)
-    e = torch.as_tensor(np.asarray(ends_idx, np.int64), device=A.device)
-    return A[r, e].cpu().numpy()
+    return pick_span_values_device(A, rows_idx, ends_idx).cpu().numpy()
+
+
+def fold_expected(tbl: DeviceTables, acc: torch.Tensor) -> np.ndarray:
+    """Fold a `backward_expected` accumulator to per-token counts (V,)
+    f64 on the host, through the table's slot maps (bucket slots when
+    the accumulator has the bucket table's length, else cuckoo slots)."""
+    acc = acc.detach().cpu().numpy().astype(np.float64)
+    if tbl.bk_slot_to_id is not None and \
+            acc.shape[0] == tbl.bk_slot_to_id.shape[0]:
+        mapping = tbl.bk_slot_to_id
+    else:
+        mapping = tbl.slot_to_id
+    if mapping is None or mapping.shape[0] != acc.shape[0]:
+        raise ValueError("the tables carry no slot map for an accumulator "
+                         f"of {acc.shape[0]} bins")
+    valid = mapping >= 0
+    return np.bincount(mapping[valid], weights=acc[valid],
+                       minlength=tbl.vocab_size)
 
 
 # ---------------------------------------------------------------------------

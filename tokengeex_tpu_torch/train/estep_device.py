@@ -1,11 +1,14 @@
-"""Device-backed batched Viterbi encode.
+"""Device-backed corpus passes: batched Viterbi encode, the EM E-step
+and Viterbi frequency counts.
 
-Counterpart of the encode half of tokengeex_tpu/train/estep_device.py:
+Counterpart of tokengeex_tpu/train/estep_device.py on one device:
 samples are packed into fixed-shape (rows x width) byte batches
-(utils/packing.py), processed in row groups, Viterbi-encoded on the
-device (ops/lattice.py) and backtracked to token ids on the host.
-Samples longer than MAX_ENCODE_WIDTH chain fixed-width windows with a
-carried dp tail (_encode_chained).
+(utils/packing.py) and processed in row groups on the device
+(ops/lattice.py). Encode backtracks token ids on the host; samples
+longer than MAX_ENCODE_WIDTH chain fixed-width windows with a carried dp
+tail (_encode_chained). The E-step probes each group once and adds the
+token marginals of the forward/backward DPs into slot bins that the
+host folds to expected counts per token.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from ..ops import lattice as lat
 from ..ops.match_table import TokenTable
 from ..utils.device import resolve_device
 from ..utils.packing import PackedBatch, pack_samples
+from ..utils.task import Task
 
 # Position-chunk length of the slab route; width is padded to a multiple.
 CHUNK = 512
@@ -32,6 +36,18 @@ MAX_ENCODE_WIDTH = 1 << 15
 # Row groups are padded to a multiple of this many rows; the same
 # groups, padding and spans as the JAX package's kernel path.
 ROW_MULT = 128
+# f32 EM snippet cap. The reference chops E-step samples at 81920 bytes
+# (src/prune.rs:75) with f64 lattices; in f32 the forward/backward
+# log-probs reach ~90k nats at that length and their rounding drift
+# scales the marginals by e^(noise). 1024 bytes bound the drift to ~1 %
+# even at ~10 nats per byte (PARITY.md "known deviations").
+DEVICE_EM_SNIPPET = 1024
+
+
+def _em_snippet_cap(max_snippet: Optional[int]) -> Optional[int]:
+    if max_snippet is None:
+        return None
+    return min(max_snippet, DEVICE_EM_SNIPPET)
 
 
 def _pick_width(samples: Sequence[bytes], max_snippet: Optional[int]) -> int:
@@ -308,3 +324,108 @@ def _encode_chained(
             ids_rev.reverse()
             out.append(ids_rev)
     return out
+
+
+def run_e_step_device(
+    model: Model,
+    samples: Sequence[bytes],
+    dropout: float,
+    max_snippet: Optional[int],
+    task: Optional[Task] = None,
+    dtype=None,
+    seed: int = 0,
+    probe: Optional[str] = None,
+    table_hints: Optional[Tuple[int, int]] = None,
+    device=None,
+    timer: Optional[lat.PhaseTimer] = None,
+) -> np.ndarray:
+    """Expected token counts over the corpus (reference:
+    src/prune.rs:64-120), as (V,) float64.
+
+    Samples are chopped into snippets of at most
+    min(max_snippet, DEVICE_EM_SNIPPET) bytes and packed; each row group
+    is probed once (`match_cache`), then runs the forward and backward
+    DPs and adds its marginals into slot bins on the device. dropout > 0
+    skips multi-byte candidates with coins from a torch.Generator seeded
+    with `seed`, masked per chunk of the dropout-free cache. Every snippet's normaliser is checked once, after the
+    pass: a non-finite one (a snippet no token sequence covers) raises
+    ValueError. device: a CUDA device by default, "cpu" for the kernels'
+    plain versions; without a GPU and without `device` this raises.
+    `timer` collects the seconds per phase (tables, pack, prep, probe,
+    forward, backward, scatter, fold)."""
+    lat.check_f32(dtype, probe)
+    dev = resolve_device(device)
+    with lat.phase(timer, "tables"):
+        hb, hl = table_hints or (None, None)
+        table = TokenTable.build(model.vocab, min_bits=hb, min_len=hl)
+        dt = lat.DeviceTables.from_table(table, dev)
+    L = dt.max_len
+    with lat.phase(timer, "pack"):
+        max_snippet = _em_snippet_cap(max_snippet)
+        width = _pick_width(samples, max_snippet)
+        packed = pack_samples(samples, width=width, max_snippet=max_snippet)
+    gen = (torch.Generator(device=dev).manual_seed(seed)
+           if dropout > 0.0 else None)
+
+    acc = None
+    z_parts: List[torch.Tensor] = []
+    z_spans: list = []
+    for _, sub in _padded_groups(packed, width, ROW_MULT):
+        with lat.phase(timer, "prep"):
+            batch = lat.prepare_batch(sub, L, dev)
+            drop_u = (_drop_words(gen, sub.rows, batch.sid.shape[1], dev)
+                      if gen is not None else None)
+        # Probe once per group; forward and backward share the cache,
+        # rows * width * L * 8 bytes: 512 MiB at L = 16.
+        with lat.phase(timer, "probe"):
+            cache = lat.match_cache(dt, batch, C=CHUNK, probe=probe)
+        A = lat.forward(dt, batch, cache, C=CHUNK, drop_u=drop_u,
+                        dropout=dropout, timer=timer)
+        exp_g = lat.backward_expected(dt, batch, A, cache, C=CHUNK,
+                                      drop_u=drop_u, dropout=dropout,
+                                      probe=probe, timer=timer)
+        acc = exp_g if acc is None else acc.add_(exp_g)
+        del cache
+        if sub.spans:
+            z_parts.append(lat.pick_span_values_device(
+                A, [sp[0] for sp in sub.spans], [sp[2] for sp in sub.spans]))
+            z_spans.extend(sub.spans)
+        if task is not None:
+            task.record(sum(e - s for (_, s, e, _, _) in sub.spans),
+                        len({sp[3] for sp in sub.spans}))
+
+    with lat.phase(timer, "fold"):
+        expected = (lat.fold_expected(dt, acc) if acc is not None
+                    else np.zeros(dt.vocab_size, dtype=np.float64))
+        z = (torch.cat(z_parts).cpu().numpy() if z_parts
+             else np.zeros(0, np.float32))
+    # Per-snippet normaliser check (reference: src/prune.rs:90-96), read
+    # back once for the whole pass.
+    bad = np.nonzero(~np.isfinite(z))[0]
+    if bad.size:
+        k = int(bad[0])
+        si = z_spans[k][3]
+        raise ValueError(
+            f"normalization constant is not finite "
+            f"(z={float(z[k])}, sample={si}, len={len(samples[si])})")
+    return expected
+
+
+def count_frequencies_device(
+    model: Model,
+    samples: Sequence[bytes],
+    task: Optional[Task] = None,
+    table_hints: Optional[Tuple[int, int]] = None,
+    device=None,
+) -> np.ndarray:
+    """Viterbi token frequencies (reference: src/prune.rs:205-246):
+    `encode_corpus_device`, then the ids counted on the host."""
+    encoded = encode_corpus_device(model, samples, table_hints=table_hints,
+                                   device=device)
+    ids = [np.asarray(r, dtype=np.int64) for r in encoded if r]
+    freqs = np.bincount(np.concatenate(ids) if ids
+                        else np.zeros(0, np.int64),
+                        minlength=model.vocab_size())
+    if task is not None:
+        task.record(sum(len(s) for s in samples), len(samples))
+    return freqs.astype(np.int64)
