@@ -10,13 +10,18 @@ Phases (any failure exits non-zero):
      versions; builds every CUDA kernel from csrc/ (one nvcc per source,
      all started together) and prints the build time;
   2. kernels against their plain PyTorch versions, at the shapes the
-     main paths give them: viterbi_chunk and fused_forward_chunk with
-     best_l / hist / rl equal and dp within rtol 1e-6; forward_chunk and
-     backward_chunk on seeded slabs with 40 % NEG holes and a step with
-     no candidate, A and marg within rtol 1e-5 and hist within rtol 1e-6
-     (not bit-equal in general: the device's exp/log may differ from the
-     kernels' expf/logf in the last ulp); each timed with CUDA events
-     beside its plain version and its bound;
+     main paths give them: viterbi_chunk and fused_forward_chunk(viterbi)
+     with best_l / hist / rl equal and dp within rtol 1e-6; forward_chunk,
+     backward_chunk and its betas mode on seeded slabs with 40 % NEG holes
+     and a step with no candidate, A, marg and betas within rtol 1e-5 and
+     hist within rtol 1e-6; fused_forward_chunk(logsumexp) and
+     fused_backward_chunk on a session group of the 4k vocabulary
+     (W = 8192, 512 rows) at dropout 0 and 0.1, and seg_weights on seeded
+     inputs at H = 2^22 with n_hit inside the last block, A, betas and cf
+     within rtol 1e-5 with equal finite masks (not bit-equal in general:
+     the device's exp/log may differ from the kernels' expf/logf in the
+     last ulp); each timed with CUDA events beside its plain version and
+     its bound;
   3. encode end to end, Tokenizer.encode_batch(backend="device") on the
      card, for two configurations over a seeded ~8 MB code-like corpus
      at L = 16: (a) a 32,768-token vocabulary (slab route: bucket probe
@@ -26,18 +31,31 @@ Phases (any failure exits non-zero):
      a > 2^15-byte sample through the chained path, and that its kernel
      was launched; prints bytes/s and the time per phase;
   3b. the EM E-step, run_e_step_device on the card, for (a) and (b) at
-     dropout 0 and 0.05: both kernels launched, counts on the first 64
-     samples equal to the CPU plain run (rtol 1e-3 / atol 1e-4 per
+     dropout 0 and 0.05 (the dropout-0.05 pass once, unsynchronised): both
+     kernels launched, counts on the first 64 samples equal to the CPU
+     plain run (rtol 1e-3 / atol 1e-4 per
      token, 1e-5 on the total: the CPU's exp/log differ from the card's
      in the last ulp, and one ulp of a forward value near 4e3 moves the
      marginals after it by 2.4e-4), total count within 2e-3 of the f64
      oracle over the same 1024-byte snippets (f32 drift, as in the JAX
      package's f32 E-step: tests/test_torch_estep_oracle.py); prints
      bytes/s and the time per phase, at both dropouts;
+  3d. the probe-once training session, DeviceTrainSession on the card,
+     for (a) (cached route: forward_chunk, backward_chunk's betas mode,
+     seg_weights) and (b) (fused route: fused_forward_chunk(logsumexp),
+     fused_backward_chunk, seg_weights) at dropout 0 and 0.05: the first
+     pass (probe, remap, SegStruct build) and a steady-state pass timed
+     apart, with bytes/s and a synchronised phase split of each; the
+     route's kernels launched; at dropout 0 the second pass equal to the
+     first, the counts within rtol 1e-3 / atol 1e-4 per token and 1e-4 on
+     the total of run_e_step_device on the card (segsum against scatter,
+     and expf ulps), and a session over the first 64 samples within 2e-3
+     of the f64 oracle's total;
   3c. the trainer: VocabularyPruner (the README recipe's settings)
      prunes a 49,152-token vocabulary to 32,768 over the corpus (2
-     rounds, 4 E-steps, 2 frequency passes); the result is a subset of
-     the input vocabulary and encodes and decodes the first 64 samples
+     rounds, 4 E-steps, 2 frequency passes) through one session, on the
+     cached route; the session is closed after; the result is a subset
+     of the input vocabulary and encodes and decodes the first 64 samples
      exactly on the card; prints each round's size and seconds;
   4. the kernels line, then the device line as the last line.
 
@@ -64,8 +82,15 @@ CORPUS_BYTES = 8_000_000
 SEED = 0
 
 
+START = time.perf_counter()
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def phase_start(name: str) -> None:
+    log(f"-- phase {name} at {time.perf_counter() - START:.1f} s")
 
 
 def fail(msg: str) -> None:
@@ -201,11 +226,16 @@ def device_busy(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in events)
     check(busy_us > 0, "the profiler recorded no device time")
     busy = busy_us / 1e6
-    return {"busy_s": busy, "wall_s": wall, "idle_share": 1 - busy / wall}
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    return {"busy_s": busy, "wall_s": wall, "idle_share": 1 - busy / wall,
+            "top_kernels_ms": [(e.key[:60], e.count,
+                                round(e.self_device_time_total / 1e3, 3))
+                               for e in top]}
 
 
 def bound(nbytes: float, ops: float):
@@ -371,6 +401,136 @@ def check_fused(lat, lcf, tbl, batch, dropout: float, dev):
                       "dropout": dropout}}
 
 
+def drop_words(batch, dropout: float, dev, seed: int = 2):
+    if dropout <= 0.0:
+        return None
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(-(2**31), 2**31 - 1, tuple(batch.sid.shape),
+                         generator=g, dtype=torch.int32, device=dev)
+
+
+def check_fused_lse(lat, lcf, tbl, batch, dropout: float, dev):
+    args = lat.fused_inputs(tbl, batch, drop_words(batch, dropout, dev),
+                            dropout)
+    kw = dict(L=tbl.max_len, bits=tbl.bits, pad=batch.pad, dropout=dropout)
+    want = lcf.fused_forward_chunk_plain("logsumexp", *args, **kw)
+    got = lcf.fused_forward_chunk("logsumexp", *args, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(got[3], want[3]), "fused_forward(logsumexp): rl differs")
+    err = max(assert_rel(got[0], want[0], "fused_forward(logsumexp): A", 1e-5),
+              assert_rel(got[2], want[2], "fused_forward(logsumexp): hist",
+                         1e-5))
+    ms = cuda_ms(lambda: lcf.fused_forward_chunk("logsumexp", *args, **kw),
+                 iters=5)
+    plain_ms = cuda_ms(
+        lambda: lcf.fused_forward_chunk_plain("logsumexp", *args, **kw),
+        iters=1, warmup=0)
+    W = batch.width
+    B = batch.p1.shape[0]
+    L = tbl.max_len
+    # Bytes: every input read once, A, hist and rl written once.
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in args if t is not None)
+    nbytes += 4 * (W * B + L * B + B)
+    # Operations: ~20 integer ops per probed (position, length), and 5 for
+    # the log-sum-exp of each (position, length); probes only run where
+    # the length fits the sample run (counted on this data).
+    inb = batch.sid[:, batch.pad : batch.pad + W].t() >= 0
+    rl = lcf.run_lengths(inb, batch.is_start[:, :W].t(), args[10])
+    probes = int(rl.clamp(max=L).sum())
+    b_ms, b_by = bound(nbytes, 20 * probes + 5 * W * L * B)
+    log(f"fused_forward(logsumexp) (W={W}, L={L}, B={B}, bits={tbl.bits}, "
+        f"dropout={dropout}): {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}), {probes} probes, max |err| {err}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "probes": probes,
+            "shape": {"W": W, "L": L, "B": B, "bits": tbl.bits,
+                      "dropout": dropout}}
+
+
+def check_fused_backward(lat, lcf, tbl, batch, dropout: float, dev):
+    args = lat.fused_bwd_inputs(tbl, batch, drop_words(batch, dropout, dev),
+                                dropout)
+    kw = dict(L=tbl.max_len, bits=tbl.bits, pad=batch.pad, dropout=dropout)
+    want = lcf.fused_backward_chunk_plain(*args, **kw)
+    got = lcf.fused_backward_chunk(*args, **kw)
+    torch.cuda.synchronize()
+    check(bool((want == 0).any()), "fused_backward: no sample end")
+    err = assert_rel(got, want, "fused_backward: betas", 1e-5)
+    ms = cuda_ms(lambda: lcf.fused_backward_chunk(*args, **kw), iters=5)
+    plain_ms = cuda_ms(lambda: lcf.fused_backward_chunk_plain(*args, **kw),
+                       iters=1, warmup=0)
+    W = batch.width
+    B = batch.p1.shape[0]
+    L = tbl.max_len
+    # Bytes: every input read once, the betas written once. Operations as
+    # the fused forward's, over the runs STARTING at each byte.
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in args if t is not None) + 4 * W * B
+    inb = batch.sid[:, batch.pad : batch.pad + W].t() >= 0
+    fr = lcf.start_run_lengths(inb, batch.is_start[:, 1:].t())
+    probes = int(fr.clamp(max=L).sum())
+    b_ms, b_by = bound(nbytes, 20 * probes + 5 * W * L * B)
+    log(f"fused_backward (W={W}, L={L}, B={B}, bits={tbl.bits}, "
+        f"dropout={dropout}): {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}), {probes} probes, max |err| {err}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "probes": probes,
+            "shape": {"W": W, "L": L, "B": B, "bits": tbl.bits,
+                      "dropout": dropout}}
+
+
+def check_backward_betas(lc, C: int, L: int, B: int, dev):
+    s, ends, hist0, _, _ = lse_slab(C, L, B, 5)
+    args = [t.to(dev).contiguous() for t in (s, ends, hist0)]
+    want = lc.backward_betas_chunk_plain(*args)
+    got = lc.backward_betas_chunk(*args)
+    torch.cuda.synchronize()
+    check(bool((want[0] == 0).any()), "backward_betas_chunk: no sample end")
+    err = max(assert_rel(got[0], want[0], "backward_betas_chunk: betas", 1e-5),
+              assert_rel(got[1], want[1], "backward_betas_chunk: hist", 1e-6))
+    ms = cuda_ms(lambda: lc.backward_betas_chunk(*args), iters=20)
+    plain_ms = cuda_ms(lambda: lc.backward_betas_chunk_plain(*args), iters=1)
+    # Bytes: slab and ends in, betas out, history in and out. Operations:
+    # per (position, length) an add, a max, a subtraction, an exp and an add.
+    nbytes = 4 * (C * L * B + 2 * C * B + 2 * L * B)
+    b_ms, b_by = bound(nbytes, 5 * C * L * B + 4 * C * B)
+    log(f"backward_chunk(betas) (C={C}, L={L}, B={B}): {ms:.4f} ms, plain "
+        f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), max |err| {err}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": {"C": C, "L": L, "B": B}}
+
+
+def check_seg_weights(lcs, H: int, dev):
+    g = torch.Generator().manual_seed(6)
+    # Hits' [alpha - Z] and betas, score differences with block anchors:
+    # weights exp(r0 + r1 + ss) spread over (0, 1].
+    r0 = torch.empty(H).uniform_(-6, 0, generator=g)
+    r1 = torch.empty(H).uniform_(-6, 0, generator=g)
+    d2 = torch.empty(H).uniform_(-0.05, 0.05, generator=g)
+    d2[::lcs.SEG_BLK] = torch.empty(H // lcs.SEG_BLK).uniform_(-2, 0,
+                                                               generator=g)
+    n_hit = H - lcs.SEG_BLK + 57  # inside the last block
+    args = [t.to(dev).contiguous() for t in (r0, r1, d2)]
+    want = lcs.seg_weights_plain(*args, n_hit)
+    got = lcs.seg_weights(*args, n_hit)
+    torch.cuda.synchronize()
+    err = max(assert_rel(got[0], want[0], "seg_weights: cf", 1e-5),
+              assert_rel(got[1], want[1], "seg_weights: t", 1e-5))
+    ms = cuda_ms(lambda: lcs.seg_weights(*args, n_hit), iters=20)
+    plain_ms = cuda_ms(lambda: lcs.seg_weights_plain(*args, n_hit), iters=3)
+    # Bytes: 16 per hit (r0, r1, d2 in, cf out) and the block totals.
+    # Operations: per hit 14 scan adds, 2 adds, one exp and the mask.
+    nbytes = 16 * H + 4 * (H // lcs.SEG_BLK)
+    b_ms, b_by = bound(nbytes, 18 * H)
+    log(f"seg_weights (H={H}, n_hit={n_hit}): {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), max |err| {err}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": {"H": H, "n_hit": n_hit}}
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the main path end to end
 # ---------------------------------------------------------------------------
@@ -514,14 +674,8 @@ def run_estep(name, vocab, samples, kernels, dev):
     check(bool(np.isfinite(drop).all()), f"{name}: dropout counts not finite")
     check(abs(drop.sum() - counts.sum()) / counts.sum() < 0.5,
           f"{name}: dropout 0.05 counts far from dropout 0")
-    timer_d = lat.PhaseTimer(dev)
-    drop_t = estep(samples, dropout=0.05, seed=3, timer=timer_d)
-    check(bool(np.allclose(drop_t, drop, rtol=1e-4, atol=1e-4)),
-          f"{name}: a second dropout E-step gave other counts")
-    phases_d = {k: round(v, 6) for k, v in timer_d.seconds.items()}
     log(f"[{name}] E-step at dropout 0.05: {secs_d:.3f} s = "
-        f"{total / secs_d / 1e6:.2f} MB/s; total count {drop.sum():.2f}; "
-        f"phases (synchronised run) {phases_d}")
+        f"{total / secs_d / 1e6:.2f} MB/s; total count {drop.sum():.2f}")
 
     head = samples[:64]
     gpu = estep(head)
@@ -557,10 +711,141 @@ def run_estep(name, vocab, samples, kernels, dev):
             "seconds_per_gb": secs / (total / 1e9), "launches": launches,
             "phases": phases, "phases_run_seconds": secs_t,
             "profiled": busy, "dropout_0.05_seconds": secs_d,
-            "dropout_0.05_phases": phases_d,
-            "oracle_rel_err": rel, "cpu_max_abs_diff":
+            "oracle_total": want, "oracle_rel_err": rel, "cpu_max_abs_diff":
             float(np.abs(gpu - cpu).max()), "cpu_max_rel_diff": cnt_rel,
             "cpu_total_rel_diff": tot_rel}
+
+
+def run_session(name, vocab, samples, expect, kernels, oracle, dev):
+    """Phase 3d: DeviceTrainSession on the card at dropout 0 and 0.05.
+    `oracle` is phase 3b's f64 oracle total over the first 64 samples."""
+    from tokengeex_tpu_torch import Model
+    from tokengeex_tpu_torch.ops import lattice as lat
+    from tokengeex_tpu_torch.train import estep_device as ed
+    from tokengeex_tpu_torch.train.device_session import DeviceTrainSession
+    from tokengeex_tpu_torch.train.prune import MAX_SAMPLE_LENGTH
+
+    model = Model(vocab)
+    total = sum(map(len, samples))
+
+    def session(batch=samples, timer=None):
+        return DeviceTrainSession(model, batch, MAX_SAMPLE_LENGTH,
+                                  device=dev, timer=timer)
+
+    out = {}
+    for dropout in (0.0, 0.05):
+        tag = f"[{name}, dropout {dropout}]"
+        for fn in kernels.values():
+            fn.launches = 0
+        ctor = lat.PhaseTimer(dev)
+        t0 = time.perf_counter()
+        sess = session(timer=ctor)
+        build_s = time.perf_counter() - t0
+        # Each pass ends by reading its counts back: no synchronisation
+        # is needed around the host clock.
+        t0 = time.perf_counter()
+        first = sess.e_step(model, dropout, 3)
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        second = sess.e_step(model, dropout, 3)
+        steady_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        for k in expect:
+            check(launches[k] > 0, f"{tag}: the session launched {k} no time")
+        check(bool(np.isfinite(first).all()) and first.sum() > 0,
+              f"{tag}: counts not finite")
+        route = "fused" if sess._fused() else "cached"
+        groups = sess._groups()
+        shape = {"width": sess.width, "rows": groups[0][1].rows,
+                 "groups": len(groups), "route": route,
+                 "cache_bytes": sess.cache_used,
+                 "cache_budget": sess.cache_budget}
+        steady_timer = lat.PhaseTimer(dev)
+        t0 = time.perf_counter()
+        sess.e_step(model, dropout, 3, timer=steady_timer)
+        steady_t_s = time.perf_counter() - t0
+        busy = (device_busy(lambda: sess.e_step(model, dropout, 3))
+                if dropout == 0.0 else None)
+        sess.close()
+        del sess
+        # The first pass's phase split, on a fresh session.
+        sess = session()
+        first_timer = lat.PhaseTimer(dev)
+        t0 = time.perf_counter()
+        sess.e_step(model, dropout, 3, timer=first_timer)
+        first_t_s = time.perf_counter() - t0
+        sess.close()
+        del sess
+        torch.cuda.empty_cache()
+
+        def split(timer):
+            return {k: round(v, 6) for k, v in timer.seconds.items()}
+
+        log(f"{tag} session {shape}; built in {build_s:.3f} s "
+            f"{split(ctor)}; launches {launches}")
+        log(f"{tag} first pass {first_s:.3f} s = {total / first_s / 1e6:.2f} "
+            f"MB/s; steady pass {steady_s:.3f} s = "
+            f"{total / steady_s / 1e6:.2f} MB/s; total count "
+            f"{first.sum():.2f}")
+        log(f"{tag} first-pass phases (synchronised, {first_t_s:.3f} s): "
+            f"{split(first_timer)}")
+        log(f"{tag} steady phases (synchronised, {steady_t_s:.3f} s): "
+            f"{split(steady_timer)}")
+        res = {"shape": shape, "build_seconds": build_s,
+               "build_phases": split(ctor), "first_seconds": first_s,
+               "first_bytes_per_s": total / first_s,
+               "steady_seconds": steady_s,
+               "steady_bytes_per_s": total / steady_s,
+               "first_phases": split(first_timer),
+               "first_phases_run_seconds": first_t_s,
+               "steady_phases": split(steady_timer),
+               "steady_phases_run_seconds": steady_t_s,
+               "launches": launches, "total_count": float(first.sum()),
+               "second_equals_first": bool(np.array_equal(first, second))}
+        if busy is not None:
+            log(f"{tag} profiled steady pass: device busy "
+                f"{busy['busy_s']:.4f} s of {busy['wall_s']:.3f} s wall, "
+                f"idle share {busy['idle_share']:.4f}; device ms by kernel "
+                f"(name, calls, ms) {busy['top_kernels_ms']}")
+            res["profiled"] = busy
+        if dropout == 0.0:
+            check(res["second_equals_first"],
+                  f"{tag}: the steady pass gave other counts than the first")
+            ref = ed.run_e_step_device(model, samples, 0.0, MAX_SAMPLE_LENGTH,
+                                       device=dev)
+            # The same lattices: the session sums marginals by segsum, the
+            # per-pass E-step by scatter, and the two routes' kernels round
+            # expf/logf apart; per token rtol 1e-3 (as against the CPU in
+            # phase 3b), 1e-4 on the total.
+            tot_rel = abs(first.sum() - ref.sum()) / ref.sum()
+            seen = ref >= 0.5
+            cnt_rel = float((np.abs(first - ref)[seen] / ref[seen]).max())
+            check(bool(np.allclose(first, ref, rtol=1e-3, atol=1e-4))
+                  and tot_rel <= 1e-4,
+                  f"{tag}: counts differ from run_e_step_device (max rel "
+                  f"{cnt_rel:.2e}, total rel {tot_rel:.2e})")
+            head = samples[:64]
+            sess = session(head)
+            got = sess.e_step(model, 0.0, 0)
+            sess.close()
+            want = oracle
+            rel = abs(got.sum() - want) / want
+            check(rel <= 2e-3, f"{tag}: total count {got.sum()} is "
+                  f"{rel:.2e} from the f64 oracle's {want}")
+            log(f"{tag} checks passed: second pass equal, run_e_step_device "
+                f"(max rel on counts >= 0.5 {cnt_rel:.3e}, total rel "
+                f"{tot_rel:.3e}), f64 oracle total {want:.3f} vs "
+                f"{got.sum():.3f} (rel {rel:.2e})")
+            res.update(estep_max_rel_diff=cnt_rel, estep_total_rel_diff=tot_rel,
+                       oracle_rel_err=rel)
+        else:
+            base = out["dropout_0.0"]["total_count"]
+            check(abs(first.sum() - base) / base < 0.5,
+                  f"{tag}: counts far from dropout 0")
+            log(f"{tag} second pass equal to the first: "
+                f"{res['second_equals_first']}")
+        out[f"dropout_{dropout}"] = res
+    return out
 
 
 def run_prune(vocab, target: int, samples, kernels, dev):
@@ -588,6 +873,27 @@ def run_prune(vocab, target: int, samples, kernels, dev):
     pruner.run_e_step = timed("e_steps", pruner.run_e_step)
     pruner._count_frequencies = timed("frequencies", pruner._count_frequencies)
     pruner._alternatives = timed("alternatives", pruner._alternatives)
+    sessions = []
+    new_session = pruner._new_session
+
+    rebind = {"seconds": 0.0, "calls": 0}
+
+    def counted_session(*args):
+        sess = new_session(*args)
+        sessions.append(sess)
+        orig_rebind = sess._rebind
+
+        def timed_rebind(model):
+            t = time.perf_counter()
+            before = sess._model
+            orig_rebind(model)
+            if sess._model is not before:
+                rebind["seconds"] += time.perf_counter() - t
+                rebind["calls"] += 1
+        sess._rebind = timed_rebind
+        return sess
+
+    pruner._new_session = counted_session
 
     def on_round(model, k):
         now = time.perf_counter()
@@ -610,11 +916,19 @@ def run_prune(vocab, target: int, samples, kernels, dev):
              "dropped a byte token the corpus needs")
     secs = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in kernels.items()}
-    for k in ("forward_chunk", "backward_chunk", "viterbi_chunk"):
+    for k in ("forward_chunk", "backward_betas_chunk", "seg_weights",
+              "viterbi_chunk"):
         check(launches[k] > 0, f"prune: launched {k} no time")
+    check(len(sessions) == 1 and pruner._session is None
+          and sessions[0].dt is None,
+          f"prune: built {len(sessions)} sessions, or did not close one")
     size = final.vocab_size()
     log(f"[prune] {len(vocab)} -> {size} tokens in {len(rounds)} rounds, "
-        f"{secs:.3f} s; launches {launches}")
+        f"{secs:.3f} s, through one session (closed); {rebind['calls']} "
+        f"rebinds took {rebind['seconds']:.3f} s (inside e_steps and "
+        f"frequencies); launches {launches}")
+    log("[prune] the per-pass route's rounds on this card, for comparison "
+        "(PERF.md): 8.458 s and 5.356 s")
     check(size <= target, f"prune: {size} tokens left, above {target}")
     check({t.value for t in final.vocab} <= {t.value for t in vocab},
           "prune: a kept token is not in the input vocabulary")
@@ -625,7 +939,7 @@ def run_prune(vocab, target: int, samples, kernels, dev):
           "prune: the pruned tokenizer does not round-trip")
     log("[prune] checks passed: size, subset, 64-sample round trip")
     return {"seconds": secs, "rounds": rounds, "final_size": size,
-            "launches": launches}
+            "launches": launches, "rebind": rebind}
 
 
 def main() -> None:
@@ -638,7 +952,9 @@ def main() -> None:
         from tokengeex_tpu_torch.ops import lattice as lat
         from tokengeex_tpu_torch.ops import lattice_cuda as lc
         from tokengeex_tpu_torch.ops import lattice_cuda_fused as lcf
+        from tokengeex_tpu_torch.ops import lattice_cuda_seg as lcs
         from tokengeex_tpu_torch.ops.match_table import TokenTable
+        from tokengeex_tpu_torch.train import device_session as ds
         from tokengeex_tpu_torch.train import estep_device as ed
         from tokengeex_tpu_torch.utils.packing import pack_samples
     except ImportError as e:
@@ -674,14 +990,17 @@ def main() -> None:
     rows = ed.GROUP_BYTES // width
     em_width = ed._pick_width(samples, ed.DEVICE_EM_SNIPPET)
     em_rows = ed.GROUP_BYTES // em_width
+    sess_rows = ed.GROUP_BYTES // ds.PACK_WIDTH
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     log(f"corpus {sum(map(len, samples))} bytes in {len(samples)} samples; "
         f"encode: pack width {width}, {rows} rows per group = {rows} "
         f"threads in {-(-rows // 32)} one-warp blocks; E-step: width "
         f"{em_width}, {em_rows} rows = {-(-em_rows // 32)} blocks; "
-        f"{sms} SMs")
+        f"session: width {ds.PACK_WIDTH}, {sess_rows} rows = "
+        f"{-(-sess_rows // 32)} blocks; {sms} SMs")
 
     # -- 2. kernels against their plain versions --
+    phase_start("2")
     vit = check_viterbi_chunk(lc, ed.CHUNK, L_MAX, rows, dev)
     fwd = check_forward_chunk(lc, ed.CHUNK, L_MAX, em_rows, dev)
     bwd = check_backward_chunk(lc, ed.CHUNK, L_MAX, em_rows, dev)
@@ -695,13 +1014,31 @@ def main() -> None:
     sub = next(g for _, g in ed._padded_groups(packed, width, ed.ROW_MULT))
     batch = lat.prepare_batch(sub, L_MAX, dev)
     fused = [check_fused(lat, lcf, dt_b, batch, d, dev) for d in (0.0, 0.1)]
+    betas = check_backward_betas(lc, ed.CHUNK, L_MAX, sess_rows, dev)
+    seg = check_seg_weights(lcs, 1 << 22, dev)
+    # The session's first row group of (b): 1 KiB snippets packed at 8192.
+    packed_s = pack_samples(samples, width=ds.PACK_WIDTH,
+                            max_snippet=ed.DEVICE_EM_SNIPPET)
+    sub_s = next(g for _, g in ed._padded_groups(packed_s, ds.PACK_WIDTH,
+                                                 ed.ROW_MULT))
+    check(sub_s.rows == sess_rows, f"session group of {sub_s.rows} rows")
+    batch_s = lat.prepare_batch(sub_s, L_MAX, dev)
+    fused_lse = [check_fused_lse(lat, lcf, dt_b, batch_s, d, dev)
+                 for d in (0.0, 0.1)]
+    fused_bwd = [check_fused_backward(lat, lcf, dt_b, batch_s, d, dev)
+                 for d in (0.0, 0.1)]
+    del batch_s, batch
     torch.cuda.empty_cache()
 
     # -- 3. end to end --
+    phase_start("3")
     kernels = {"viterbi_chunk": lc.viterbi_chunk,
                "fused_forward_chunk": lcf.fused_forward_chunk,
                "forward_chunk": lc.forward_chunk,
-               "backward_chunk": lc.backward_chunk}
+               "backward_chunk": lc.backward_chunk,
+               "backward_betas_chunk": lc.backward_betas_chunk,
+               "fused_backward_chunk": lcf.fused_backward_chunk,
+               "seg_weights": lcs.seg_weights}
     e2e = {
         "a_32k_slab": run_config("a: 32768 tokens, slab route", vocab_a,
                                  samples, long_sample, "viterbi_chunk",
@@ -712,47 +1049,74 @@ def main() -> None:
     }
 
     torch.cuda.empty_cache()
+    phase_start("3b")
     estep = {
         "a_32k": run_estep("a: 32768 tokens", vocab_a, samples, kernels, dev),
         "b_4k": run_estep("b: 4096 tokens", vocab_b, samples, kernels, dev),
     }
     torch.cuda.empty_cache()
+    phase_start("3d")
+    session = {
+        "a_32k": run_session("a: 32768 tokens", vocab_a, samples,
+                             ("forward_chunk", "backward_betas_chunk",
+                              "seg_weights"), kernels,
+                             estep["a_32k"]["oracle_total"], dev),
+        "b_4k": run_session("b: 4096 tokens", vocab_b, samples,
+                            ("fused_forward_chunk", "fused_backward_chunk",
+                             "seg_weights"), kernels,
+                            estep["b_4k"]["oracle_total"], dev),
+    }
+    torch.cuda.empty_cache()
+    phase_start("3c")
     pruned = run_prune(build_vocab(samples, 49152, prefixes=False), 32768,
                        samples, kernels, dev)
 
     # -- 4. kernels line --
+    phase_start("4")
+    def entry(name, source, replaces, launches, res, err=None):
+        return {"name": name, "route": "cuda",
+                "source": f"tokengeex_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": res["max_abs_err"] if err is None else err,
+                "ms": res["ms"], "plain_ms": res["plain_ms"],
+                "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+                "library_ms": None}
+
+    pallas = "tokengeex_tpu/ops/lattice_pallas.py"
+    fused_py = "tokengeex_tpu/ops/lattice_pallas_fused.py"
+    b_sess = session["b_4k"]["dropout_0.0"]["launches"]
     line = {"kernels": [
-        {"name": "viterbi_chunk", "route": "cuda",
-         "source": "tokengeex_tpu_torch/csrc/viterbi_chunk.cu",
-         "replaces": "tokengeex_tpu/ops/lattice_pallas.py:72",
-         "launches": e2e["a_32k_slab"]["launches"]["viterbi_chunk"],
-         "max_abs_err": vit["max_abs_err"], "ms": vit["ms"],
-         "plain_ms": vit["plain_ms"], "bound_ms": vit["bound_ms"],
-         "bound_by": vit["bound_by"], "library_ms": None},
-        {"name": "fused_forward_chunk", "route": "cuda",
-         "source": "tokengeex_tpu_torch/csrc/fused_forward.cu",
-         "replaces": "tokengeex_tpu/ops/lattice_pallas_fused.py:377",
-         "launches": e2e["b_4k_fused"]["launches"]["fused_forward_chunk"],
-         "max_abs_err": max(f["max_abs_err"] for f in fused),
-         "ms": fused[0]["ms"], "plain_ms": fused[0]["plain_ms"],
-         "bound_ms": fused[0]["bound_ms"], "bound_by": fused[0]["bound_by"],
-         "library_ms": None},
-    ] + [
-        {"name": name, "route": "cuda",
-         "source": f"tokengeex_tpu_torch/csrc/{name}.cu",
-         "replaces": f"tokengeex_tpu/ops/lattice_pallas.py:{line_no}",
-         "launches": pruned["launches"][name],
-         "max_abs_err": res["max_abs_err"], "ms": res["ms"],
-         "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-         "bound_by": res["bound_by"], "library_ms": None}
-        for name, line_no, res in (("forward_chunk", 176, fwd),
-                                   ("backward_chunk", 238, bwd))
+        entry("viterbi_chunk", "viterbi_chunk.cu", f"{pallas}:72",
+              e2e["a_32k_slab"]["launches"]["viterbi_chunk"], vit),
+        entry("fused_forward_chunk(viterbi)", "fused_forward.cu",
+              f"{fused_py}:377",
+              e2e["b_4k_fused"]["launches"]["fused_forward_chunk"], fused[0],
+              max(f["max_abs_err"] for f in fused)),
+        entry("fused_forward_chunk(logsumexp)", "fused_forward.cu",
+              f"{fused_py}:377", b_sess["fused_forward_chunk"], fused_lse[0],
+              max(f["max_abs_err"] for f in fused_lse)),
+        entry("forward_chunk", "forward_chunk.cu", f"{pallas}:176",
+              pruned["launches"]["forward_chunk"], fwd),
+        entry("backward_chunk", "backward_chunk.cu", f"{pallas}:238",
+              estep["a_32k"]["launches"]["backward_chunk"], bwd),
+        entry("backward_chunk(betas)", "backward_chunk.cu",
+              "tokengeex_tpu/ops/lattice_jax.py:1742",
+              pruned["launches"]["backward_betas_chunk"], betas),
+        entry("fused_backward_chunk", "fused_backward.cu", f"{fused_py}:444",
+              b_sess["fused_backward_chunk"], fused_bwd[0],
+              max(f["max_abs_err"] for f in fused_bwd)),
+        entry("seg_weights", "seg_weights.cu", f"{fused_py}:531",
+              pruned["launches"]["seg_weights"], seg),
     ]}
     record = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_seconds": build_s,
               "viterbi_chunk": vit, "fused_forward": fused,
-              "forward_chunk": fwd, "backward_chunk": bwd, "encode": e2e,
-              "estep": estep, "prune": pruned, "kernels": line["kernels"]}
+              "forward_chunk": fwd, "backward_chunk": bwd,
+              "backward_betas_chunk": betas, "seg_weights": seg,
+              "fused_forward_logsumexp": fused_lse,
+              "fused_backward": fused_bwd, "encode": e2e, "estep": estep,
+              "session": session, "prune": pruned,
+              "kernels": line["kernels"]}
     out = HERE / "chiprun_out"
     try:
         out.mkdir(exist_ok=True)

@@ -17,11 +17,13 @@ from tokengeex_tpu_torch import Lattice, Model, ScoredToken
 from tokengeex_tpu_torch.ops import lattice as lat
 from tokengeex_tpu_torch.ops import lattice_cuda as lc
 from tokengeex_tpu_torch.ops import lattice_cuda_fused as lcf
+from tokengeex_tpu_torch.ops import lattice_cuda_seg as lcs
 from tokengeex_tpu_torch.ops.match_table import TokenTable
 from tokengeex_tpu_torch.train import estep_device as ed
+from tokengeex_tpu_torch.train.device_session import DeviceTrainSession
 from tokengeex_tpu_torch.utils.packing import pack_samples
 
-TOL = {"a": 1e-5, "marg": 1e-5, "hist": 1e-6}
+TOL = {"a": 1e-5, "marg": 1e-5, "hist": 1e-6, "betas": 1e-5, "cf": 1e-5}
 
 
 @pytest.fixture
@@ -178,12 +180,17 @@ def test_cuda_e_step_matches_cpu(cuda_device, hints, probe):
     want = ed.run_e_step_device(model, samples, dropout=0.0,
                                 max_snippet=1024, probe=probe,
                                 table_hints=hints, device="cpu")
-    # The kernels equal their plain versions on the card, but the CPU's
-    # exp/log differ from the card's in the last ulp, which now and then
-    # flips the rounding of a forward or backward value; every marginal
-    # downstream moves by that ulp, relative. The tolerance is 4 ulps of
-    # the largest |z| (the f64 oracle's), as in chip_smoke.py's phase 3b,
-    # and the total is held to 1e-5.
+    _assert_counts_close(got, want, model, samples)
+
+
+def _assert_counts_close(got, want, model, samples):
+    """E-step counts on the card against the CPU plain run. The kernels
+    equal their plain versions on the card, but the CPU's exp/log differ
+    from the card's in the last ulp, which now and then flips the rounding
+    of a forward or backward value; every marginal downstream moves by
+    that ulp, relative. The tolerance is 4 ulps of the largest |z| (the
+    f64 oracle's), as in chip_smoke.py's phase 3b, and the total is held
+    to 1e-5."""
     zmax = 0.0
     for s in samples:
         for off in range(0, len(s), ed.DEVICE_EM_SNIPPET):
@@ -194,3 +201,107 @@ def test_cuda_e_step_matches_cpu(cuda_device, hints, probe):
     rtol = 4 * float(np.spacing(np.float32(zmax)))
     np.testing.assert_allclose(got, want, rtol=rtol, atol=1e-4)
     assert abs(got.sum() - want.sum()) <= 1e-5 * want.sum()
+
+
+def _fused_batch(max_len, dropout, dev):
+    """A 40-row batch (not a multiple of the 32-row block) of the
+    `_corpus` vocabulary at token length max_len, its tables, and dropout
+    words."""
+    model, samples = _corpus(600, max_len=max_len)
+    tbl = lat.DeviceTables.from_table(TokenTable.build(model.vocab), dev)
+    assert lat.has_vscan(tbl) and tbl.max_len == max_len
+    batch = lat.prepare_batch(pack_samples(samples, width=1024), max_len, dev)
+    assert batch.p1.shape[0] % 32 != 0
+    du = None
+    if dropout:
+        gen = torch.Generator(device=dev).manual_seed(max_len)
+        du = torch.randint(-(2**31), 2**31 - 1, tuple(batch.sid.shape),
+                           generator=gen, dtype=torch.int32, device=dev)
+    return tbl, batch, du
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout,max_len", [(0.0, 8), (0.3, 11), (0.3, 32)])
+def test_cuda_fused_forward_logsumexp_matches_twin(cuda_device, dropout,
+                                                   max_len):
+    tbl, batch, du = _fused_batch(max_len, dropout, cuda_device)
+    args = lat.fused_inputs(tbl, batch, du, dropout)
+    kw = dict(L=tbl.max_len, bits=tbl.bits, pad=batch.pad, dropout=dropout)
+    want = lcf.fused_forward_chunk_plain("logsumexp", *args, **kw)
+    before = lcf.fused_forward_chunk.launches
+    got = lcf.fused_forward_chunk("logsumexp", *args, **kw)
+    torch.cuda.synchronize()
+    assert lcf.fused_forward_chunk.launches == before + 1
+    assert got[1] is None and torch.equal(got[3], want[3])
+    _assert_close(got[0], want[0], TOL["a"])
+    _assert_close(got[2], want[2], TOL["hist"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout,max_len", [(0.0, 8), (0.3, 11), (0.3, 32)])
+def test_cuda_fused_backward_matches_twin(cuda_device, dropout, max_len):
+    tbl, batch, du = _fused_batch(max_len, dropout, cuda_device)
+    args = lat.fused_bwd_inputs(tbl, batch, du, dropout)
+    kw = dict(L=tbl.max_len, bits=tbl.bits, pad=batch.pad, dropout=dropout)
+    want = lcf.fused_backward_chunk_plain(*args, **kw)
+    before = lcf.fused_backward_chunk.launches
+    got = lcf.fused_backward_chunk(*args, **kw)
+    torch.cuda.synchronize()
+    assert lcf.fused_backward_chunk.launches == before + 1
+    assert bool((want == 0).any())  # rows that pack several samples
+    _assert_close(got, want, TOL["betas"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [8, 13, 32])
+def test_cuda_backward_betas_chunk_matches_twin(cuda_device, L):
+    s, ends, hist0, _, _ = _lse_slab(L, L + 200)
+    want = lc.backward_betas_chunk_plain(s, ends, hist0)
+    before = lc.backward_betas_chunk.launches
+    got = lc.backward_betas_chunk(*(t.to(cuda_device)
+                                    for t in (s, ends, hist0)))
+    torch.cuda.synchronize()
+    assert lc.backward_betas_chunk.launches == before + 1
+    _assert_close(got[0], want[0], TOL["betas"])
+    _assert_close(got[1], want[1], TOL["hist"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,n_tail", [(1 << 16, 1), (1 << 12, 100)])
+def test_cuda_seg_weights_matches_twin(cuda_device, H, n_tail):
+    g = torch.Generator().manual_seed(H + n_tail)
+    r0 = torch.empty(H).uniform_(-6, 0, generator=g)
+    r1 = torch.empty(H).uniform_(-6, 0, generator=g)
+    d2 = torch.empty(H).uniform_(-0.5, 0.5, generator=g)
+    d2[::128] = torch.empty(H // 128).uniform_(-4, 0, generator=g)
+    n_hit = H - 128 + n_tail
+    args = [t.to(cuda_device) for t in (r0, r1, d2)]
+    want = lcs.seg_weights_plain(*args, n_hit)
+    before = lcs.seg_weights.launches
+    got = lcs.seg_weights(*args, n_hit)
+    torch.cuda.synchronize()
+    assert lcs.seg_weights.launches == before + 1
+    for g_, w in zip(got, want):
+        np.testing.assert_allclose(g_.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=TOL["cf"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", [None, "slab"])
+def test_cuda_session_matches_cpu(cuda_device, kernel):
+    model, samples = _corpus(600, seed=2)
+    kernels = ((lcf.fused_forward_chunk, lcf.fused_backward_chunk)
+               if kernel is None else
+               (lc.forward_chunk, lc.backward_betas_chunk))
+    kernels += (lcs.seg_weights,)
+    before = [k.launches for k in kernels]
+    sess = DeviceTrainSession(model, samples, 1024, kernel=kernel,
+                              device=cuda_device)
+    got = [sess.e_step(model, 0.0, 0) for _ in range(2)]
+    assert all(k.launches > b for k, b in zip(kernels, before))
+    assert np.array_equal(got[0], got[1])  # the steady state repeats
+    cpu = DeviceTrainSession(model, samples, 1024, kernel=kernel,
+                             device="cpu")
+    _assert_counts_close(got[0], cpu.e_step(model, 0.0, 0), model, samples)
+    np.testing.assert_array_equal(sess.count_frequencies(model),
+                                  cpu.count_frequencies(model))

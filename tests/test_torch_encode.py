@@ -158,6 +158,8 @@ def test_entry_points_need_a_device_without_cuda(corpus, monkeypatch):
 def test_import_leaves_no_jax():
     code = ("import sys, tokengeex_tpu_torch, tokengeex_tpu_torch.train."
             "estep_device, tokengeex_tpu_torch.train.prune, "
+            "tokengeex_tpu_torch.train.device_session, "
+            "tokengeex_tpu_torch.ops.lattice_cuda_seg, "
             "tokengeex_tpu_torch.ops._build; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'tokengeex_tpu' or "

@@ -190,7 +190,18 @@ def test_fused_probe_matches_match_slab(fused_setup):
 
 
 def test_fused_forward_chunk_logsumexp_not_ported(fused_setup):
+    """The log-sum-exp kind is ported (tests/test_torch_session_ops.py
+    holds it against the Pallas kernel): it gives the forward values of
+    forward_chunk over the fused probe's slab, and no backpointers; an
+    unknown kind raises."""
     _, tbl, _, pb = fused_setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lcf.fused_forward_chunk("logsumexp", *lat.fused_inputs(tbl, pb),
-                                L=tbl.max_len, bits=tbl.bits, pad=pb.pad)
+    args = lat.fused_inputs(tbl, pb)
+    kw = dict(L=tbl.max_len, bits=tbl.bits, pad=pb.pad)
+    a, best_l, hist, rl = lcf.fused_forward_chunk("logsumexp", *args, **kw)
+    assert best_l is None and a.shape == (pb.width, pb.p1.shape[0])
+    score, _ = lcf.fused_probe_plain(*args[:9], args[10], **kw)
+    want_a, want_h = lc.forward_chunk_plain(
+        score, pb.is_start[:, 1:].t().to(torch.float32), args[9])
+    assert torch.equal(a, want_a) and torch.equal(hist, want_h)
+    with pytest.raises(ValueError):
+        lcf.fused_forward_chunk("max", *args, **kw)

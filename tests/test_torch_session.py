@@ -1,0 +1,268 @@
+"""The port's DeviceTrainSession against the JAX package's, on the CPU.
+
+The port's session on the CPU (the kernels' plain versions), with
+kernel=None (the fused probe kernels on small tables) and kernel="slab"
+(cached ranks, probed slabs), is held against the JAX session on one
+device with kernel="pallas" (interpret mode) and kernel="xla": the first
+pass, a pass after a rescored and shrunk rebind, the over-budget route,
+the frequency pass, dropout seeding, rare tokens beside large-weight
+neighbours, and the pruner's use of the session.
+"""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+import tokengeex_tpu as jtg
+from tokengeex_tpu.train.device_session import (
+    DeviceTrainSession as JDeviceTrainSession)
+
+import tokengeex_tpu_torch as tg
+from tokengeex_tpu_torch.ops import lattice_cuda as lc
+from tokengeex_tpu_torch.ops import lattice_cuda_fused as lcf
+from tokengeex_tpu_torch.ops import lattice_cuda_seg as lcs
+from tokengeex_tpu_torch.train import estep_device as ed
+from tokengeex_tpu_torch.train import prune
+from tokengeex_tpu_torch.train.device_session import DeviceTrainSession
+
+from test_torch_prune import KW, _corpus as _prune_corpus, _model
+
+# The suite runs in several worker processes at once; torch's default
+# intra-op thread pool per worker would oversubscribe the cores.
+torch.set_num_threads(1)
+
+# Port kernel mode -> the JAX session's kernel mode of the same route.
+ROUTES = [(None, "pallas"), ("slab", "xla")]
+
+
+@pytest.fixture(scope="module")
+def corpus():
+    """The tests/test_device_session.py corpus, with a rescored and shrunk
+    second vocabulary, as (value, score) pairs."""
+    rng = random.Random(77)
+    alphabet = b"abcdef ()"
+    vocab = [(bytes([b]), rng.uniform(-11.0, -9.0)) for b in alphabet]
+    seen = {v for v, _ in vocab}
+    while len(vocab) < 90:
+        w = bytes(rng.choice(alphabet) for _ in range(rng.randint(2, 8)))
+        if w not in seen:
+            seen.add(w)
+            vocab.append((w, rng.uniform(-9.0, -1.0)))
+    samples = [
+        "".join(rng.choice("abcdef ()") for _ in range(rng.randint(1, 700))
+                ).encode() for _ in range(24)
+    ]
+    rng = random.Random(3)
+    vocab2 = [(v, s - rng.random()) for i, (v, s) in enumerate(vocab)
+              if len(v) == 1 or i % 5 != 0]
+    return vocab, vocab2, samples
+
+
+def _models(vocab):
+    return (jtg.Model([jtg.ScoredToken(v, s) for v, s in vocab]),
+            tg.Model([tg.ScoredToken(v, s) for v, s in vocab]))
+
+
+@pytest.fixture
+def one_jax_device(monkeypatch):
+    """The JAX session's single-device routes (the fused Pallas E-step,
+    the device frequency counts) need one device; tests/conftest.py gives
+    eight."""
+    dev0 = jax.devices()[:1]
+    monkeypatch.setattr(jax, "devices", lambda *a, **k: dev0)
+
+
+def _close(got, want):
+    assert got.dtype == np.float64 and got.shape == want.shape
+    assert got.sum() > 100
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("kernel,jkernel", ROUTES)
+def test_session_passes_match_jax(corpus, one_jax_device, kernel, jkernel):
+    vocab, vocab2, samples = corpus
+    (jm1, m1), (jm2, m2) = _models(vocab), _models(vocab2)
+    jsess = JDeviceTrainSession(jm1, samples, max_snippet=256,
+                                kernel=jkernel)
+    sess = DeviceTrainSession(m1, samples, 256, kernel=kernel, device="cpu")
+    assert sess._fused() == (kernel is None) == jsess._fused()
+    launches = (lcf.fused_forward_chunk.launches,
+                lcf.fused_backward_chunk.launches,
+                lc.backward_betas_chunk.launches, lcs.seg_weights.launches)
+    e1 = sess.e_step(m1, 0.0, 0)
+    _close(e1, jsess.e_step(jm1, 0.0, 0))
+    # The first pass built one SegStruct per group; the fused route keeps
+    # no slots once its SegStruct exists, the cached route keeps them.
+    groups = len(sess._groups())
+    assert len(sess.seg_cache) == groups
+    assert len(sess.slot_cache) == (0 if kernel is None else groups)
+    # The steady state repeats the first pass exactly.
+    assert np.array_equal(sess.e_step(m1, 0.0, 0), e1)
+    # A rescored, shrunk vocabulary rebinds onto the cached structures.
+    _close(sess.e_step(m2, 0.0, 0), jsess.e_step(jm2, 0.0, 0))
+    # CPU tensors take the plain twins: no kernel launch is counted.
+    assert launches == (lcf.fused_forward_chunk.launches,
+                        lcf.fused_backward_chunk.launches,
+                        lc.backward_betas_chunk.launches,
+                        lcs.seg_weights.launches)
+
+
+@pytest.mark.parametrize("kernel,jkernel", ROUTES)
+def test_session_over_budget_matches_jax(corpus, one_jax_device, kernel,
+                                         jkernel):
+    vocab, _, samples = corpus
+    jm, m = _models(vocab)
+    want = JDeviceTrainSession(jm, samples, max_snippet=256,
+                               kernel=jkernel).e_step(jm, 0.0, 0)
+    sess = DeviceTrainSession(m, samples, 256, kernel=kernel,
+                              cache_budget=0, device="cpu")
+    _close(sess.e_step(m, 0.0, 0), want)
+    _close(sess.e_step(m, 0.0, 0), want)
+    assert not sess.slot_cache and sess.cache_used == 0
+    assert all(seg is None for seg in sess.seg_cache.values())
+
+
+@pytest.mark.parametrize("kernel,jkernel", ROUTES)
+def test_session_count_frequencies_match(corpus, one_jax_device, kernel,
+                                         jkernel):
+    vocab, vocab2, samples = corpus
+    # Samples that fit one EM snippet count over the EM groups (and, on the
+    # slab route, their cached ranks); samples longer than the snippet make
+    # the frequency pass pack again at the encode width.
+    rng = random.Random(9)
+    extra = "".join(rng.choice("abcdef ()") for _ in range(1500)).encode()
+    for smp, shared in (([s[:256] for s in samples], True),
+                        (samples + [extra], False)):
+        jm, m = _models(vocab2)
+        sess = DeviceTrainSession(_models(vocab)[1], smp, 256, kernel=kernel,
+                                  device="cpu")
+        sess.e_step(m, 0.0, 0)  # warms the slot cache
+        got = sess.count_frequencies(m)
+        assert got.dtype == np.int64 and got.sum() > 0
+        assert sess._freq_shared == shared
+        np.testing.assert_array_equal(
+            got, ed.count_frequencies_device(m, smp, device="cpu"))
+        jsess = JDeviceTrainSession(_models(vocab)[0], smp, max_snippet=256,
+                                    kernel=jkernel)
+        np.testing.assert_array_equal(got, jsess.count_frequencies(jm))
+
+
+def test_session_dropout_is_seeded(corpus):
+    vocab, _, samples = corpus
+    _, m = _models(vocab)
+    sess = DeviceTrainSession(m, samples, 256, device="cpu")
+    e1 = sess.e_step(m, 0.3, 7)
+    assert np.array_equal(e1, sess.e_step(m, 0.3, 7))
+    assert not np.array_equal(e1, sess.e_step(m, 0.3, 8))
+    e0 = sess.e_step(m, 0.0, 7)
+    assert not np.allclose(e1, e0)
+    assert abs(e1.sum() - e0.sum()) / e0.sum() < 0.5
+
+
+def _wide_scores_case(seed=11, n_tokens=20_000):
+    """tests/test_scale_vocab.py's wide-scores case: a vocabulary past the
+    fused route's table size, most scores in [-12, -1] and a rare tail
+    near -15 whose tokens recur in the corpus beside frequent ones."""
+    rng = random.Random(seed)
+    alphabet = b"abcdef ()"
+    vocab = [tg.ScoredToken(bytes([b]), rng.uniform(-11.0, -9.0))
+             for b in alphabet]
+    seen = {t.value for t in vocab}
+    rare = []
+    while len(vocab) < n_tokens:
+        w = bytes(rng.choice(alphabet) for _ in range(rng.randint(2, 8)))
+        if w in seen:
+            continue
+        seen.add(w)
+        if rng.random() < 0.002:
+            vocab.append(tg.ScoredToken(w, rng.uniform(-16.0, -13.0)))
+            rare.append(w)
+        else:
+            vocab.append(tg.ScoredToken(w, rng.uniform(-12.0, -1.0)))
+    pool = [t.value for t in vocab[len(alphabet):]]
+    samples = []
+    for _ in range(48):
+        parts, size, target = [], 0, rng.randint(64, 500)
+        while size < target:
+            p = rng.choice(pool) if rng.random() < 0.6 else \
+                bytes(rng.choice(alphabet) for _ in range(rng.randint(1, 5)))
+            parts.append(p)
+            size += len(p)
+        samples.append(b"".join(parts)[:target])
+    for w in rare[:8]:
+        samples.extend([b"ab" + w + b"ba" + w + b"cd"] * 5)
+    return tg.Model(vocab), samples, rare
+
+
+def test_session_wide_scores_keep_rare_tokens():
+    """Rare tokens sharing SEG_BLK blocks with marginal-1 neighbours keep
+    their counts through the segsum (the true marginal is summed, not
+    exp(score) factored out), against the f64 oracle."""
+    model, samples, rare = _wide_scores_case()
+    sess = DeviceTrainSession(model, samples, 512, device="cpu")
+    assert not sess._fused()
+    e = sess.e_step(model, 0.0, 0)
+    assert sess.seg_cache
+    want = [0.0] * model.vocab_size()
+    for s in samples:
+        lattice = tg.Lattice(s)
+        model.oracle.populate_nodes(lattice, 0.0)
+        lattice.populate_marginal(want)
+    ids = model.oracle.token_to_ids
+    checked = 0
+    for w in rare:
+        i = ids[w]
+        if want[i] > 1e-4:
+            checked += 1
+            assert e[i] > 0.0, (w, want[i], e[i])
+            np.testing.assert_allclose(e[i], want[i], rtol=0.1, atol=5e-5)
+    assert checked >= 4
+
+
+def test_pruner_uses_session_and_releases_it(monkeypatch):
+    vocab, samples = _prune_corpus()
+    seen = []
+    orig = DeviceTrainSession.e_step
+
+    def spy(self, *a, **k):
+        seen.append(self)
+        return orig(self, *a, **k)
+
+    monkeypatch.setattr(DeviceTrainSession, "e_step", spy)
+    pruner = prune.VocabularyPruner(backend="device", device="cpu", **KW)
+    got = pruner.prune(_model(tg, vocab), samples)
+    # One session served every E-step and was released on the way out.
+    assert len(seen) >= 2 and all(s is seen[0] for s in seen)
+    assert pruner._session is None
+    assert not seen[0].slot_cache and not seen[0].seg_cache
+    assert not seen[0].input_cache and seen[0].dt is None
+    oracle = prune.VocabularyPruner(backend="oracle", **KW).prune(
+        _model(tg, vocab), samples)
+    assert sorted(t.value for t in got.vocab) == \
+        sorted(t.value for t in oracle.vocab)
+
+
+def test_session_needs_a_device_without_cuda(corpus, monkeypatch):
+    vocab, _, samples = corpus
+    _, m = _models(vocab)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeviceTrainSession(m, samples, 256)
+
+
+@pytest.mark.parametrize("kw,exc", [
+    ({"local_shard": True}, NotImplementedError),
+    ({"dtype": torch.float64}, NotImplementedError),
+    ({"probe": "exact"}, NotImplementedError),
+    ({"probe": "fast"}, ValueError),
+    ({"kernel": "pallas"}, ValueError),
+])
+def test_session_unported_options_raise(corpus, kw, exc):
+    vocab, _, samples = corpus
+    _, m = _models(vocab)
+    with pytest.raises(exc):
+        DeviceTrainSession(m, samples, 256, device="cpu", **kw)

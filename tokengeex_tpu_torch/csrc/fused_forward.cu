@@ -1,8 +1,9 @@
-// Vocabulary probe fused with the Viterbi DP, for Hopper (sm_90a).
+// Vocabulary probe fused with the forward DP (Viterbi max or log-sum-exp),
+// for Hopper (sm_90a).
 //
 // Replaces: tokengeex_tpu/ops/lattice_pallas_fused.py `fused_forward_chunk`
-// with kind="viterbi" (`_make_fused_fwd_kernel`, `_probe_tiles`,
-// `_tile_consts`).
+// with kind="viterbi" and kind="logsumexp" (`_make_fused_fwd_kernel`,
+// `_probe_tiles`, `_tile_consts`).
 //
 // What it computes, per packed row and dp step q (token of length l = j+1
 // ending at dp index q+1, i.e. starting at byte s = q - j):
@@ -14,11 +15,14 @@
 //            slot must not override a true T2 match);
 //   valid  = l <= run length of the sample at q, and, with dropout, the
 //            coin u = (du[s] * odd_l) >>> 1 is not below thr >>> 1 (l > 1);
-//   then the Viterbi relaxation of viterbi_chunk.cu.
+//   then the Viterbi relaxation of viterbi_chunk.cu (LSE = false: dp and
+//   best_l out), or the log-sum-exp step of forward_chunk.cu (LSE = true:
+//   m = max cand, has = m > NEG/2, a = has ? m + logf(sum expf(cand - m))
+//   : NEG, forward values a out). Either carries 0 at a sample start.
 //
 // What bounds it on the H100: bytes and L2 gathers. The streams cost ~17-21
 // bytes per (position, row) (two prefix hashes, the sample id, the start
-// flag, the optional dropout word, dp and best_l out). The probe adds up to
+// flag, the optional dropout word, dp and best_l out; a alone for LSE). The probe adds up to
 // 2 * L gathers of 8-byte table rows per (position, row); at bits <= 15 both
 // tables total <= 512 KB and stay resident in the 50 MB L2, so the gathers
 // are L2 transactions, not device-memory bytes.
@@ -31,7 +35,8 @@
 // steps and hit L1. Each probe is a direct gather of one (check, score) row
 // per table -- the TPU kernel's linear scan over every table row existed
 // only because its tables sat in VMEM. A step's lengths go in tiles of 8
-// whose loads carry no row-dependent branch, so they overlap.
+// whose loads carry no row-dependent branch, so they overlap. The kind is
+// a template parameter, so the Viterbi instantiation keeps its registers.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (tokengeex_tpu_torch/ops/_build.py).
@@ -51,7 +56,7 @@
 #define TGX_IDX_M2 0xC2B2AE35u
 #define TGX_ODD 2654435761u
 
-template <int LMAX, bool DROP>
+template <int LMAX, bool DROP, bool LSE>
 __global__ void fused_forward_kernel(
     const int2* __restrict__ t1,         // (H,) rows [check = fp2, f32 score bits]
     const int2* __restrict__ t2,         // (H,)
@@ -64,8 +69,8 @@ __global__ void fused_forward_kernel(
     const int32_t* __restrict__ du,      // (pad + W + pad, B) dropout words (DROP only)
     const float* __restrict__ hist_in,   // (L, B)
     const int32_t* __restrict__ rl_in,   // (B,)
-    float* __restrict__ dp,              // (W, B)
-    int32_t* __restrict__ best_l,        // (W, B)
+    float* __restrict__ dp,              // (W, B) dp, or the forward values a
+    int32_t* __restrict__ best_l,        // (W, B), Viterbi only
     float* __restrict__ hist_out,        // (L, B)
     int32_t* __restrict__ rl_out,        // (B,)
     int W, int L, int B, int pad, int bits, uint32_t thr_half) {
@@ -131,14 +136,26 @@ __global__ void fused_forward_kernel(
         m = fmaxf(m, cand[j]);
       }
     }
-    int jbest = -1;
+    float v;
+    if (LSE) {
+      const bool has = m > TGX_NEG * 0.5f;
+      const float safe = has ? m : 0.0f;
+      float tsum = 0.0f;
 #pragma unroll
-    for (int j = 0; j < LMAX; ++j) {
-      if (j < L && cand[j] >= m && s[j] > TGX_NEG) jbest = j;
+      for (int j = 0; j < LMAX; ++j) {
+        if (j < L) tsum += expf(cand[j] - safe);
+      }
+      v = has ? safe + logf(tsum) : TGX_NEG;
+    } else {
+      int jbest = -1;
+#pragma unroll
+      for (int j = 0; j < LMAX; ++j) {
+        if (j < L && cand[j] >= m && s[j] > TGX_NEG) jbest = j;
+      }
+      v = (jbest >= 0) ? m : TGX_NEG;
+      best_l[q * Bs + r] = (jbest >= 0) ? jbest + 1 : 1;
     }
-    const float v = (jbest >= 0) ? m : TGX_NEG;
     dp[q * Bs + r] = v;
-    best_l[q * Bs + r] = (jbest >= 0) ? jbest + 1 : 1;
     const float carry = (is_start[(size_t)(q + 1) * Bs + r] != 0) ? 0.0f : v;
 #pragma unroll
     for (int j = LMAX - 1; j > 0; --j) h[j] = h[j - 1];
@@ -151,7 +168,7 @@ __global__ void fused_forward_kernel(
   rl_out[r] = rl;
 }
 
-template <int LMAX>
+template <int LMAX, bool LSE>
 static void launch(bool drop, const int2* t1, const int2* t2, const int32_t* p1,
                    const int32_t* p2, const int32_t* rinv1, const int32_t* rinv2,
                    const int32_t* sid, const uint8_t* is_start, const int32_t* du,
@@ -161,43 +178,61 @@ static void launch(bool drop, const int2* t1, const int2* t2, const int32_t* p1,
   const int threads = 32;  // one warp per block: rows spread over SMs
   const int blocks = (B + threads - 1) / threads;
   if (drop) {
-    fused_forward_kernel<LMAX, true><<<blocks, threads, 0, stream>>>(
+    fused_forward_kernel<LMAX, true, LSE><<<blocks, threads, 0, stream>>>(
         t1, t2, p1, p2, rinv1, rinv2, sid, is_start, du, hist_in, rl_in, dp, best_l,
         hist_out, rl_out, W, L, B, pad, bits, thr_half);
   } else {
-    fused_forward_kernel<LMAX, false><<<blocks, threads, 0, stream>>>(
+    fused_forward_kernel<LMAX, false, LSE><<<blocks, threads, 0, stream>>>(
         t1, t2, p1, p2, rinv1, rinv2, sid, is_start, du, hist_in, rl_in, dp, best_l,
         hist_out, rl_out, W, L, B, pad, bits, thr_half);
   }
 }
 
-// du may be null when drop == 0. Returns cudaGetLastError() after the
-// launch (0 on success).
-extern "C" int tgx_fused_forward_viterbi(
+template <bool LSE>
+static int dispatch(bool drop, const int2* t1, const int2* t2, const int32_t* p1,
+                    const int32_t* p2, const int32_t* rinv1, const int32_t* rinv2,
+                    const int32_t* sid, const uint8_t* is_start, const int32_t* du,
+                    const float* hist_in, const int32_t* rl_in, float* dp,
+                    int32_t* best_l, float* hist_out, int32_t* rl_out, int W, int L,
+                    int B, int pad, int bits, uint32_t thr_half, cudaStream_t s) {
+  if (L <= 8) {
+    launch<8, LSE>(drop, t1, t2, p1, p2, rinv1, rinv2, sid, is_start, du, hist_in,
+                   rl_in, dp, best_l, hist_out, rl_out, W, L, B, pad, bits, thr_half, s);
+  } else if (L <= 16) {
+    launch<16, LSE>(drop, t1, t2, p1, p2, rinv1, rinv2, sid, is_start, du, hist_in,
+                    rl_in, dp, best_l, hist_out, rl_out, W, L, B, pad, bits, thr_half, s);
+  } else if (L <= 32) {
+    launch<32, LSE>(drop, t1, t2, p1, p2, rinv1, rinv2, sid, is_start, du, hist_in,
+                    rl_in, dp, best_l, hist_out, rl_out, W, L, B, pad, bits, thr_half, s);
+  } else if (L <= 64) {
+    launch<64, LSE>(drop, t1, t2, p1, p2, rinv1, rinv2, sid, is_start, du, hist_in,
+                    rl_in, dp, best_l, hist_out, rl_out, W, L, B, pad, bits, thr_half, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// lse = 0: Viterbi (dp and best_l out); lse = 1: log-sum-exp (the forward
+// values out in dp; best_l may be null). du may be null when drop == 0.
+// Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int tgx_fused_forward(
     const int32_t* t1, const int32_t* t2, const int32_t* p1, const int32_t* p2,
     const int32_t* rinv1, const int32_t* rinv2, const int32_t* sid,
     const uint8_t* is_start, const int32_t* du, const float* hist_in,
     const int32_t* rl_in, float* dp, int32_t* best_l, float* hist_out,
     int32_t* rl_out, int W, int L, int B, int pad, int bits, int drop,
-    unsigned int thr_half, void* stream) {
+    unsigned int thr_half, int lse, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int2* a = reinterpret_cast<const int2*>(t1);
   const int2* b = reinterpret_cast<const int2*>(t2);
   const bool d = drop != 0;
-  if (L <= 8) {
-    launch<8>(d, a, b, p1, p2, rinv1, rinv2, sid, is_start, du, hist_in, rl_in, dp,
-              best_l, hist_out, rl_out, W, L, B, pad, bits, thr_half, s);
-  } else if (L <= 16) {
-    launch<16>(d, a, b, p1, p2, rinv1, rinv2, sid, is_start, du, hist_in, rl_in, dp,
-               best_l, hist_out, rl_out, W, L, B, pad, bits, thr_half, s);
-  } else if (L <= 32) {
-    launch<32>(d, a, b, p1, p2, rinv1, rinv2, sid, is_start, du, hist_in, rl_in, dp,
-               best_l, hist_out, rl_out, W, L, B, pad, bits, thr_half, s);
-  } else if (L <= 64) {
-    launch<64>(d, a, b, p1, p2, rinv1, rinv2, sid, is_start, du, hist_in, rl_in, dp,
-               best_l, hist_out, rl_out, W, L, B, pad, bits, thr_half, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
+  if (lse) {
+    return dispatch<true>(d, a, b, p1, p2, rinv1, rinv2, sid, is_start, du, hist_in,
+                          rl_in, dp, best_l, hist_out, rl_out, W, L, B, pad, bits,
+                          thr_half, s);
   }
-  return (int)cudaGetLastError();
+  return dispatch<false>(d, a, b, p1, p2, rinv1, rinv2, sid, is_start, du, hist_in,
+                         rl_in, dp, best_l, hist_out, rl_out, W, L, B, pad, bits,
+                         thr_half, s);
 }

@@ -2,7 +2,7 @@
 
 Each source under `tokengeex_tpu_torch/csrc/` compiles on first use into
 its own shared library with a plain C interface (no PyTorch headers, so a
-build takes seconds). Libraries land in `build/tokengeex_tpu_torch/` at
+build takes seconds); a source may export several entry points. Libraries land in `build/tokengeex_tpu_torch/` at
 the root of the checkout (override with TGX_TORCH_BUILD_DIR), named by a
 hash of the source and the flags, so an edited source rebuilds and an
 unchanged one loads at once. Only sources in the repository are compiled.
@@ -31,16 +31,22 @@ U = ctypes.c_uint
 KERNELS: Dict[str, Tuple[str, str, tuple]] = {
     "viterbi_chunk": ("viterbi_chunk.cu", "tgx_viterbi_chunk",
                       (P, P, P, P, P, P, I, I, I, P)),
-    "fused_forward": ("fused_forward.cu", "tgx_fused_forward_viterbi",
-                      (P,) * 15 + (I, I, I, I, I, I, U, P)),
+    "fused_forward": ("fused_forward.cu", "tgx_fused_forward",
+                      (P,) * 15 + (I, I, I, I, I, I, U, I, P)),
+    "fused_backward": ("fused_backward.cu", "tgx_fused_backward",
+                       (P,) * 11 + (I, I, I, I, I, I, U, P)),
     "forward_chunk": ("forward_chunk.cu", "tgx_forward_chunk",
                       (P, P, P, P, P, I, I, I, P)),
     "backward_chunk": ("backward_chunk.cu", "tgx_backward_chunk",
                        (P, P, P, P, P, P, P, I, I, I, P)),
+    "backward_betas_chunk": ("backward_chunk.cu", "tgx_backward_betas_chunk",
+                             (P, P, P, P, P, I, I, I, P)),
+    "seg_weights": ("seg_weights.cu", "tgx_seg_weights",
+                    (P, P, P, P, P, I, I, P)),
 }
 
 _LOCK = threading.Lock()
-_LOADED: Dict[str, ctypes.CDLL] = {}
+_LOADED: Dict[str, ctypes.CDLL] = {}  # by source file
 
 
 def build_dir() -> Path:
@@ -59,61 +65,63 @@ def nvcc() -> str:
                        "toolkit on PATH or under /usr/local/cuda")
 
 
-def _target(name: str) -> Path:
-    src = CSRC / KERNELS[name][0]
+def _target(source: str) -> Path:
+    src = CSRC / source
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return build_dir() / f"{name}-{digest}.so"
+    return build_dir() / f"{src.stem}-{digest}.so"
 
 
-def _start(name: str):
-    """Start nvcc for one kernel; returns (process, tmp, target) or None
+def _start(source: str):
+    """Start nvcc for one source; returns (process, tmp, target) or None
     when the library is already built."""
-    target = _target(name)
+    target = _target(source)
     if target.exists():
         return None
     target.parent.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, target
 
 
-def _finish(name: str, started) -> None:
+def _finish(source: str, started) -> None:
     proc, tmp, target = started
     out, _ = proc.communicate()
     target.with_suffix(".log").write_text(out)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {KERNELS[name][0]} "
+        raise RuntimeError(f"nvcc failed for {source} "
                            f"(exit {proc.returncode}):\n{out}")
     os.replace(tmp, target)
 
 
 def build(names: Iterable[str] = tuple(KERNELS)) -> Dict[str, str]:
-    """Compile the named kernels in parallel (one nvcc per source, all
-    started together). Returns each kernel's nvcc log (-Xptxas -v:
-    registers, spills, shared memory); empty for a cached build."""
-    names = list(names)
-    started = {n: _start(n) for n in names}
-    for n, st in started.items():
+    """Compile the sources of the named kernels in parallel (one nvcc per
+    source, all started together). Returns each source's nvcc log
+    (-Xptxas -v: registers, spills, shared memory), keyed by file name;
+    empty for a cached build."""
+    sources = list(dict.fromkeys(KERNELS[n][0] for n in names))
+    started = {s: _start(s) for s in sources}
+    for s, st in started.items():
         if st is not None:
-            _finish(n, st)
+            _finish(s, st)
     logs = {}
-    for n in names:
-        log = _target(n).with_suffix(".log")
-        logs[n] = log.read_text() if log.exists() else ""
+    for s in sources:
+        log = _target(s).with_suffix(".log")
+        logs[s] = log.read_text() if log.exists() else ""
     return logs
 
 
 def load(name: str):
-    """The C entry point of one kernel, building it on first use."""
+    """The C entry point of one kernel, building its source on first use."""
+    source = KERNELS[name][0]
     with _LOCK:
-        lib = _LOADED.get(name)
+        lib = _LOADED.get(source)
         if lib is None:
             build([name])
-            lib = ctypes.CDLL(str(_target(name)))
-            _LOADED[name] = lib
+            lib = ctypes.CDLL(str(_target(source)))
+            _LOADED[source] = lib
     fn = getattr(lib, KERNELS[name][1])
     fn.argtypes = list(KERNELS[name][2])
     fn.restype = ctypes.c_int

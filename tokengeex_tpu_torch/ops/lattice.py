@@ -1,10 +1,12 @@
 """Device lattice ops for batched Viterbi encode and the EM E-step, in
 PyTorch.
 
-Counterpart of tokengeex_tpu/ops/lattice_jax.py (encode, and the
-per-pass E-step: `match_cache`, `forward`, `backward_expected`,
-`fold_expected`). The dynamic lattice becomes dense tensors over a packed
-byte stream:
+Counterpart of tokengeex_tpu/ops/lattice_jax.py (encode, the per-pass
+E-step: `match_cache`, `forward`, `backward_expected`, `fold_expected`,
+and the probe-once session's ops: the dense rank space, `score_from_slots`,
+`SegStruct`, `backward_betas`, `segsum_expected`, `estep_cached`,
+`estep_fused`, `viterbi_cached`). The dynamic lattice becomes dense tensors
+over a packed byte stream:
 
   - substrings are fingerprinted from per-row prefix hashes and matched
     against the vocabulary's hash tables (ops/match_table.py);
@@ -32,6 +34,13 @@ end-indexed views of that cache and the backward DP (`backward_chunk`)
 over it directly, each view masking the dropped candidates of its
 chunk, and adds the marginals into probe-slot bins that the host folds
 to token ids.
+
+The session (train/device_session.py) keeps each group's probe slots,
+remapped once to a dense rank space, and a `SegStruct` that sorts the
+group's hits by rank once. Its later E-steps re-gather scores per cached
+rank (`estep_cached`) or re-probe inside the fused kernels
+(`estep_fused`), run the backward pass for betas only, and turn them
+into counts with the scatter-free `segsum_expected` (csrc/seg_weights.cu).
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ from ..utils.packing import PackedBatch
 from . import hashing as H
 from . import lattice_cuda as lc
 from . import lattice_cuda_fused as lcf
+from .lattice_cuda_seg import SEG_BLK, seg_weights
 from .match_table import TokenTable, _entry_arrays
 
 NEG_INF = float("-inf")
@@ -313,11 +323,23 @@ def host_batch_inputs(packed: PackedBatch):
     return packed.bytes_arr, flags
 
 
+def prepare_batch_inputs(packed: PackedBatch, device):
+    """Compact device inputs (~2 bytes per corpus byte): raw bytes and
+    boundary flags, which a session caches across passes."""
+    bytes_arr, flags = host_batch_inputs(packed)
+    return (torch.as_tensor(bytes_arr, device=device),
+            torch.as_tensor(flags, device=device))
+
+
 def prepare_batch(packed: PackedBatch, L: int, device) -> DeviceBatch:
     """Build the device-resident batch from a packed corpus view."""
-    bytes_arr, flags = host_batch_inputs(packed)
-    gbytes = torch.as_tensor(bytes_arr, device=device)
-    gflags = torch.as_tensor(flags, device=device)
+    return prepare_batch_from_inputs(*prepare_batch_inputs(packed, device), L)
+
+
+def prepare_batch_from_inputs(gbytes: torch.Tensor, gflags: torch.Tensor,
+                              L: int) -> DeviceBatch:
+    """Derive the full DeviceBatch from compact device inputs."""
+    device = gbytes.device
     B, W = gbytes.shape
     p1, p2, sid, is_start, is_end, end_index, rinv1, rinv2 = _device_prep(
         gbytes, gflags, _prep_consts(W, L, device), L)
@@ -686,17 +708,30 @@ def _scan_forward_fused(
     dropout: float = 0.0,
     carry: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     timer: Optional[PhaseTimer] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    kind: str = "viterbi",
+):
     """Fused route: fingerprints, probe and DP in one kernel over the
-    whole row width. Semantics identical to `_scan_forward`."""
+    whole row width. Semantics identical to `_scan_forward`: (dp, best_l)
+    for Viterbi, the forward values A (B, W+1) with A[:, 0] prepended for
+    log-sum-exp."""
     use_drop = drop_u is not None and dropout > 0.0
     with phase(timer, "prep"):
         args = fused_inputs(tbl, batch, drop_u, dropout, carry)
-    with phase(timer, "kernel"):
+    with phase(timer, "kernel" if kind == "viterbi" else "forward"):
         dp, best_l, _, _ = lcf.fused_forward_chunk(
-            "viterbi", *args, L=tbl.max_len, bits=tbl.bits, pad=batch.pad,
+            kind, *args, L=tbl.max_len, bits=tbl.bits, pad=batch.pad,
             dropout=dropout if use_drop else 0.0)
-    return _finish(dp.t()), best_l.t()
+    if kind == "viterbi":
+        return _finish(dp.t()), best_l.t()
+    a0 = torch.where(batch.is_start[:, :1], 0.0, NEG_INF)
+    return torch.cat([a0, _finish(dp.t())], dim=1)
+
+
+def _check_fused_backend(tbl: DeviceTables, cache) -> None:
+    if not has_vscan(tbl):
+        raise ValueError("fused backend needs bits <= VSCAN_MAX_BITS")
+    if cache is not None:
+        raise ValueError("the fused backend probes in-kernel: no cache")
 
 
 def viterbi(tbl: DeviceTables, batch: DeviceBatch, C: int = 256,
@@ -711,8 +746,7 @@ def viterbi(tbl: DeviceTables, batch: DeviceBatch, C: int = 256,
     chains windows of long samples (see _scan_forward)."""
     check_f32(dtype, probe)
     if backend == "fused":
-        if not has_vscan(tbl):
-            raise ValueError("fused backend needs bits <= VSCAN_MAX_BITS")
+        _check_fused_backend(tbl, None)
         return _scan_forward_fused(tbl, batch, drop_u, dropout, carry, timer)
     if backend != "slab":
         raise ValueError(f"unknown backend {backend!r}")
@@ -720,13 +754,22 @@ def viterbi(tbl: DeviceTables, batch: DeviceBatch, C: int = 256,
 
 
 def forward(tbl: DeviceTables, batch: DeviceBatch,
-            cache: Tuple[torch.Tensor, torch.Tensor], C: int = 512,
-            drop_u: Optional[torch.Tensor] = None, dropout: float = 0.0,
-            timer: Optional[PhaseTimer] = None) -> torch.Tensor:
+            cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+            C: int = 512, drop_u: Optional[torch.Tensor] = None,
+            dropout: float = 0.0, timer: Optional[PhaseTimer] = None,
+            backend: str = "slab") -> torch.Tensor:
     """EM forward pass: A (B, W+1), the log-probability of all
     segmentations of each prefix of its sample, -inf where no path
-    reaches (reference: src/lattice.rs:245-312), over the `match_cache`
-    result `cache`."""
+    reaches (reference: src/lattice.rs:245-312). backend "slab" runs
+    `forward_chunk` over the `match_cache` result `cache` (or a fresh
+    probe per chunk without one); "fused" probes inside the fused kernel
+    (tables with has_vscan only; no cache)."""
+    if backend == "fused":
+        _check_fused_backend(tbl, cache)
+        return _scan_forward_fused(tbl, batch, drop_u, dropout, timer=timer,
+                                   kind="logsumexp")
+    if backend != "slab":
+        raise ValueError(f"unknown backend {backend!r}")
     a = _scan_forward(tbl, batch, C, drop_u, dropout, timer=timer,
                       kind="logsumexp", cache=cache)
     a0 = torch.where(batch.is_start[:, :1], 0.0, NEG_INF)
@@ -805,6 +848,415 @@ def backward_expected(
             bins = torch.where(bins >= nbins, spread, bins)
             acc.index_add_(0, bins, torch.where(matched, marg, 0.0).reshape(-1))
     return acc[:nbins]
+
+
+def fused_bwd_inputs(tbl: DeviceTables, batch: DeviceBatch,
+                     drop_u: Optional[torch.Tensor] = None,
+                     dropout: float = 0.0):
+    """Positional arguments of `lattice_cuda_fused.fused_backward_chunk`
+    for one batch, in its (position, row) layout."""
+    use_drop = drop_u is not None and dropout > 0.0
+    return (tbl.t1_fast, tbl.t2_fast,
+            batch.p1.t().contiguous(), batch.p2.t().contiguous(),
+            batch.rinv1, batch.rinv2, batch.sid.t().contiguous(),
+            batch.is_start.t().to(torch.uint8).contiguous(),
+            batch.is_end.t().to(torch.uint8).contiguous(),
+            drop_u.t().contiguous() if use_drop else None)
+
+
+def backward_betas(tbl: DeviceTables, batch: DeviceBatch,
+                   cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                   C: int = 512, drop_u: Optional[torch.Tensor] = None,
+                   dropout: float = 0.0, timer: Optional[PhaseTimer] = None,
+                   backend: str = "slab") -> torch.Tensor:
+    """(B, W+1) log-betas per dp index, post sample-end reset (0 at a
+    sample end), -inf where no path reaches: the backward recurrence of
+    `backward_expected` without marginals (reference:
+    src/lattice.rs:245-312 backward_scores). Bt[:, W] is 0 where a
+    sample ends at the width. backend "slab" runs `backward_betas_chunk`
+    over the chunks of the `match_cache` result `cache`, descending;
+    "fused" runs `fused_backward_chunk` over the whole width (tables with
+    has_vscan only; no cache). Feeds `segsum_expected`."""
+    B = batch.p1.shape[0]
+    W = batch.width
+    L = tbl.max_len
+    use_drop = drop_u is not None and dropout > 0.0
+    bW = torch.where(batch.is_end[:, W], 0.0, NEG_INF)[:, None]
+    if backend == "fused":
+        _check_fused_backend(tbl, cache)
+        with phase(timer, "prep"):
+            args = fused_bwd_inputs(tbl, batch, drop_u, dropout)
+        with phase(timer, "backward"):
+            bt = lcf.fused_backward_chunk(
+                *args, L=L, bits=tbl.bits, pad=batch.pad,
+                dropout=dropout if use_drop else 0.0)
+        return torch.cat([_finish(bt.t()), bW], dim=1)
+    if backend != "slab":
+        raise ValueError(f"unknown backend {backend!r}")
+    if cache is None:
+        raise ValueError("the slab backend reads a match_cache cache")
+    if W % C:
+        raise ValueError(f"chunk {C} does not divide width {W}")
+    with phase(timer, "backward"):
+        ends = batch.is_end[:, :W].t().to(torch.float32)
+        hist = lcf.betas_hist0(batch.is_end[:, W], L)
+        out = torch.empty((W, B), dtype=torch.float32, device=batch.p1.device)
+    for cs in range(W - C, -1, -C):
+        with phase(timer, "backward"):
+            score_s = cache[0][cs : cs + C]
+            if use_drop:
+                keep = _dropout_keep_window(drop_u, dropout, L, batch.pad,
+                                            cs, C)
+                score_s = torch.where(keep, score_s, NEG_INF)
+            out[cs : cs + C], hist = lc.backward_betas_chunk(
+                score_s.clamp(min=NEG).contiguous(),
+                ends[cs : cs + C].contiguous(), hist)
+    return torch.cat([_finish(out.t()), bW], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Dense rank space: a vocabulary-sized remap of the sparse probe slots
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class RankSpace:
+    """Dense remap of the bucket probe's sparse slot space (~16x the
+    vocabulary: 8 slots per bucket at mean load <= 0.5).
+
+    Slots never move while a vocabulary shrinks (TokenTable.rebind), so a
+    session remaps each group's cached slots ONCE through a static lut
+    into [0, n): rank r = the r-th occupied slot of the session's initial
+    table, miss -> n_pad. Every later pass gathers scores from an
+    (n_pad + 1,) rank-indexed column and adds counts into (n_pad,) bins."""
+
+    lut: np.ndarray  # (bk_num_slots + 1,) int32: slot -> rank; miss -> n_pad
+    occ: np.ndarray  # (n,) int64 occupied slots, ascending
+    n_pad: int       # pow2 >= n; the rank-space miss sentinel
+
+
+def build_rank_space(tbl: TokenTable) -> RankSpace:
+    """Rank space of a host TokenTable's bucket layout (the f32 default
+    probe). Build from the session's initial table: rebinds only empty
+    slots out, so the initial occupancy covers every later binding."""
+    assert tbl.bk is not None, "rank space requires the bucket layout"
+    nbins = 8 * (1 << tbl.bk_bits)
+    occ = np.nonzero(tbl.bk_ids >= 0)[0]
+    n = int(occ.size)
+    n_pad = max(16, 1 << (max(n, 1) - 1).bit_length())
+    lut = np.full(nbins + 1, n_pad, dtype=np.int32)
+    lut[occ] = np.arange(n, dtype=np.int32)
+    return RankSpace(lut=lut, occ=occ, n_pad=n_pad)
+
+
+_NEG_INF_BITS = int(np.array([NEG_INF], np.float32).view(np.int32)[0])
+
+
+def rank_score_rows(rank: RankSpace, tbl: TokenTable, device) -> torch.Tensor:
+    """(n_pad + 1,) int32 f32-score bits per rank for the CURRENT binding,
+    the -inf miss sentinel last (and on unused ranks). Removed tokens'
+    slots carry the empty sentinel (<= -1e38), which `score_from_slots`
+    maps to -inf. The JAX package packs this x16 above 2^17 ranks, a
+    layout for the TPU's gather engine; the per-rank values are these."""
+    col = np.full(rank.n_pad + 1, _NEG_INF_BITS, dtype=np.int32)
+    col[: rank.occ.size] = tbl.bk[:, 1::2].reshape(-1)[rank.occ]
+    return torch.as_tensor(col, device=device)
+
+
+def slot_score_rows(tbl: DeviceTables) -> torch.Tensor:
+    """(num_slots + 1,) int32 f32-score bits per probe slot of the default
+    probe (bucket when the table has it, else the two cuckoo tables), the
+    -inf miss sentinel last."""
+    neg = torch.tensor([_NEG_INF_BITS], dtype=torch.int32,
+                       device=tbl.t1_fast.device)
+    if tbl.t_bucket is not None:
+        return torch.cat([tbl.t_bucket[:, 1::2].reshape(-1), neg])
+    return torch.cat([tbl.t1_fast[:, 1], tbl.t2_fast[:, 1], neg])
+
+
+def rows_nbins(score_rows: torch.Tensor) -> int:
+    """Bin count of a score column: one trailing miss entry."""
+    return int(score_rows.shape[0]) - 1
+
+
+def rank_to_ids(rank: RankSpace, tbl: TokenTable) -> np.ndarray:
+    """(n,) CURRENT token id per rank (-1 for rebind-removed tokens)."""
+    return np.asarray(tbl.bk_ids[rank.occ], dtype=np.int64)
+
+
+def remap_slots(lut: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """Probe slots -> ranks through the (bk_num_slots + 1,) lut; paid once
+    per (session, group)."""
+    return lut[slots.long()]
+
+
+def fold_expected_rank(acc, rank_ids: np.ndarray,
+                       vocab_size: int) -> np.ndarray:
+    """Fold a rank-indexed count accumulator to per-token counts (V,) f64
+    on the host."""
+    if isinstance(acc, torch.Tensor):
+        acc = acc.detach().cpu().numpy()
+    acc = np.asarray(acc, dtype=np.float64)
+    n = rank_ids.shape[0]
+    expected = np.zeros(vocab_size, dtype=np.float64)
+    valid = rank_ids >= 0
+    np.add.at(expected, rank_ids[valid], acc[:n][valid])
+    return expected
+
+
+def score_from_slots(score_rows: torch.Tensor,
+                     slots: torch.Tensor) -> torch.Tensor:
+    """Current scores for a cached slot (or rank) array of any shape: one
+    gather per element from the score column, and scores <= -1e38 (empty
+    or removed slots, the miss sentinel) -> -inf, as the probe gives."""
+    s = score_rows[slots.long()].view(torch.float32)
+    return torch.where(s <= -1.0e38, NEG_INF, s)
+
+
+# ---------------------------------------------------------------------------
+# Scatter-free expected counts: SegStruct + segsum
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SegStruct:
+    """Per-length sorted-hit structure for scatter-free EM counts, built
+    ONCE per row group from the session's cached (dropout-free) slots;
+    the (position, length) -> slot matching is static while the
+    vocabulary only shrinks. Hits are flat positions b * W + w of the
+    (B, W) plane of one length. Per length row l0 (token length l0+1):
+
+      perm:     L-tuple of (cap_l,) int32, flat positions sorted by slot
+                (stable), truncated to a pow2 capacity >= the hit count;
+                misses (slot == nbins) sort to the tail
+      pre_pos:  (L, OC) int32 over the occurring slots: sorted index just
+                before the slot's segment, or cap_l when it starts at 0
+                (and for pad entries)
+      end_pos:  (L, OC) int32, index of the segment's last element, cap_l
+                for pad entries
+      n_hit:    L host ints, the real hits per length
+      occ_slot: (L, OC) int32, the slots occurring at this length,
+                ascending, padded with nbins
+      blk_slot: L-tuple of (cap_l / SEG_BLK,) int32, slot of the hit at
+                each block start (nbins past the hits)
+    """
+
+    perm: tuple
+    pre_pos: torch.Tensor
+    end_pos: torch.Tensor
+    n_hit: tuple
+    occ_slot: torch.Tensor
+    blk_slot: tuple
+
+    def nbytes(self) -> int:
+        return 4 * (sum(int(p.numel()) for p in self.perm)
+                    + int(self.pre_pos.numel()) + int(self.end_pos.numel())
+                    + int(self.occ_slot.numel())
+                    + sum(int(b.numel()) for b in self.blk_slot))
+
+    @staticmethod
+    def est_bytes(B: int, L: int, W: int) -> int:
+        # perm dominates: 4 B per (position, length) before compaction.
+        return L * B * W * 4
+
+
+def seg_cap(n_hit: int) -> int:
+    """Pow2-quantized per-length hit capacity."""
+    cap = SEG_BLK
+    while cap < n_hit:
+        cap *= 2
+    return cap
+
+
+def build_seg_struct(slots: torch.Tensor, nbins: int) -> SegStruct:
+    """Sort each length plane of a cached (W, L, B) slot (or rank) array
+    by slot, stably, in the JAX package's flat order (b * W + w), so the
+    structure equals its `build_seg_struct` field for field. One host
+    sync per build, for the per-length hit and occupancy counts."""
+    W, L, B = slots.shape
+    BW = B * W
+    dev = slots.device
+    flat = slots.permute(1, 2, 0).reshape(L, BW)
+    srt, perm = torch.sort(flat, dim=1, stable=True)
+    grid = torch.arange(nbins + 1, dtype=srt.dtype, device=dev)
+    ss = torch.searchsorted(srt, grid.expand(L, -1).contiguous())
+    present = ss[:, 1:] > ss[:, :-1]
+    counts = torch.cat([ss[:, nbins], present.sum(dim=1)]).tolist()
+    n_hit, n_occ = counts[:L], counts[L:]
+    OC = max(8, 1 << (max(max(n_occ), 1) - 1).bit_length())
+    perm_t, blk_t, occ2, pre2, end2 = [], [], [], [], []
+    for l0 in range(L):
+        cap = min(seg_cap(n_hit[l0]), BW)
+        pre = torch.where(present[l0] & (ss[l0, :-1] > 0),
+                          torch.clamp(ss[l0, :-1] - 1, max=cap), cap)
+        end = torch.where(present[l0], torch.clamp(ss[l0, 1:] - 1, max=cap),
+                          cap)
+        sent = torch.full((1,), cap, dtype=pre.dtype, device=dev)
+        occ = torch.nonzero(present[l0]).reshape(-1)
+        occ = torch.cat([occ, occ.new_full((OC - occ.numel(),), nbins)])
+        occ2.append(occ.to(torch.int32))
+        pre2.append(torch.cat([pre, sent])[occ].to(torch.int32))
+        end2.append(torch.cat([end, sent])[occ].to(torch.int32))
+        perm_t.append(perm[l0, :cap].to(torch.int32))
+        blk_t.append(torch.clamp(srt[l0, :cap:SEG_BLK], max=nbins)
+                     .to(torch.int32))
+    return SegStruct(perm=tuple(perm_t), pre_pos=torch.stack(pre2),
+                     end_pos=torch.stack(end2), n_hit=tuple(n_hit),
+                     occ_slot=torch.stack(occ2), blk_slot=tuple(blk_t))
+
+
+def _interval_from_blocks(cf: torch.Tensor, t: torch.Tensor,
+                          pre_pos: torch.Tensor,
+                          end_pos: torch.Tensor) -> torch.Tensor:
+    """Per-interval sums w[pre+1 ... end] from in-block inclusive cumsums
+    `cf` (H,) and block totals `t` (H / SEG_BLK,); index H (the cap
+    sentinel) reads 0. The block prefix is an f64 cumsum split into f32
+    hi + lo (at least as accurate as the JAX package's TwoSum scan), and
+    the block-prefix difference stays compensated: a plain f32 difference
+    rounds at ulp of the global prefix, enough to push small counts
+    negative."""
+    p = torch.cumsum(t.double(), dim=0)
+    hi = p.float()
+    lo = (p - hi.double()).float()
+    zero = cf.new_zeros(1)
+    hip = torch.cat([zero, hi[:-1], zero])
+    lop = torch.cat([zero, lo[:-1], zero])
+    cfp = torch.cat([cf, zero])
+    end = end_pos.long()
+    pre = pre_pos.long()
+    be = end // SEG_BLK
+    bb = pre // SEG_BLK
+    a = hip[be]
+    b = -hip[bb]
+    s = a + b
+    a1 = s - b
+    b1 = s - a1
+    err = (a - a1) + (b - b1)
+    small = err + (lop[be] - lop[bb]) + (cfp[end] - cfp[pre])
+    return s + small
+
+
+def segsum_expected(tbl: DeviceTables, batch: DeviceBatch, A: torch.Tensor,
+                    Bt: torch.Tensor, seg: SegStruct,
+                    score_rows: torch.Tensor,
+                    drop_u: Optional[torch.Tensor] = None,
+                    dropout: float = 0.0,
+                    timer: Optional[PhaseTimer] = None) -> torch.Tensor:
+    """Scatter-free expected counts over a group's sorted hits: the same
+    (nbins,) accumulator as `backward_expected` (reference:
+    src/lattice.rs:245-312), nbins = rows_nbins(score_rows).
+
+    Per length, each hit's [A - Z, beta] row is gathered in sorted order;
+    the score term is expanded over the sorted hits from the (nbins,)
+    score vector by telescoping differences between consecutive occurring
+    slots plus one anchor per block; `seg_weights` takes the in-block
+    scans of the TRUE marginal exp(A + score + beta - Z) in [0, 1], and
+    each slot's sum is an interval of those scans. Factoring exp(score)
+    out of the sum let a rare token sharing a block with e^40-scale
+    neighbours lose its whole count to rounding."""
+    B = A.shape[0]
+    W = batch.width
+    L = tbl.max_len
+    nbins = rows_nbins(score_rows)
+    BW = B * W
+    dev = A.device
+    with phase(timer, "segsum"):
+        Z = torch.gather(A, 1, batch.end_index.long())
+        Z = torch.where(torch.isfinite(Z) & (Z > -1e37), Z, 0.0)
+        # A[p] at a boundary holds the PREVIOUS sample's total; tokens
+        # starting at p belong to the next sample (forward value 0).
+        a = torch.where(batch.is_start[:, :W], 0.0, A[:, :W])
+        col1 = a - Z
+        btp = torch.nn.functional.pad(Bt, (0, L), value=NEG_INF)
+        use_drop = drop_u is not None and dropout > 0.0
+        if use_drop:
+            drop_base = drop_u[:, batch.pad : batch.pad + W]
+            odds = _len_mix(L, lcf._ODD, dev)
+            tt = lcf.dropout_threshold_half(dropout)
+        # Removed and empty slots carry the -3e38 sentinel, which would
+        # wreck the telescoping sums; their weights are exp(x - 200) = 0.
+        sc = torch.clamp(score_rows[:nbins].view(torch.float32), min=-200.0)
+        sc_pad = torch.cat([sc, sc.new_zeros(1)])
+        acc = torch.zeros(nbins + 1, dtype=torch.float32, device=dev)
+    for l0 in range(L):
+        with phase(timer, "segsum"):
+            perm_l = seg.perm[l0].long()
+            occ_l = seg.occ_slot[l0].long()
+            pre_l = seg.pre_pos[l0]
+            end_l = seg.end_pos[l0]
+            Hc = perm_l.shape[0]  # this length's capacity
+            beta_l = btp[:, l0 + 1 : l0 + 1 + W]
+            if use_drop and l0 > 0:
+                u = H.srl_i32(H.mul_i32(drop_base, odds[l0]), 1)
+                beta_l = torch.where(u < tt, NEG_INF, beta_l)
+            T = torch.stack([col1, beta_l], dim=-1).reshape(BW, 2)
+            rows = T[perm_l]
+            present = end_l != Hc
+            start_pos = torch.where(
+                present, torch.where(pre_l == Hc, 0, pre_l + 1), Hc).long()
+            # Telescoping score differences between consecutive occurring
+            # slots (pad entries land in the dropped cell Hc).
+            sc_occ = sc_pad[occ_l]
+            dvals = sc_occ - torch.cat([sc_occ[:1], sc_occ[:-1]])
+            d = torch.zeros(Hc + 1, dtype=torch.float32, device=dev)
+            d.index_add_(0, start_pos, dvals)
+            anchors = sc_pad[seg.blk_slot[l0].long()]
+            d2 = torch.cat([anchors[:, None],
+                            d[:Hc].reshape(-1, SEG_BLK)[:, 1:]], dim=1)
+            cf, t = seg_weights(rows[:, 0].contiguous(),
+                                rows[:, 1].contiguous(),
+                                d2.reshape(-1).contiguous(), seg.n_hit[l0])
+            acc.index_add_(0, occ_l, _interval_from_blocks(cf, t, pre_l,
+                                                           end_l))
+    return acc[:nbins]
+
+
+# ---------------------------------------------------------------------------
+# The session's composite ops
+# ---------------------------------------------------------------------------
+
+
+def estep_cached(tbl: DeviceTables, batch: DeviceBatch, slots: torch.Tensor,
+                 score_rows: torch.Tensor, seg: Optional[SegStruct] = None,
+                 C: int = 512, drop_u: Optional[torch.Tensor] = None,
+                 dropout: float = 0.0, timer: Optional[PhaseTimer] = None):
+    """(A, expected-count accumulator) for a group whose (W, L, B) slots
+    (or ranks) are cached: scores re-gathered per cached slot, the forward
+    pass, then the betas and `segsum_expected` when `seg` is given, else
+    `backward_expected` into the bins of `score_rows`."""
+    with phase(timer, "regather"):
+        cache = (score_from_slots(score_rows, slots), slots)
+    A = forward(tbl, batch, cache, C, drop_u, dropout, timer)
+    if seg is not None:
+        Bt = backward_betas(tbl, batch, cache, C, drop_u, dropout, timer)
+        return A, segsum_expected(tbl, batch, A, Bt, seg, score_rows,
+                                  drop_u, dropout, timer)
+    return A, backward_expected(tbl, batch, A, cache, C, drop_u, dropout,
+                                nbins=rows_nbins(score_rows), timer=timer)
+
+
+def estep_fused(tbl: DeviceTables, batch: DeviceBatch, seg: SegStruct,
+                score_rows: torch.Tensor, drop_u: Optional[torch.Tensor] = None,
+                dropout: float = 0.0, timer: Optional[PhaseTimer] = None):
+    """(A, expected-count accumulator) with the probe fused into both
+    scans (tables with has_vscan only) and the counts from the group's
+    SegStruct."""
+    A = forward(tbl, batch, drop_u=drop_u, dropout=dropout, timer=timer,
+                backend="fused")
+    Bt = backward_betas(tbl, batch, drop_u=drop_u, dropout=dropout,
+                        timer=timer, backend="fused")
+    return A, segsum_expected(tbl, batch, A, Bt, seg, score_rows, drop_u,
+                              dropout, timer)
+
+
+def viterbi_cached(tbl: DeviceTables, batch: DeviceBatch,
+                   slots: torch.Tensor, score_rows: torch.Tensor,
+                   C: int = 512, timer: Optional[PhaseTimer] = None):
+    """(dp, best_l) for a group whose slots are cached: scores re-gathered
+    per cached slot, then `viterbi_chunk` over end-indexed views."""
+    with phase(timer, "regather"):
+        cache = (score_from_slots(score_rows, slots), slots)
+    return _scan_forward(tbl, batch, C, timer=timer, cache=cache)
 
 
 def pick_span_values_device(A: torch.Tensor, rows_idx,

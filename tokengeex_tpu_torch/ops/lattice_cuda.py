@@ -2,7 +2,10 @@
 plain twins.
 
 Counterpart of tokengeex_tpu/ops/lattice_pallas.py: `viterbi_chunk`,
-`forward_chunk` and `backward_chunk`, each built from csrc/<name>.cu. Each
+`forward_chunk` and `backward_chunk`, each built from csrc/<name>.cu, and
+`backward_betas_chunk`, the betas-only mode of csrc/backward_chunk.cu
+(the XLA scan `_backward_betas_impl` of tokengeex_tpu/ops/lattice_jax.py
+on the TPU). Each
 `*_plain` function is the same recurrence in plain PyTorch, used for
 tensors on the CPU and as the reference the kernel is held against on the
 card. The plain log-sum-exp twins sum over lengths in ascending order, as
@@ -229,3 +232,43 @@ def backward_chunk(score: torch.Tensor, a: torch.Tensor, z: torch.Tensor,
 
 
 backward_chunk.launches = 0
+
+
+def backward_betas_chunk_plain(score: torch.Tensor, ends: torch.Tensor,
+                               hist0: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    C, L, B = score.shape
+    hist = hist0.clone()
+    betas = torch.empty((C, B), dtype=torch.float32, device=score.device)
+    for q in range(C - 1, -1, -1):
+        lse = _lse_step(score[q] + hist)
+        betas[q] = torch.where(ends[q] > 0.5, torch.zeros_like(lse), lse)
+        hist = _roll_insert(hist, betas[q])
+    return betas, hist
+
+
+def backward_betas_chunk(score: torch.Tensor, ends: torch.Tensor,
+                         hist0: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`backward_chunk`'s recurrence without the marginals: returns the
+    post-reset betas (C, B) f32 (0 where a sample ends, NEG where no path
+    reaches) and the next history (L, B).
+
+    CUDA tensors launch csrc/backward_chunk.cu in its betas mode on the
+    current stream; CPU tensors run `backward_betas_chunk_plain`."""
+    if not _check_slab(score, {"ends": ends}, hist0):
+        return backward_betas_chunk_plain(score, ends, hist0)
+    C, L, B = score.shape
+    dev = score.device
+    betas = torch.empty((C, B), dtype=torch.float32, device=dev)
+    hist = torch.empty((L, B), dtype=torch.float32, device=dev)
+    if B == 0:
+        return betas, hist
+    if C == 0:
+        return betas, hist0.clone()
+    _launch("backward_betas_chunk", score, ends, hist0, betas, hist, C, L, B)
+    backward_betas_chunk.launches += 1
+    return betas, hist
+
+
+backward_betas_chunk.launches = 0

@@ -1,17 +1,19 @@
-"""Vocabulary probe fused with the Viterbi DP: the Hopper kernel and its
-plain twin.
+"""Vocabulary probe fused with the lattice DPs: the Hopper kernels and
+their plain twins.
 
-Counterpart of tokengeex_tpu/ops/lattice_pallas_fused.py
-(`fused_forward_chunk`, kind="viterbi"). The kernel is
-csrc/fused_forward.cu; `fused_forward_chunk_plain` computes the same
-probe and relaxation in plain PyTorch, for tensors on the CPU and as the
-reference the kernel is held against on the card.
+Counterpart of tokengeex_tpu/ops/lattice_pallas_fused.py:
+`fused_forward_chunk` (kind "viterbi" or "logsumexp", end-indexed probe,
+csrc/fused_forward.cu) and `fused_backward_chunk` (start-indexed probe
+with the backward betas, csrc/fused_backward.cu). Each `*_plain` function
+computes the same probe and recurrence in plain PyTorch, for tensors on
+the CPU and as the reference the kernel is held against on the card.
 
 Semantics match the JAX kernel: the same hash family (ops/hashing.py),
 T1 wins over T2, an empty T1 slot (score sentinel NEG_BITS) never counts,
 a hit counts only with a score above NEG / 2, a token is valid only if it
-fits the current sample run (`rl`), and the dropout coin is keyed on the
-token's start position. The probe reads the (H, 2) `[check, score]` rows
+fits the current sample run (`rl` ending at the token's end for the
+forward, `fr` starting at its start for the backward), and the dropout
+coin is keyed on the token's start position. The probe reads the (H, 2) `[check, score]` rows
 of both cuckoo tables directly: the JAX kernel's linear scan over every
 table row was a VMEM layout and gives the same hits.
 
@@ -20,7 +22,7 @@ coalesced; the DeviceBatch arrays are transposed once per call.
   p1, p2      (pad + W + 1 + pad, B) int32 prefix hashes
   rinv1/2     (pad + W,) int32 inverse powers
   sid, du     (pad + W + pad, B) int32 sample ids / dropout words
-  is_start    (W + 1, B) uint8
+  is_start, is_end  (W + 1, B) uint8
   hist0 (L, B) f32 DP carry, rl0 (B,) int32 run-length carry
 """
 
@@ -33,7 +35,8 @@ import torch
 
 from . import _build
 from . import hashing as H
-from .lattice_cuda import MAX_LEN, NEG, _check, viterbi_chunk_plain
+from .lattice_cuda import (MAX_LEN, NEG, _check, backward_betas_chunk_plain,
+                           forward_chunk_plain, viterbi_chunk_plain)
 
 # Empty-slot score sentinel (f32 -3.0e38) as int32 bits.
 NEG_BITS = int(np.array([-3.0e38], np.float32).view(np.int32)[0])
@@ -60,22 +63,26 @@ def run_lengths(inb: torch.Tensor, stb: torch.Tensor,
     return rl.to(torch.int32)
 
 
-def fused_probe_plain(t1_fast, t2_fast, p1, p2, rinv1, rinv2, sid, is_start,
-                      du, rl0, *, L: int, bits: int, pad: int,
-                      dropout: float = 0.0
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(W, L, B) end-indexed scores (NEG for no token) and the (W, B) run
-    lengths, exactly as the fused kernel forms them."""
-    W = is_start.shape[0] - 1
-    dev = p1.device
-    q = torch.arange(W, device=dev)
-    j = torch.arange(L, device=dev)
-    sp = pad + q[:, None] - j[None, :]  # (W, L) padded start positions
-    e1 = p1[pad + 1 : pad + 1 + W][:, None, :]
-    e2 = p2[pad + 1 : pad + 1 + W][:, None, :]
-    fp1 = H.mul_i32(H.sub_i32(e1, p1[sp]), rinv1[sp][:, :, None])
-    fp2 = H.mul_i32(H.sub_i32(e2, p2[sp]), rinv2[sp][:, :, None])
-    lens = torch.arange(1, L + 1, dtype=torch.int64, device=dev)
+def start_run_lengths(inb: torch.Tensor, st_next: torch.Tensor) -> torch.Tensor:
+    """(W, B) in-sample run length STARTING at each byte with no internal
+    sample start: the closed form of fr = inb ? 1 + (st_next ? 0 : fr') : 0
+    walked from the right, fr' the next byte's (0 past the width).
+    st_next[q] is the start flag at dp index q + 1."""
+    W = inb.shape[0]
+    q = torch.arange(W, device=inb.device, dtype=torch.int64)[:, None]
+    nxt = torch.cat([inb[1:], torch.zeros_like(inb[:1])])
+    # The run through q stops after q at a sample start or an outside byte.
+    stop = st_next | ~nxt
+    last = torch.cummin(torch.where(stop, q, W).flip(0), dim=0).values.flip(0)
+    return torch.where(inb, last - q + 1, 0).to(torch.int32)
+
+
+def _probe_score(t1_fast, t2_fast, fp1, fp2, valid, du_s, lens, bits: int,
+                 dropout: float) -> torch.Tensor:
+    """The fused kernels' probe of (fingerprint, length) points: T1 wins
+    over T2, an empty T1 slot never counts, a hit counts only when valid,
+    with its dropout coin (keyed on the token's start word du_s) not
+    drawn, and with a score above NEG / 2; NEG otherwise."""
     a1 = H.wrap_i32(lens * int(H.IDX_A1))[None, :, None]
     a2 = H.wrap_i32(lens * int(H.IDX_A2))[None, :, None]
     shift = 32 - bits
@@ -86,18 +93,39 @@ def fused_probe_plain(t1_fast, t2_fast, p1, p2, rinv1, rinv2, sid, is_start,
     sb = torch.full_like(fp1, NEG_BITS)
     sb = torch.where(c2 == fp2, s2, sb)
     sb = torch.where((c1 == fp2) & (s1 != NEG_BITS), s1, sb)
-
-    inb = sid[pad : pad + W] >= 0
-    rl = run_lengths(inb, is_start[:W] != 0, rl0)
-    valid = lens.to(torch.int32)[None, :, None] <= rl[:, None, :]
     if dropout > 0.0:
         odd = H.wrap_i32(lens * _ODD)[None, :, None]
-        u = H.srl_i32(H.mul_i32(du[sp], odd), 1)
+        u = H.srl_i32(H.mul_i32(du_s, odd), 1)
         coin = u < dropout_threshold_half(dropout)
         valid = valid & ~(coin & (lens[None, :, None] > 1))
     sf = sb.view(torch.float32)
-    score = torch.where(valid & (sf > NEG * 0.5), sf,
-                        torch.tensor(NEG, dtype=torch.float32, device=dev))
+    return torch.where(valid & (sf > NEG * 0.5), sf,
+                       torch.tensor(NEG, dtype=torch.float32,
+                                    device=fp1.device))
+
+
+def fused_probe_plain(t1_fast, t2_fast, p1, p2, rinv1, rinv2, sid, is_start,
+                      du, rl0, *, L: int, bits: int, pad: int,
+                      dropout: float = 0.0
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(W, L, B) end-indexed scores (NEG for no token) and the (W, B) run
+    lengths, exactly as the fused forward kernel forms them."""
+    W = is_start.shape[0] - 1
+    dev = p1.device
+    q = torch.arange(W, device=dev)
+    j = torch.arange(L, device=dev)
+    sp = pad + q[:, None] - j[None, :]  # (W, L) padded start positions
+    e1 = p1[pad + 1 : pad + 1 + W][:, None, :]
+    e2 = p2[pad + 1 : pad + 1 + W][:, None, :]
+    fp1 = H.mul_i32(H.sub_i32(e1, p1[sp]), rinv1[sp][:, :, None])
+    fp2 = H.mul_i32(H.sub_i32(e2, p2[sp]), rinv2[sp][:, :, None])
+    lens = torch.arange(1, L + 1, dtype=torch.int64, device=dev)
+    inb = sid[pad : pad + W] >= 0
+    rl = run_lengths(inb, is_start[:W] != 0, rl0)
+    valid = lens.to(torch.int32)[None, :, None] <= rl[:, None, :]
+    score = _probe_score(t1_fast, t2_fast, fp1, fp2, valid,
+                         du[sp] if dropout > 0.0 else None, lens, bits,
+                         dropout)
     return score, rl
 
 
@@ -107,10 +135,55 @@ def fused_forward_chunk_plain(kind, t1_fast, t2_fast, p1, p2, rinv1, rinv2,
     score, rl = fused_probe_plain(t1_fast, t2_fast, p1, p2, rinv1, rinv2,
                                   sid, is_start, du, rl0, L=L, bits=bits,
                                   pad=pad, dropout=dropout)
-    dp, best_l, hist = viterbi_chunk_plain(
-        score, is_start[1:].to(torch.float32), hist0)
+    starts = is_start[1:].to(torch.float32)
+    if kind == "viterbi":
+        dp, best_l, hist = viterbi_chunk_plain(score, starts, hist0)
+    else:
+        (dp, hist), best_l = forward_chunk_plain(score, starts, hist0), None
     rl_out = rl[-1].clone() if rl.shape[0] else rl0.clone()
     return dp, best_l, hist, rl_out
+
+
+def _check_fused(pad: int, L: int, bits: int, shapes: dict, device) -> bool:
+    """Validate the fused kernels' arguments (`shapes`: name -> (tensor,
+    shape, dtype)); returns True when the caller is to launch the CUDA
+    kernel, False for CPU tensors (the plain version)."""
+    _check(pad >= L, f"pad {pad} must be >= L {L}")
+    _check(1 <= bits <= 31, f"bits {bits} outside 1..31")
+    _check(shapes["t1_fast"][0].shape[0] == 1 << bits,
+           "tables must hold 2^bits rows")
+    for name, (t, shape, dtype) in shapes.items():
+        _check(tuple(t.shape) == shape,
+               f"{name} must be {shape}, got {tuple(t.shape)}")
+        _check(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
+        _check(t.device == device, f"{name} is on {t.device}")
+    if device.type == "cpu":
+        return False
+    _check(device.type == "cuda", f"unsupported device {device}")
+    _check(1 <= L <= MAX_LEN, f"token length {L} outside 1..{MAX_LEN}")
+    for name, (t, _, _) in shapes.items():
+        _check(t.is_contiguous(), f"{name} must be contiguous")
+    _check(shapes["t1_fast"][0].data_ptr() % 8 == 0
+           and shapes["t2_fast"][0].data_ptr() % 8 == 0,
+           "tables must be 8-byte aligned")
+    return True
+
+
+def _stream_shapes(t1_fast, t2_fast, p1, p2, rinv1, rinv2, sid, is_start,
+                   du, W: int, B: int, pad: int, use_drop: bool) -> dict:
+    T = 2 * pad + W
+    shapes = {"p1": (p1, (T + 1, B), torch.int32),
+              "p2": (p2, (T + 1, B), torch.int32),
+              "rinv1": (rinv1, (pad + W,), torch.int32),
+              "rinv2": (rinv2, (pad + W,), torch.int32),
+              "sid": (sid, (T, B), torch.int32),
+              "is_start": (is_start, (W + 1, B), torch.uint8),
+              "t1_fast": (t1_fast, (t1_fast.shape[0], 2), torch.int32),
+              "t2_fast": (t2_fast, (t1_fast.shape[0], 2), torch.int32)}
+    if use_drop:
+        _check(du is not None, "dropout > 0 needs du")
+        shapes["du"] = (du, (T, B), torch.int32)
+    return shapes
 
 
 def fused_forward_chunk(kind: str, t1_fast: torch.Tensor,
@@ -120,53 +193,30 @@ def fused_forward_chunk(kind: str, t1_fast: torch.Tensor,
                         is_start: torch.Tensor, du: Optional[torch.Tensor],
                         hist0: torch.Tensor, rl0: torch.Tensor, *, L: int,
                         bits: int, pad: int, dropout: float = 0.0):
-    """Fused probe + Viterbi DP over the whole row width. Returns dp (W, B)
-    f32, best_l (W, B) int32, hist (L, B) f32 and rl (B,) int32.
+    """Fused probe + forward DP over the whole row width. kind="viterbi"
+    returns dp (W, B) f32, best_l (W, B) int32, hist (L, B) f32 and rl (B,)
+    int32; kind="logsumexp" returns the forward values a (W, B) f32 (NEG
+    where no path reaches), None, hist and rl.
 
     CUDA tensors launch csrc/fused_forward.cu on the current stream; CPU
     tensors run `fused_forward_chunk_plain`."""
-    if kind != "viterbi":
-        raise NotImplementedError(
-            "fused_forward_chunk(kind='logsumexp') is the EM forward pass, "
-            "still to port (ROADMAP.md, kernels 4b)")
+    _check(kind in ("viterbi", "logsumexp"), f"unknown kind {kind!r}")
     W = is_start.shape[0] - 1
     B = is_start.shape[1]
-    T = 2 * pad + W
     use_drop = dropout > 0.0
-    _check(pad >= L, f"pad {pad} must be >= L {L}")
-    _check(1 <= bits <= 31, f"bits {bits} outside 1..31")
-    shapes = {"p1": (p1, (T + 1, B), torch.int32),
-              "p2": (p2, (T + 1, B), torch.int32),
-              "rinv1": (rinv1, (pad + W,), torch.int32),
-              "rinv2": (rinv2, (pad + W,), torch.int32),
-              "sid": (sid, (T, B), torch.int32),
-              "is_start": (is_start, (W + 1, B), torch.uint8),
-              "hist0": (hist0, (L, B), torch.float32),
-              "rl0": (rl0, (B,), torch.int32),
-              "t1_fast": (t1_fast, (t1_fast.shape[0], 2), torch.int32),
-              "t2_fast": (t2_fast, (t1_fast.shape[0], 2), torch.int32)}
-    if use_drop:
-        _check(du is not None, "dropout > 0 needs du")
-        shapes["du"] = (du, (T, B), torch.int32)
-    _check(t1_fast.shape[0] == 1 << bits, "tables must hold 2^bits rows")
-    for name, (t, shape, dtype) in shapes.items():
-        _check(tuple(t.shape) == shape,
-               f"{name} must be {shape}, got {tuple(t.shape)}")
-        _check(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
-        _check(t.device == p1.device, f"{name} is on {t.device}")
-    if p1.device.type == "cpu":
+    shapes = _stream_shapes(t1_fast, t2_fast, p1, p2, rinv1, rinv2, sid,
+                            is_start, du, W, B, pad, use_drop)
+    shapes["hist0"] = (hist0, (L, B), torch.float32)
+    shapes["rl0"] = (rl0, (B,), torch.int32)
+    if not _check_fused(pad, L, bits, shapes, p1.device):
         return fused_forward_chunk_plain(
             kind, t1_fast, t2_fast, p1, p2, rinv1, rinv2, sid, is_start, du,
             hist0, rl0, L=L, bits=bits, pad=pad, dropout=dropout)
-    _check(p1.device.type == "cuda", f"unsupported device {p1.device}")
-    _check(1 <= L <= MAX_LEN, f"token length {L} outside 1..{MAX_LEN}")
-    for name, (t, _, _) in shapes.items():
-        _check(t.is_contiguous(), f"{name} must be contiguous")
-    _check(t1_fast.data_ptr() % 8 == 0 and t2_fast.data_ptr() % 8 == 0,
-           "tables must be 8-byte aligned")
     dev = p1.device
+    lse = kind == "logsumexp"
     dp = torch.empty((W, B), dtype=torch.float32, device=dev)
-    best_l = torch.empty((W, B), dtype=torch.int32, device=dev)
+    best_l = None if lse else torch.empty((W, B), dtype=torch.int32,
+                                          device=dev)
     hist = torch.empty((L, B), dtype=torch.float32, device=dev)
     rl = torch.empty((B,), dtype=torch.int32, device=dev)
     if B == 0:
@@ -181,9 +231,10 @@ def fused_forward_chunk(kind: str, t1_fast: torch.Tensor,
                 sid.data_ptr(), is_start.data_ptr(),
                 du.data_ptr() if use_drop else None,
                 hist0.data_ptr(), rl0.data_ptr(), dp.data_ptr(),
-                best_l.data_ptr(), hist.data_ptr(), rl.data_ptr(),
-                W, L, B, pad, bits, int(use_drop),
-                dropout_threshold_half(dropout) if use_drop else 0, stream)
+                None if lse else best_l.data_ptr(), hist.data_ptr(),
+                rl.data_ptr(), W, L, B, pad, bits, int(use_drop),
+                dropout_threshold_half(dropout) if use_drop else 0, int(lse),
+                stream)
     if rc != 0:
         raise RuntimeError(
             f"fused_forward_chunk launch failed: CUDA error {rc}")
@@ -192,3 +243,95 @@ def fused_forward_chunk(kind: str, t1_fast: torch.Tensor,
 
 
 fused_forward_chunk.launches = 0
+
+
+def fused_backward_probe_plain(t1_fast, t2_fast, p1, p2, rinv1, rinv2, sid,
+                               is_start, du, *, L: int, bits: int, pad: int,
+                               dropout: float = 0.0) -> torch.Tensor:
+    """(W, L, B) START-indexed scores (NEG for no token), exactly as the
+    fused backward kernel forms them: row j at q is the token of length
+    j+1 beginning at byte q, valid while it fits the run starting there."""
+    W = is_start.shape[0] - 1
+    dev = p1.device
+    q = torch.arange(W, device=dev)
+    j = torch.arange(L, device=dev)
+    sp = pad + q
+    ep = sp[:, None] + 1 + j[None, :]  # (W, L) padded end positions
+    fp1 = H.mul_i32(H.sub_i32(p1[ep], p1[sp][:, None, :]),
+                    rinv1[sp][:, None, None])
+    fp2 = H.mul_i32(H.sub_i32(p2[ep], p2[sp][:, None, :]),
+                    rinv2[sp][:, None, None])
+    lens = torch.arange(1, L + 1, dtype=torch.int64, device=dev)
+    fr = start_run_lengths(sid[pad : pad + W] >= 0, is_start[1:] != 0)
+    valid = lens.to(torch.int32)[None, :, None] <= fr[:, None, :]
+    return _probe_score(t1_fast, t2_fast, fp1, fp2, valid,
+                        du[sp][:, None, :] if dropout > 0.0 else None, lens,
+                        bits, dropout)
+
+
+def betas_hist0(is_end_w: torch.Tensor, L: int) -> torch.Tensor:
+    """(L, B) initial beta history: beta[W] = 0 where a sample ends at the
+    width, NEG otherwise."""
+    hist = torch.full((L, is_end_w.shape[0]), NEG, dtype=torch.float32,
+                      device=is_end_w.device)
+    hist[0] = torch.where(is_end_w, 0.0, NEG)
+    return hist
+
+
+def fused_backward_chunk_plain(t1_fast, t2_fast, p1, p2, rinv1, rinv2, sid,
+                               is_start, is_end, du, *, L: int, bits: int,
+                               pad: int, dropout: float = 0.0
+                               ) -> torch.Tensor:
+    W = is_start.shape[0] - 1
+    score = fused_backward_probe_plain(
+        t1_fast, t2_fast, p1, p2, rinv1, rinv2, sid, is_start, du, L=L,
+        bits=bits, pad=pad, dropout=dropout)
+    betas, _ = backward_betas_chunk_plain(
+        score, is_end[:W].to(torch.float32), betas_hist0(is_end[W] != 0, L))
+    return betas
+
+
+def fused_backward_chunk(t1_fast: torch.Tensor, t2_fast: torch.Tensor,
+                         p1: torch.Tensor, p2: torch.Tensor,
+                         rinv1: torch.Tensor, rinv2: torch.Tensor,
+                         sid: torch.Tensor, is_start: torch.Tensor,
+                         is_end: torch.Tensor, du: Optional[torch.Tensor],
+                         *, L: int, bits: int, pad: int,
+                         dropout: float = 0.0) -> torch.Tensor:
+    """Fused start-indexed probe + backward betas over the whole row
+    width, positions descending. Returns the post-reset betas (W, B) f32
+    (0 where a sample ends, NEG where no path reaches).
+
+    CUDA tensors launch csrc/fused_backward.cu on the current stream; CPU
+    tensors run `fused_backward_chunk_plain`."""
+    W = is_start.shape[0] - 1
+    B = is_start.shape[1]
+    use_drop = dropout > 0.0
+    shapes = _stream_shapes(t1_fast, t2_fast, p1, p2, rinv1, rinv2, sid,
+                            is_start, du, W, B, pad, use_drop)
+    shapes["is_end"] = (is_end, (W + 1, B), torch.uint8)
+    if not _check_fused(pad, L, bits, shapes, p1.device):
+        return fused_backward_chunk_plain(
+            t1_fast, t2_fast, p1, p2, rinv1, rinv2, sid, is_start, is_end,
+            du, L=L, bits=bits, pad=pad, dropout=dropout)
+    betas = torch.empty((W, B), dtype=torch.float32, device=p1.device)
+    if B == 0 or W == 0:
+        return betas
+    fn = _build.load("fused_backward")
+    dev = p1.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(t1_fast.data_ptr(), t2_fast.data_ptr(), p1.data_ptr(),
+                p2.data_ptr(), rinv1.data_ptr(), rinv2.data_ptr(),
+                sid.data_ptr(), is_start.data_ptr(), is_end.data_ptr(),
+                du.data_ptr() if use_drop else None, betas.data_ptr(),
+                W, L, B, pad, bits, int(use_drop),
+                dropout_threshold_half(dropout) if use_drop else 0, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"fused_backward_chunk launch failed: CUDA error {rc}")
+    fused_backward_chunk.launches += 1
+    return betas
+
+
+fused_backward_chunk.launches = 0

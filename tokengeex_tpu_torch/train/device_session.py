@@ -1,0 +1,478 @@
+"""Device training session: probe the corpus once, train many passes.
+
+Counterpart of tokengeex_tpu/train/device_session.py for one process on
+one device. During pruning the vocabulary only shrinks and gets rescored
+(reference: src/prune.rs:23-57), so with a stable-slot table
+(TokenTable.rebind) the (position, length) -> slot matching of the whole
+corpus never changes across EM sub-iterations, frequency passes and prune
+rounds. The session therefore:
+
+  - builds the token table once from the initial vocabulary and rebinds
+    ids and scores per model (slots never move);
+  - packs the corpus once and keeps each group's compact inputs on the
+    device under a budget;
+  - probes each row group once (dropout-free), remaps the probe slots to
+    the dense rank space (ops/lattice.py RankSpace) and keeps them under
+    a budget, with one SegStruct per group;
+  - on later passes re-gathers the current score per cached rank
+    (`estep_cached`), or, for tables small enough, re-probes inside the
+    fused kernels (`estep_fused`), applies fresh dropout coins per pass,
+    and turns the betas into counts through the scatter-free segsum.
+
+A group whose slots do not fit the budget takes the per-pass route of
+train/estep_device.py (probe, forward, marginals scattered into bins).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..models.unigram import Model
+from ..ops import lattice as lat
+from ..ops.match_table import TokenTable
+from ..utils.device import resolve_device
+from ..utils.packing import PackedBatch, pack_samples
+from . import estep_device as ed
+
+# Pack width of a session over a corpus that fills at least 128 such rows:
+# several snippets pack per row, so a wide row costs only its end padding
+# and gives the kernels long rows (the JAX package's TGX_PACK_WIDTH).
+PACK_WIDTH = 8192
+# Budgets on the CPU, where there is no device memory to size them from
+# (the JAX package's defaults). On a GPU the slot cache (slots and
+# SegStructs) may take half of the memory free at construction and the
+# input cache an eighth, leaving the rest for each group's transient
+# buffers (the probe, the forward and backward slabs, the sort).
+CPU_SLOT_CACHE_BYTES = 6 << 30
+CPU_INPUT_CACHE_BYTES = 4 << 30
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md, still to port: {item!r})")
+
+
+def _group_seed(seed: int, gi: int) -> int:
+    """Seed of group gi's dropout words in pass `seed`."""
+    return int(np.random.SeedSequence([seed, gi]).generate_state(
+        1, np.uint64)[0] >> np.uint64(1))
+
+
+class DeviceTrainSession:
+    def __init__(self, model: Model, samples: Sequence[bytes],
+                 max_snippet: Optional[int], kernel: Optional[str] = None,
+                 dtype=None, probe: Optional[str] = None,
+                 cache_budget: Optional[int] = None,
+                 local_shard: bool = False, device=None,
+                 timer: Optional[lat.PhaseTimer] = None):
+        """`samples` is the whole corpus. kernel=None lets tables small
+        enough (has_vscan) take the fused probe kernels; "slab" keeps every
+        group on the probed-slab kernels. device: a CUDA device by default,
+        "cpu" for the kernels' plain versions; without a GPU and without
+        `device` this raises. `timer` collects the construction's phases
+        (tables, pack); each pass takes its own."""
+        lat.check_f32(dtype, probe)
+        if local_shard:
+            raise _not_ported("local_shard=True", "Multi-GPU")
+        if kernel not in (None, "slab"):
+            raise ValueError(f"unknown kernel {kernel!r}")
+        self.dev = resolve_device(device)
+        self.samples = samples
+        self.max_snippet = ed._em_snippet_cap(max_snippet)
+        self.kernel = kernel
+        self.probe = probe
+        self.chunk = ed.CHUNK
+        with lat.phase(timer, "tables"):
+            self.base_tbl = TokenTable.build(model.vocab)
+            self.L = self.base_tbl.max_token_len
+            # Cached slots live in the dense rank space of the bucket
+            # probe, so the score regather reads a vocabulary-sized column
+            # and count bins stay vocabulary-sized.
+            self.rank = lat.build_rank_space(self.base_tbl)
+            self._lut_dev = None
+            self._model: Optional[Model] = None
+            self._rebind(model)
+        # The count structures are sized for the probe the table resolves
+        # by default; another slot space would misattribute counts.
+        default_mode = lat._probe_mode(self.dt)
+        requested = {"em": "fast"}.get(probe, probe)
+        if requested is not None and requested != default_mode:
+            raise ValueError(
+                f"DeviceTrainSession count structures are sized for the "
+                f"'{default_mode}' probe this table resolves to; "
+                f"probe={probe!r} would use a different slot space. Pass "
+                f"probe=None (per-probe overrides are supported by "
+                f"encode_corpus_device only).")
+        with lat.phase(timer, "pack"):
+            self.width = ed._pick_width(samples, self.max_snippet)
+            if PACK_WIDTH > self.width and \
+                    sum(len(s) for s in samples) >= PACK_WIDTH * 128:
+                self.width = PACK_WIDTH
+            self.packed = pack_samples(samples, width=self.width,
+                                       max_snippet=self.max_snippet)
+            self._long_set = {si for si, s in enumerate(samples)
+                              if self.max_snippet is not None
+                              and len(s) > self.max_snippet}
+        if self.dev.type == "cuda":
+            free, _ = torch.cuda.mem_get_info(self.dev)
+            default_cache, self.input_budget = free // 2, free // 8
+        else:
+            default_cache = CPU_SLOT_CACHE_BYTES
+            self.input_budget = CPU_INPUT_CACHE_BYTES
+        self.cache_budget = (default_cache if cache_budget is None
+                             else int(cache_budget))
+        self.cache_used = 0
+        self.input_used = 0
+        self.slot_cache: Dict[int, torch.Tensor] = {}
+        # One SegStruct per slot-cached group (None: over budget), sharing
+        # the slot cache's budget.
+        self.seg_cache: Dict[int, Optional[lat.SegStruct]] = {}
+        # Compact batch inputs on the device: the corpus crosses to the
+        # device once per session.
+        self.input_cache: Dict[object, tuple] = {}
+        self._group_list = None
+        self._span_idx: Dict[int, dict] = {}
+        self._freq_group_list = None
+
+    def close(self) -> None:
+        """Release the session's device memory (the slot, seg and input
+        caches hold up to their budgets for the whole prune loop), so the
+        next stage starts with a clean device heap. The session is
+        unusable afterwards."""
+        self.slot_cache.clear()
+        self.seg_cache.clear()
+        self.input_cache.clear()
+        self.dt = None
+        self.tbl = None
+        self.slot_rows = None
+        self._lut_dev = None
+        self._model = None
+        self.cache_used = 0
+        self.input_used = 0
+
+    # -- Model binding ------------------------------------------------------
+
+    def _rebind(self, model: Model) -> None:
+        if model is self._model:
+            return
+        tbl = self.base_tbl.rebind(model.vocab)
+        self.tbl = tbl
+        self.dt = lat.DeviceTables.from_table(tbl, self.dev)
+        # Rank-indexed scores and the rank -> id map of this binding; the
+        # rank space itself is fixed for the session.
+        self.slot_rows = lat.rank_score_rows(self.rank, tbl, self.dev)
+        self.rank_ids = lat.rank_to_ids(self.rank, tbl)
+        self._model = model
+
+    def _nbins(self) -> int:
+        """Count-bin space of the cached slot arrays: the dense ranks."""
+        return self.rank.n_pad
+
+    def _remap(self, slots: torch.Tensor) -> torch.Tensor:
+        """Probe slots -> dense ranks, once per cached group."""
+        if self._lut_dev is None:
+            self._lut_dev = torch.as_tensor(self.rank.lut, device=self.dev)
+        return lat.remap_slots(self._lut_dev, slots)
+
+    def _fold(self, acc: Optional[torch.Tensor]) -> np.ndarray:
+        """Count accumulator -> per-token expected counts (V,)."""
+        if acc is None:
+            return np.zeros(self.dt.vocab_size, dtype=np.float64)
+        return lat.fold_expected_rank(acc, self.rank_ids, self.dt.vocab_size)
+
+    # -- Group machinery ----------------------------------------------------
+
+    def _groups(self):
+        if self._group_list is None:
+            self._group_list = list(ed._padded_groups(
+                self.packed, self.width, ed.ROW_MULT))
+        return self._group_list
+
+    def _span_arrays(self, gi: int, sub: PackedBatch, cache=None,
+                     long_set=None) -> dict:
+        """Per-group span bookkeeping, made once: the normaliser indices,
+        byte and sample tallies, and the whole-sample spans the frequency
+        pass counts."""
+        if cache is None:
+            cache = self._span_idx
+        if long_set is None:
+            long_set = self._long_set
+        if gi not in cache:
+            spans = sub.spans
+            whole = [sp for sp in spans if sp[3] not in long_set]
+            cache[gi] = {
+                "spans": spans,
+                "z": ([r for (r, _, _, _, _) in spans],
+                      [e for (_, _, e, _, _) in spans]),
+                "nbytes": sum(e - s for (_, s, e, _, _) in spans),
+                "nsamples": len({si for (_, _, _, si, _) in spans}),
+                "whole": whole,
+                "whole_rows": [r for (r, _, _, _, _) in whole],
+                "whole_ends": [max(e - 1, 0) for (_, _, e, _, _) in whole],
+            }
+        return cache[gi]
+
+    def _freq_groups(self):
+        """Row groups of the frequency pass. Where every sample fits one
+        EM snippet they are the EM groups (and their cached slots apply);
+        otherwise the corpus packs again at the encode width, so samples up
+        to MAX_ENCODE_WIDTH count whole and only longer ones take the
+        chained encode."""
+        if self._freq_group_list is None:
+            longest = max((len(s) for s in self.samples), default=1)
+            if self.max_snippet is None or longest <= self.max_snippet:
+                self._freq_group_list = self._groups()
+                self._freq_span_idx = self._span_idx
+                self._freq_long = self._long_set
+                self._freq_shared = True
+                return self._freq_group_list
+            cap = ed.MAX_ENCODE_WIDTH
+            width = ed._pick_width(self.samples, cap)
+            packed = pack_samples(self.samples, width=width, max_snippet=cap)
+            self._freq_group_list = list(ed._padded_groups(packed, width,
+                                                           ed.ROW_MULT))
+            self._freq_span_idx = {}
+            self._freq_long = {si for si, s in enumerate(self.samples)
+                               if len(s) > cap}
+            self._freq_shared = False
+        return self._freq_group_list
+
+    def _freq_info(self, gi: int, sub: PackedBatch) -> dict:
+        return self._span_arrays(gi, sub, cache=self._freq_span_idx,
+                                 long_set=self._freq_long)
+
+    def _batch_for(self, gi, sub: PackedBatch, timer=None) -> lat.DeviceBatch:
+        """The group's DeviceBatch, from compact inputs cached on the
+        device under the input budget."""
+        with lat.phase(timer, "prep"):
+            if gi in self.input_cache:
+                gbytes, gflags = self.input_cache[gi]
+            else:
+                gbytes, gflags = lat.prepare_batch_inputs(sub, self.dev)
+                size = gbytes.numel() + gflags.numel()
+                if self.input_used + size <= self.input_budget:
+                    self.input_cache[gi] = (gbytes, gflags)
+                    self.input_used += size
+            return lat.prepare_batch_from_inputs(gbytes, gflags, self.L)
+
+    def _freq_batch(self, gi: int, sub: PackedBatch, timer=None):
+        """Like _batch_for, under keys of their own when the frequency
+        packing differs from the EM packing."""
+        key = gi if self._freq_shared else ("freq", gi)
+        return self._batch_for(key, sub, timer)
+
+    def _probe_group(self, gi: int, batch: lat.DeviceBatch, timer=None):
+        """(score, slots) of a group: the cached ranks with their scores
+        re-gathered, or a dropout-free probe whose ranks are cached under
+        the budget."""
+        if gi in self.slot_cache:
+            slots = self.slot_cache[gi]
+            with lat.phase(timer, "regather"):
+                score = lat.score_from_slots(self.slot_rows, slots)
+            return score, slots
+        with lat.phase(timer, "probe"):
+            score, slots = lat.match_cache(self.dt, batch, C=self.chunk)
+        with lat.phase(timer, "remap"):
+            slots = self._remap(slots)
+        size = slots.numel() * 4
+        if self.cache_used + size <= self.cache_budget:
+            self.slot_cache[gi] = slots
+            self.cache_used += size
+        return score, slots
+
+    def _fused(self) -> bool:
+        """Whether this binding takes the fused probe kernels."""
+        return self.kernel is None and lat.has_vscan(self.dt)
+
+    def _fused_seg(self, gi: int, batch: lat.DeviceBatch, timer=None):
+        """SegStruct for the fused E-step (probing the group once to build
+        it); None when over budget."""
+        if gi in self.seg_cache:
+            return self.seg_cache[gi]
+        _, slots = self._probe_group(gi, batch, timer)
+        if gi not in self.slot_cache:
+            return None  # over budget: the caller probes every pass
+        seg = self._seg_for(gi, slots, timer)
+        if seg is not None:
+            # The fused kernels re-probe in-kernel: once the SegStruct
+            # exists the slots have no further reader.
+            del self.slot_cache[gi]
+            self.cache_used -= slots.numel() * 4
+        return seg
+
+    def _seg_for(self, gi: int, slots: torch.Tensor, timer=None):
+        """SegStruct of a slot-cached group, built once and reused by every
+        later pass (slots are static across rebinds); None when over
+        budget, remembered so that no pass rebuilds it."""
+        if gi in self.seg_cache:
+            return self.seg_cache[gi]
+        if gi not in self.slot_cache:
+            return None
+        W, L, B = slots.shape
+        # Optimistic pre-check (compaction shrinks the hit lists >= 4x);
+        # the actual size gates caching after the build.
+        if self.cache_used + lat.SegStruct.est_bytes(B, L, W) // 4 \
+                > self.cache_budget:
+            return None
+        with lat.phase(timer, "seg_build"):
+            seg = lat.build_seg_struct(slots, self._nbins())
+        if self.cache_used + seg.nbytes() > self.cache_budget:
+            self.seg_cache[gi] = None
+            return None
+        self.seg_cache[gi] = seg
+        self.cache_used += seg.nbytes()
+        return seg
+
+    # -- Passes -------------------------------------------------------------
+
+    def e_step(self, model: Model, dropout: float, seed: int, task=None,
+               timer: Optional[lat.PhaseTimer] = None) -> np.ndarray:
+        """Expected token counts (reference: src/prune.rs:64-120), (V,)
+        float64, reusing the cached slots across calls. dropout > 0 draws
+        each group's coins from a torch.Generator seeded with (seed,
+        group), so a seed gives the same counts on every call. `timer`
+        collects the seconds per phase (tables: the rebind, prep, probe,
+        remap, seg_build, regather, forward, backward, segsum, fold)."""
+        with lat.phase(timer, "tables"):
+            self._rebind(model)
+        acc = None
+        z_parts, z_spans = [], []
+        for gi, sub in self._groups():
+            batch = self._batch_for(gi, sub, timer)
+            drop_u = None
+            if dropout > 0.0:
+                gen = torch.Generator(device=self.dev).manual_seed(
+                    _group_seed(seed, gi))
+                drop_u = ed._drop_words(gen, batch.p1.shape[0],
+                                        batch.sid.shape[1], self.dev)
+            if self._fused() and \
+                    (seg := self._fused_seg(gi, batch, timer)) is not None:
+                # Steady state of small tables: both scans re-probe in
+                # their kernels, the SegStruct turns betas into counts.
+                A, exp_g = lat.estep_fused(self.dt, batch, seg,
+                                           self.slot_rows, drop_u, dropout,
+                                           timer)
+            elif gi in self.slot_cache:
+                # Steady state: scores re-gathered per cached rank.
+                slots = self.slot_cache[gi]
+                A, exp_g = lat.estep_cached(
+                    self.dt, batch, slots, self.slot_rows,
+                    self._seg_for(gi, slots, timer), self.chunk, drop_u,
+                    dropout, timer)
+            else:
+                # First pass (the probe is cached under the budget), or a
+                # group over budget, which probes on every pass.
+                score, slots = self._probe_group(gi, batch, timer)
+                cache = (score, slots)
+                A = lat.forward(self.dt, batch, cache, self.chunk, drop_u,
+                                dropout, timer)
+                seg = self._seg_for(gi, slots, timer)
+                if seg is not None:
+                    Bt = lat.backward_betas(self.dt, batch, cache,
+                                            self.chunk, drop_u, dropout,
+                                            timer)
+                    exp_g = lat.segsum_expected(self.dt, batch, A, Bt, seg,
+                                                self.slot_rows, drop_u,
+                                                dropout, timer)
+                else:
+                    exp_g = lat.backward_expected(
+                        self.dt, batch, A, cache, self.chunk, drop_u,
+                        dropout, nbins=self._nbins(), timer=timer)
+                del score, cache
+            acc = exp_g if acc is None else acc.add_(exp_g)
+            info = self._span_arrays(gi, sub)
+            if info["spans"]:
+                z_parts.append(lat.pick_span_values_device(A, *info["z"]))
+                z_spans.extend(info["spans"])
+            if task is not None:
+                task.record(info["nbytes"], info["nsamples"])
+        with lat.phase(timer, "fold"):
+            expected = self._fold(acc)
+            z = (torch.cat(z_parts).cpu().numpy() if z_parts
+                 else np.zeros(0, np.float32))
+        # Per-snippet normaliser check (reference: src/prune.rs:90-96),
+        # read back once for the whole pass.
+        bad = np.nonzero(~np.isfinite(z))[0]
+        if bad.size:
+            k = int(bad[0])
+            raise ValueError(
+                f"normalization constant is not finite "
+                f"(z={float(z[k])}, sample={z_spans[k][3]})")
+        return expected
+
+    def count_frequencies(self, model: Model, task=None,
+                          timer: Optional[lat.PhaseTimer] = None
+                          ) -> np.ndarray:
+        """Viterbi token frequencies (reference: src/prune.rs:205-246),
+        (V,) int64. Whole samples count through the session's groups (the
+        cached ranks where the frequency packing is the EM packing and the
+        table takes the slab route, the fused kernel on small tables, a
+        probed slab otherwise), their backpointers walked on the host;
+        samples longer than the frequency packing's cap take the chained
+        encode over the session's table. `timer` collects the seconds per
+        phase (tables: the rebind, prep, probe, regather, kernel,
+        readback, backtrack)."""
+        with lat.phase(timer, "tables"):
+            self._rebind(model)
+        V = model.vocab_size()
+        freqs = np.zeros(V, dtype=np.int64)
+        index = lat.TokenIndex(model.oracle.token_to_ids)
+        groups = self._freq_groups()
+
+        def drain(pending) -> None:
+            sub, dp_ends, best_l, spans_whole = pending
+            if not spans_whole:
+                return
+            with lat.phase(timer, "readback"):
+                best_l_host = best_l.to(torch.int8).cpu().numpy()
+                dp_host = dp_ends.cpu().numpy()
+            view = PackedBatch(sub.bytes_arr, sub.sample_id, sub.is_start,
+                               sub.end_index, spans_whole)
+            with lat.phase(timer, "backtrack"):
+                ids = lat.backtrack(view, dp_host, best_l_host, index)
+                flat = np.concatenate([np.asarray(r, np.int64) for r in ids])
+                freqs[:] += np.bincount(flat, minlength=V)
+            if task is not None:
+                task.record(sum(e - s for (_, s, e, _, _) in spans_whole),
+                            len({sp[3] for sp in spans_whole}))
+
+        pending = None
+        for gi, sub in groups:
+            batch = self._freq_batch(gi, sub, timer)
+            if self._freq_shared and not self._fused() \
+                    and gi in self.slot_cache:
+                dp, best_l = lat.viterbi_cached(
+                    self.dt, batch, self.slot_cache[gi], self.slot_rows,
+                    C=self.chunk, timer=timer)
+            else:
+                dp, best_l = lat.viterbi(
+                    self.dt, batch, C=self.chunk,
+                    backend="fused" if self._fused() else "slab",
+                    timer=timer)
+            info = self._freq_info(gi, sub)
+            dp_ends = (lat.pick_span_values_device(
+                dp, info["whole_rows"], info["whole_ends"])
+                if info["whole"] else None)
+            # One group deep: the host walks group g-1 while the device
+            # runs group g.
+            if pending is not None:
+                drain(pending)
+            pending = (sub, dp_ends, best_l, info["whole"])
+        if pending is not None:
+            drain(pending)
+
+        long_idx = sorted(self._freq_long)
+        if long_idx:
+            encoded = ed.encode_corpus_device(
+                model, [self.samples[si] for si in long_idx], table=self.tbl,
+                device=self.dev, timer=timer)
+            ids = [np.asarray(r, np.int64) for r in encoded if r]
+            if ids:
+                freqs += np.bincount(np.concatenate(ids), minlength=V)
+            if task is not None:
+                task.record(sum(len(self.samples[si]) for si in long_idx),
+                            len(long_idx))
+        return freqs

@@ -141,6 +141,7 @@ def encode_corpus_device(
     dtype=None,
     device=None,
     timer: Optional[lat.PhaseTimer] = None,
+    table: Optional[TokenTable] = None,
 ) -> List[List[int]]:
     """Viterbi-encode all samples on the device with the reference's
     semantics, NoPath included (src/model.rs:59-129). dropout > 0
@@ -155,12 +156,14 @@ def encode_corpus_device(
     windows with a carried dp tail. probe selects the slab route's
     table layout ("bucket"/"fast"; "em" is an alias of "fast").
     `timer` collects the seconds per phase (tables, pack, prep, probe,
-    kernel, readback, backtrack)."""
+    kernel, readback, backtrack). `table` is a TokenTable bound to
+    `model` to use instead of building one (a training session's)."""
     lat.check_f32(dtype, probe)
     dev = resolve_device(device)
     with lat.phase(timer, "tables"):
-        hb, hl = table_hints or (None, None)
-        table = TokenTable.build(model.vocab, min_bits=hb, min_len=hl)
+        if table is None:
+            hb, hl = table_hints or (None, None)
+            table = TokenTable.build(model.vocab, min_bits=hb, min_len=hl)
         dt = lat.DeviceTables.from_table(table, dev)
         index = lat.TokenIndex(model.oracle.token_to_ids)
     L = dt.max_len

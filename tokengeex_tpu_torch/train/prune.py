@@ -7,7 +7,8 @@ target vocabulary size is reached.
 
 E-step and frequency backends:
   - device: the packed-batch forward/backward DPs and the Viterbi encode
-    on the GPU (train/estep_device.py), probing the corpus anew each pass;
+    on the GPU through one DeviceTrainSession per prune run
+    (train/device_session.py), which probes the corpus once;
   - oracle: pure Python f64 lattices (tests only).
 The M-step, alternatives, and loss ranking are cheap host-side steps.
 """
@@ -25,7 +26,7 @@ import torch
 from ..core.types import ScoredToken
 from ..models.unigram import Model
 from ..utils.task import Task
-from . import estep_device as ed
+from .device_session import DeviceTrainSession, _not_ported
 
 log = logging.getLogger(__name__)
 
@@ -80,11 +81,6 @@ def digamma_np(x: np.ndarray) -> np.ndarray:
     return result
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, still to port: {item!r})")
-
-
 @dataclasses.dataclass
 class VocabularyPruner:
     """reference: src/prune.rs:6-21 (defaults from src/cli.rs:687-689)."""
@@ -123,16 +119,38 @@ class VocabularyPruner:
     def prune(self, model: Model, samples: Sequence[bytes],
               checkpoint_cb=None) -> Model:
         """reference: src/prune.rs:23-57."""
-        # Pin device table shapes to the initial vocabulary so every EM
-        # round builds tables of the same shapes.
-        self._table_hints = (
-            max(8, int(math.ceil(math.log2(max(model.vocab_size(), 1)))) + 1),
-            max((len(t.value) for t in model.vocab), default=1),
-        )
         # The loss normalizer is the sample count
         # (reference: src/prune.rs:283 uses the full corpus).
         self._n_samples = len(samples)
-        return self._prune_loop(model, samples, checkpoint_cb)
+        # The device backend probes the corpus once per prune run and
+        # reuses the session's caches across EM sub-iterations, frequency
+        # passes and rounds (the vocabulary only shrinks while pruning).
+        self._session = (self._new_session(model, samples)
+                         if self.backend == "device" else None)
+        try:
+            return self._prune_loop(model, samples, checkpoint_cb)
+        finally:
+            # Free the session's device caches for the next stage.
+            if self._session is not None:
+                self._session.close()
+                self._session = None
+
+    def _new_session(self, model: Model, samples) -> DeviceTrainSession:
+        return DeviceTrainSession(model, samples, MAX_SAMPLE_LENGTH,
+                                  dtype=self.device_dtype,
+                                  device=self.device)
+
+    def _with_session(self, model: Model, samples, fn):
+        """fn(session): prune()'s session, or, for a call outside
+        prune(), one built for this call."""
+        session = getattr(self, "_session", None)
+        if session is not None:
+            return fn(session)
+        session = self._new_session(model, samples)
+        try:
+            return fn(session)
+        finally:
+            session.close()
 
     def _prune_loop(self, model: Model, samples: Sequence[bytes],
                     checkpoint_cb=None) -> Model:
@@ -186,12 +204,9 @@ class VocabularyPruner:
         task.start()
         try:
             if self.backend == "device":
-                expected = ed.run_e_step_device(
-                    model, samples, self.dropout, MAX_SAMPLE_LENGTH, task,
-                    seed=seed,
-                    table_hints=getattr(self, "_table_hints", None),
-                    device=self.device,
-                )
+                expected = self._with_session(
+                    model, samples,
+                    lambda s: s.e_step(model, self.dropout, seed, task))
             else:
                 expected = self._estep_oracle(model, samples, task, seed)
         finally:
@@ -351,11 +366,8 @@ class VocabularyPruner:
 
     def _count_frequencies(self, model: Model, samples, task) -> np.ndarray:
         if self.backend == "device":
-            return ed.count_frequencies_device(
-                model, samples, task,
-                table_hints=getattr(self, "_table_hints", None),
-                device=self.device,
-            )
+            return self._with_session(
+                model, samples, lambda s: s.count_frequencies(model, task))
         freqs = np.zeros(model.vocab_size(), dtype=np.int64)
         for s in samples:
             for tid in model.oracle.encode(s.decode("utf-8", errors="strict")):
