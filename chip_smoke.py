@@ -14,7 +14,14 @@ Phases (any failure exits non-zero):
      with best_l / hist / rl equal and dp within rtol 1e-6; forward_chunk,
      backward_chunk and its betas mode on seeded slabs with 40 % NEG holes
      and a step with no candidate, A, marg and betas within rtol 1e-5 and
-     hist within rtol 1e-6; fused_forward_chunk(logsumexp) and
+     hist within rtol 1e-6; the whole-width scans forward_scan and
+     backward_betas_scan (the same two kernels as forward_chunk and the
+     betas mode, the session's route) on the session's first group of
+     the 32k vocabulary (W = 8192, L = 16, 512 rows, its start-indexed
+     cache, chains cut every SCAN_SEGMENT positions) at dropout 0 and
+     0.1, within rtol 1e-5, and one chain alone (B = 1) for the latency
+     of a step, which times the longest chain gives the chain floor;
+     fused_forward_chunk(logsumexp) and
      fused_backward_chunk on a session group of the 4k vocabulary
      (W = 8192, 512 rows) at dropout 0 and 0.1, and seg_weights on seeded
      inputs at H = 2^22 with n_hit inside the last block, A, betas and cf
@@ -41,12 +48,13 @@ Phases (any failure exits non-zero):
      package's f32 E-step: tests/test_torch_estep_oracle.py); prints
      bytes/s and the time per phase, at both dropouts;
   3d. the probe-once training session, DeviceTrainSession on the card,
-     for (a) (cached route: forward_chunk, backward_chunk's betas mode,
+     for (a) (cached route: forward_scan, backward_betas_scan,
      seg_weights) and (b) (fused route: fused_forward_chunk(logsumexp),
      fused_backward_chunk, seg_weights) at dropout 0 and 0.05: the first
      pass (probe, remap, SegStruct build) and a steady-state pass timed
      apart, with bytes/s and a synchronised phase split of each; the
-     route's kernels launched; at dropout 0 the second pass equal to the
+     route's kernels launched, each scan once per group in a steady pass;
+     at dropout 0 the second pass equal to the
      first, the counts within rtol 1e-3 / atol 1e-4 per token and 1e-4 on
      the total of run_e_step_device on the card (segsum against scatter,
      and expf ulps), and a session over the first 64 samples within 2e-3
@@ -502,6 +510,66 @@ def check_backward_betas(lc, C: int, L: int, B: int, dev):
             "shape": {"C": C, "L": L, "B": B}}
 
 
+def check_scans(lat, lc, lcf, tbl, batch, dev):
+    """forward_scan and backward_betas_scan against their twins on one
+    group's start-indexed cache at dropout 0 and 0.1; one chain alone
+    for the latency of a step."""
+    cache = lat.match_cache(tbl, batch)[0]
+    W, L, B = cache.shape
+    chains = lat.chain_bounds(batch)
+    K = chains[0].shape[0] - 1
+    flags = {"forward": batch.is_start[:, 1:].t().float().contiguous(),
+             "backward": batch.is_end[:, :W].t().float().contiguous()}
+    hist = {"forward": lat._hist0(batch, L, None).clamp(min=lc.NEG).t()
+            .contiguous(),
+            "backward": lcf.betas_hist0(batch.is_end[:, W], L)}
+    fns = {"forward": (lc.forward_scan, lc.forward_scan_plain),
+           "backward": (lc.backward_betas_scan, lc.backward_betas_scan_plain)}
+    out = {}
+    for i, name in enumerate(("forward", "backward")):
+        fn, plain = fns[name]
+        res = {"longest_chain": int((chains[i][1:] - chains[i][:-1]).max()),
+               "chains": K * B}
+        for dropout in (0.0, 0.1):
+            args = (cache, flags[name], hist[name], chains[i])
+            kw = {"pad": batch.pad}
+            du = drop_words(batch, dropout, dev)
+            if du is not None:
+                kw.update(du=du.t().contiguous(), dropout=dropout)
+            want = []
+            plain_ms = cuda_ms(lambda: want.append(plain(*args, **kw)),
+                               iters=1, warmup=0)
+            got = fn(*args, **kw)
+            torch.cuda.synchronize()
+            err = assert_rel(got, want[0], f"{name}_scan (dropout "
+                             f"{dropout})", 1e-5)
+            ms = cuda_ms(lambda: fn(*args, **kw), iters=20)
+            # Bytes: the cache, flags, history, chain bounds and dropout
+            # words read once, the values written once. Operations: per
+            # (position, length) an add, a max, a subtraction, an exp and
+            # an add, and per position the log and the reset.
+            nbytes = (4 * (W * L * B + 2 * W * B + L * B + (K + 1) * B)
+                      + (du.numel() * 4 if du is not None else 0))
+            b_ms, b_by = bound(nbytes, 5 * W * L * B + 4 * W * B)
+            res[f"dropout_{dropout}"] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by}
+            log(f"{name}_scan (W={W}, L={L}, B={B}, {K} segments, dropout "
+                f"{dropout}): {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}), max |err| {err}")
+        one = [t[..., :1].contiguous() for t in (cache, flags[name],
+                                                 hist[name])]
+        one_ms = cuda_ms(lambda: fn(*one), iters=5)
+        res["us_per_step"] = one_ms * 1e3 / W
+        res["chain_floor_ms"] = res["longest_chain"] * one_ms / W
+        log(f"{name}_scan: one chain (B=1, W={W}) {one_ms:.4f} ms = "
+            f"{res['us_per_step']:.4f} us per step; longest chain "
+            f"{res['longest_chain']} steps -> chain floor "
+            f"{res['chain_floor_ms']:.4f} ms")
+        out[name] = res
+    return out
+
+
 def check_seg_weights(lcs, H: int, dev):
     g = torch.Generator().manual_seed(6)
     # Hits' [alpha - Z] and betas, score differences with block anchors:
@@ -646,7 +714,7 @@ def run_estep(name, vocab, samples, kernels, dev):
     counts = estep(samples)
     secs = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in kernels.items()}
-    for k in ("forward_chunk", "backward_chunk"):
+    for k in ("forward_scan", "backward_chunk"):
         check(launches[k] > 0, f"{name}: the E-step launched {k} no time")
     check(bool(np.isfinite(counts).all()) and counts.sum() > 0,
           f"{name}: E-step counts not finite")
@@ -761,9 +829,16 @@ def run_session(name, vocab, samples, expect, kernels, oracle, dev):
                  "cache_bytes": sess.cache_used,
                  "cache_budget": sess.cache_budget}
         steady_timer = lat.PhaseTimer(dev)
+        for fn in kernels.values():
+            fn.launches = 0
         t0 = time.perf_counter()
         sess.e_step(model, dropout, 3, timer=steady_timer)
         steady_t_s = time.perf_counter() - t0
+        steady_launches = {k: fn.launches for k, fn in kernels.items()}
+        for k in expect[:2]:
+            check(steady_launches[k] == len(groups),
+                  f"{tag}: a steady pass launched {k} "
+                  f"{steady_launches[k]} times for {len(groups)} groups")
         busy = (device_busy(lambda: sess.e_step(model, dropout, 3))
                 if dropout == 0.0 else None)
         sess.close()
@@ -782,7 +857,8 @@ def run_session(name, vocab, samples, expect, kernels, oracle, dev):
             return {k: round(v, 6) for k, v in timer.seconds.items()}
 
         log(f"{tag} session {shape}; built in {build_s:.3f} s "
-            f"{split(ctor)}; launches {launches}")
+            f"{split(ctor)}; launches {launches}; a steady pass's "
+            f"{steady_launches}")
         log(f"{tag} first pass {first_s:.3f} s = {total / first_s / 1e6:.2f} "
             f"MB/s; steady pass {steady_s:.3f} s = "
             f"{total / steady_s / 1e6:.2f} MB/s; total count "
@@ -800,7 +876,8 @@ def run_session(name, vocab, samples, expect, kernels, oracle, dev):
                "first_phases_run_seconds": first_t_s,
                "steady_phases": split(steady_timer),
                "steady_phases_run_seconds": steady_t_s,
-               "launches": launches, "total_count": float(first.sum()),
+               "launches": launches, "steady_launches": steady_launches,
+               "total_count": float(first.sum()),
                "second_equals_first": bool(np.array_equal(first, second))}
         if busy is not None:
             log(f"{tag} profiled steady pass: device busy "
@@ -916,7 +993,7 @@ def run_prune(vocab, target: int, samples, kernels, dev):
              "dropped a byte token the corpus needs")
     secs = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in kernels.items()}
-    for k in ("forward_chunk", "backward_betas_chunk", "seg_weights",
+    for k in ("forward_scan", "backward_betas_scan", "seg_weights",
               "viterbi_chunk"):
         check(launches[k] > 0, f"prune: launched {k} no time")
     check(len(sessions) == 1 and pruner._session is None
@@ -991,13 +1068,16 @@ def main() -> None:
     em_width = ed._pick_width(samples, ed.DEVICE_EM_SNIPPET)
     em_rows = ed.GROUP_BYTES // em_width
     sess_rows = ed.GROUP_BYTES // ds.PACK_WIDTH
+    sess_segs = -(-ds.PACK_WIDTH // lat.SCAN_SEGMENT)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     log(f"corpus {sum(map(len, samples))} bytes in {len(samples)} samples; "
         f"encode: pack width {width}, {rows} rows per group = {rows} "
         f"threads in {-(-rows // 32)} one-warp blocks; E-step: width "
         f"{em_width}, {em_rows} rows = {-(-em_rows // 32)} blocks; "
         f"session: width {ds.PACK_WIDTH}, {sess_rows} rows = "
-        f"{-(-sess_rows // 32)} blocks; {sms} SMs")
+        f"{-(-sess_rows // 32)} blocks per chunk kernel, "
+        f"{sess_segs * -(-sess_rows // 32)} one-warp blocks per scan "
+        f"({sess_segs} segments of {lat.SCAN_SEGMENT}); {sms} SMs")
 
     # -- 2. kernels against their plain versions --
     phase_start("2")
@@ -1027,7 +1107,11 @@ def main() -> None:
                  for d in (0.0, 0.1)]
     fused_bwd = [check_fused_backward(lat, lcf, dt_b, batch_s, d, dev)
                  for d in (0.0, 0.1)]
-    del batch_s, batch
+    # The same group with the 32k vocabulary's cache: the session's
+    # cached route.
+    dt_a = lat.DeviceTables.from_table(TokenTable.build(vocab_a), dev)
+    scans = check_scans(lat, lc, lcf, dt_a, batch_s, dev)
+    del batch_s, batch, dt_a
     torch.cuda.empty_cache()
 
     # -- 3. end to end --
@@ -1035,8 +1119,10 @@ def main() -> None:
     kernels = {"viterbi_chunk": lc.viterbi_chunk,
                "fused_forward_chunk": lcf.fused_forward_chunk,
                "forward_chunk": lc.forward_chunk,
+               "forward_scan": lc.forward_scan,
                "backward_chunk": lc.backward_chunk,
                "backward_betas_chunk": lc.backward_betas_chunk,
+               "backward_betas_scan": lc.backward_betas_scan,
                "fused_backward_chunk": lcf.fused_backward_chunk,
                "seg_weights": lcs.seg_weights}
     e2e = {
@@ -1058,7 +1144,7 @@ def main() -> None:
     phase_start("3d")
     session = {
         "a_32k": run_session("a: 32768 tokens", vocab_a, samples,
-                             ("forward_chunk", "backward_betas_chunk",
+                             ("forward_scan", "backward_betas_scan",
                               "seg_weights"), kernels,
                              estep["a_32k"]["oracle_total"], dev),
         "b_4k": run_session("b: 4096 tokens", vocab_b, samples,
@@ -1096,12 +1182,18 @@ def main() -> None:
               f"{fused_py}:377", b_sess["fused_forward_chunk"], fused_lse[0],
               max(f["max_abs_err"] for f in fused_lse)),
         entry("forward_chunk", "forward_chunk.cu", f"{pallas}:176",
-              pruned["launches"]["forward_chunk"], fwd),
+              pruned["launches"]["forward_scan"],
+              scans["forward"]["dropout_0.0"],
+              max(scans["forward"][f"dropout_{d}"]["max_abs_err"]
+                  for d in (0.0, 0.1))),
         entry("backward_chunk", "backward_chunk.cu", f"{pallas}:238",
               estep["a_32k"]["launches"]["backward_chunk"], bwd),
         entry("backward_chunk(betas)", "backward_chunk.cu",
               "tokengeex_tpu/ops/lattice_jax.py:1742",
-              pruned["launches"]["backward_betas_chunk"], betas),
+              pruned["launches"]["backward_betas_scan"],
+              scans["backward"]["dropout_0.0"],
+              max(scans["backward"][f"dropout_{d}"]["max_abs_err"]
+                  for d in (0.0, 0.1))),
         entry("fused_backward_chunk", "fused_backward.cu", f"{fused_py}:444",
               b_sess["fused_backward_chunk"], fused_bwd[0],
               max(f["max_abs_err"] for f in fused_bwd)),
@@ -1112,7 +1204,8 @@ def main() -> None:
               "cuda": torch.version.cuda, "build_seconds": build_s,
               "viterbi_chunk": vit, "fused_forward": fused,
               "forward_chunk": fwd, "backward_chunk": bwd,
-              "backward_betas_chunk": betas, "seg_weights": seg,
+              "backward_betas_chunk": betas, "scans": scans,
+              "seg_weights": seg,
               "fused_forward_logsumexp": fused_lse,
               "fused_backward": fused_bwd, "encode": e2e, "estep": estep,
               "session": session, "prune": pruned,

@@ -171,11 +171,11 @@ def test_cuda_backward_chunk_matches_twin(cuda_device, L):
 @pytest.mark.parametrize("hints,probe", [(None, None), ((16, None), "fast")])
 def test_cuda_e_step_matches_cpu(cuda_device, hints, probe):
     model, samples = _corpus(600, seed=2)
-    counts = (lc.forward_chunk.launches, lc.backward_chunk.launches)
+    counts = (lc.forward_scan.launches, lc.backward_chunk.launches)
     got = ed.run_e_step_device(model, samples, dropout=0.0, max_snippet=1024,
                                probe=probe, table_hints=hints,
                                device=cuda_device)
-    assert lc.forward_chunk.launches > counts[0]
+    assert lc.forward_scan.launches > counts[0]
     assert lc.backward_chunk.launches > counts[1]
     want = ed.run_e_step_device(model, samples, dropout=0.0,
                                 max_snippet=1024, probe=probe,
@@ -266,6 +266,63 @@ def test_cuda_backward_betas_chunk_matches_twin(cuda_device, L):
     _assert_close(got[1], want[1], TOL["hist"])
 
 
+def _scan_inputs(L, dropout, dev, direction):
+    """A whole-width scan's arguments on a packed batch of the `_corpus`
+    vocabulary at token length L: 48 rows (not a multiple of the 32-row
+    warp), its start-indexed cache, chains cut every 64 positions, and
+    dropout words."""
+    model, samples = _corpus(600, max_len=L)
+    tbl = lat.DeviceTables.from_table(
+        TokenTable.build(model.vocab, min_bits=16), dev)
+    assert tbl.max_len == L
+    batch = lat.prepare_batch(pack_samples(samples, width=1024), L, dev)
+    assert batch.p1.shape[0] % 32 != 0
+    W = batch.width
+    cache = lat.match_cache(tbl, batch, C=512)[0]
+    fwd, bwd = lat.chain_bounds(batch, 64)
+    if direction == "forward":
+        args = (cache, batch.is_start[:, 1:].t().float().contiguous(),
+                lat._hist0(batch, L, None).clamp(min=lc.NEG).t().contiguous(),
+                fwd)
+    else:
+        args = (cache, batch.is_end[:, :W].t().float().contiguous(),
+                lcf.betas_hist0(batch.is_end[:, W], L), bwd)
+    kw = {"pad": batch.pad}
+    if dropout:
+        gen = torch.Generator(device=dev).manual_seed(L)
+        du = torch.randint(-(2**31), 2**31 - 1, tuple(batch.sid.shape),
+                           generator=gen, dtype=torch.int32, device=dev)
+        kw.update(du=du.t().contiguous(), dropout=dropout)
+    return args, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("L", [8, 16, 32])
+def test_cuda_forward_scan_matches_twin(cuda_device, L, dropout):
+    args, kw = _scan_inputs(L, dropout, cuda_device, "forward")
+    want = lc.forward_scan_plain(*args, **kw)
+    before = lc.forward_scan.launches
+    got = lc.forward_scan(*args, **kw)
+    torch.cuda.synchronize()
+    assert lc.forward_scan.launches == before + 1
+    _assert_close(got, want, TOL["a"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("L", [8, 16, 32])
+def test_cuda_backward_betas_scan_matches_twin(cuda_device, L, dropout):
+    args, kw = _scan_inputs(L, dropout, cuda_device, "backward")
+    want = lc.backward_betas_scan_plain(*args, **kw)
+    before = lc.backward_betas_scan.launches
+    got = lc.backward_betas_scan(*args, **kw)
+    torch.cuda.synchronize()
+    assert lc.backward_betas_scan.launches == before + 1
+    assert bool((want == 0).any())  # rows that pack several samples
+    _assert_close(got, want, TOL["betas"])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("H,n_tail", [(1 << 16, 1), (1 << 12, 100)])
 def test_cuda_seg_weights_matches_twin(cuda_device, H, n_tail):
@@ -292,7 +349,7 @@ def test_cuda_session_matches_cpu(cuda_device, kernel):
     model, samples = _corpus(600, seed=2)
     kernels = ((lcf.fused_forward_chunk, lcf.fused_backward_chunk)
                if kernel is None else
-               (lc.forward_chunk, lc.backward_betas_chunk))
+               (lc.forward_scan, lc.backward_betas_scan))
     kernels += (lcs.seg_weights,)
     before = [k.launches for k in kernels]
     sess = DeviceTrainSession(model, samples, 1024, kernel=kernel,

@@ -1,57 +1,63 @@
-// Backward (log-sum-exp) DP and token marginals over a probed,
-// start-indexed score slab, for Hopper (sm_90a).
+// Backward (log-sum-exp) DP over a probed, start-indexed score slab, for
+// Hopper (sm_90a): the token marginals of one chunk, and the betas as a
+// sample-parallel scan over the whole width.
 //
 // Replaces: tokengeex_tpu/ops/lattice_pallas.py `backward_chunk`
-// (kernel `_backward_kernel`).
+// (kernel `_backward_kernel`), and the XLA scan `_backward_betas_impl` of
+// tokengeex_tpu/ops/lattice_jax.py (the betas).
 //
-// What it computes, per packed row, walking the chunk's positions q from
-// C-1 down to 0 (j = token length - 1, hist[j] = beta at position q+1+j):
-//   marg[q, j] = expf(max(a[q] + score[q, j] + hist[j] - z[q], NEG))
-//   cand[j]    = score[q, j] + hist[j]
+// The recurrence, per packed row, walking positions q downwards
+// (j = token length - 1, hist[j] = beta at dp index q+1+j):
+//   cand[j]    = s[q, j] + hist[j]
 //   m = max_j cand[j];  has = m > NEG / 2;  safe = has ? m : 0
 //   beta       = has ? safe + logf(sum_j expf(cand[j] - safe)) : NEG
 //   hist       <- [end[q] ? 0 : beta, hist[0], ..., hist[L-2]]
-// a[q] is the forward value of a token starting at q (0 at a sample
-// start), z[q] the normaliser of q's sample. NEG = -3e38; NEG + NEG rounds
-// to -inf, which max(., NEG) and the `has` test absorb. expf/logf are the
-// full-precision library functions (no fast math).
+// (sum in ascending j). NEG = -3e38; NEG + NEG rounds to -inf, which the
+// max and the `has` test absorb. expf/logf are the full-precision library
+// functions (no fast math).
 //
-// Betas mode (MARG = false; replaces the XLA scan `_backward_betas_impl`
-// of tokengeex_tpu/ops/lattice_jax.py): the same recurrence, reading
-// neither a nor z and writing the post-reset betas
-//   betas[q]   = end[q] ? 0 : beta
-// (C, B) instead of the marginals. The segsum count path turns them into
-// expected counts.
+// `backward_chunk_kernel` (marginals, the per-pass route's chunks) also
+// writes marg[q, j] = expf(max(a[q] + s[q, j] + hist[j] - z[q], NEG)),
+// a[q] the forward value of a token starting at q (0 at a sample start)
+// and z[q] the normaliser of q's sample. It is bound by bytes (slab in,
+// marginals out, 8 bytes per (position, length)); one thread per row,
+// the history in registers, (C, L, B) so every warp access is one
+// 128-byte transaction.
 //
-// What bounds it on the H100: bytes. It reads the (C, L, B) slab once and
-// writes the (C, L, B) marginals once: 8 bytes per (position, length), for
-// two expf and a few adds. In betas mode it writes 4 bytes per position
-// instead, so the slab read is nearly all of its traffic.
-//
-// What the design does about it: one thread per packed row, as in
-// viterbi_chunk.cu. The L-deep beta history lives in registers and the
-// descending position loop runs inside the thread (the TPU kernel's
-// sequential grid). Slab and marginals are laid out (C, L, B), so each
-// warp's load or store of one (position, length) is one 128-byte
-// transaction. The scatter of marginals into token bins stays outside the
-// kernel, so its summation order is that of the plain version.
+// `backward_betas_scan_kernel` (the session's betas, and the chunk API
+// `backward_betas_chunk`) writes the post-reset betas
+//   betas[q] = end[q] ? 0 : beta
+// and is the mirror of forward_chunk.cu's scan: chains cut at seg[k, r],
+// the first sample END or padding byte at or after k*S (seg[0] = 0,
+// seg[K] = n), chain k walking [seg[k], seg[k+1]) downwards from the
+// row's hist_in where seg[k+1] == n and from [0, NEG, ...] at an inner
+// bound (a token crossing it is masked, so the history beyond it adds
+// expf(.) = 0 exactly). Its layout is forward_chunk.cu's: a chain's
+// lengths on a group of G lanes (scan_lanes.cuh), 32 / G neighbouring
+// rows of one segment per warp walking their chains in lockstep, loads D
+// steps ahead in a register ring. Dropout draws each token's coin from du
+// at its start q: a token of length l > 1 is dropped iff
+// ((du[pad + q] * (l * 2654435761)) >>> 1) < thr >>> 1. Bound: the
+// recurrence (the longest chain's steps times one step's latency); its
+// bytes, the slab read once, are ~0.09 ms for a 8192 x 16 x 512 group.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (tokengeex_tpu_torch/ops/_build.py).
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
-#define TGX_NEG (-3.0e38f)
+#include "scan_lanes.cuh"
 
-template <int LMAX, bool MARG>
+template <int LMAX>
 __global__ void backward_chunk_kernel(const float* __restrict__ score,    // (C, L, B)
-                                      const float* __restrict__ a,        // (C, B), MARG only
-                                      const float* __restrict__ z,        // (C, B), MARG only
+                                      const float* __restrict__ a,        // (C, B)
+                                      const float* __restrict__ z,        // (C, B)
                                       const float* __restrict__ ends,     // (C, B)
                                       const float* __restrict__ hist_in,  // (L, B)
-                                      float* __restrict__ out,            // marg (C, L, B) or betas (C, B)
+                                      float* __restrict__ marg,           // (C, L, B)
                                       float* __restrict__ hist_out,       // (L, B)
                                       int C, int L, int B) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
@@ -64,19 +70,15 @@ __global__ void backward_chunk_kernel(const float* __restrict__ score,    // (C,
 
   for (int q = C - 1; q >= 0; --q) {
     const size_t row = (size_t)q * L * Bs + r;
-    float aq = 0.0f;
-    float zq = 0.0f;
-    if (MARG) {
-      aq = a[q * Bs + r];
-      zq = z[q * Bs + r];
-    }
+    const float aq = a[q * Bs + r];
+    const float zq = z[q * Bs + r];
     float cand[LMAX];
     float m = -INFINITY;
 #pragma unroll
     for (int j = 0; j < LMAX; ++j) {
       if (j < L) {
         const float s = score[row + j * Bs];
-        if (MARG) out[row + j * Bs] = expf(fmaxf(aq + s + h[j] - zq, TGX_NEG));
+        marg[row + j * Bs] = expf(fmaxf(aq + s + h[j] - zq, TGX_NEG));
         cand[j] = s + h[j];
         m = fmaxf(m, cand[j]);
       }
@@ -90,7 +92,6 @@ __global__ void backward_chunk_kernel(const float* __restrict__ score,    // (C,
     }
     const float lse = has ? safe + logf(t) : TGX_NEG;
     const float carry = (ends[q * Bs + r] > 0.5f) ? 0.0f : lse;
-    if (!MARG) out[q * Bs + r] = carry;
 #pragma unroll
     for (int j = LMAX - 1; j > 0; --j) h[j] = h[j - 1];
     h[0] = carry;
@@ -101,31 +102,157 @@ __global__ void backward_chunk_kernel(const float* __restrict__ score,    // (C,
     if (j < L) hist_out[j * Bs + r] = h[j];
 }
 
-template <int LMAX, bool MARG>
-static void launch(const float* score, const float* a, const float* z,
-                   const float* ends, const float* hist_in, float* out,
-                   float* hist_out, int C, int L, int B, cudaStream_t stream) {
-  const int threads = 32;  // one warp per block: rows spread over SMs
-  const int blocks = (B + threads - 1) / threads;
-  backward_chunk_kernel<LMAX, MARG><<<blocks, threads, 0, stream>>>(
-      score, a, z, ends, hist_in, out, hist_out, C, L, B);
+template <int LMAX, int G, bool DROP>
+__global__ void __launch_bounds__(32) backward_betas_scan_kernel(
+    const float* __restrict__ score,    // (n, L, B) start-indexed
+    const float* __restrict__ reset,    // (n, B) 1.0 where a sample ends at q
+    const float* __restrict__ hist_in,  // (L, B) betas after position n
+    const int32_t* __restrict__ seg,    // (K+1, B) chain bounds, or null
+    const int32_t* __restrict__ du,     // (pad + n + pad, B), DROP only
+    float* __restrict__ betas,          // (n, B)
+    float* __restrict__ hist_out,       // (L, B), or null (K == 1 only)
+    int n, int L, int B, int pad, uint32_t thr_half) {
+  constexpr int P = LMAX / G;   // lengths per lane: j = g + G * p
+  constexpr int CH = 32 / G;    // chains (rows) per warp
+  constexpr int D = TGX_SCAN_D;
+  // By step parity (one barrier a step), rows 16-byte aligned (SumRow).
+  __shared__ __align__(16) float e_s[2][CH][SumRow<LMAX>::stride];
+  const int lane = threadIdx.x;
+  const int g = lane % G;
+  const int c = lane / G;
+  const int groups = (B + CH - 1) / CH;
+  const int k = blockIdx.x / groups;
+  const int r = (blockIdx.x % groups) * CH + c;
+  const bool row = r < B;
+  const size_t Bs = (size_t)B;
+
+  // This lane's chain [b0, b1), walked downwards from b1 - 1.
+  int b0 = INT_MAX, b1 = INT_MAX;
+  if (row) {
+    b0 = seg ? seg[k * Bs + r] : 0;
+    b1 = seg ? seg[(k + 1) * Bs + r] : n;
+  }
+  const int lo = __reduce_min_sync(TGX_FULL, b0);
+  const int hi = __reduce_max_sync(TGX_FULL, row ? b1 : INT_MIN);
+  if (lo >= hi) return;
+
+  // The ring, D steps deep: this lane's P scores, the length-1 score, the
+  // end flag and the dropout word of the step's start.
+  float rs[D][P], r0[D], rf[D];
+  uint32_t ru[DROP ? D : 1];
+  auto fetch = [&](int i, int q) {
+    if (row && q >= lo) {
+      const float* sq = score + (size_t)q * L * Bs + r;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const int j = g + G * p;
+        rs[i][p] = (j < L) ? sq[j * Bs] : TGX_NEG;
+      }
+      r0[i] = sq[0];
+      rf[i] = reset[(size_t)q * Bs + r];
+      if constexpr (DROP) ru[i] = (uint32_t)du[(size_t)(pad + q) * Bs + r];
+    }
+  };
+
+  // hist[g + G * p]; hx is the same but for hist[0], which only h0 and
+  // lane 0's h hold: hx never waits on the last step's value, so the max
+  // over lengths >= 2 runs a step ahead of the recurrence.
+  float h[P], hx[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) h[p] = hx[p] = TGX_NEG;
+  float h0 = TGX_NEG;  // hist[0], on every lane of the group
+
+#pragma unroll
+  for (int i = 0; i < D; ++i) fetch(i, hi - 1 - i);
+
+  for (int q0 = hi - 1; q0 >= lo; q0 -= D) {
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      const int q = q0 - i;
+      if (q < lo) break;  // uniform over the warp
+      if (q == b1 - 1) {  // chain start: the row's history, or a reset's
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          const int j = g + G * p;
+          h[p] = (j >= L) ? TGX_NEG
+               : (b1 == n) ? hist_in[j * Bs + r]
+               : (j == 0 ? 0.0f : TGX_NEG);
+          hx[p] = h[p];
+        }
+        h0 = (b1 == n) ? hist_in[r] : 0.0f;
+      }
+      float up[P], wrap[P];  // the history shift's shuffles, issued early
+      tgx_neighbours<LMAX, G>(h, up, wrap);
+      float cand[P];
+      float m1 = -INFINITY;  // max over j >= 1: ready before the carry
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const int j = g + G * p;
+        cand[p] = -INFINITY;
+        if (j < L) {
+          float s = fmaxf(rs[i][p], TGX_NEG);
+          if constexpr (DROP)
+            if (tgx_dropped(ru[i], j, thr_half)) s = TGX_NEG;
+          cand[p] = s + hx[p];
+          if (j > 0) m1 = fmaxf(m1, cand[p]);
+        }
+      }
+      m1 = tgx_group_max<G>(m1);
+      const float c0 = fmaxf(r0[i], TGX_NEG) + h0;  // length 1: no coin
+      if (g == 0) cand[0] = c0;
+      const float m = fmaxf(c0, m1);
+      const bool has = m > TGX_NEG * 0.5f;
+      const float safe = has ? m : 0.0f;
+      float e[P];
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        e[p] = (g + G * p < L) ? expf(cand[p] - safe) : 0.0f;
+      const float t = tgx_ascending_sum<LMAX, G>(e, &e_s[q & 1][c][0], g);
+      const float lse = has ? safe + logf(t) : TGX_NEG;
+      const float carry = (rf[i] > 0.5f) ? 0.0f : lse;
+      if (g == 0 && q >= b0 && q < b1) betas[(size_t)q * Bs + r] = carry;
+      tgx_shift<LMAX, G>(h, up, wrap, carry, g);
+      tgx_shift<LMAX, G>(hx, up, wrap, TGX_NEG, g);
+      h0 = carry;
+      fetch(i, q - D);  // the slot is consumed: refill it
+    }
+  }
+
+  if (hist_out != nullptr && row) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int j = g + G * p;
+      if (j < L) hist_out[j * Bs + r] = h[p];
+    }
+  }
 }
 
-template <bool MARG>
-static int dispatch(const float* score, const float* a, const float* z,
-                    const float* ends, const float* hist_in, float* out,
-                    float* hist_out, int C, int L, int B, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (L <= 8) {
-    launch<8, MARG>(score, a, z, ends, hist_in, out, hist_out, C, L, B, s);
-  } else if (L <= 16) {
-    launch<16, MARG>(score, a, z, ends, hist_in, out, hist_out, C, L, B, s);
-  } else if (L <= 32) {
-    launch<32, MARG>(score, a, z, ends, hist_in, out, hist_out, C, L, B, s);
-  } else if (L <= 64) {
-    launch<64, MARG>(score, a, z, ends, hist_in, out, hist_out, C, L, B, s);
+template <int LMAX>
+static void launch_marg(const float* score, const float* a, const float* z,
+                        const float* ends, const float* hist_in, float* marg,
+                        float* hist_out, int C, int L, int B,
+                        cudaStream_t stream) {
+  const int threads = 32;  // one warp per block: rows spread over SMs
+  const int blocks = (B + threads - 1) / threads;
+  backward_chunk_kernel<LMAX><<<blocks, threads, 0, stream>>>(
+      score, a, z, ends, hist_in, marg, hist_out, C, L, B);
+}
+
+template <int LMAX, int G>
+static int launch_betas(const float* score, const float* reset,
+                        const float* hist_in, const int32_t* seg,
+                        const int32_t* du, float* betas, float* hist_out,
+                        int n, int L, int B, int K, int pad,
+                        uint32_t thr_half, bool drop, cudaStream_t stream) {
+  const int blocks = K * ((B + 32 / G - 1) / (32 / G));  // warp per (segment, 32/G rows)
+  if (drop) {
+    backward_betas_scan_kernel<LMAX, G, true><<<blocks, 32, 0, stream>>>(
+        score, reset, hist_in, seg, du, betas, hist_out, n, L, B, pad,
+        thr_half);
   } else {
-    return (int)cudaErrorInvalidValue;
+    backward_betas_scan_kernel<LMAX, G, false><<<blocks, 32, 0, stream>>>(
+        score, reset, hist_in, seg, du, betas, hist_out, n, L, B, pad,
+        thr_half);
   }
   return (int)cudaGetLastError();
 }
@@ -136,14 +263,32 @@ extern "C" int tgx_backward_chunk(const float* score, const float* a,
                                   const float* hist_in, float* marg,
                                   float* hist_out, int C, int L, int B,
                                   void* stream) {
-  return dispatch<true>(score, a, z, ends, hist_in, marg, hist_out, C, L, B,
-                        stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (L <= 8) {
+    launch_marg<8>(score, a, z, ends, hist_in, marg, hist_out, C, L, B, s);
+  } else if (L <= 16) {
+    launch_marg<16>(score, a, z, ends, hist_in, marg, hist_out, C, L, B, s);
+  } else if (L <= 32) {
+    launch_marg<32>(score, a, z, ends, hist_in, marg, hist_out, C, L, B, s);
+  } else if (L <= 64) {
+    launch_marg<64>(score, a, z, ends, hist_in, marg, hist_out, C, L, B, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
-extern "C" int tgx_backward_betas_chunk(const float* score, const float* ends,
-                                        const float* hist_in, float* betas,
-                                        float* hist_out, int C, int L, int B,
-                                        void* stream) {
-  return dispatch<false>(score, nullptr, nullptr, ends, hist_in, betas,
-                         hist_out, C, L, B, stream);
+extern "C" int tgx_backward_betas_scan(const float* score, const float* reset,
+                                       const float* hist_in,
+                                       const int32_t* seg, const int32_t* du,
+                                       float* betas, float* hist_out, int n,
+                                       int L, int B, int K, int pad,
+                                       unsigned thr_half, int use_drop,
+                                       void* stream) {
+#define TGX_LAUNCH(LM, GG)                                                   \
+  return launch_betas<LM, GG>(score, reset, hist_in, seg, du, betas,         \
+                              hist_out, n, L, B, K, pad, thr_half,           \
+                              use_drop != 0, (cudaStream_t)stream)
+  TGX_SCAN_DISPATCH(L, TGX_LAUNCH);
+#undef TGX_LAUNCH
 }

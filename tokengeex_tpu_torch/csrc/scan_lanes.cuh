@@ -1,0 +1,129 @@
+// Shared by the sample-parallel scans (forward_chunk.cu, backward_chunk.cu):
+// one chain's L token lengths spread over a group of G lanes, P = LMAX / G
+// lengths per lane (lane g holds j = g + G * p), 32 / G chains per warp.
+//
+// Every lane of a group computes the step's log-sum-exp itself: the max by
+// a butterfly of shuffles (exact in any order), the sum of the G * P
+// exponentials in ASCENDING j through shared memory, as the plain twins
+// sum them, so kernel and twin round alike.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define TGX_NEG (-3.0e38f)
+#define TGX_ODD 2654435761u  // dropout per-length mixer
+#define TGX_FULL 0xffffffffu
+
+// Steps whose loads are in flight ahead of the recurrence, in a register
+// ring (the step loop is unrolled D times, so every ring index is static).
+#define TGX_SCAN_D 8
+
+// Token of length l = j + 1 > 1 is dropped iff its coin
+// ((du * (l * 2654435761)) >>> 1) falls under thr >>> 1 (uint32 math).
+__device__ __forceinline__ bool tgx_dropped(uint32_t du, int j,
+                                            uint32_t thr_half) {
+  return j > 0 && ((du * ((uint32_t)(j + 1) * TGX_ODD)) >> 1) < thr_half;
+}
+
+// Max over the G lanes of a group (a butterfly; the max is exact).
+template <int G>
+__device__ __forceinline__ float tgx_group_max(float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(TGX_FULL, v, o, G));
+  return v;
+}
+
+// Row stride of a chain's exponentials in shared memory: 16-byte rows for
+// vector reads, and neighbouring chains' rows on other banks.
+template <int LMAX>
+struct SumRow {
+  static constexpr int stride = LMAX + 4;
+};
+
+// sum_j e[j] in ascending j, 0.0f first, as `_lse_step` adds; e is 0 for
+// j >= L, and adding +0.0f changes no sum, so every row adds all LMAX.
+// e_s is this chain's row of shared memory (G > 1), written by every lane
+// and read back whole by every lane.
+template <int LMAX, int G>
+__device__ __forceinline__ float tgx_ascending_sum(const float (&e)[LMAX / G],
+                                                   float* e_s, int g) {
+  constexpr int P = LMAX / G;
+  float t = 0.0f;
+  if (G == 1) {
+#pragma unroll
+    for (int j = 0; j < LMAX; ++j) t += e[j];
+    return t;
+  }
+#pragma unroll
+  for (int p = 0; p < P; ++p) e_s[g + G * p] = e[p];
+  __syncwarp();
+  const float4* v = reinterpret_cast<const float4*>(e_s);
+#pragma unroll
+  for (int i = 0; i < LMAX / 4; ++i) {
+    const float4 x = v[i];
+    t += x.x;
+    t += x.y;
+    t += x.z;
+    t += x.w;
+  }
+  return t;
+}
+
+// The group's history one length on: up[p] = hist[g + G*p - 1] from the
+// lane before, wrap[p] = hist[G - 1 + G*p] from the group's last lane.
+// Neither depends on the step's value, so a step issues them first and
+// `tgx_shift` only selects once the carry is known.
+template <int LMAX, int G>
+__device__ __forceinline__ void tgx_neighbours(const float (&h)[LMAX / G],
+                                               float (&up)[LMAX / G],
+                                               float (&wrap)[LMAX / G]) {
+  constexpr int P = LMAX / G;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    if (G == 1) {
+      up[p] = p > 0 ? h[p - 1] : 0.0f;
+      wrap[p] = h[p];
+    } else {
+      up[p] = __shfl_up_sync(TGX_FULL, h[p], 1, G);
+      wrap[p] = __shfl_sync(TGX_FULL, h[p], G - 1, G);
+    }
+  }
+}
+
+// hist[j] <- hist[j-1], hist[0] <- carry, from `tgx_neighbours`' values.
+template <int LMAX, int G>
+__device__ __forceinline__ void tgx_shift(float (&h)[LMAX / G],
+                                          const float (&up)[LMAX / G],
+                                          const float (&wrap)[LMAX / G],
+                                          float carry, int g) {
+  constexpr int P = LMAX / G;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    if (G == 1)
+      h[p] = p > 0 ? up[p] : carry;
+    else
+      h[p] = (g > 0) ? up[p] : (p == 0 ? carry : wrap[p - 1]);
+  }
+}
+
+// Lanes per chain: a lane per length up to 32 lengths, two lengths per
+// lane at 64. TGX_LANES16 overrides the layout at LMAX = 16 (1, 2, 4, 8 or
+// 16), so a build can time the layouts against each other
+// (experiments/torch_scan_design.py); the package builds the default.
+#ifndef TGX_LANES16
+#define TGX_LANES16 16
+#endif
+
+// Calls LAUNCH(LMAX, G) for the LMAX that holds L lengths (8, 16, 32 or
+// 64) and its layout; returns cudaErrorInvalidValue for L > 64.
+#define TGX_SCAN_DISPATCH(L, LAUNCH)                                         \
+  do {                                                                       \
+    if ((L) <= 8) LAUNCH(8, 8);                                              \
+    if ((L) <= 16) LAUNCH(16, TGX_LANES16);                                  \
+    if ((L) <= 32) LAUNCH(32, 32);                                           \
+    if ((L) <= 64) LAUNCH(64, 32);                                           \
+    return (int)cudaErrorInvalidValue;                                       \
+  } while (0)

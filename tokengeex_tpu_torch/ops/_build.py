@@ -2,10 +2,12 @@
 
 Each source under `tokengeex_tpu_torch/csrc/` compiles on first use into
 its own shared library with a plain C interface (no PyTorch headers, so a
-build takes seconds); a source may export several entry points. Libraries land in `build/tokengeex_tpu_torch/` at
-the root of the checkout (override with TGX_TORCH_BUILD_DIR), named by a
-hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads at once. Only sources in the repository are compiled.
+build takes seconds); a source may export several entry points and
+include the shared headers `csrc/*.cuh`. Libraries land in
+`build/tokengeex_tpu_torch/` at the root of the checkout (override with
+TGX_TORCH_BUILD_DIR), named by a hash of the source, the headers and the
+flags, so an edited source rebuilds and an unchanged one loads at once.
+Only sources in the repository are compiled.
 """
 
 from __future__ import annotations
@@ -35,12 +37,12 @@ KERNELS: Dict[str, Tuple[str, str, tuple]] = {
                       (P,) * 15 + (I, I, I, I, I, I, U, I, P)),
     "fused_backward": ("fused_backward.cu", "tgx_fused_backward",
                        (P,) * 11 + (I, I, I, I, I, I, U, P)),
-    "forward_chunk": ("forward_chunk.cu", "tgx_forward_chunk",
-                      (P, P, P, P, P, I, I, I, P)),
+    "forward_scan": ("forward_chunk.cu", "tgx_forward_scan",
+                     (P,) * 7 + (I,) * 6 + (U, I, P)),
     "backward_chunk": ("backward_chunk.cu", "tgx_backward_chunk",
                        (P, P, P, P, P, P, P, I, I, I, P)),
-    "backward_betas_chunk": ("backward_chunk.cu", "tgx_backward_betas_chunk",
-                             (P, P, P, P, P, I, I, I, P)),
+    "backward_betas_scan": ("backward_chunk.cu", "tgx_backward_betas_scan",
+                            (P,) * 7 + (I,) * 5 + (U, I, P)),
     "seg_weights": ("seg_weights.cu", "tgx_seg_weights",
                     (P, P, P, P, P, I, I, P)),
 }
@@ -67,7 +69,9 @@ def nvcc() -> str:
 
 def _target(source: str) -> Path:
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()
+    # The shared headers (csrc/*.cuh) are part of every source's build.
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return build_dir() / f"{src.stem}-{digest}.so"
 

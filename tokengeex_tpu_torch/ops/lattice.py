@@ -29,16 +29,19 @@ are not formed on the device: `backtrack` resolves them on the host from
 the matched byte spans.
 
 The E-step probes each row group once (`match_cache`, start-indexed,
-without dropout), runs the forward log-sum-exp DP (`forward_chunk`) over
-end-indexed views of that cache and the backward DP (`backward_chunk`)
-over it directly, each view masking the dropped candidates of its
-chunk, and adds the marginals into probe-slot bins that the host folds
-to token ids.
+without dropout), runs the forward log-sum-exp DP over that cache in one
+whole-width launch (`forward_scan`: it reads the cache end-indexed and
+draws the dropout coins itself, each row cut into independent chains at
+sample starts and padding by `chain_bounds`), then the backward DP over
+it chunk by chunk (`backward_chunk`, masking each chunk's dropped
+candidates), and adds the marginals into probe-slot bins that the host
+folds to token ids.
 
 The session (train/device_session.py) keeps each group's probe slots,
 remapped once to a dense rank space, and a `SegStruct` that sorts the
 group's hits by rank once. Its later E-steps re-gather scores per cached
-rank (`estep_cached`) or re-probe inside the fused kernels
+rank (`estep_cached`: `forward_scan` and `backward_betas_scan`, one
+launch each over the whole width) or re-probe inside the fused kernels
 (`estep_fused`), run the backward pass for betas only, and turn them
 into counts with the scatter-free `segsum_expected` (csrc/seg_weights.cu).
 """
@@ -604,6 +607,52 @@ def _cache_end_view(score_cache: torch.Tensor, chunk_start: int, C: int,
     return torch.stack([slab[L - j : L - j + C, j] for j in range(L)], dim=1)
 
 
+# Positions per segment of the whole-width scans: each row's chains start
+# at the first sample boundary or padding byte at or after every multiple
+# of it.
+SCAN_SEGMENT = 1024
+
+
+def chain_bounds(batch: DeviceBatch, segment: int = SCAN_SEGMENT
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(K+1, B) int32 chain bounds of the forward and the backward scans,
+    K = ceil(W / segment): row k of the forward's is the first sample
+    start or padding byte at or after k * segment, of the backward's the
+    first sample end or padding byte (W where there is none); row 0 is 0
+    and row K is W. Chain k covers [bounds[k], bounds[k+1]). The probe
+    masks every token that crosses a sample boundary or covers a padding
+    byte, so chains cut there give the one-chain-per-row DP bit for bit;
+    padding (an empty row, a row's tail) cuts every segment, and a sample
+    longer than a segment keeps its chain running. Pass-invariant: a
+    session builds them once per group."""
+    W = batch.width
+    B = batch.p1.shape[0]
+    dev = batch.p1.device
+    K = max(1, -(-W // segment))
+    idx = torch.arange(W, dtype=torch.int32, device=dev)
+    cols = torch.arange(1, K, device=dev) * segment
+
+    def bounds(flag: torch.Tensor) -> torch.Tensor:
+        marked = torch.where(flag, idx[None, :], W).to(torch.int32)
+        nxt = torch.cummin(marked.flip(1), dim=1).values.flip(1)
+        return torch.cat([torch.zeros((B, 1), dtype=torch.int32, device=dev),
+                          nxt[:, cols],
+                          torch.full((B, 1), W, dtype=torch.int32,
+                                     device=dev)], dim=1).t().contiguous()
+
+    outside = batch.sid[:, batch.pad : batch.pad + W] < 0
+    return (bounds(batch.is_start[:, :W] | outside),
+            bounds(batch.is_end[:, :W] | outside))
+
+
+def _scan_drop(drop_u: Optional[torch.Tensor], dropout: float) -> dict:
+    """The scans' dropout arguments: the words in their (position, row)
+    layout and the rate, or none."""
+    if drop_u is None or dropout <= 0.0:
+        return {}
+    return {"du": drop_u.t().contiguous(), "dropout": dropout}
+
+
 # ---------------------------------------------------------------------------
 # Viterbi drivers
 # ---------------------------------------------------------------------------
@@ -757,12 +806,16 @@ def forward(tbl: DeviceTables, batch: DeviceBatch,
             cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
             C: int = 512, drop_u: Optional[torch.Tensor] = None,
             dropout: float = 0.0, timer: Optional[PhaseTimer] = None,
-            backend: str = "slab") -> torch.Tensor:
+            backend: str = "slab",
+            chains: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+            ) -> torch.Tensor:
     """EM forward pass: A (B, W+1), the log-probability of all
     segmentations of each prefix of its sample, -inf where no path
     reaches (reference: src/lattice.rs:245-312). backend "slab" runs
-    `forward_chunk` over the `match_cache` result `cache` (or a fresh
-    probe per chunk without one); "fused" probes inside the fused kernel
+    `forward_scan` once over the whole width of the `match_cache` result
+    `cache`, its rows cut into chains by `chains` (`chain_bounds`, made
+    here when not given), or without a cache `forward_chunk` over a fresh
+    probe per chunk of C positions; "fused" probes inside the fused kernel
     (tables with has_vscan only; no cache)."""
     if backend == "fused":
         _check_fused_backend(tbl, cache)
@@ -770,8 +823,20 @@ def forward(tbl: DeviceTables, batch: DeviceBatch,
                                    kind="logsumexp")
     if backend != "slab":
         raise ValueError(f"unknown backend {backend!r}")
-    a = _scan_forward(tbl, batch, C, drop_u, dropout, timer=timer,
-                      kind="logsumexp", cache=cache)
+    if cache is None:
+        a = _scan_forward(tbl, batch, C, drop_u, dropout, timer=timer,
+                          kind="logsumexp")
+    else:
+        with phase(timer, "forward"):
+            if chains is None:
+                chains = chain_bounds(batch)
+            a = lc.forward_scan(
+                cache[0], batch.is_start[:, 1:].t().to(torch.float32)
+                .contiguous(),
+                _hist0(batch, tbl.max_len, None).clamp(min=NEG).t()
+                .contiguous(), chains[0], pad=batch.pad,
+                **_scan_drop(drop_u, dropout))
+            a = _finish(a.t())
     a0 = torch.where(batch.is_start[:, :1], 0.0, NEG_INF)
     return torch.cat([a0, a], dim=1)
 
@@ -868,16 +933,19 @@ def backward_betas(tbl: DeviceTables, batch: DeviceBatch,
                    cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                    C: int = 512, drop_u: Optional[torch.Tensor] = None,
                    dropout: float = 0.0, timer: Optional[PhaseTimer] = None,
-                   backend: str = "slab") -> torch.Tensor:
+                   backend: str = "slab",
+                   chains: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                   ) -> torch.Tensor:
     """(B, W+1) log-betas per dp index, post sample-end reset (0 at a
     sample end), -inf where no path reaches: the backward recurrence of
     `backward_expected` without marginals (reference:
     src/lattice.rs:245-312 backward_scores). Bt[:, W] is 0 where a
-    sample ends at the width. backend "slab" runs `backward_betas_chunk`
-    over the chunks of the `match_cache` result `cache`, descending;
-    "fused" runs `fused_backward_chunk` over the whole width (tables with
-    has_vscan only; no cache). Feeds `segsum_expected`."""
-    B = batch.p1.shape[0]
+    sample ends at the width. backend "slab" runs `backward_betas_scan`
+    once over the whole width of the `match_cache` result `cache`, its
+    rows cut into chains by `chains` (`chain_bounds`, made here when not
+    given; C is unused); "fused" runs `fused_backward_chunk` over the
+    whole width (tables with has_vscan only; no cache). Feeds
+    `segsum_expected`."""
     W = batch.width
     L = tbl.max_len
     use_drop = drop_u is not None and dropout > 0.0
@@ -895,22 +963,13 @@ def backward_betas(tbl: DeviceTables, batch: DeviceBatch,
         raise ValueError(f"unknown backend {backend!r}")
     if cache is None:
         raise ValueError("the slab backend reads a match_cache cache")
-    if W % C:
-        raise ValueError(f"chunk {C} does not divide width {W}")
     with phase(timer, "backward"):
-        ends = batch.is_end[:, :W].t().to(torch.float32)
-        hist = lcf.betas_hist0(batch.is_end[:, W], L)
-        out = torch.empty((W, B), dtype=torch.float32, device=batch.p1.device)
-    for cs in range(W - C, -1, -C):
-        with phase(timer, "backward"):
-            score_s = cache[0][cs : cs + C]
-            if use_drop:
-                keep = _dropout_keep_window(drop_u, dropout, L, batch.pad,
-                                            cs, C)
-                score_s = torch.where(keep, score_s, NEG_INF)
-            out[cs : cs + C], hist = lc.backward_betas_chunk(
-                score_s.clamp(min=NEG).contiguous(),
-                ends[cs : cs + C].contiguous(), hist)
+        if chains is None:
+            chains = chain_bounds(batch)
+        out = lc.backward_betas_scan(
+            cache[0], batch.is_end[:, :W].t().to(torch.float32).contiguous(),
+            lcf.betas_hist0(batch.is_end[:, W], L), chains[1], pad=batch.pad,
+            **_scan_drop(drop_u, dropout))
     return torch.cat([_finish(out.t()), bW], dim=1)
 
 
@@ -1219,16 +1278,21 @@ def segsum_expected(tbl: DeviceTables, batch: DeviceBatch, A: torch.Tensor,
 def estep_cached(tbl: DeviceTables, batch: DeviceBatch, slots: torch.Tensor,
                  score_rows: torch.Tensor, seg: Optional[SegStruct] = None,
                  C: int = 512, drop_u: Optional[torch.Tensor] = None,
-                 dropout: float = 0.0, timer: Optional[PhaseTimer] = None):
+                 dropout: float = 0.0, timer: Optional[PhaseTimer] = None,
+                 chains: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """(A, expected-count accumulator) for a group whose (W, L, B) slots
     (or ranks) are cached: scores re-gathered per cached slot, the forward
-    pass, then the betas and `segsum_expected` when `seg` is given, else
-    `backward_expected` into the bins of `score_rows`."""
+    scan, then the betas scan and `segsum_expected` when `seg` is given,
+    else `backward_expected` into the bins of `score_rows`. `chains` are
+    the group's `chain_bounds` (made here when not given)."""
     with phase(timer, "regather"):
         cache = (score_from_slots(score_rows, slots), slots)
-    A = forward(tbl, batch, cache, C, drop_u, dropout, timer)
+    if chains is None:
+        chains = chain_bounds(batch)
+    A = forward(tbl, batch, cache, C, drop_u, dropout, timer, chains=chains)
     if seg is not None:
-        Bt = backward_betas(tbl, batch, cache, C, drop_u, dropout, timer)
+        Bt = backward_betas(tbl, batch, cache, C, drop_u, dropout, timer,
+                            chains=chains)
         return A, segsum_expected(tbl, batch, A, Bt, seg, score_rows,
                                   drop_u, dropout, timer)
     return A, backward_expected(tbl, batch, A, cache, C, drop_u, dropout,

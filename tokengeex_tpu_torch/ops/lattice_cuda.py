@@ -1,11 +1,17 @@
-"""Lattice DPs over a probed score slab: the Hopper kernels and their
-plain twins.
+"""Lattice DPs over probed scores: the Hopper kernels and their plain
+twins.
 
 Counterpart of tokengeex_tpu/ops/lattice_pallas.py: `viterbi_chunk`,
-`forward_chunk` and `backward_chunk`, each built from csrc/<name>.cu, and
-`backward_betas_chunk`, the betas-only mode of csrc/backward_chunk.cu
-(the XLA scan `_backward_betas_impl` of tokengeex_tpu/ops/lattice_jax.py
-on the TPU). Each
+`forward_chunk` and `backward_chunk`, built from csrc/<name>.cu, and of
+the XLA scan `_backward_betas_impl` of tokengeex_tpu/ops/lattice_jax.py
+(the betas). The E-step's two scans run over the whole row width:
+`forward_scan` (csrc/forward_chunk.cu) and `backward_betas_scan`
+(csrc/backward_chunk.cu) read a start-indexed (W, L, B) score cache
+directly, draw the dropout coins in the kernel, and cut each row into
+independent chains at sample boundaries and padding (`seg`, see
+ops/lattice.py `chain_bounds`). `forward_chunk` and `backward_betas_chunk`
+are the same two kernels over one end-indexed / start-indexed chunk;
+`backward_chunk` (the marginals) keeps its own chunk kernel. Each
 `*_plain` function is the same recurrence in plain PyTorch, used for
 tensors on the CPU and as the reference the kernel is held against on the
 card. The plain log-sum-exp twins sum over lengths in ascending order, as
@@ -13,10 +19,14 @@ the kernels do, so on the card the two differ only where the device's
 `exp`/`log` differ from the kernel's `expf`/`logf`.
 
 Layout: the port keeps rows minor, so one thread per row reads coalesced.
-  score (C, L, B) f32  scores, NEG for no match: end-indexed for the
-                       forward DPs, start-indexed for `backward_chunk`
+  score (C, L, B) f32  scores, NEG or -inf for no match: end-indexed for
+                       the forward chunk DPs, start-indexed for the
+                       backward ones and for the whole-width cache
   starts (C, B) f32    1.0 where dp index q+1 starts a sample
+  ends (C, B) f32      1.0 where a sample ends at dp index q
   hist (L, B) f32      the last L DP values, hist[j] = dp[p - 1 - j]
+  seg (K+1, B) int32   chain bounds: chain k covers [seg[k], seg[k+1])
+  du (pad+W+pad, B)    int32 dropout words, row pad + p for start p
 The JAX kernels' (G, C, L, 128) lane groups hold the same numbers with
 row = g * 128 + lane.
 
@@ -26,15 +36,22 @@ length wins; a step with no candidate gives dp = NEG and best_l = 1.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import _build
+from . import hashing as H
 
 NEG = float(np.float32(-3.0e38))  # sentinel "-inf" that survives f32 math
 MAX_LEN = 64  # longest token length the kernels are instantiated for
+_ODD = 2654435761  # dropout per-length mixer
+
+
+def dropout_threshold_half(dropout: float) -> int:
+    """The coin threshold `thr >>> 1` as a non-negative int."""
+    return min(int(dropout * (1 << 32)), (1 << 32) - 1) >> 1
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -147,18 +164,71 @@ def _lse_step(cand: torch.Tensor) -> torch.Tensor:
     return torch.where(has, safe + torch.log(t), torch.full_like(m, NEG))
 
 
-def forward_chunk_plain(score: torch.Tensor, starts: torch.Tensor,
-                        hist0: torch.Tensor
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _fresh_hist(L: int, B: int, device) -> torch.Tensor:
+    """(L, B) history at an inner chain start: a post-reset 0, then NEG."""
+    hist = torch.full((L, B), NEG, dtype=torch.float32, device=device)
+    hist[0] = 0.0
+    return hist
+
+
+def _inner_bounds(seg: Optional[torch.Tensor], n: int) -> Optional[torch.Tensor]:
+    """(n + 1, B) bool, True at the inner chain bounds seg[1..K-1] below n:
+    where the kernels start a chain from `_fresh_hist`."""
+    if seg is None or seg.shape[0] <= 2:
+        return None
+    mark = torch.zeros((n + 1, seg.shape[1]), dtype=torch.bool,
+                       device=seg.device)
+    mark.scatter_(0, seg[1:-1].long(), True)
+    mark[n] = False
+    return mark
+
+
+def _forward_steps(score: torch.Tensor, starts: torch.Tensor,
+                   hist0: torch.Tensor,
+                   restart: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward recurrence over an end-indexed (n, L, B) slab; a row's
+    history restarts fresh at each step where `restart` is set."""
     C, L, B = score.shape
+    score = score.clamp(min=NEG)
     hist = hist0.clone()
+    fresh = _fresh_hist(L, B, score.device)
     a = torch.empty((C, B), dtype=torch.float32, device=score.device)
     for q in range(C):
+        if restart is not None:
+            hist = torch.where(restart[q], fresh, hist)
         lse = _lse_step(hist + score[q])
         a[q] = lse
         hist = _roll_insert(
             hist, torch.where(starts[q] > 0.5, torch.zeros_like(lse), lse))
     return a, hist
+
+
+def _backward_steps(score: torch.Tensor, ends: torch.Tensor,
+                    hist0: torch.Tensor,
+                    restart: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The betas recurrence over a start-indexed (n, L, B) slab, positions
+    descending; a row's history restarts fresh at step q where
+    `restart[q + 1]` is set (a chain bound at q + 1)."""
+    C, L, B = score.shape
+    score = score.clamp(min=NEG)
+    hist = hist0.clone()
+    fresh = _fresh_hist(L, B, score.device)
+    betas = torch.empty((C, B), dtype=torch.float32, device=score.device)
+    for q in range(C - 1, -1, -1):
+        if restart is not None:
+            hist = torch.where(restart[q + 1], fresh, hist)
+        lse = _lse_step(score[q] + hist)
+        betas[q] = torch.where(ends[q] > 0.5, torch.zeros_like(lse), lse)
+        hist = _roll_insert(hist, betas[q])
+    return betas, hist
+
+
+def forward_chunk_plain(score: torch.Tensor, starts: torch.Tensor,
+                        hist0: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _forward_steps(score, starts, hist0)
 
 
 def forward_chunk(score: torch.Tensor, starts: torch.Tensor,
@@ -167,8 +237,8 @@ def forward_chunk(score: torch.Tensor, starts: torch.Tensor,
     Returns the forward values a (C, B) f32 (NEG where no path reaches)
     and the next history (L, B) f32.
 
-    CUDA tensors launch csrc/forward_chunk.cu on the current stream; CPU
-    tensors run `forward_chunk_plain`."""
+    CUDA tensors launch csrc/forward_chunk.cu (one chain per row) on the
+    current stream; CPU tensors run `forward_chunk_plain`."""
     if not _check_slab(score, {"starts": starts}, hist0):
         return forward_chunk_plain(score, starts, hist0)
     C, L, B = score.shape
@@ -179,7 +249,8 @@ def forward_chunk(score: torch.Tensor, starts: torch.Tensor,
         return a, hist
     if C == 0:
         return a, hist0.clone()
-    _launch("forward_chunk", score, starts, hist0, a, hist, C, L, B)
+    _launch("forward_scan", score, starts, hist0, None, None, a, hist, C, L,
+            B, 1, 0, 0, 0, 0)
     forward_chunk.launches += 1
     return a, hist
 
@@ -237,14 +308,7 @@ backward_chunk.launches = 0
 def backward_betas_chunk_plain(score: torch.Tensor, ends: torch.Tensor,
                                hist0: torch.Tensor
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    C, L, B = score.shape
-    hist = hist0.clone()
-    betas = torch.empty((C, B), dtype=torch.float32, device=score.device)
-    for q in range(C - 1, -1, -1):
-        lse = _lse_step(score[q] + hist)
-        betas[q] = torch.where(ends[q] > 0.5, torch.zeros_like(lse), lse)
-        hist = _roll_insert(hist, betas[q])
-    return betas, hist
+    return _backward_steps(score, ends, hist0)
 
 
 def backward_betas_chunk(score: torch.Tensor, ends: torch.Tensor,
@@ -254,8 +318,9 @@ def backward_betas_chunk(score: torch.Tensor, ends: torch.Tensor,
     post-reset betas (C, B) f32 (0 where a sample ends, NEG where no path
     reaches) and the next history (L, B).
 
-    CUDA tensors launch csrc/backward_chunk.cu in its betas mode on the
-    current stream; CPU tensors run `backward_betas_chunk_plain`."""
+    CUDA tensors launch csrc/backward_chunk.cu's betas scan (one chain
+    per row) on the current stream; CPU tensors run
+    `backward_betas_chunk_plain`."""
     if not _check_slab(score, {"ends": ends}, hist0):
         return backward_betas_chunk_plain(score, ends, hist0)
     C, L, B = score.shape
@@ -266,9 +331,167 @@ def backward_betas_chunk(score: torch.Tensor, ends: torch.Tensor,
         return betas, hist
     if C == 0:
         return betas, hist0.clone()
-    _launch("backward_betas_chunk", score, ends, hist0, betas, hist, C, L, B)
+    _launch("backward_betas_scan", score, ends, hist0, None, None, betas,
+            hist, C, L, B, 1, 0, 0, 0)
     backward_betas_chunk.launches += 1
     return betas, hist
 
 
 backward_betas_chunk.launches = 0
+
+
+# -- the whole-width scans over a start-indexed score cache --
+
+
+def _dropped(du: torch.Tensor, dropout: float, pad: int, W: int,
+             L: int) -> torch.Tensor:
+    """(W, L, B) bool: the token of length j+1 starting at p is dropped
+    (its coin from du[pad + p]; never a single byte)."""
+    odd = H.wrap_i32(torch.arange(1, L + 1, dtype=torch.int64,
+                                  device=du.device) * _ODD)
+    u = H.srl_i32(H.mul_i32(du[pad : pad + W][:, None, :],
+                            odd[None, :, None]), 1)
+    lens = torch.arange(1, L + 1, device=du.device)[None, :, None]
+    return (u < dropout_threshold_half(dropout)) & (lens > 1)
+
+
+def _scan_cache(cache: torch.Tensor, du: Optional[torch.Tensor],
+                dropout: float, pad: int) -> torch.Tensor:
+    """The cache as the kernels read it: clamped to NEG, dropped tokens
+    NEG."""
+    W, L, _ = cache.shape
+    score = cache.clamp(min=NEG)
+    if du is not None and dropout > 0.0:
+        score = torch.where(_dropped(du, dropout, pad, W, L), NEG, score)
+    return score
+
+
+def forward_scan_plain(cache: torch.Tensor, starts: torch.Tensor,
+                       hist0: torch.Tensor, seg: Optional[torch.Tensor] = None,
+                       du: Optional[torch.Tensor] = None, *,
+                       dropout: float = 0.0, pad: int = 0) -> torch.Tensor:
+    W, L, B = cache.shape
+    start = _scan_cache(cache, du, dropout, pad)
+    # End-indexed view: row j at step q is the token starting at q - j.
+    score = torch.full_like(start, NEG)
+    for j in range(min(L, W)):
+        score[j:, j] = start[: W - j, j]
+    return _forward_steps(score, starts, hist0, _inner_bounds(seg, W))[0]
+
+
+def backward_betas_scan_plain(cache: torch.Tensor, ends: torch.Tensor,
+                              hist0: torch.Tensor,
+                              seg: Optional[torch.Tensor] = None,
+                              du: Optional[torch.Tensor] = None, *,
+                              dropout: float = 0.0,
+                              pad: int = 0) -> torch.Tensor:
+    W = cache.shape[0]
+    return _backward_steps(_scan_cache(cache, du, dropout, pad), ends, hist0,
+                           _inner_bounds(seg, W))[0]
+
+
+def _check_scan(cache: torch.Tensor, flags: torch.Tensor,
+                hist0: torch.Tensor, seg: Optional[torch.Tensor],
+                du: Optional[torch.Tensor], dropout: float,
+                pad: int) -> bool:
+    """Validate a whole-width scan's arguments; returns True when the
+    caller is to launch the CUDA kernel, False for CPU tensors. Unlike
+    the chunk wrappers, contiguity is required on every device."""
+    _check(cache.dim() == 3, f"cache must be (W, L, B), got {tuple(cache.shape)}")
+    W, L, B = cache.shape
+    named = {"cache": (cache, torch.float32, None),
+             "flags": (flags, torch.float32, (W, B)),
+             "hist0": (hist0, torch.float32, (L, B))}
+    if seg is not None:
+        _check(seg.dim() == 2 and seg.shape[0] >= 2 and seg.shape[1] == B,
+               f"seg must be (K+1, {B}) with K >= 1, got {tuple(seg.shape)}")
+        named["seg"] = (seg, torch.int32, None)
+    if dropout > 0.0:
+        _check(du is not None, "dropout > 0 needs du")
+        _check(pad >= L, f"pad {pad} must be >= L {L}")
+        _check(du.dim() == 2 and du.shape[0] >= pad + W and du.shape[1] == B,
+               f"du must be (>= pad + {W}, {B}), got {tuple(du.shape)}")
+        named["du"] = (du, torch.int32, None)
+    for name, (t, dtype, shape) in named.items():
+        if shape is not None:
+            _check(tuple(t.shape) == shape,
+                   f"{name} must be {shape}, got {tuple(t.shape)}")
+        _check(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
+        _check(t.device == cache.device, f"{name} is on {t.device}")
+        _check(t.is_contiguous(), f"{name} must be contiguous")
+    if cache.device.type == "cpu":
+        return False
+    _check(cache.device.type == "cuda", f"unsupported device {cache.device}")
+    _check(1 <= L <= MAX_LEN, f"token length {L} outside 1..{MAX_LEN}")
+    return True
+
+
+def forward_scan(cache: torch.Tensor, starts: torch.Tensor,
+                 hist0: torch.Tensor, seg: Optional[torch.Tensor] = None,
+                 du: Optional[torch.Tensor] = None, *, dropout: float = 0.0,
+                 pad: int = 0) -> torch.Tensor:
+    """The forward log-sum-exp DP over the whole width of a START-indexed
+    (W, L, B) score cache (-inf or NEG for no match): the token of length
+    j+1 ending at dp index q+1 is cache[q - j, j]. starts (W, B) is 1.0
+    where dp index q+1 starts a sample, hist0 (L, B) the history before
+    position 0. `seg` (K+1, B) cuts each row into chains at sample starts
+    or padding bytes (chain k from seg[k], the first from hist0, the
+    others from a reset);
+    None runs one chain per row. With dropout > 0 a token of length > 1
+    starting at p is dropped by its coin from du[pad + p]. Returns the
+    forward values a (W, B) f32, NEG where no path reaches.
+
+    CUDA tensors launch csrc/forward_chunk.cu on the current stream; CPU
+    tensors run `forward_scan_plain`."""
+    if not _check_scan(cache, starts, hist0, seg, du, dropout, pad):
+        return forward_scan_plain(cache, starts, hist0, seg, du,
+                                  dropout=dropout, pad=pad)
+    W, L, B = cache.shape
+    a = torch.empty((W, B), dtype=torch.float32, device=cache.device)
+    if W == 0 or B == 0:
+        return a
+    use_drop = dropout > 0.0
+    _launch("forward_scan", cache, starts, hist0, seg,
+            du if use_drop else None, a, None, W, L, B,
+            1 if seg is None else seg.shape[0] - 1, 1, pad,
+            dropout_threshold_half(dropout) if use_drop else 0, int(use_drop))
+    forward_scan.launches += 1
+    return a
+
+
+forward_scan.launches = 0
+
+
+def backward_betas_scan(cache: torch.Tensor, ends: torch.Tensor,
+                        hist0: torch.Tensor,
+                        seg: Optional[torch.Tensor] = None,
+                        du: Optional[torch.Tensor] = None, *,
+                        dropout: float = 0.0, pad: int = 0) -> torch.Tensor:
+    """The betas recurrence, positions descending, over the whole width of
+    a START-indexed (W, L, B) score cache. ends (W, B) is 1.0 where a
+    sample ends at dp index q, hist0 (L, B) the betas after position W.
+    `seg` (K+1, B) cuts each row into chains at sample ends or padding
+    bytes (chain k covers [seg[k], seg[k+1]), from hist0 where seg[k+1]
+    == W and from a reset otherwise); None runs one chain per row. Dropout
+    as in `forward_scan`. Returns the post-reset betas (W, B) f32 (0 where a
+    sample ends, NEG where no path reaches).
+
+    CUDA tensors launch csrc/backward_chunk.cu's betas scan on the current
+    stream; CPU tensors run `backward_betas_scan_plain`."""
+    if not _check_scan(cache, ends, hist0, seg, du, dropout, pad):
+        return backward_betas_scan_plain(cache, ends, hist0, seg, du,
+                                         dropout=dropout, pad=pad)
+    W, L, B = cache.shape
+    betas = torch.empty((W, B), dtype=torch.float32, device=cache.device)
+    if W == 0 or B == 0:
+        return betas
+    use_drop = dropout > 0.0
+    _launch("backward_betas_scan", cache, ends, hist0, seg,
+            du if use_drop else None, betas, None, W, L, B,
+            1 if seg is None else seg.shape[0] - 1, pad,
+            dropout_threshold_half(dropout) if use_drop else 0, int(use_drop))
+    backward_betas_scan.launches += 1
+    return betas
+
+
+backward_betas_scan.launches = 0

@@ -35,18 +35,13 @@ import torch
 
 from . import _build
 from . import hashing as H
-from .lattice_cuda import (MAX_LEN, NEG, _check, backward_betas_chunk_plain,
-                           forward_chunk_plain, viterbi_chunk_plain)
+from .lattice_cuda import (_ODD, MAX_LEN, NEG, _check,
+                           backward_betas_chunk_plain,
+                           dropout_threshold_half, forward_chunk_plain,
+                           viterbi_chunk_plain)
 
 # Empty-slot score sentinel (f32 -3.0e38) as int32 bits.
 NEG_BITS = int(np.array([-3.0e38], np.float32).view(np.int32)[0])
-
-_ODD = 2654435761  # dropout per-length mixer
-
-
-def dropout_threshold_half(dropout: float) -> int:
-    """The coin threshold `thr >>> 1` as a non-negative int."""
-    return min(int(dropout * (1 << 32)), (1 << 32) - 1) >> 1
 
 
 def run_lengths(inb: torch.Tensor, stb: torch.Tensor,

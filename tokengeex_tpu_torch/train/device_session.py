@@ -15,9 +15,12 @@ rounds. The session therefore:
     the dense rank space (ops/lattice.py RankSpace) and keeps them under
     a budget, with one SegStruct per group;
   - on later passes re-gathers the current score per cached rank
-    (`estep_cached`), or, for tables small enough, re-probes inside the
-    fused kernels (`estep_fused`), applies fresh dropout coins per pass,
-    and turns the betas into counts through the scatter-free segsum.
+    (`estep_cached`: one whole-width forward and betas scan per group,
+    each row cut into chains at the group's sample boundaries, whose
+    bounds are cached beside its inputs), or, for tables small enough,
+    re-probes inside the fused kernels (`estep_fused`), applies fresh
+    dropout coins per pass, and turns the betas into counts through the
+    scatter-free segsum.
 
 A group whose slots do not fit the budget takes the per-pass route of
 train/estep_device.py (probe, forward, marginals scattered into bins).
@@ -133,6 +136,9 @@ class DeviceTrainSession:
         # Compact batch inputs on the device: the corpus crosses to the
         # device once per session.
         self.input_cache: Dict[object, tuple] = {}
+        # Each group's scan chain bounds (ops/lattice.py chain_bounds):
+        # pass-invariant, 2 (W / SCAN_SEGMENT + 1) ints per row.
+        self.chain_cache: Dict[int, tuple] = {}
         self._group_list = None
         self._span_idx: Dict[int, dict] = {}
         self._freq_group_list = None
@@ -145,6 +151,7 @@ class DeviceTrainSession:
         self.slot_cache.clear()
         self.seg_cache.clear()
         self.input_cache.clear()
+        self.chain_cache.clear()
         self.dt = None
         self.tbl = None
         self.slot_rows = None
@@ -258,6 +265,13 @@ class DeviceTrainSession:
                     self.input_used += size
             return lat.prepare_batch_from_inputs(gbytes, gflags, self.L)
 
+    def _chains_for(self, gi: int, batch: lat.DeviceBatch, timer=None):
+        """The group's scan chain bounds, made once."""
+        if gi not in self.chain_cache:
+            with lat.phase(timer, "prep"):
+                self.chain_cache[gi] = lat.chain_bounds(batch)
+        return self.chain_cache[gi]
+
     def _freq_batch(self, gi: int, sub: PackedBatch, timer=None):
         """Like _batch_for, under keys of their own when the frequency
         packing differs from the EM packing."""
@@ -361,19 +375,20 @@ class DeviceTrainSession:
                 A, exp_g = lat.estep_cached(
                     self.dt, batch, slots, self.slot_rows,
                     self._seg_for(gi, slots, timer), self.chunk, drop_u,
-                    dropout, timer)
+                    dropout, timer, chains=self._chains_for(gi, batch, timer))
             else:
                 # First pass (the probe is cached under the budget), or a
                 # group over budget, which probes on every pass.
                 score, slots = self._probe_group(gi, batch, timer)
                 cache = (score, slots)
+                chains = self._chains_for(gi, batch, timer)
                 A = lat.forward(self.dt, batch, cache, self.chunk, drop_u,
-                                dropout, timer)
+                                dropout, timer, chains=chains)
                 seg = self._seg_for(gi, slots, timer)
                 if seg is not None:
                     Bt = lat.backward_betas(self.dt, batch, cache,
                                             self.chunk, drop_u, dropout,
-                                            timer)
+                                            timer, chains=chains)
                     exp_g = lat.segsum_expected(self.dt, batch, A, Bt, seg,
                                                 self.slot_rows, drop_u,
                                                 dropout, timer)

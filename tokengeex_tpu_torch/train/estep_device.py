@@ -6,9 +6,10 @@ samples are packed into fixed-shape (rows x width) byte batches
 (utils/packing.py) and processed in row groups on the device
 (ops/lattice.py). Encode backtracks token ids on the host; samples
 longer than MAX_ENCODE_WIDTH chain fixed-width windows with a carried dp
-tail (_encode_chained). The E-step probes each group once and adds the
-token marginals of the forward/backward DPs into slot bins that the
-host folds to expected counts per token.
+tail (_encode_chained). The E-step probes each group once, runs the
+forward DP over the whole width in one scan and the backward DP chunk by
+chunk, and adds the token marginals into slot bins that the host folds
+to expected counts per token.
 """
 
 from __future__ import annotations
@@ -347,11 +348,14 @@ def run_e_step_device(
 
     Samples are chopped into snippets of at most
     min(max_snippet, DEVICE_EM_SNIPPET) bytes and packed; each row group
-    is probed once (`match_cache`), then runs the forward and backward
-    DPs and adds its marginals into slot bins on the device. dropout > 0
+    is probed once (`match_cache`), then runs the forward DP (one
+    whole-width scan, its chain bounds made per call) and the backward DP
+    and adds its marginals into slot bins on the device. dropout > 0
     skips multi-byte candidates with coins from a torch.Generator seeded
-    with `seed`, masked per chunk of the dropout-free cache. Every snippet's normaliser is checked once, after the
-    pass: a non-finite one (a snippet no token sequence covers) raises
+    with `seed`: the forward scan draws them in its kernel, the backward
+    masks each chunk of the dropout-free cache. Every snippet's
+    normaliser is checked once, after the pass: a non-finite one (a
+    snippet no token sequence covers) raises
     ValueError. device: a CUDA device by default, "cpu" for the kernels'
     plain versions; without a GPU and without `device` this raises.
     `timer` collects the seconds per phase (tables, pack, prep, probe,
