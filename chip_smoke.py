@@ -21,14 +21,16 @@ Phases (any failure exits non-zero):
      cache, chains cut every SCAN_SEGMENT positions) at dropout 0 and
      0.1, within rtol 1e-5, and one chain alone (B = 1) for the latency
      of a step, which times the longest chain gives the chain floor;
-     fused_forward_chunk(logsumexp) and
-     fused_backward_chunk on a session group of the 4k vocabulary
-     (W = 8192, 512 rows) at dropout 0 and 0.1, and seg_weights on seeded
-     inputs at H = 2^22 with n_hit inside the last block, A, betas and cf
-     within rtol 1e-5 with equal finite masks (not bit-equal in general:
-     the device's exp/log may differ from the kernels' expf/logf in the
-     last ulp); each timed with CUDA events beside its plain version and
-     its bound;
+     the fused log-sum-exp scans fused_forward_chunk(logsumexp) and
+     fused_backward_chunk on the same group with the 4k vocabulary
+     (bits 13), rows cut by the group's chains, at dropout 0 and 0.1,
+     equal to their twins bit for bit (a and run length; betas: the
+     forward's history is rebuilt from a in PyTorch, not by the kernel),
+     with one chain alone for the step latency and the table gathers
+     counted beside the bound; and seg_weights on seeded inputs at
+     H = 2^22 with n_hit inside the last block, cf within rtol 1e-5 with
+     equal finite masks; each timed with CUDA events beside its plain
+     version and its bound;
   3. encode end to end, Tokenizer.encode_batch(backend="device") on the
      card, for two configurations over a seeded ~8 MB code-like corpus
      at L = 16: (a) a 32,768-token vocabulary (slab route: bucket probe
@@ -62,8 +64,10 @@ Phases (any failure exits non-zero):
   3c. the trainer: VocabularyPruner (the README recipe's settings)
      prunes a 49,152-token vocabulary to 32,768 over the corpus (2
      rounds, 4 E-steps, 2 frequency passes) through one session, on the
-     cached route; the session is closed after; the result is a subset
-     of the input vocabulary and encodes and decodes the first 64 samples
+     cached route (table bits 17), then a 16,384-token vocabulary to
+     8,192 on the fused route (bits 15: its E-steps launch the fused
+     scans); each session is closed after; each result is a subset of
+     its input vocabulary and encodes and decodes the first 64 samples
      exactly on the card; prints each round's size and seconds;
   4. the kernels line, then the device line as the last line.
 
@@ -417,75 +421,101 @@ def drop_words(batch, dropout: float, dev, seed: int = 2):
                          generator=g, dtype=torch.int32, device=dev)
 
 
-def check_fused_lse(lat, lcf, tbl, batch, dropout: float, dev):
-    args = lat.fused_inputs(tbl, batch, drop_words(batch, dropout, dev),
-                            dropout)
-    kw = dict(L=tbl.max_len, bits=tbl.bits, pad=batch.pad, dropout=dropout)
-    want = lcf.fused_forward_chunk_plain("logsumexp", *args, **kw)
-    got = lcf.fused_forward_chunk("logsumexp", *args, **kw)
-    torch.cuda.synchronize()
-    check(torch.equal(got[3], want[3]), "fused_forward(logsumexp): rl differs")
-    err = max(assert_rel(got[0], want[0], "fused_forward(logsumexp): A", 1e-5),
-              assert_rel(got[2], want[2], "fused_forward(logsumexp): hist",
-                         1e-5))
-    ms = cuda_ms(lambda: lcf.fused_forward_chunk("logsumexp", *args, **kw),
-                 iters=5)
-    plain_ms = cuda_ms(
-        lambda: lcf.fused_forward_chunk_plain("logsumexp", *args, **kw),
-        iters=1, warmup=0)
+def one_chain(args):
+    """A fused scan's positional arguments cut to row 0 (B = 1): all but
+    the two tables and the two inverse-power streams (args 0, 1, 4, 5)
+    end in the row axis."""
+    return [t if i in (0, 1, 4, 5) or t is None else t[..., :1].contiguous()
+            for i, t in enumerate(args)]
+
+
+def check_fused_scan(lat, lcf, tbl, batch, dropout: float, dev,
+                     direction: str):
+    """The fused log-sum-exp scan of one direction against its twin at the
+    session's group, rows cut by the group's chains: equal bit for bit
+    (the forward's a and run length, the kernel's outputs; the betas).
+    The forward's history is not compared: the wrapper and the twin both
+    rebuild it from a with the same PyTorch function. Timed beside
+    the twin and its bound, and one chain alone (B = 1) for the latency
+    of a step."""
+    chains = lat.chain_bounds(batch)
     W = batch.width
     B = batch.p1.shape[0]
     L = tbl.max_len
-    # Bytes: every input read once, A, hist and rl written once.
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in args if t is not None)
-    nbytes += 4 * (W * B + L * B + B)
-    # Operations: ~20 integer ops per probed (position, length), and 5 for
-    # the log-sum-exp of each (position, length); probes only run where
-    # the length fits the sample run (counted on this data).
+    du = drop_words(batch, dropout, dev)
+    kw = dict(L=L, bits=tbl.bits, pad=batch.pad, dropout=dropout)
     inb = batch.sid[:, batch.pad : batch.pad + W].t() >= 0
-    rl = lcf.run_lengths(inb, batch.is_start[:, :W].t(), args[10])
-    probes = int(rl.clamp(max=L).sum())
-    b_ms, b_by = bound(nbytes, 20 * probes + 5 * W * L * B)
-    log(f"fused_forward(logsumexp) (W={W}, L={L}, B={B}, bits={tbl.bits}, "
-        f"dropout={dropout}): {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}), {probes} probes, max |err| {err}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "probes": probes,
-            "shape": {"W": W, "L": L, "B": B, "bits": tbl.bits,
-                      "dropout": dropout}}
+    if direction == "forward":
+        name = "fused_forward(logsumexp)"
+        args = lat.fused_inputs(tbl, batch, du, dropout)
+        seg = chains[0]
 
+        def fn(*a, **k):
+            return lcf.fused_forward_chunk("logsumexp", *a, **k)
 
-def check_fused_backward(lat, lcf, tbl, batch, dropout: float, dev):
-    args = lat.fused_bwd_inputs(tbl, batch, drop_words(batch, dropout, dev),
-                                dropout)
-    kw = dict(L=tbl.max_len, bits=tbl.bits, pad=batch.pad, dropout=dropout)
-    want = lcf.fused_backward_chunk_plain(*args, **kw)
-    got = lcf.fused_backward_chunk(*args, **kw)
-    torch.cuda.synchronize()
-    check(bool((want == 0).any()), "fused_backward: no sample end")
-    err = assert_rel(got, want, "fused_backward: betas", 1e-5)
-    ms = cuda_ms(lambda: lcf.fused_backward_chunk(*args, **kw), iters=5)
-    plain_ms = cuda_ms(lambda: lcf.fused_backward_chunk_plain(*args, **kw),
+        def plain(*a, **k):
+            return lcf.fused_forward_chunk_plain("logsumexp", *a, **k)
+        # Probes run where the length fits the run ending at the byte.
+        runs = lcf.run_lengths(inb, batch.is_start[:, :W].t(), args[10])
+        out_bytes = 4 * (W * B + L * B + B)  # a, hist and rl written once
+    else:
+        name = "fused_backward"
+        args = lat.fused_bwd_inputs(tbl, batch, du, dropout)
+        seg = chains[1]
+        fn, plain = lcf.fused_backward_chunk, lcf.fused_backward_chunk_plain
+        # Probes run where the length fits the run starting at the byte.
+        runs = lcf.start_run_lengths(inb, batch.is_start[:, 1:].t())
+        out_bytes = 4 * W * B  # the betas written once
+    want = []
+    plain_ms = cuda_ms(lambda: want.append(plain(*args, **kw, seg=seg)),
                        iters=1, warmup=0)
-    W = batch.width
-    B = batch.p1.shape[0]
-    L = tbl.max_len
-    # Bytes: every input read once, the betas written once. Operations as
-    # the fused forward's, over the runs STARTING at each byte.
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in args if t is not None) + 4 * W * B
-    inb = batch.sid[:, batch.pad : batch.pad + W].t() >= 0
-    fr = lcf.start_run_lengths(inb, batch.is_start[:, 1:].t())
-    probes = int(fr.clamp(max=L).sum())
+    want = want[0]
+    got = fn(*args, **kw, seg=seg)
+    torch.cuda.synchronize()
+    if direction == "forward":
+        check(torch.equal(got[3], want[3]), f"{name}: rl differs")
+        got, want = got[0], want[0]
+        compared = " (a; rl equal; hist is rebuilt from a, not compared)"
+    else:
+        check(bool((want == 0).any()), f"{name}: no sample end")
+        compared = ""
+    err = max_abs_err(got, want)
+    check(torch.equal(got, want),
+          f"{name} (dropout {dropout}): max |err| {err} against its twin")
+    ms = cuda_ms(lambda: fn(*args, **kw, seg=seg), iters=10)
+    # Bytes: every input read once (the chain bounds too), the outputs
+    # written once. Operations: ~20 integer ops per probed (position,
+    # length) -- the fingerprints, slots, compares and the coin -- and 5
+    # for the log-sum-exp of each (position, length); probes counted on
+    # this data.
+    nbytes = sum(t.numel() * t.element_size() for t in args if t is not None)
+    nbytes += seg.numel() * 4 + out_bytes
+    probes = int(runs.clamp(max=L).sum())
     b_ms, b_by = bound(nbytes, 20 * probes + 5 * W * L * B)
-    log(f"fused_backward (W={W}, L={L}, B={B}, bits={tbl.bits}, "
-        f"dropout={dropout}): {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}), {probes} probes, max |err| {err}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "probes": probes,
-            "shape": {"W": W, "L": L, "B": B, "bits": tbl.bits,
-                      "dropout": dropout}}
+    # The table gathers, beside the bound: 2 rows of 8 bytes per (position,
+    # length), each one 32-byte sector of L2 or L1.
+    sectors = 2 * W * L * B
+    longest = int((seg[1:] - seg[:-1]).max())
+    one = one_chain(args)
+    one_ms = cuda_ms(lambda: fn(*one, **kw), iters=3)
+    res = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "probes": probes,
+           "gather_sectors": sectors, "longest_chain": longest,
+           "chains": (seg.shape[0] - 1) * B,
+           "one_chain_ms": one_ms, "us_per_step": one_ms * 1e3 / W,
+           "chain_floor_ms": longest * one_ms / W,
+           "shape": {"W": W, "L": L, "B": B, "bits": tbl.bits,
+                     "dropout": dropout,
+                     "segments": seg.shape[0] - 1}}
+    log(f"{name} (W={W}, L={L}, B={B}, bits={tbl.bits}, dropout={dropout}, "
+        f"{seg.shape[0] - 1} segments): {ms:.4f} ms, plain {plain_ms:.1f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}), {probes} probes, {sectors} table "
+        f"sectors ({sectors * 32 / 1e9:.2f} GB), max |err| {err}{compared}; "
+        f"one chain (B=1) {one_ms:.4f} ms = {res['us_per_step']:.4f} us per "
+        f"step, "
+        f"longest chain {longest} -> chain floor "
+        f"{res['chain_floor_ms']:.4f} ms")
+    return res
 
 
 def check_backward_betas(lc, C: int, L: int, B: int, dev):
@@ -925,9 +955,22 @@ def run_session(name, vocab, samples, expect, kernels, oracle, dev):
     return out
 
 
-def run_prune(vocab, target: int, samples, kernels, dev):
+def run_prune(name, vocab, target: int, samples, expect, fused: bool,
+              kernels, dev):
+    """Phase 3c: VocabularyPruner from `vocab` down to `target` tokens
+    through one session, whose E-steps take the fused route when `fused`
+    (the initial table has has_vscan) and the cached route otherwise;
+    `expect` names the kernels the run must launch."""
     from tokengeex_tpu_torch import Model, NoPathError, Tokenizer
+    from tokengeex_tpu_torch.ops import lattice as lat
+    from tokengeex_tpu_torch.ops.match_table import TokenTable
     from tokengeex_tpu_torch.train.prune import VocabularyPruner
+
+    tag = f"[prune {name}]"
+    check(lat.has_vscan(lat.DeviceTables.from_table(TokenTable.build(vocab),
+                                                    dev)) == fused,
+          f"{tag}: the initial table does not take the "
+          f"{'fused' if fused else 'cached'} route")
 
     pruner = VocabularyPruner(vocab_size=target, shrink_factor=0.8,
                               em_subiters=2, dropout=0.05, device=dev)
@@ -950,7 +993,7 @@ def run_prune(vocab, target: int, samples, kernels, dev):
     pruner.run_e_step = timed("e_steps", pruner.run_e_step)
     pruner._count_frequencies = timed("frequencies", pruner._count_frequencies)
     pruner._alternatives = timed("alternatives", pruner._alternatives)
-    sessions = []
+    sessions, routes = [], []
     new_session = pruner._new_session
 
     rebind = {"seconds": 0.0, "calls": 0}
@@ -958,6 +1001,7 @@ def run_prune(vocab, target: int, samples, kernels, dev):
     def counted_session(*args):
         sess = new_session(*args)
         sessions.append(sess)
+        routes.append(sess._fused())
         orig_rebind = sess._rebind
 
         def timed_rebind(model):
@@ -978,7 +1022,7 @@ def run_prune(vocab, target: int, samples, kernels, dev):
         split["rest"] = round(now - mark[0] - sum(spent.values()), 6)
         rounds.append({"round": k, "vocab_size": model.vocab_size(),
                        "seconds": now - mark[0], "split": split})
-        log(f"[prune] round {k}: {model.vocab_size()} tokens in "
+        log(f"{tag} round {k}: {model.vocab_size()} tokens in "
             f"{now - mark[0]:.3f} s; {split}")
         mark[0] = now
         spent.update(dict.fromkeys(spent, 0.0))
@@ -989,33 +1033,32 @@ def run_prune(vocab, target: int, samples, kernels, dev):
     try:
         final = pruner.prune(Model(vocab), samples, checkpoint_cb=on_round)
     except NoPathError as e:
-        fail(f"prune: the frequency pass found no path ({e}): the M-step "
+        fail(f"{tag}: the frequency pass found no path ({e}): the M-step "
              "dropped a byte token the corpus needs")
     secs = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in kernels.items()}
-    for k in ("forward_scan", "backward_betas_scan", "seg_weights",
-              "viterbi_chunk"):
-        check(launches[k] > 0, f"prune: launched {k} no time")
+    for k in expect:
+        check(launches[k] > 0, f"{tag}: launched {k} no time")
     check(len(sessions) == 1 and pruner._session is None
           and sessions[0].dt is None,
-          f"prune: built {len(sessions)} sessions, or did not close one")
+          f"{tag}: built {len(sessions)} sessions, or did not close one")
+    check(routes == [fused], f"{tag}: the session took the other route")
     size = final.vocab_size()
-    log(f"[prune] {len(vocab)} -> {size} tokens in {len(rounds)} rounds, "
+    log(f"{tag} {len(vocab)} -> {size} tokens in {len(rounds)} rounds, "
         f"{secs:.3f} s, through one session (closed); {rebind['calls']} "
         f"rebinds took {rebind['seconds']:.3f} s (inside e_steps and "
         f"frequencies); launches {launches}")
-    log("[prune] the per-pass route's rounds on this card, for comparison "
-        "(PERF.md): 8.458 s and 5.356 s")
-    check(size <= target, f"prune: {size} tokens left, above {target}")
+    check(size <= target, f"{tag}: {size} tokens left, above {target}")
     check({t.value for t in final.vocab} <= {t.value for t in vocab},
-          "prune: a kept token is not in the input vocabulary")
+          f"{tag}: a kept token is not in the input vocabulary")
     tok = Tokenizer(final, device=dev)
     texts = [s.decode() for s in samples[:64]]
     ids = tok.encode_batch(texts)
     check(all(tok.decode(r) == t for r, t in zip(ids, texts)),
-          "prune: the pruned tokenizer does not round-trip")
-    log("[prune] checks passed: size, subset, 64-sample round trip")
-    return {"seconds": secs, "rounds": rounds, "final_size": size,
+          f"{tag}: the pruned tokenizer does not round-trip")
+    log(f"{tag} checks passed: route, size, subset, 64-sample round trip")
+    return {"route": "fused" if fused else "cached", "seconds": secs,
+            "rounds": rounds, "initial_size": len(vocab), "final_size": size,
             "launches": launches, "rebind": rebind}
 
 
@@ -1103,10 +1146,10 @@ def main() -> None:
                                                  ed.ROW_MULT))
     check(sub_s.rows == sess_rows, f"session group of {sub_s.rows} rows")
     batch_s = lat.prepare_batch(sub_s, L_MAX, dev)
-    fused_lse = [check_fused_lse(lat, lcf, dt_b, batch_s, d, dev)
+    fused_lse = [check_fused_scan(lat, lcf, dt_b, batch_s, d, dev, "forward")
                  for d in (0.0, 0.1)]
-    fused_bwd = [check_fused_backward(lat, lcf, dt_b, batch_s, d, dev)
-                 for d in (0.0, 0.1)]
+    fused_bwd = [check_fused_scan(lat, lcf, dt_b, batch_s, d, dev,
+                                  "backward") for d in (0.0, 0.1)]
     # The same group with the 32k vocabulary's cache: the session's
     # cached route.
     dt_a = lat.DeviceTables.from_table(TokenTable.build(vocab_a), dev)
@@ -1154,8 +1197,15 @@ def main() -> None:
     }
     torch.cuda.empty_cache()
     phase_start("3c")
-    pruned = run_prune(build_vocab(samples, 49152, prefixes=False), 32768,
-                       samples, kernels, dev)
+    pruned = run_prune("cached", build_vocab(samples, 49152, prefixes=False),
+                       32768, samples, ("forward_scan", "backward_betas_scan",
+                                        "seg_weights", "viterbi_chunk"),
+                       False, kernels, dev)
+    # A table of 16,384 tokens has 15 bits: the fused route's E-steps.
+    pruned_f = run_prune("fused", build_vocab(samples, 16384, prefixes=False),
+                         8192, samples, ("fused_forward_chunk",
+                                         "fused_backward_chunk",
+                                         "seg_weights"), True, kernels, dev)
 
     # -- 4. kernels line --
     phase_start("4")
@@ -1208,7 +1258,7 @@ def main() -> None:
               "seg_weights": seg,
               "fused_forward_logsumexp": fused_lse,
               "fused_backward": fused_bwd, "encode": e2e, "estep": estep,
-              "session": session, "prune": pruned,
+              "session": session, "prune": pruned, "prune_fused": pruned_f,
               "kernels": line["kernels"]}
     out = HERE / "chiprun_out"
     try:

@@ -23,7 +23,15 @@ of 512 rows, the 32,768-token vocabulary's cache, L = 16) it times
   - beside them, the forward with 16 lanes and a butterfly sum
     (experiments/torch_scan_lanes.cu, each chain on its own range), held
     against `forward_scan` within rtol 1e-5: what the ascending order
-    costs.
+    costs;
+  - the fused log-sum-exp scans (`fused_forward_chunk("logsumexp")`,
+    `fused_backward_chunk`) on the same group with the 4,096-token
+    vocabulary (bits 13) and the group's chains: the package's kernels,
+    tables read from global memory, against the same bodies with both
+    tables staged into shared memory per 16-warp block
+    (experiments/torch_fused_smem.cu), timed in turns (global, shared,
+    shared, global) and held equal bit for bit; both uncut (one chain per
+    row), and one chain alone (B = 1) for the latency of a step.
 
 Prints one JSON object as its last line, and writes it to out.json when
 a path is given.
@@ -82,6 +90,74 @@ def entry(lib, symbol: str, name: str):
     return fn
 
 
+def fused_placements(libs, samples, batch, dev) -> dict:
+    """The fused LSE scans with the tables in global memory (the
+    package's libraries) and in shared memory (torch_fused_smem.cu), per
+    direction: ms per group in turns, the uncut rows and one
+    chain alone (B = 1)."""
+    dt = lat.DeviceTables.from_table(
+        TokenTable.build(cs.build_vocab(samples, 4096)), dev)
+    cs.check(dt.bits <= 13, f"4k table of {dt.bits} bits")
+    W, B, L = batch.width, batch.p1.shape[0], dt.max_len
+    chains = lat.chain_bounds(batch)
+    fns = {"forward": {"global": _build.load("fused_forward_lse"),
+                       "shared": entry(libs["fused_smem.so"],
+                                       "tgx_fused_forward_lse_smem",
+                                       "fused_forward_lse")},
+           "backward": {"global": _build.load("fused_backward"),
+                        "shared": entry(libs["fused_smem.so"],
+                                        "tgx_fused_backward_smem",
+                                        "fused_backward")}}
+    inputs = {"forward": lat.fused_inputs(dt, batch),
+              "backward": lat.fused_bwd_inputs(dt, batch)}
+    res = {"bits": dt.bits, "shape": {"W": W, "L": L, "B": B}}
+    for name, seg in zip(("forward", "backward"), chains):
+        args = inputs[name]
+        row = {}
+
+        def run(place, args, seg, out):
+            """One launch as the package's wrapper makes it (no dropout):
+            the streams, the chain bounds, the outputs, the widths."""
+            b = args[2].shape[1]
+            K = 1 if seg is None else seg.shape[0] - 1
+            ptrs = [None if t is None else t.data_ptr()
+                    for t in (*args, seg, *out)]
+            rc = fns[name][place](*ptrs, W, L, b, K, batch.pad, dt.bits, 0,
+                                  0, torch.cuda.current_stream().cuda_stream)
+            cs.check(rc == 0, f"fused {name}, {place} tables: CUDA error {rc}")
+
+        def outputs(b):
+            a = torch.empty((W, b), dtype=torch.float32, device=dev)
+            if name == "backward":
+                return (a,)
+            return (a, torch.empty((b,), dtype=torch.int32, device=dev))
+
+        got = {p: outputs(B) for p in ("global", "shared")}
+        for place, out in got.items():
+            run(place, args, seg, out)
+        torch.cuda.synchronize()
+        cs.check(all(torch.equal(x, y) for x, y in zip(got["global"],
+                                                       got["shared"])),
+                 f"fused {name}: shared-memory tables differ from global")
+        times = {"global": [], "shared": []}
+        for place in ("global", "shared", "shared", "global"):
+            out = got[place]
+            times[place].append(cs.cuda_ms(
+                lambda: run(place, args, seg, out), iters=10))
+        for place, ts in times.items():
+            row[f"ms_{place}"] = sum(ts) / len(ts)
+            row[f"ms_{place}_runs"] = ts
+            out = got[place]
+            row[f"ms_{place}_uncut"] = cs.cuda_ms(
+                lambda: run(place, args, None, out), iters=2)
+            one, one_out = cs.one_chain(args), outputs(1)
+            ms = cs.cuda_ms(lambda: run(place, one, None, one_out), iters=3)
+            row[f"one_chain_us_per_step_{place}"] = ms * 1e3 / W
+        res[name] = row
+        cs.log(f"fused {name}: {row}")
+    return res
+
+
 def warp_span(bounds: torch.Tensor) -> int:
     """Longest range a warp walks: per segment and 32 rows, the last
     chain end minus the first chain start."""
@@ -102,8 +178,11 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True, check=True
     ).stdout.strip().splitlines()[0]
     cs.log(smi)
-    _build.build(["forward_scan", "backward_betas_scan"])
-    jobs = [(ROOT / "experiments" / "torch_scan_lanes.cu", "butterfly.so", ())]
+    _build.build(["forward_scan", "backward_betas_scan", "fused_forward_lse",
+                  "fused_backward"])
+    jobs = [(ROOT / "experiments" / "torch_scan_lanes.cu", "butterfly.so", ()),
+            (ROOT / "experiments" / "torch_fused_smem.cu", "fused_smem.so",
+             ())]
     for g in LANES:
         for src in ("forward_chunk.cu", "backward_chunk.cu"):
             jobs.append((_build.CSRC / src, f"{src[:-3]}_lanes{g}.so",
@@ -200,6 +279,7 @@ def main() -> None:
             one[f"{name}_lanes_{g}"] = {"ms": ms, "us_per_step": ms * 1e3 / W}
     res["one_chain"] = one
     cs.log(f"one chain (B=1, W={W}): {one}")
+    res["fused_tables"] = fused_placements(libs, samples, batch, dev)
     if len(sys.argv) > 1:
         out = Path(sys.argv[1])
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -324,6 +324,87 @@ def test_cuda_backward_betas_scan_matches_twin(cuda_device, L, dropout):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("max_len", [8, 16, 32])
+def test_cuda_fused_scans_with_chains_equal_twins(cuda_device, max_len,
+                                                  dropout):
+    """The fused log-sum-exp scans, rows cut into chains every 64
+    positions and uncut, equal their twins bit for bit."""
+    tbl, batch, du = _fused_batch(max_len, dropout, cuda_device)
+    chains = lat.chain_bounds(batch, 64)
+    assert bool((chains[0][1:-1] < batch.width).any())
+    kw = dict(L=tbl.max_len, bits=tbl.bits, pad=batch.pad, dropout=dropout)
+    fwd = lat.fused_inputs(tbl, batch, du, dropout)
+    bwd = lat.fused_bwd_inputs(tbl, batch, du, dropout)
+    for seg_f, seg_b in (chains, (None, None)):
+        want = lcf.fused_forward_chunk_plain("logsumexp", *fwd, **kw,
+                                             seg=seg_f)
+        before = lcf.fused_forward_chunk.launches
+        got = lcf.fused_forward_chunk("logsumexp", *fwd, **kw, seg=seg_f)
+        torch.cuda.synchronize()
+        assert lcf.fused_forward_chunk.launches == before + 1
+        assert got[1] is None
+        # The kernel writes a and rl; hist is rebuilt from a on both sides
+        # (`_hist_from_values`), so only a and rl witness the kernel.
+        for i in (0, 3):  # a, rl
+            assert torch.equal(got[i], want[i])
+        want = lcf.fused_backward_chunk_plain(*bwd, **kw, seg=seg_b)
+        before = lcf.fused_backward_chunk.launches
+        got = lcf.fused_backward_chunk(*bwd, **kw, seg=seg_b)
+        torch.cuda.synchronize()
+        assert lcf.fused_backward_chunk.launches == before + 1
+        assert bool((want == 0).any()) and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scan", ["fused_forward", "fused_backward",
+                                  "forward_scan", "backward_betas_scan"])
+def test_cuda_scans_clamp_chain_bounds(cuda_device, scan):
+    """Bounds on the card are not read back: every scan clamps a chain
+    into [0, W]. Ends past the width give the valid chains' values, and
+    bounds out of order launch and finish without a fault."""
+    if scan.startswith("fused"):
+        tbl, batch, _ = _fused_batch(16, 0.0, cuda_device)
+        kw = dict(L=tbl.max_len, bits=tbl.bits, pad=batch.pad)
+        chains = lat.chain_bounds(batch, 64)
+        if scan == "fused_forward":
+            args = lat.fused_inputs(tbl, batch)
+
+            def run(seg):
+                return lcf.fused_forward_chunk("logsumexp", *args, **kw,
+                                               seg=seg)[0]
+            seg = chains[0]
+        else:
+            args = lat.fused_bwd_inputs(tbl, batch)
+
+            def run(seg):
+                return lcf.fused_backward_chunk(*args, **kw, seg=seg)
+            seg = chains[1]
+    else:
+        direction = "forward" if scan == "forward_scan" else "backward"
+        args, kw = _scan_inputs(16, 0.0, cuda_device, direction)
+        fn = lc.forward_scan if scan == "forward_scan" else \
+            lc.backward_betas_scan
+        seg = args[3]
+
+        def run(seg):
+            return fn(*args[:3], seg, **kw)
+    W = int(seg[-1, 0])
+    want = run(seg)
+    wide = seg.clone()
+    wide[0] = -7
+    wide[-1] = W + 100
+    got = run(wide)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    tangled = seg.clone()
+    tangled[1] = W + 5
+    tangled[2] = -3
+    run(tangled)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("H,n_tail", [(1 << 16, 1), (1 << 12, 100)])
 def test_cuda_seg_weights_matches_twin(cuda_device, H, n_tail):
     g = torch.Generator().manual_seed(H + n_tail)

@@ -277,6 +277,22 @@ def test_session_caches_chain_bounds():
 # -- argument checks --
 
 
+def _bad_bound_values(seg):
+    """Chain bounds of the right shape, type and layout whose values are
+    out of range or out of order: a first row not 0, a last row short of
+    or past the width, a negative bound, a row below the one before."""
+    W = int(seg[-1, 0])
+    out = []
+    for row, value in ((0, 1), (-1, W - 1), (-1, W + 1), (1, -1)):
+        s = seg.clone()
+        s[row, 3] = value
+        out.append(s)
+    s = seg.clone()
+    s[1, 5], s[2, 5] = W, 0
+    out.append(s)
+    return out
+
+
 @pytest.mark.parametrize("direction", ["forward", "backward"])
 def test_scan_wrappers_reject_bad_input(direction):
     case = _case(0, 8)
@@ -312,6 +328,8 @@ def test_scan_wrappers_reject_bad_input(direction):
         ((cache, flags.t().contiguous().t(), hist), {}),
         ((cache, flags, hist, seg.t().contiguous().t()), {}),
     ]
+    # values: out of range or out of order
+    bad += [((cache, flags, hist, s), {}) for s in _bad_bound_values(seg)]
     for args, kw in bad:
         with pytest.raises(ValueError):
             fn(*args, **kw)

@@ -128,10 +128,7 @@ __global__ void __launch_bounds__(32) backward_betas_scan_kernel(
 
   // This lane's chain [b0, b1), walked downwards from b1 - 1.
   int b0 = INT_MAX, b1 = INT_MAX;
-  if (row) {
-    b0 = seg ? seg[k * Bs + r] : 0;
-    b1 = seg ? seg[(k + 1) * Bs + r] : n;
-  }
+  if (row) tgx_chain(seg, k, r, Bs, n, b0, b1);
   const int lo = __reduce_min_sync(TGX_FULL, b0);
   const int hi = __reduce_max_sync(TGX_FULL, row ? b1 : INT_MIN);
   if (lo >= hi) return;
@@ -154,9 +151,7 @@ __global__ void __launch_bounds__(32) backward_betas_scan_kernel(
     }
   };
 
-  // hist[g + G * p]; hx is the same but for hist[0], which only h0 and
-  // lane 0's h hold: hx never waits on the last step's value, so the max
-  // over lengths >= 2 runs a step ahead of the recurrence.
+  // The history, as `tgx_lse_step` keeps it.
   float h[P], hx[P];
 #pragma unroll
   for (int p = 0; p < P; ++p) h[p] = hx[p] = TGX_NEG;
@@ -181,39 +176,21 @@ __global__ void __launch_bounds__(32) backward_betas_scan_kernel(
         }
         h0 = (b1 == n) ? hist_in[r] : 0.0f;
       }
-      float up[P], wrap[P];  // the history shift's shuffles, issued early
-      tgx_neighbours<LMAX, G>(h, up, wrap);
-      float cand[P];
-      float m1 = -INFINITY;  // max over j >= 1: ready before the carry
+      float sc[P];
 #pragma unroll
       for (int p = 0; p < P; ++p) {
-        const int j = g + G * p;
-        cand[p] = -INFINITY;
-        if (j < L) {
-          float s = fmaxf(rs[i][p], TGX_NEG);
-          if constexpr (DROP)
-            if (tgx_dropped(ru[i], j, thr_half)) s = TGX_NEG;
-          cand[p] = s + hx[p];
-          if (j > 0) m1 = fmaxf(m1, cand[p]);
-        }
+        sc[p] = fmaxf(rs[i][p], TGX_NEG);
+        if constexpr (DROP)
+          if (tgx_dropped(ru[i], g + G * p, thr_half)) sc[p] = TGX_NEG;
       }
-      m1 = tgx_group_max<G>(m1);
-      const float c0 = fmaxf(r0[i], TGX_NEG) + h0;  // length 1: no coin
-      if (g == 0) cand[0] = c0;
-      const float m = fmaxf(c0, m1);
-      const bool has = m > TGX_NEG * 0.5f;
-      const float safe = has ? m : 0.0f;
-      float e[P];
-#pragma unroll
-      for (int p = 0; p < P; ++p)
-        e[p] = (g + G * p < L) ? expf(cand[p] - safe) : 0.0f;
-      const float t = tgx_ascending_sum<LMAX, G>(e, &e_s[q & 1][c][0], g);
-      const float lse = has ? safe + logf(t) : TGX_NEG;
-      const float carry = (rf[i] > 0.5f) ? 0.0f : lse;
-      if (g == 0 && q >= b0 && q < b1) betas[(size_t)q * Bs + r] = carry;
-      tgx_shift<LMAX, G>(h, up, wrap, carry, g);
-      tgx_shift<LMAX, G>(hx, up, wrap, TGX_NEG, g);
-      h0 = carry;
+      // Length 1 draws no coin; a + b == b + a, so the step adds as
+      // cand[j] = s[j] + hist[j] did.
+      const bool end = rf[i] > 0.5f;
+      const float lse = tgx_lse_step<LMAX, G>(
+          h, hx, h0, sc, fmaxf(r0[i], TGX_NEG), end, &e_s[q & 1][c][0], g,
+          L);
+      if (g == 0 && q >= b0 && q < b1)
+        betas[(size_t)q * Bs + r] = end ? 0.0f : lse;
       fetch(i, q - D);  // the slot is consumed: refill it
     }
   }

@@ -27,6 +27,22 @@ __device__ __forceinline__ bool tgx_dropped(uint32_t du, int j,
   return j > 0 && ((du * ((uint32_t)(j + 1) * TGX_ODD)) >> 1) < thr_half;
 }
 
+// Chain k of row r: [b0, b1) from the bounds seg (K+1, B), or the whole
+// row [0, n) when seg is null. Clamped so that 0 <= b0 <= b1 <= n whatever
+// seg holds: a bound out of range or out of order gives wrong values, never
+// an access outside the buffers.
+__device__ __forceinline__ void tgx_chain(const int32_t* seg, int k, int r,
+                                          size_t Bs, int n, int& b0,
+                                          int& b1) {
+  if (seg == nullptr) {
+    b0 = 0;
+    b1 = n;
+    return;
+  }
+  b0 = min(max(seg[k * Bs + r], 0), n);
+  b1 = min(max(seg[(k + 1) * Bs + r], b0), n);
+}
+
 // Max over the G lanes of a group (a butterfly; the max is exact).
 template <int G>
 __device__ __forceinline__ float tgx_group_max(float v) {
@@ -107,6 +123,83 @@ __device__ __forceinline__ void tgx_shift(float (&h)[LMAX / G],
     else
       h[p] = (g > 0) ? up[p] : (p == 0 ? carry : wrap[p - 1]);
   }
+}
+
+// One step of a chain's log-sum-exp recurrence on its group of lanes:
+//   cand[j] = hist[j] + s[j];  m = max;  has = m > NEG/2;  safe = has ? m : 0
+//   value   = has ? safe + logf(sum_j expf(cand[j] - safe)) : NEG
+//   hist   <- [reset ? 0 : value, hist[0], ..., hist[L-2]]
+// s[p] is the score of this lane's length j = g + G*p (read for j < L, at
+// least NEG), s0 the length-1 score on every lane. h holds hist[g + G*p];
+// hx is the same but for hist[0], which only h0 (on every lane) and lane
+// 0's h hold: hx never waits on the last step's value, so the max over
+// lengths >= 2 runs a step ahead of the recurrence, and the new history
+// head needs no shuffle. The history shift's shuffles issue first. e_s is
+// the chain's row of shared memory for `tgx_ascending_sum`. Returns the
+// value.
+template <int LMAX, int G>
+__device__ __forceinline__ float tgx_lse_step(float (&h)[LMAX / G],
+                                              float (&hx)[LMAX / G],
+                                              float& h0,
+                                              const float (&s)[LMAX / G],
+                                              float s0, bool reset,
+                                              float* e_s, int g, int L) {
+  constexpr int P = LMAX / G;
+  float up[P], wrap[P];
+  tgx_neighbours<LMAX, G>(h, up, wrap);
+  float cand[P];
+  float m1 = -INFINITY;  // max over j >= 1: ready before the carry
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int j = g + G * p;
+    cand[p] = -INFINITY;
+    if (j < L) {
+      cand[p] = hx[p] + s[p];
+      if (j > 0) m1 = fmaxf(m1, cand[p]);
+    }
+  }
+  m1 = tgx_group_max<G>(m1);
+  const float c0 = h0 + s0;
+  if (g == 0) cand[0] = c0;
+  const float m = fmaxf(c0, m1);
+  const bool has = m > TGX_NEG * 0.5f;
+  const float safe = has ? m : 0.0f;
+  float e[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+    e[p] = (g + G * p < L) ? expf(cand[p] - safe) : 0.0f;
+  const float t = tgx_ascending_sum<LMAX, G>(e, e_s, g);
+  const float lse = has ? safe + logf(t) : TGX_NEG;
+  const float carry = reset ? 0.0f : lse;
+  tgx_shift<LMAX, G>(h, up, wrap, carry, g);
+  tgx_shift<LMAX, G>(hx, up, wrap, TGX_NEG, g);
+  h0 = carry;
+  return lse;
+}
+
+// A per-length history of stream words one length on, in one call:
+// h[j] <- h[j-1], h[0] <- in. The fused scans keep their prefix hashes,
+// inverse powers and dropout words this way (lane j holds the word of the
+// token of length j + 1), so a step loads one new word per stream and no
+// lane reloads a neighbour's.
+template <int LMAX, int G, typename T>
+__device__ __forceinline__ void tgx_roll(T (&h)[LMAX / G], T in, int g) {
+  constexpr int P = LMAX / G;
+  if (G == 1) {
+#pragma unroll
+    for (int p = P - 1; p > 0; --p) h[p] = h[p - 1];
+    h[0] = in;
+    return;
+  }
+  T up[P], wrap[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    up[p] = __shfl_up_sync(TGX_FULL, h[p], 1, G);
+    if (P > 1) wrap[p] = __shfl_sync(TGX_FULL, h[p], G - 1, G);
+  }
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+    h[p] = (g > 0) ? up[p] : (p == 0 ? in : wrap[p - 1]);
 }
 
 // Lanes per chain: a lane per length up to 32 lengths, two lengths per

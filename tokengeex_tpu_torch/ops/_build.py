@@ -34,9 +34,11 @@ KERNELS: Dict[str, Tuple[str, str, tuple]] = {
     "viterbi_chunk": ("viterbi_chunk.cu", "tgx_viterbi_chunk",
                       (P, P, P, P, P, P, I, I, I, P)),
     "fused_forward": ("fused_forward.cu", "tgx_fused_forward",
-                      (P,) * 15 + (I, I, I, I, I, I, U, I, P)),
+                      (P,) * 15 + (I,) * 6 + (U, P)),
+    "fused_forward_lse": ("fused_forward.cu", "tgx_fused_forward_lse",
+                          (P,) * 14 + (I,) * 7 + (U, P)),
     "fused_backward": ("fused_backward.cu", "tgx_fused_backward",
-                       (P,) * 11 + (I, I, I, I, I, I, U, P)),
+                       (P,) * 12 + (I,) * 7 + (U, P)),
     "forward_scan": ("forward_chunk.cu", "tgx_forward_scan",
                      (P,) * 7 + (I,) * 6 + (U, I, P)),
     "backward_chunk": ("backward_chunk.cu", "tgx_backward_chunk",

@@ -42,7 +42,8 @@ remapped once to a dense rank space, and a `SegStruct` that sorts the
 group's hits by rank once. Its later E-steps re-gather scores per cached
 rank (`estep_cached`: `forward_scan` and `backward_betas_scan`, one
 launch each over the whole width) or re-probe inside the fused kernels
-(`estep_fused`), run the backward pass for betas only, and turn them
+(`estep_fused`: the same chained scans with the probe inside, one launch
+each), run the backward pass for betas only, and turn them
 into counts with the scatter-free `segsum_expected` (csrc/seg_weights.cu).
 """
 
@@ -758,18 +759,23 @@ def _scan_forward_fused(
     carry: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     timer: Optional[PhaseTimer] = None,
     kind: str = "viterbi",
+    chains: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ):
     """Fused route: fingerprints, probe and DP in one kernel over the
     whole row width. Semantics identical to `_scan_forward`: (dp, best_l)
     for Viterbi, the forward values A (B, W+1) with A[:, 0] prepended for
-    log-sum-exp."""
+    log-sum-exp, its rows cut into chains by the forward bounds of
+    `chains` (`chain_bounds`, made here when not given)."""
     use_drop = drop_u is not None and dropout > 0.0
+    seg = None
     with phase(timer, "prep"):
         args = fused_inputs(tbl, batch, drop_u, dropout, carry)
+        if kind == "logsumexp":
+            seg = (chains if chains is not None else chain_bounds(batch))[0]
     with phase(timer, "kernel" if kind == "viterbi" else "forward"):
         dp, best_l, _, _ = lcf.fused_forward_chunk(
             kind, *args, L=tbl.max_len, bits=tbl.bits, pad=batch.pad,
-            dropout=dropout if use_drop else 0.0)
+            dropout=dropout if use_drop else 0.0, seg=seg)
     if kind == "viterbi":
         return _finish(dp.t()), best_l.t()
     a0 = torch.where(batch.is_start[:, :1], 0.0, NEG_INF)
@@ -816,11 +822,11 @@ def forward(tbl: DeviceTables, batch: DeviceBatch,
     `cache`, its rows cut into chains by `chains` (`chain_bounds`, made
     here when not given), or without a cache `forward_chunk` over a fresh
     probe per chunk of C positions; "fused" probes inside the fused kernel
-    (tables with has_vscan only; no cache)."""
+    (tables with has_vscan only; no cache), its rows cut by `chains` too."""
     if backend == "fused":
         _check_fused_backend(tbl, cache)
         return _scan_forward_fused(tbl, batch, drop_u, dropout, timer=timer,
-                                   kind="logsumexp")
+                                   kind="logsumexp", chains=chains)
     if backend != "slab":
         raise ValueError(f"unknown backend {backend!r}")
     if cache is None:
@@ -944,8 +950,8 @@ def backward_betas(tbl: DeviceTables, batch: DeviceBatch,
     once over the whole width of the `match_cache` result `cache`, its
     rows cut into chains by `chains` (`chain_bounds`, made here when not
     given; C is unused); "fused" runs `fused_backward_chunk` over the
-    whole width (tables with has_vscan only; no cache). Feeds
-    `segsum_expected`."""
+    whole width, its rows cut the same way (tables with has_vscan only; no
+    cache). Feeds `segsum_expected`."""
     W = batch.width
     L = tbl.max_len
     use_drop = drop_u is not None and dropout > 0.0
@@ -954,10 +960,12 @@ def backward_betas(tbl: DeviceTables, batch: DeviceBatch,
         _check_fused_backend(tbl, cache)
         with phase(timer, "prep"):
             args = fused_bwd_inputs(tbl, batch, drop_u, dropout)
+            if chains is None:
+                chains = chain_bounds(batch)
         with phase(timer, "backward"):
             bt = lcf.fused_backward_chunk(
                 *args, L=L, bits=tbl.bits, pad=batch.pad,
-                dropout=dropout if use_drop else 0.0)
+                dropout=dropout if use_drop else 0.0, seg=chains[1])
         return torch.cat([_finish(bt.t()), bW], dim=1)
     if backend != "slab":
         raise ValueError(f"unknown backend {backend!r}")
@@ -1301,14 +1309,18 @@ def estep_cached(tbl: DeviceTables, batch: DeviceBatch, slots: torch.Tensor,
 
 def estep_fused(tbl: DeviceTables, batch: DeviceBatch, seg: SegStruct,
                 score_rows: torch.Tensor, drop_u: Optional[torch.Tensor] = None,
-                dropout: float = 0.0, timer: Optional[PhaseTimer] = None):
+                dropout: float = 0.0, timer: Optional[PhaseTimer] = None,
+                chains: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """(A, expected-count accumulator) with the probe fused into both
     scans (tables with has_vscan only) and the counts from the group's
-    SegStruct."""
+    SegStruct. `chains` are the group's `chain_bounds` (made here when not
+    given)."""
+    if chains is None:
+        chains = chain_bounds(batch)
     A = forward(tbl, batch, drop_u=drop_u, dropout=dropout, timer=timer,
-                backend="fused")
+                backend="fused", chains=chains)
     Bt = backward_betas(tbl, batch, drop_u=drop_u, dropout=dropout,
-                        timer=timer, backend="fused")
+                        timer=timer, backend="fused", chains=chains)
     return A, segsum_expected(tbl, batch, A, Bt, seg, score_rows, drop_u,
                               dropout, timer)
 

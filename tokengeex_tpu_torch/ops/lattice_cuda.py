@@ -390,6 +390,24 @@ def backward_betas_scan_plain(cache: torch.Tensor, ends: torch.Tensor,
                            _inner_bounds(seg, W))[0]
 
 
+def _check_seg(seg: torch.Tensor, B: int, W: int, device) -> None:
+    """Chain bounds (K+1, B) int32, K >= 1, contiguous on `device`. On
+    the CPU their values are checked too: row 0 is 0, row K is W and no
+    row falls below the one before. Bounds on the card are not read back,
+    which would cost a synchronisation per launch; the kernels clamp each
+    chain into [0, W] (csrc/scan_lanes.cuh `tgx_chain`), so bad bounds
+    there give wrong values but touch no memory outside the buffers."""
+    _check(seg.dim() == 2 and seg.shape[0] >= 2 and seg.shape[1] == B,
+           f"seg must be (K+1, {B}) with K >= 1, got {tuple(seg.shape)}")
+    _check(seg.dtype == torch.int32, f"seg must be torch.int32, got {seg.dtype}")
+    _check(seg.device == device, f"seg is on {seg.device}")
+    _check(seg.is_contiguous(), "seg must be contiguous")
+    if seg.device.type == "cpu":
+        _check(bool((seg[0] == 0).all()) and bool((seg[-1] == W).all())
+               and bool((seg[1:] >= seg[:-1]).all()),
+               f"seg must rise from 0 to {W} without falling")
+
+
 def _check_scan(cache: torch.Tensor, flags: torch.Tensor,
                 hist0: torch.Tensor, seg: Optional[torch.Tensor],
                 du: Optional[torch.Tensor], dropout: float,
@@ -403,9 +421,7 @@ def _check_scan(cache: torch.Tensor, flags: torch.Tensor,
              "flags": (flags, torch.float32, (W, B)),
              "hist0": (hist0, torch.float32, (L, B))}
     if seg is not None:
-        _check(seg.dim() == 2 and seg.shape[0] >= 2 and seg.shape[1] == B,
-               f"seg must be (K+1, {B}) with K >= 1, got {tuple(seg.shape)}")
-        named["seg"] = (seg, torch.int32, None)
+        _check_seg(seg, B, W, cache.device)
     if dropout > 0.0:
         _check(du is not None, "dropout > 0 needs du")
         _check(pad >= L, f"pad {pad} must be >= L {L}")

@@ -366,9 +366,9 @@ class DeviceTrainSession:
                     (seg := self._fused_seg(gi, batch, timer)) is not None:
                 # Steady state of small tables: both scans re-probe in
                 # their kernels, the SegStruct turns betas into counts.
-                A, exp_g = lat.estep_fused(self.dt, batch, seg,
-                                           self.slot_rows, drop_u, dropout,
-                                           timer)
+                A, exp_g = lat.estep_fused(
+                    self.dt, batch, seg, self.slot_rows, drop_u, dropout,
+                    timer, chains=self._chains_for(gi, batch, timer))
             elif gi in self.slot_cache:
                 # Steady state: scores re-gathered per cached rank.
                 slots = self.slot_cache[gi]
