@@ -10,8 +10,15 @@ Phases (any failure exits non-zero):
      versions; builds every CUDA kernel from csrc/ (one nvcc per source,
      all started together) and prints the build time;
   2. kernels against their plain PyTorch versions, at the shapes the
-     main paths give them: viterbi_chunk and fused_forward_chunk(viterbi)
-     with best_l / hist / rl equal and dp within rtol 1e-6; forward_chunk,
+     main paths give them: viterbi_chunk (the chunk API, C = 512) with dp,
+     best_l and hist equal; the whole-width Viterbi scans on encode's
+     first row group (W = 8192, L = 16, 512 rows, rows cut into chains
+     every SCAN_SEGMENT positions): viterbi_scan over the 32k
+     vocabulary's start-indexed cache and fused_forward_chunk(viterbi)
+     with the 4k vocabulary (bits 13), at dropout 0 and 0.1, equal to
+     their twins bit for bit (dp, best_l, and the fused kind's run
+     length), each with one chain alone (B = 1) for the latency of a
+     step, the group's longest chain and the chain floor; forward_chunk,
      backward_chunk and its betas mode on seeded slabs with 40 % NEG holes
      and a step with no candidate, A, marg and betas within rtol 1e-5 and
      hist within rtol 1e-6; the whole-width scans forward_scan and
@@ -34,11 +41,12 @@ Phases (any failure exits non-zero):
   3. encode end to end, Tokenizer.encode_batch(backend="device") on the
      card, for two configurations over a seeded ~8 MB code-like corpus
      at L = 16: (a) a 32,768-token vocabulary (slab route: bucket probe
-     + viterbi_chunk), (b) a 4,096-token vocabulary (fused probe
+     + viterbi_scan), (b) a 4,096-token vocabulary (fused probe
      kernel). Each checks exact decode round trips, equality with the
      CPU plain run on the first 64 samples, dropout=1.0 -> single bytes,
-     a > 2^15-byte sample through the chained path, and that its kernel
-     was launched; prints bytes/s and the time per phase;
+     a > 2^15-byte sample through the chained path, and that its Viterbi
+     kernel was launched once per row group; prints bytes/s, the peak
+     device memory and the time per phase;
   3b. the EM E-step, run_e_step_device on the card, for (a) and (b) at
      dropout 0 and 0.05 (the dropout-0.05 pass once, unsynchronised): both
      kernels launched, counts on the first 64 samples equal to the CPU
@@ -66,7 +74,9 @@ Phases (any failure exits non-zero):
      rounds, 4 E-steps, 2 frequency passes) through one session, on the
      cached route (table bits 17), then a 16,384-token vocabulary to
      8,192 on the fused route (bits 15: its E-steps launch the fused
-     scans); each session is closed after; each result is a subset of
+     scans); every frequency pass launches the route's Viterbi kernel
+     (viterbi_scan, fused_forward_chunk(viterbi)) once per group; each
+     session is closed after; each result is a subset of
      its input vocabulary and encodes and decodes the first 64 samples
      exactly on the card; prints each round's size and seconds;
   4. the kernels line, then the device line as the last line.
@@ -294,9 +304,9 @@ def check_viterbi_chunk(lc, C: int, L: int, B: int, dev):
     want = lc.viterbi_chunk_plain(*args)
     got = lc.viterbi_chunk(*args)
     torch.cuda.synchronize()
-    check(torch.equal(got[1], want[1]), "viterbi_chunk: best_l differs")
-    check(torch.equal(got[2], want[2]), "viterbi_chunk: hist differs")
-    err = assert_rel(got[0], want[0], "viterbi_chunk: dp", 1e-6)
+    err = max_abs_err(got[0], want[0])
+    for i, name in enumerate(("dp", "best_l", "hist")):
+        check(torch.equal(got[i], want[i]), f"viterbi_chunk: {name} differs")
 
     ms = cuda_ms(lambda: lc.viterbi_chunk(*args), iters=50)
     plain_ms = cuda_ms(lambda: lc.viterbi_chunk_plain(*args), iters=1)
@@ -369,50 +379,6 @@ def check_backward_chunk(lc, C: int, L: int, B: int, dev):
             "shape": {"C": C, "L": L, "B": B}}
 
 
-def check_fused(lat, lcf, tbl, batch, dropout: float, dev):
-    drop_u = None
-    if dropout > 0.0:
-        g = torch.Generator(device=dev).manual_seed(2)
-        drop_u = torch.randint(-(2**31), 2**31 - 1, tuple(batch.sid.shape),
-                               generator=g, dtype=torch.int32, device=dev)
-    args = lat.fused_inputs(tbl, batch, drop_u, dropout)
-    kw = dict(L=tbl.max_len, bits=tbl.bits, pad=batch.pad, dropout=dropout)
-    want = lcf.fused_forward_chunk_plain("viterbi", *args, **kw)
-    got = lcf.fused_forward_chunk("viterbi", *args, **kw)
-    torch.cuda.synchronize()
-    for i, name in ((1, "best_l"), (2, "hist"), (3, "rl")):
-        check(torch.equal(got[i], want[i]), f"fused_forward: {name} differs")
-    err = assert_rel(got[0], want[0], "fused_forward: dp", 1e-6)
-
-    ms = cuda_ms(lambda: lcf.fused_forward_chunk("viterbi", *args, **kw),
-                 iters=10)
-    plain_ms = cuda_ms(
-        lambda: lcf.fused_forward_chunk_plain("viterbi", *args, **kw),
-        iters=1, warmup=0)
-    W = batch.width
-    B = batch.p1.shape[0]
-    L = tbl.max_len
-    # Bytes: every input read once, every output written once.
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in args if t is not None)
-    nbytes += 4 * (2 * W * B + L * B + B)
-    # Operations: ~20 integer ops per probed (position, length) -- the
-    # fingerprints, slot indices, compares and the coin -- and 3 for the
-    # relaxation of each (position, length); probes only run where the
-    # length fits the sample run (data-dependent: counted on this data).
-    inb = batch.sid[:, batch.pad : batch.pad + W].t() >= 0
-    rl = lcf.run_lengths(inb, batch.is_start[:, :W].t(), args[10])
-    probes = int(rl.clamp(max=L).sum())
-    b_ms, b_by = bound(nbytes, 20 * probes + 3 * W * L * B)
-    log(f"fused_forward (W={W}, L={L}, B={B}, bits={tbl.bits}, "
-        f"dropout={dropout}): {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}), {probes} probes, max |err| {err}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "probes": probes,
-            "shape": {"W": W, "L": L, "B": B, "bits": tbl.bits,
-                      "dropout": dropout}}
-
-
 def drop_words(batch, dropout: float, dev, seed: int = 2):
     if dropout <= 0.0:
         return None
@@ -431,13 +397,13 @@ def one_chain(args):
 
 def check_fused_scan(lat, lcf, tbl, batch, dropout: float, dev,
                      direction: str):
-    """The fused log-sum-exp scan of one direction against its twin at the
-    session's group, rows cut by the group's chains: equal bit for bit
-    (the forward's a and run length, the kernel's outputs; the betas).
-    The forward's history is not compared: the wrapper and the twin both
-    rebuild it from a with the same PyTorch function. Timed beside
-    the twin and its bound, and one chain alone (B = 1) for the latency
-    of a step."""
+    """One fused scan against its twin on a group, rows cut by the
+    group's chains: equal bit for bit (the kernel's outputs: the
+    forward's a and run length, the Viterbi kind's dp, best_l and run
+    length, the betas). The forward kinds' history is not compared: the
+    wrapper and the twin both rebuild it from the values with the same
+    PyTorch function. Timed beside the twin and its bound, and one chain
+    alone (B = 1) for the latency of a step."""
     chains = lat.chain_bounds(batch)
     W = batch.width
     B = batch.p1.shape[0]
@@ -445,19 +411,27 @@ def check_fused_scan(lat, lcf, tbl, batch, dropout: float, dev,
     du = drop_words(batch, dropout, dev)
     kw = dict(L=L, bits=tbl.bits, pad=batch.pad, dropout=dropout)
     inb = batch.sid[:, batch.pad : batch.pad + W].t() >= 0
-    if direction == "forward":
-        name = "fused_forward(logsumexp)"
+    # Operations per (position, length) of the recurrence: an add, a max,
+    # a subtraction, an exp and an add (log-sum-exp); an add, a max and a
+    # compare (Viterbi).
+    step_ops = 5
+    if direction in ("forward", "viterbi"):
+        kind = "logsumexp" if direction == "forward" else "viterbi"
+        name = f"fused_forward({kind})"
         args = lat.fused_inputs(tbl, batch, du, dropout)
         seg = chains[0]
 
         def fn(*a, **k):
-            return lcf.fused_forward_chunk("logsumexp", *a, **k)
+            return lcf.fused_forward_chunk(kind, *a, **k)
 
         def plain(*a, **k):
-            return lcf.fused_forward_chunk_plain("logsumexp", *a, **k)
+            return lcf.fused_forward_chunk_plain(kind, *a, **k)
         # Probes run where the length fits the run ending at the byte.
         runs = lcf.run_lengths(inb, batch.is_start[:, :W].t(), args[10])
-        out_bytes = 4 * (W * B + L * B + B)  # a, hist and rl written once
+        # a (or dp and best_l), hist and rl written once
+        out_bytes = 4 * ((W if kind == "logsumexp" else 2 * W) * B + L * B
+                         + B)
+        step_ops = 5 if kind == "logsumexp" else 3
     else:
         name = "fused_backward"
         args = lat.fused_bwd_inputs(tbl, batch, du, dropout)
@@ -476,6 +450,14 @@ def check_fused_scan(lat, lcf, tbl, batch, dropout: float, dev,
         check(torch.equal(got[3], want[3]), f"{name}: rl differs")
         got, want = got[0], want[0]
         compared = " (a; rl equal; hist is rebuilt from a, not compared)"
+    elif direction == "viterbi":
+        for i, what in ((1, "best_l"), (3, "rl")):
+            check(torch.equal(got[i], want[i]),
+                  f"{name} (dropout {dropout}): {what} differs")
+        check(bool((want[1] > 1).any()), f"{name}: no multi-byte token")
+        got, want = got[0], want[0]
+        compared = (" (dp; best_l and rl equal; hist is rebuilt from dp, "
+                    "not compared)")
     else:
         check(bool((want == 0).any()), f"{name}: no sample end")
         compared = ""
@@ -485,13 +467,13 @@ def check_fused_scan(lat, lcf, tbl, batch, dropout: float, dev,
     ms = cuda_ms(lambda: fn(*args, **kw, seg=seg), iters=10)
     # Bytes: every input read once (the chain bounds too), the outputs
     # written once. Operations: ~20 integer ops per probed (position,
-    # length) -- the fingerprints, slots, compares and the coin -- and 5
-    # for the log-sum-exp of each (position, length); probes counted on
-    # this data.
+    # length) -- the fingerprints, slots, compares and the coin -- and
+    # step_ops for the recurrence of each (position, length); probes
+    # counted on this data.
     nbytes = sum(t.numel() * t.element_size() for t in args if t is not None)
     nbytes += seg.numel() * 4 + out_bytes
     probes = int(runs.clamp(max=L).sum())
-    b_ms, b_by = bound(nbytes, 20 * probes + 5 * W * L * B)
+    b_ms, b_by = bound(nbytes, 20 * probes + step_ops * W * L * B)
     # The table gathers, beside the bound: 2 rows of 8 bytes per (position,
     # length), each one 32-byte sector of L2 or L1.
     sectors = 2 * W * L * B
@@ -600,6 +582,65 @@ def check_scans(lat, lc, lcf, tbl, batch, dev):
     return out
 
 
+def check_viterbi_scan(lat, lc, tbl, batch, dev):
+    """viterbi_scan against its twin on encode (a)'s first group: the
+    group's start-indexed score cache, its chains, at dropout 0 and 0.1,
+    equal bit for bit (dp and best_l); one chain alone (B = 1) for the
+    latency of a step."""
+    cache = lat.match_cache(tbl, batch, C=512, slots=False)[0]
+    W, L, B = cache.shape
+    seg = lat.chain_bounds(batch)[0]
+    K = seg.shape[0] - 1
+    starts = batch.is_start[:, 1:].t().float().contiguous()
+    hist = lat._hist0(batch, L, None).clamp(min=lc.NEG).t().contiguous()
+    args = (cache, starts, hist, seg)
+    res = {"longest_chain": int((seg[1:] - seg[:-1]).max()), "chains": K * B,
+           "shape": {"W": W, "L": L, "B": B, "segments": K}}
+    for dropout in (0.0, 0.1):
+        kw = {"pad": batch.pad}
+        du = drop_words(batch, dropout, dev)
+        if du is not None:
+            kw.update(du=du.t().contiguous(), dropout=dropout)
+        want = []
+        plain_ms = cuda_ms(lambda: want.append(
+            lc.viterbi_scan_plain(*args, **kw)), iters=1, warmup=0)
+        want = want[0]
+        got = lc.viterbi_scan(*args, **kw)
+        torch.cuda.synchronize()
+        err = max_abs_err(got[0], want[0])
+        for i, name in enumerate(("dp", "best_l")):
+            check(torch.equal(got[i], want[i]),
+                  f"viterbi_scan (dropout {dropout}): {name} differs")
+        check(bool((want[1] > 1).any()), "viterbi_scan: no multi-byte token")
+        ms = cuda_ms(lambda: lc.viterbi_scan(*args, **kw), iters=20)
+        # Bytes: the cache, starts, history, chain bounds and dropout words
+        # read once, dp and best_l written once. Operations: per (position,
+        # length) an add, a max and a compare, and with dropout the coin's
+        # multiply, shift and compare.
+        nbytes = (4 * (W * L * B + 3 * W * B + L * B + (K + 1) * B)
+                  + (du.numel() * 4 if du is not None else 0))
+        ops = (3 + (3 if du is not None else 0)) * W * L * B
+        b_ms, b_by = bound(nbytes, ops)
+        res[f"dropout_{dropout}"] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+        log(f"viterbi_scan (W={W}, L={L}, B={B}, {K} segments, dropout "
+            f"{dropout}): {ms:.4f} ms in one launch, plain "
+            f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), max |err| "
+            f"{err} (dp, best_l equal)")
+    one = [t[..., :1].contiguous() for t in (cache, starts, hist)]
+    one_ms = cuda_ms(lambda: lc.viterbi_scan(*one), iters=5)
+    res["one_chain_ms"] = one_ms
+    res["us_per_step"] = one_ms * 1e3 / W
+    res["chain_floor_ms"] = res["longest_chain"] * one_ms / W
+    log(f"viterbi_scan: one chain (B=1, W={W}) {one_ms:.4f} ms = "
+        f"{res['us_per_step']:.4f} us per step; longest chain "
+        f"{res['longest_chain']} steps -> chain floor "
+        f"{res['chain_floor_ms']:.4f} ms, bound "
+        f"{res['dropout_0.0']['bound_ms']:.4f} ms")
+    return res
+
+
 def check_seg_weights(lcs, H: int, dev):
     g = torch.Generator().manual_seed(6)
     # Hits' [alpha - Z] and betas, score differences with block anchors:
@@ -634,7 +675,10 @@ def check_seg_weights(lcs, H: int, dev):
 # ---------------------------------------------------------------------------
 
 
-def run_config(name, vocab, samples, long_sample, expect, kernels, dev):
+def run_config(name, vocab, samples, long_sample, expect, groups, kernels,
+               dev):
+    """Phase 3: encode on the card; `expect` names the route's Viterbi
+    kernel, which the encode must launch once per row group (`groups`)."""
     from tokengeex_tpu_torch import Model, Tokenizer
     from tokengeex_tpu_torch.ops import lattice as lat
     from tokengeex_tpu_torch.train import estep_device as ed
@@ -648,16 +692,22 @@ def run_config(name, vocab, samples, long_sample, expect, kernels, dev):
 
     for fn in kernels.values():
         fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     ids = tok.encode_batch(texts)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
     launches = {k: fn.launches for k, fn in kernels.items()}
-    check(launches[expect] > 0,
-          f"{name}: the main path launched {expect} no time")
+    # One launch of the route's Viterbi kernel per row group.
+    check(launches[expect] == groups,
+          f"{name}: the main path launched {expect} {launches[expect]} "
+          f"times for {groups} groups")
     rate = total / secs
     log(f"[{name}] encode {total} bytes in {secs:.3f} s = "
-        f"{rate / 1e6:.2f} MB/s; launches {launches}")
+        f"{rate / 1e6:.2f} MB/s; launches {launches} ({groups} groups); "
+        f"peak device memory {peak / 2**20:.1f} MiB on "
+        f"{torch.cuda.get_device_name(dev)}")
 
     timer = lat.PhaseTimer(dev)
     t0 = time.perf_counter()
@@ -703,8 +753,8 @@ def run_config(name, vocab, samples, long_sample, expect, kernels, dev):
     log(f"[{name}] checks passed: decode, CPU plain run (64 samples), "
         f"dropout, chained {len(long_sample)}-byte sample")
     return {"bytes": total, "seconds": secs, "bytes_per_s": rate,
-            "launches": launches, "phases": phases,
-            "phases_run_seconds": secs_t, "profiled": busy,
+            "launches": launches, "groups": groups, "peak_bytes": peak,
+            "phases": phases, "phases_run_seconds": secs_t, "profiled": busy,
             "tokens": sum(map(len, ids))}
 
 
@@ -960,7 +1010,8 @@ def run_prune(name, vocab, target: int, samples, expect, fused: bool,
     """Phase 3c: VocabularyPruner from `vocab` down to `target` tokens
     through one session, whose E-steps take the fused route when `fused`
     (the initial table has has_vscan) and the cached route otherwise;
-    `expect` names the kernels the run must launch."""
+    `expect` names the kernels the run must launch. Every frequency pass
+    launches the route's Viterbi kernel once per frequency group."""
     from tokengeex_tpu_torch import Model, NoPathError, Tokenizer
     from tokengeex_tpu_torch.ops import lattice as lat
     from tokengeex_tpu_torch.ops.match_table import TokenTable
@@ -990,8 +1041,20 @@ def run_prune(name, vocab, target: int, samples, expect, fused: bool,
                 spent[key] += time.perf_counter() - t
         return run
 
+    freq_kernel = "fused_forward_chunk" if fused else "viterbi_scan"
+    freq = {"passes": 0, "launches": 0}
+    count_freq = pruner._count_frequencies
+
+    def counted_freq(*args, **kwargs):
+        before = kernels[freq_kernel].launches
+        try:
+            return count_freq(*args, **kwargs)
+        finally:
+            freq["passes"] += 1
+            freq["launches"] += kernels[freq_kernel].launches - before
+
     pruner.run_e_step = timed("e_steps", pruner.run_e_step)
-    pruner._count_frequencies = timed("frequencies", pruner._count_frequencies)
+    pruner._count_frequencies = timed("frequencies", counted_freq)
     pruner._alternatives = timed("alternatives", pruner._alternatives)
     sessions, routes = [], []
     new_session = pruner._new_session
@@ -1043,11 +1106,18 @@ def run_prune(name, vocab, target: int, samples, expect, fused: bool,
           and sessions[0].dt is None,
           f"{tag}: built {len(sessions)} sessions, or did not close one")
     check(routes == [fused], f"{tag}: the session took the other route")
+    freq_groups = len(sessions[0]._freq_groups())
+    check(freq["passes"] > 0
+          and freq["launches"] == freq["passes"] * freq_groups,
+          f"{tag}: {freq['passes']} frequency passes launched {freq_kernel} "
+          f"{freq['launches']} times for {freq_groups} groups")
     size = final.vocab_size()
     log(f"{tag} {len(vocab)} -> {size} tokens in {len(rounds)} rounds, "
         f"{secs:.3f} s, through one session (closed); {rebind['calls']} "
         f"rebinds took {rebind['seconds']:.3f} s (inside e_steps and "
-        f"frequencies); launches {launches}")
+        f"frequencies); launches {launches}; {freq['passes']} frequency "
+        f"passes x {freq_groups} groups = {freq['launches']} launches of "
+        f"{freq_kernel}")
     check(size <= target, f"{tag}: {size} tokens left, above {target}")
     check({t.value for t in final.vocab} <= {t.value for t in vocab},
           f"{tag}: a kept token is not in the input vocabulary")
@@ -1059,7 +1129,10 @@ def run_prune(name, vocab, target: int, samples, expect, fused: bool,
     log(f"{tag} checks passed: route, size, subset, 64-sample round trip")
     return {"route": "fused" if fused else "cached", "seconds": secs,
             "rounds": rounds, "initial_size": len(vocab), "final_size": size,
-            "launches": launches, "rebind": rebind}
+            "launches": launches, "rebind": rebind,
+            "frequency_passes": freq["passes"],
+            "frequency_launches": freq["launches"],
+            "frequency_groups": freq_groups}
 
 
 def main() -> None:
@@ -1113,9 +1186,11 @@ def main() -> None:
     sess_rows = ed.GROUP_BYTES // ds.PACK_WIDTH
     sess_segs = -(-ds.PACK_WIDTH // lat.SCAN_SEGMENT)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    enc_segs = -(-width // lat.SCAN_SEGMENT)
     log(f"corpus {sum(map(len, samples))} bytes in {len(samples)} samples; "
-        f"encode: pack width {width}, {rows} rows per group = {rows} "
-        f"threads in {-(-rows // 32)} one-warp blocks; E-step: width "
+        f"encode: pack width {width}, {rows} rows per group, "
+        f"{enc_segs * -(-rows // 2)} one-warp blocks per Viterbi scan "
+        f"({enc_segs} segments of {lat.SCAN_SEGMENT}); E-step: width "
         f"{em_width}, {em_rows} rows = {-(-em_rows // 32)} blocks; "
         f"session: width {ds.PACK_WIDTH}, {sess_rows} rows = "
         f"{-(-sess_rows // 32)} blocks per chunk kernel, "
@@ -1133,10 +1208,17 @@ def main() -> None:
     check(lat.has_vscan(dt_b) and dt_b.max_len == L_MAX, "4k table layout")
     check(not lat.has_vscan(lat.DeviceTables.from_table(
         TokenTable.build(vocab_a), dev)), "32k table must take the slab route")
+    # Encode's first row group, (a) and (b) alike: whole samples packed at
+    # the encode width, its rows cut into chains.
     packed = pack_samples(samples, width=width)
-    sub = next(g for _, g in ed._padded_groups(packed, width, ed.ROW_MULT))
-    batch = lat.prepare_batch(sub, L_MAX, dev)
-    fused = [check_fused(lat, lcf, dt_b, batch, d, dev) for d in (0.0, 0.1)]
+    enc_groups = list(ed._padded_groups(packed, width, ed.ROW_MULT))
+    batch = lat.prepare_batch(enc_groups[0][1], L_MAX, dev)
+    fused = [check_fused_scan(lat, lcf, dt_b, batch, d, dev, "viterbi")
+             for d in (0.0, 0.1)]
+    dt_a = lat.DeviceTables.from_table(TokenTable.build(vocab_a), dev)
+    vit_scan = check_viterbi_scan(lat, lc, dt_a, batch, dev)
+    del batch
+    torch.cuda.empty_cache()
     betas = check_backward_betas(lc, ed.CHUNK, L_MAX, sess_rows, dev)
     seg = check_seg_weights(lcs, 1 << 22, dev)
     # The session's first row group of (b): 1 KiB snippets packed at 8192.
@@ -1152,14 +1234,14 @@ def main() -> None:
                                   "backward") for d in (0.0, 0.1)]
     # The same group with the 32k vocabulary's cache: the session's
     # cached route.
-    dt_a = lat.DeviceTables.from_table(TokenTable.build(vocab_a), dev)
     scans = check_scans(lat, lc, lcf, dt_a, batch_s, dev)
-    del batch_s, batch, dt_a
+    del batch_s, dt_a
     torch.cuda.empty_cache()
 
     # -- 3. end to end --
     phase_start("3")
     kernels = {"viterbi_chunk": lc.viterbi_chunk,
+               "viterbi_scan": lc.viterbi_scan,
                "fused_forward_chunk": lcf.fused_forward_chunk,
                "forward_chunk": lc.forward_chunk,
                "forward_scan": lc.forward_scan,
@@ -1170,11 +1252,11 @@ def main() -> None:
                "seg_weights": lcs.seg_weights}
     e2e = {
         "a_32k_slab": run_config("a: 32768 tokens, slab route", vocab_a,
-                                 samples, long_sample, "viterbi_chunk",
-                                 kernels, dev),
+                                 samples, long_sample, "viterbi_scan",
+                                 len(enc_groups), kernels, dev),
         "b_4k_fused": run_config("b: 4096 tokens, fused route", vocab_b,
                                  samples, long_sample, "fused_forward_chunk",
-                                 kernels, dev),
+                                 len(enc_groups), kernels, dev),
     }
 
     torch.cuda.empty_cache()
@@ -1199,7 +1281,7 @@ def main() -> None:
     phase_start("3c")
     pruned = run_prune("cached", build_vocab(samples, 49152, prefixes=False),
                        32768, samples, ("forward_scan", "backward_betas_scan",
-                                        "seg_weights", "viterbi_chunk"),
+                                        "seg_weights", "viterbi_scan"),
                        False, kernels, dev)
     # A table of 16,384 tokens has 15 bits: the fused route's E-steps.
     pruned_f = run_prune("fused", build_vocab(samples, 16384, prefixes=False),
@@ -1222,8 +1304,11 @@ def main() -> None:
     fused_py = "tokengeex_tpu/ops/lattice_pallas_fused.py"
     b_sess = session["b_4k"]["dropout_0.0"]["launches"]
     line = {"kernels": [
-        entry("viterbi_chunk", "viterbi_chunk.cu", f"{pallas}:72",
-              e2e["a_32k_slab"]["launches"]["viterbi_chunk"], vit),
+        entry("viterbi_scan", "viterbi_chunk.cu", f"{pallas}:72",
+              e2e["a_32k_slab"]["launches"]["viterbi_scan"],
+              vit_scan["dropout_0.0"],
+              max(vit_scan[f"dropout_{d}"]["max_abs_err"]
+                  for d in (0.0, 0.1))),
         entry("fused_forward_chunk(viterbi)", "fused_forward.cu",
               f"{fused_py}:377",
               e2e["b_4k_fused"]["launches"]["fused_forward_chunk"], fused[0],
@@ -1252,7 +1337,8 @@ def main() -> None:
     ]}
     record = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_seconds": build_s,
-              "viterbi_chunk": vit, "fused_forward": fused,
+              "viterbi_chunk": vit, "viterbi_scan": vit_scan,
+              "fused_forward": fused,
               "forward_chunk": fwd, "backward_chunk": bwd,
               "backward_betas_chunk": betas, "scans": scans,
               "seg_weights": seg,

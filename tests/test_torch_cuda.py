@@ -103,10 +103,10 @@ def test_cuda_encode_matches_cpu(cuda_device, hints):
     model, samples = _corpus(600, seed=1)
     long = b" ".join(samples)[:3000]
     mixed = samples + [b"", long]
-    counts = (lc.viterbi_chunk.launches, lcf.fused_forward_chunk.launches)
+    counts = (lc.viterbi_scan.launches, lcf.fused_forward_chunk.launches)
     got = ed.encode_corpus_device(model, mixed, table_hints=hints,
                                   max_width=1024, device=cuda_device)
-    launched = (lc.viterbi_chunk.launches - counts[0],
+    launched = (lc.viterbi_scan.launches - counts[0],
                 lcf.fused_forward_chunk.launches - counts[1])
     assert launched[1 if hints is None else 0] > 0
     want = ed.encode_corpus_device(model, mixed, table_hints=hints,
@@ -358,7 +358,8 @@ def test_cuda_fused_scans_with_chains_equal_twins(cuda_device, max_len,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("scan", ["fused_forward", "fused_backward",
-                                  "forward_scan", "backward_betas_scan"])
+                                  "forward_scan", "backward_betas_scan",
+                                  "fused_viterbi", "viterbi_scan"])
 def test_cuda_scans_clamp_chain_bounds(cuda_device, scan):
     """Bounds on the card are not read back: every scan clamps a chain
     into [0, W]. Ends past the width give the valid chains' values, and
@@ -367,12 +368,14 @@ def test_cuda_scans_clamp_chain_bounds(cuda_device, scan):
         tbl, batch, _ = _fused_batch(16, 0.0, cuda_device)
         kw = dict(L=tbl.max_len, bits=tbl.bits, pad=batch.pad)
         chains = lat.chain_bounds(batch, 64)
-        if scan == "fused_forward":
+        if scan in ("fused_forward", "fused_viterbi"):
             args = lat.fused_inputs(tbl, batch)
+            kind = "logsumexp" if scan == "fused_forward" else "viterbi"
 
             def run(seg):
-                return lcf.fused_forward_chunk("logsumexp", *args, **kw,
-                                               seg=seg)[0]
+                out = lcf.fused_forward_chunk(kind, *args, **kw, seg=seg)
+                return out[0] if out[1] is None else torch.cat(
+                    [out[0].view(torch.int32), out[1]])
             seg = chains[0]
         else:
             args = lat.fused_bwd_inputs(tbl, batch)
@@ -380,6 +383,13 @@ def test_cuda_scans_clamp_chain_bounds(cuda_device, scan):
             def run(seg):
                 return lcf.fused_backward_chunk(*args, **kw, seg=seg)
             seg = chains[1]
+    elif scan == "viterbi_scan":
+        args, kw = _scan_inputs(16, 0.0, cuda_device, "forward")
+        seg = args[3]
+
+        def run(seg):
+            dp, best_l = lc.viterbi_scan(*args[:3], seg, **kw)
+            return torch.cat([dp.view(torch.int32), best_l])
     else:
         direction = "forward" if scan == "forward_scan" else "backward"
         args, kw = _scan_inputs(16, 0.0, cuda_device, direction)
@@ -402,6 +412,87 @@ def test_cuda_scans_clamp_chain_bounds(cuda_device, scan):
     tangled[2] = -3
     run(tangled)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chained", [True, False])
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("L", [8, 16, 32, 64])
+def test_cuda_viterbi_scan_matches_twin(cuda_device, L, dropout, chained):
+    """The whole-width Viterbi scan, rows cut into chains every 64
+    positions or one chain per row, equals its twin bit for bit."""
+    args, kw = _scan_inputs(L, dropout, cuda_device, "forward")
+    seg = args[3] if chained else None
+    want = lc.viterbi_scan_plain(*args[:3], seg, **kw)
+    before = lc.viterbi_scan.launches
+    got = lc.viterbi_scan(*args[:3], seg, **kw)
+    torch.cuda.synchronize()
+    assert lc.viterbi_scan.launches == before + 1
+    assert bool((want[1] > 1).any()) and bool((want[0] <= lc.NEG / 2).any())
+    for g_, w in zip(got, want):
+        assert torch.equal(g_, w)
+
+
+def _tied_cache(L, seed, dev, lead=0):
+    """A (lead + 256, L, 300) start-indexed cache whose scores take three
+    values (-2, -2.5, -3) with 30 % NEG holes, and a history of
+    half-integers: equal candidates on lanes far apart, and on the two
+    length tiles of one lane at L = 64."""
+    g = torch.Generator().manual_seed(seed)
+    n, B = 256, 300
+    cache = -2.0 - 0.5 * torch.randint(0, 3, (lead + n, L, B), generator=g)
+    cache[torch.rand(cache.shape, generator=g) < 0.3] = lc.NEG
+    starts = (torch.rand(n, B, generator=g) < 0.05).float()
+    hist = -0.5 * torch.randint(0, 40, (L, B), generator=g).float()
+    return [t.to(dev).contiguous() for t in (cache.float(), starts, hist)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead", [0, 5])
+@pytest.mark.parametrize("L", [16, 32, 64])
+def test_cuda_viterbi_ties_across_lanes(cuda_device, L, lead):
+    """Ties between lengths on different lanes and tiles go to the
+    longest, as in the twins: the scan (with a cache reaching `lead`
+    positions before 0) and the chunk API over its end-indexed view."""
+    cache, starts, hist = _tied_cache(L, L + lead, cuda_device, lead)
+    want = lc.viterbi_scan_plain(cache, starts, hist, lead=lead)
+    got = lc.viterbi_scan(cache, starts, hist, lead=lead)
+    torch.cuda.synchronize()
+    for g_, w in zip(got, want):
+        assert torch.equal(g_, w)
+    # Longest lengths win in both tiles of a lane (L = 64: j and j + 32).
+    assert bool((want[1] > L // 2).any()) and bool((want[1] > 1).any())
+    end = lc._end_view(cache.clamp(min=lc.NEG), 256, lead).contiguous()
+    want_c = lc.viterbi_chunk_plain(end, starts, hist)
+    got_c = lc.viterbi_chunk(end, starts, hist)
+    torch.cuda.synchronize()
+    for g_, w in zip(got_c, want_c):
+        assert torch.equal(g_, w)
+    assert torch.equal(got_c[0], got[0]) and torch.equal(got_c[1], got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("max_len", [8, 16, 32, 64])
+def test_cuda_fused_viterbi_with_chains_equals_twin(cuda_device, max_len,
+                                                    dropout):
+    """The fused Viterbi kind, rows cut into chains every 64 positions and
+    uncut, equals its twin bit for bit (dp, best_l and rl, the kernel's
+    outputs; hist is rebuilt from dp on both sides)."""
+    tbl, batch, du = _fused_batch(max_len, dropout, cuda_device)
+    chains = lat.chain_bounds(batch, 64)
+    assert bool((chains[0][1:-1] < batch.width).any())
+    kw = dict(L=tbl.max_len, bits=tbl.bits, pad=batch.pad, dropout=dropout)
+    args = lat.fused_inputs(tbl, batch, du, dropout)
+    for seg in (chains[0], None):
+        want = lcf.fused_forward_chunk_plain("viterbi", *args, **kw, seg=seg)
+        before = lcf.fused_forward_chunk.launches
+        got = lcf.fused_forward_chunk("viterbi", *args, **kw, seg=seg)
+        torch.cuda.synchronize()
+        assert lcf.fused_forward_chunk.launches == before + 1
+        for i in (0, 1, 3):  # dp, best_l, rl
+            assert torch.equal(got[i], want[i])
+        assert bool((want[1] > 1).any())
 
 
 @pytest.mark.cuda

@@ -60,18 +60,22 @@ def test_encode_matches_jax(corpus, route):
     mixed = samples + [b"", samples[3]]
     want = jed.encode_corpus_device(jmodel, mixed, dtype=jnp.float32,
                                     table_hints=hints)
-    counts = (lc.viterbi_chunk.launches, lcf.fused_forward_chunk.launches)
+    counts = (lc.viterbi_scan.launches, lcf.fused_forward_chunk.launches)
     got = ed.encode_corpus_device(model, mixed, table_hints=hints,
                                   device="cpu")
     assert got == want
     assert got[-2] == []
     # CPU tensors take the plain twins: no kernel launch is counted.
-    assert counts == (lc.viterbi_chunk.launches,
+    assert counts == (lc.viterbi_scan.launches,
                       lcf.fused_forward_chunk.launches)
 
 
-@pytest.mark.parametrize("route", sorted(ROUTES))
-def test_encode_chained_matches_jax(corpus, route):
+@pytest.mark.parametrize("route,max_width", [
+    ("fused", 512), ("slab", 512), ("fused", 1024), ("slab", 1024)],
+    ids=["fused", "slab", "fused-1024", "slab-1024"])
+def test_encode_chained_matches_jax(corpus, route, max_width):
+    """Windows of 512 and 1,024 bytes: each window's rows are cut into
+    chains, the first carrying the previous window's dp tail."""
     jmodel, model, samples = corpus
     hints = ROUTES[route]
     rng = random.Random(31)
@@ -79,9 +83,9 @@ def test_encode_chained_matches_jax(corpus, route):
     long2 = "".join(rng.choice("abcdef ()") for _ in range(2131)).encode()
     mixed = [samples[0], long1, b"", long2, samples[1]]
     want = jed.encode_corpus_device(jmodel, mixed, dtype=jnp.float32,
-                                    table_hints=hints, max_width=512)
+                                    table_hints=hints, max_width=max_width)
     got = ed.encode_corpus_device(model, mixed, table_hints=hints,
-                                  max_width=512, device="cpu")
+                                  max_width=max_width, device="cpu")
     assert got == want
     assert got == [model.oracle.encode(s) for s in mixed]
 

@@ -285,17 +285,20 @@ def _bad_bound_values(seg):
     return out
 
 
-@pytest.mark.parametrize("direction", ["forward", "backward"])
+@pytest.mark.parametrize("direction", ["forward", "backward", "viterbi"])
 def test_fused_wrappers_reject_bad_chains(direction):
     case = _case(0, 8)
     fwd, bwd, kw = _twin_args(case, 0.0)
-    seg = lat.chain_bounds(case["pb"], 64)[0 if direction == "forward" else 1]
-    if direction == "forward":
-        def call(s):
-            return lcf.fused_forward_chunk("logsumexp", *fwd, **kw, seg=s)
-    else:
+    seg = lat.chain_bounds(case["pb"], 64)[1 if direction == "backward"
+                                           else 0]
+    if direction == "backward":
         def call(s):
             return lcf.fused_backward_chunk(*bwd, **kw, seg=s)
+    else:
+        kind = "logsumexp" if direction == "forward" else "viterbi"
+
+        def call(s):
+            return lcf.fused_forward_chunk(kind, *fwd, **kw, seg=s)
     call(seg)  # accepted
     bad = [seg.to("meta"),                        # device
            seg.long(), seg.float(),               # type
@@ -305,6 +308,3 @@ def test_fused_wrappers_reject_bad_chains(direction):
     for s in bad:
         with pytest.raises(ValueError):
             call(s)
-    if direction == "forward":  # the Viterbi kind takes no chains
-        with pytest.raises(ValueError):
-            lcf.fused_forward_chunk("viterbi", *fwd, **kw, seg=seg)

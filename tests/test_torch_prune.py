@@ -93,11 +93,11 @@ def test_device_pruner_on_cpu_matches_oracle(oracle_pruned):
     prunes keep the same 80 tokens, scores agree to ~5e-6 relative."""
     vocab, samples = _corpus()
     launches = (lc.forward_chunk.launches, lc.backward_chunk.launches,
-                lc.viterbi_chunk.launches)
+                lc.viterbi_chunk.launches, lc.viterbi_scan.launches)
     got = prune.VocabularyPruner(backend="device", device="cpu", **KW).prune(
         _model(tg, vocab), samples)
     assert launches == (lc.forward_chunk.launches, lc.backward_chunk.launches,
-                        lc.viterbi_chunk.launches)
+                        lc.viterbi_chunk.launches, lc.viterbi_scan.launches)
     want = {t.value: t.score for t in oracle_pruned.vocab}
     assert sorted(t.value for t in got.vocab) == sorted(want)
     np.testing.assert_allclose([t.score for t in got.vocab],

@@ -236,15 +236,20 @@ def test_chain_split_equals_one_chain_per_row(seed, L, S, dropout):
 
 def test_forward_scan_equals_chunked_views():
     """The whole-width scan over the start-indexed cache equals the chunk
-    API walked over end-indexed views of it (`_cache_end_view`), chunk by
-    chunk with the carried history."""
+    API walked over end-indexed views of it, chunk by chunk with the
+    carried history."""
     case = _case(0, 16)
     pb = case["pb"]
     (cache, starts, hist), _, _ = _scan_args(case, 0.0)
     want = lc.forward_scan_plain(cache, starts, hist)
+    # Row j at step q is the token starting at q - j (NEG before 0).
+    padded = torch.cat([cache.new_full((16, 16, ROWS), lc.NEG),
+                        cache.clamp(min=lc.NEG)])
+    end = torch.stack([padded[16 - j : 16 - j + W, j] for j in range(16)],
+                      dim=1)
     parts = []
     for cs in range(0, W, 64):
-        view = lat._cache_end_view(cache, cs, 64, 16).clamp(min=lc.NEG)
+        view = end[cs : cs + 64].contiguous()
         a, hist = lc.forward_chunk(view, starts[cs : cs + 64].contiguous(),
                                    hist)
         parts.append(a)

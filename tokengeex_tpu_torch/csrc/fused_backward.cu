@@ -20,7 +20,7 @@
 // hist starts as [end[W] ? 0 : NEG, NEG, ...]. expf/logf are the
 // full-precision library functions (no fast math).
 //
-// The design mirrors fused_forward.cu's `fused_lse_scan_kernel`:
+// The design mirrors fused_forward.cu's `fused_forward_scan_kernel`:
 //   - Chains. A row is cut at seg[k, r] (ops/lattice.py `chain_bounds`:
 //     the first sample end or padding byte at or after k * S). Chain k
 //     walks [seg[k], seg[k+1]) downwards; every token reaching across its

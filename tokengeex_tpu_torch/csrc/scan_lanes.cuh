@@ -177,6 +177,71 @@ __device__ __forceinline__ float tgx_lse_step(float (&h)[LMAX / G],
   return lse;
 }
 
+// One step of a chain's max-plus (Viterbi) recurrence on its group of
+// lanes, with `tgx_lse_step`'s history (h, hx, h0) and score layout:
+//   cand[j] = hist[j] + s[j];  m = max_j cand[j]
+//   best    = the LARGEST j with cand[j] >= m and s[j] > NEG (ties go to
+//             the longest token), or none
+//   value   = best ? m : NEG;  best_l = best ? best + 1 : 1
+//   hist   <- [reset ? 0 : value, hist[0], ..., hist[L-2]]
+// Adds and compares only, so every lane's value is the twin's bit for
+// bit. The max m1 over lengths >= 2 (a butterfly) and the largest valid
+// length j1 >= 2 holding it (one ballot per length tile: the highest set
+// bit of the group's) read only hx, so they run a step ahead of the
+// recurrence; between two steps sit the length-1 candidate c0 = h0 + s0
+// and a few selects:
+//   m = max(c0, m1);  best = (j1 && m1 >= c0) ? j1 : (s0 valid && c0 >=
+//   m1) ? 0 : none.
+// Returns the value; best_l is set on every lane.
+template <int LMAX, int G>
+__device__ __forceinline__ float tgx_max_step(float (&h)[LMAX / G],
+                                              float (&hx)[LMAX / G],
+                                              float& h0,
+                                              const float (&s)[LMAX / G],
+                                              float s0, bool reset, int g,
+                                              int L, int& best_l) {
+  constexpr int P = LMAX / G;
+  float up[P], wrap[P];
+  tgx_neighbours<LMAX, G>(h, up, wrap);
+  float cand[P];
+  float m1 = -INFINITY;  // max over j >= 1: ready before the carry
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int j = g + G * p;
+    cand[p] = -INFINITY;
+    if (j > 0 && j < L) {
+      cand[p] = hx[p] + s[p];
+      m1 = fmaxf(m1, cand[p]);
+    }
+  }
+  m1 = tgx_group_max<G>(m1);
+  int j1 = -1;  // the largest valid j >= 1 with cand[j] == m1
+  constexpr uint32_t gmask = G >= 32 ? TGX_FULL : (1u << (G % 32)) - 1u;
+  const int base = (int)(threadIdx.x % 32) - g;  // the group's first lane
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int j = g + G * p;
+    const bool tie = j > 0 && j < L && cand[p] >= m1 && s[p] > TGX_NEG;
+    if (G == 1) {
+      if (tie) j1 = p;
+    } else {
+      const uint32_t mine = (__ballot_sync(TGX_FULL, tie) >> base) & gmask;
+      if (mine != 0u) j1 = (31 - __clz(mine)) + G * p;
+    }
+  }
+  const float c0 = h0 + s0;
+  const float m = fmaxf(c0, m1);
+  const int best = (j1 >= 0 && m1 >= c0) ? j1
+                   : (s0 > TGX_NEG && c0 >= m1) ? 0 : -1;
+  const float v = best >= 0 ? m : TGX_NEG;
+  best_l = best >= 0 ? best + 1 : 1;
+  const float carry = reset ? 0.0f : v;
+  tgx_shift<LMAX, G>(h, up, wrap, carry, g);
+  tgx_shift<LMAX, G>(hx, up, wrap, TGX_NEG, g);
+  h0 = carry;
+  return v;
+}
+
 // A per-length history of stream words one length on, in one call:
 // h[j] <- h[j-1], h[0] <- in. The fused scans keep their prefix hashes,
 // inverse powers and dropout words this way (lane j holds the word of the

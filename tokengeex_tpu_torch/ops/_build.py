@@ -33,8 +33,10 @@ U = ctypes.c_uint
 KERNELS: Dict[str, Tuple[str, str, tuple]] = {
     "viterbi_chunk": ("viterbi_chunk.cu", "tgx_viterbi_chunk",
                       (P, P, P, P, P, P, I, I, I, P)),
+    "viterbi_scan": ("viterbi_chunk.cu", "tgx_viterbi_scan",
+                     (P,) * 8 + (I,) * 7 + (U, I, P)),
     "fused_forward": ("fused_forward.cu", "tgx_fused_forward",
-                      (P,) * 15 + (I,) * 6 + (U, P)),
+                      (P,) * 15 + (I,) * 7 + (U, P)),
     "fused_forward_lse": ("fused_forward.cu", "tgx_fused_forward_lse",
                           (P,) * 14 + (I,) * 7 + (U, P)),
     "fused_backward": ("fused_backward.cu", "tgx_fused_backward",

@@ -19,10 +19,14 @@ Two routes, picked by table size (`has_vscan`):
 
   - "fused" (bits <= VSCAN_MAX_BITS): the probe runs inside the DP
     kernel (ops/lattice_cuda_fused.py);
-  - "slab": `_match_slab` probes a (B, L, C) score slab per chunk of C
-    positions with plain tensor ops ("bucket" mode when the table has
-    the single-probe buckets), and ops/lattice_cuda.py `viterbi_chunk`
-    runs the DP over it.
+  - "slab": `match_cache` probes the group once, start-indexed, with
+    plain tensor ops ("bucket" mode when the table has the single-probe
+    buckets), and ops/lattice_cuda.py `viterbi_scan` runs the DP over it
+    in one whole-width launch.
+
+Both Viterbi kernels cut each row into independent chains at sample
+starts and padding (`chain_bounds`) and draw the dropout coins in the
+kernel.
 
 Ties keep the longest token (reference src/model.rs:83-110). Token ids
 are not formed on the device: `backtrack` resolves them on the host from
@@ -551,27 +555,37 @@ def match_cache(
     batch: DeviceBatch,
     C: int = 512,
     probe: Optional[str] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    lead: int = 0,
+    slots: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Probe the whole batch once: start-indexed (score, slot), each
-    (W, L, B) in the kernels' slab layout (positions major, rows minor),
-    so that `forward` and `backward_expected` share one probe. Column p,
-    row j describes the token of length j+1 beginning at position p;
-    -inf score and slot = the miss index where nothing matches. The
-    cache holds no dropout: `forward` and `backward_expected` mask each
-    chunk they read."""
+    (lead + W, L, B) in the kernels' slab layout (positions major, rows
+    minor), so that `forward` and `backward_expected` share one probe.
+    Column lead + p, row j describes the token of length j+1 beginning at
+    position p (the first `lead` <= pad columns the tokens beginning in
+    the left pad: a chained window's tail); -inf score and slot = the
+    miss index where nothing matches. slots=False keeps the scores only
+    (slot None). The cache holds no dropout: its readers draw the coins."""
     B = batch.p1.shape[0]
     W = batch.width
     L = tbl.max_len
     if W % C:
         raise ValueError(f"chunk {C} does not divide width {W}")
+    if not 0 <= lead <= batch.pad:
+        raise ValueError(f"lead {lead} outside 0..{batch.pad}")
     mode = probe or _probe_mode(tbl)
     dev = batch.p1.device
-    score = torch.empty((W, L, B), dtype=torch.float32, device=dev)
-    slot = torch.empty((W, L, B), dtype=torch.int32, device=dev)
-    for cs in range(0, W, C):
-        s, a = _match_slab(tbl, batch, cs, C, L, mode=mode)
-        score[cs : cs + C] = s.permute(2, 1, 0)
-        slot[cs : cs + C] = a.permute(2, 1, 0)
+    score = torch.empty((lead + W, L, B), dtype=torch.float32, device=dev)
+    slot = (torch.empty((lead + W, L, B), dtype=torch.int32, device=dev)
+            if slots else None)
+    spans = [(cs, C) for cs in range(0, W, C)]
+    if lead:
+        spans.insert(0, (-lead, lead))
+    for cs, n in spans:
+        s, a = _match_slab(tbl, batch, cs, n, L, mode=mode)
+        score[lead + cs : lead + cs + n] = s.permute(2, 1, 0)
+        if slots:
+            slot[lead + cs : lead + cs + n] = a.permute(2, 1, 0)
     return score, slot
 
 
@@ -579,33 +593,13 @@ def _dropout_keep_window(drop_u: torch.Tensor, dropout: float, L: int,
                          pad: int, start: int, span: int) -> torch.Tensor:
     """(span, L, B) keep-mask for start positions [start, start+span) of a
     dropout-free `match_cache` cache: the coins of `_match_slab`'s
-    dropout (keyed on the token's start position, mixed per length).
-    `start` may reach -L (the end view's left context); pad == L keeps
-    the column index in range."""
+    dropout (keyed on the token's start position, mixed per length)."""
     dev = drop_u.device
     base = drop_u[:, pad + start : pad + start + span].t()[:, None, :]
     odd = _len_mix(L, lcf._ODD, dev)[None, :, None]
     u = H.srl_i32(H.mul_i32(base, odd), 1)
     lens = torch.arange(1, L + 1, device=dev)[None, :, None]
     return ~((u < lcf.dropout_threshold_half(dropout)) & (lens > 1))
-
-
-def _cache_end_view(score_cache: torch.Tensor, chunk_start: int, C: int,
-                    L: int, drop_u: Optional[torch.Tensor] = None,
-                    dropout: float = 0.0, pad: int = 0) -> torch.Tensor:
-    """End-indexed (C, L, B) chunk view of a start-indexed (W, L, B)
-    cache: row j at dp step q holds the token of length j+1 beginning at
-    chunk_start + q - j, -inf where that start lies before position 0.
-    With drop_u, the dropout keep-mask is applied here, per chunk."""
-    B = score_cache.shape[2]
-    lo = chunk_start - L
-    slab = score_cache[max(lo, 0) : chunk_start + C]
-    if lo < 0:
-        slab = torch.cat([slab.new_full((-lo, L, B), NEG_INF), slab])
-    if drop_u is not None and dropout > 0.0:
-        keep = _dropout_keep_window(drop_u, dropout, L, pad, lo, C + L)
-        slab = torch.where(keep, slab, NEG_INF)
-    return torch.stack([slab[L - j : L - j + C, j] for j in range(L)], dim=1)
 
 
 # Positions per segment of the whole-width scans: each row's chains start
@@ -677,59 +671,44 @@ def _finish(dp: torch.Tensor) -> torch.Tensor:
     return torch.where(dp <= NEG * 0.5, NEG_INF, dp)
 
 
-def _scan_forward(
+def _scan_viterbi(
     tbl: DeviceTables,
     batch: DeviceBatch,
-    C: int = 512,
     drop_u: Optional[torch.Tensor] = None,
     dropout: float = 0.0,
     probe: Optional[str] = None,
     carry: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     timer: Optional[PhaseTimer] = None,
-    kind: str = "viterbi",
-    cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-):
-    """Slab route: per chunk of C positions, take an end-indexed score
-    slab (probed, or viewed from a `match_cache` cache) and run
-    `viterbi_chunk` (kind="viterbi") or `forward_chunk`
-    (kind="logsumexp") over it; the history carries across chunks.
-    carry = (mask (B,), hist0 (B, L)) chains the DP across fixed-width
-    windows of one long sample (prepare_chained_batch).
-    Returns dp (B, W) f32 (-inf where unreachable) and best_l (B, W) for
-    Viterbi, the forward values A (B, W) f32 for log-sum-exp."""
-    B = batch.p1.shape[0]
-    W = batch.width
+    cache: Optional[torch.Tensor] = None,
+    chains: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    C: int = 512,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Slab route: probe the group once, start-indexed and without
+    dropout (scores only; `cache`, a start-indexed (W, L, B) score cache,
+    skips the probe), then run `viterbi_scan` once over the whole width,
+    the rows cut into chains by the forward bounds of `chains`
+    (`chain_bounds`, made here when not given), drawing the dropout coins
+    in the kernel. carry = (mask (B,), hist0 (B, L)) chains the DP across
+    fixed-width windows of one long sample (prepare_chained_batch): it is
+    chain 0's history, and the cache then also holds the L tokens
+    starting in the carried tail. Returns dp (B, W) f32 (-inf where
+    unreachable) and best_l (B, W)."""
     L = tbl.max_len
-    if W % C:
-        raise ValueError(f"chunk {C} does not divide width {W}")
-    if kind not in ("viterbi", "logsumexp"):
-        raise ValueError(f"unknown kind {kind!r}")
-    step = "kernel" if kind == "viterbi" else "forward"
-    mode = probe or _probe_mode(tbl)
-    hist = _hist0(batch, L, carry).clamp(min=NEG).t().contiguous()
-    starts = batch.is_start[:, 1:].t().to(torch.float32)  # (W, B)
-    outs = []
-    for cs in range(0, W, C):
-        if cache is None:
-            with phase(timer, "probe"):
-                score_e, _ = _match_slab(tbl, batch, cs, C, L, drop_u,
-                                         dropout, mode=mode, end_indexed=True)
-                score_e = score_e.clamp(min=NEG).permute(2, 1, 0).contiguous()
-        with phase(timer, step):
-            if cache is not None:
-                score_e = _cache_end_view(cache[0], cs, C, L, drop_u,
-                                          dropout, batch.pad).clamp(min=NEG)
-            st = starts[cs : cs + C].contiguous()
-            if kind == "viterbi":
-                dp_c, bl_c, hist = lc.viterbi_chunk(score_e, st, hist)
-                outs.append((dp_c, bl_c))
-            else:
-                a_c, hist = lc.forward_chunk(score_e, st, hist)
-                outs.append((a_c,))
-    parts = [torch.cat(o, dim=0).t() for o in zip(*outs)]
-    if kind == "viterbi":
-        return _finish(parts[0]), parts[1]
-    return _finish(parts[0])
+    lead = 0
+    if cache is None:
+        lead = L if carry is not None else 0
+        with phase(timer, "probe"):
+            cache = match_cache(tbl, batch, C, probe, lead=lead,
+                                slots=False)[0]
+    with phase(timer, "kernel"):
+        if chains is None:
+            chains = chain_bounds(batch)
+        dp, best_l = lc.viterbi_scan(
+            cache, batch.is_start[:, 1:].t().to(torch.float32).contiguous(),
+            _hist0(batch, L, carry).clamp(min=NEG).t().contiguous(),
+            chains[0], pad=batch.pad, lead=lead,
+            **_scan_drop(drop_u, dropout))
+    return _finish(dp.t()), best_l.t()
 
 
 def fused_inputs(tbl: DeviceTables, batch: DeviceBatch,
@@ -762,16 +741,14 @@ def _scan_forward_fused(
     chains: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ):
     """Fused route: fingerprints, probe and DP in one kernel over the
-    whole row width. Semantics identical to `_scan_forward`: (dp, best_l)
-    for Viterbi, the forward values A (B, W+1) with A[:, 0] prepended for
-    log-sum-exp, its rows cut into chains by the forward bounds of
-    `chains` (`chain_bounds`, made here when not given)."""
+    whole row width, its rows cut into chains by the forward bounds of
+    `chains` (`chain_bounds`, made here when not given). Semantics
+    identical to the slab route: (dp, best_l) for Viterbi, the forward
+    values A (B, W+1) with A[:, 0] prepended for log-sum-exp."""
     use_drop = drop_u is not None and dropout > 0.0
-    seg = None
     with phase(timer, "prep"):
         args = fused_inputs(tbl, batch, drop_u, dropout, carry)
-        if kind == "logsumexp":
-            seg = (chains if chains is not None else chain_bounds(batch))[0]
+        seg = (chains if chains is not None else chain_bounds(batch))[0]
     with phase(timer, "kernel" if kind == "viterbi" else "forward"):
         dp, best_l, _, _ = lcf.fused_forward_chunk(
             kind, *args, L=tbl.max_len, bits=tbl.bits, pad=batch.pad,
@@ -792,20 +769,25 @@ def _check_fused_backend(tbl: DeviceTables, cache) -> None:
 def viterbi(tbl: DeviceTables, batch: DeviceBatch, C: int = 256,
             dtype=None, drop_u=None, dropout: float = 0.0,
             backend: str = "slab", probe: Optional[str] = None,
-            carry=None, timer: Optional[PhaseTimer] = None):
+            carry=None, timer: Optional[PhaseTimer] = None,
+            chains: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """dp scores + backpointers for the packed batch.
 
     Returns (dp, best_l), each (B, W), indexed by dp index p-1.
-    backend "slab" probes score slabs and runs `viterbi_chunk`; "fused"
-    runs the fused probe kernel (tables with has_vscan only). `carry`
-    chains windows of long samples (see _scan_forward)."""
+    backend "slab" probes the group once (in chunks of C positions) and
+    runs `viterbi_scan` over it; "fused" runs the fused probe kernel
+    (tables with has_vscan only). Both cut the rows into chains by
+    `chains` (`chain_bounds`, made here when not given). `carry` chains
+    windows of long samples (see _scan_viterbi)."""
     check_f32(dtype, probe)
     if backend == "fused":
         _check_fused_backend(tbl, None)
-        return _scan_forward_fused(tbl, batch, drop_u, dropout, carry, timer)
+        return _scan_forward_fused(tbl, batch, drop_u, dropout, carry, timer,
+                                   chains=chains)
     if backend != "slab":
         raise ValueError(f"unknown backend {backend!r}")
-    return _scan_forward(tbl, batch, C, drop_u, dropout, probe, carry, timer)
+    return _scan_viterbi(tbl, batch, drop_u, dropout, probe, carry, timer,
+                         chains=chains, C=C)
 
 
 def forward(tbl: DeviceTables, batch: DeviceBatch,
@@ -820,9 +802,9 @@ def forward(tbl: DeviceTables, batch: DeviceBatch,
     reaches (reference: src/lattice.rs:245-312). backend "slab" runs
     `forward_scan` once over the whole width of the `match_cache` result
     `cache`, its rows cut into chains by `chains` (`chain_bounds`, made
-    here when not given), or without a cache `forward_chunk` over a fresh
-    probe per chunk of C positions; "fused" probes inside the fused kernel
-    (tables with has_vscan only; no cache), its rows cut by `chains` too."""
+    here when not given; C is unused); "fused" probes inside the fused
+    kernel (tables with has_vscan only; no cache), its rows cut by
+    `chains` too."""
     if backend == "fused":
         _check_fused_backend(tbl, cache)
         return _scan_forward_fused(tbl, batch, drop_u, dropout, timer=timer,
@@ -830,19 +812,17 @@ def forward(tbl: DeviceTables, batch: DeviceBatch,
     if backend != "slab":
         raise ValueError(f"unknown backend {backend!r}")
     if cache is None:
-        a = _scan_forward(tbl, batch, C, drop_u, dropout, timer=timer,
-                          kind="logsumexp")
-    else:
-        with phase(timer, "forward"):
-            if chains is None:
-                chains = chain_bounds(batch)
-            a = lc.forward_scan(
-                cache[0], batch.is_start[:, 1:].t().to(torch.float32)
-                .contiguous(),
-                _hist0(batch, tbl.max_len, None).clamp(min=NEG).t()
-                .contiguous(), chains[0], pad=batch.pad,
-                **_scan_drop(drop_u, dropout))
-            a = _finish(a.t())
+        raise ValueError("the slab backend reads a match_cache cache")
+    with phase(timer, "forward"):
+        if chains is None:
+            chains = chain_bounds(batch)
+        a = lc.forward_scan(
+            cache[0], batch.is_start[:, 1:].t().to(torch.float32)
+            .contiguous(),
+            _hist0(batch, tbl.max_len, None).clamp(min=NEG).t()
+            .contiguous(), chains[0], pad=batch.pad,
+            **_scan_drop(drop_u, dropout))
+        a = _finish(a.t())
     a0 = torch.where(batch.is_start[:, :1], 0.0, NEG_INF)
     return torch.cat([a0, a], dim=1)
 
@@ -1327,12 +1307,14 @@ def estep_fused(tbl: DeviceTables, batch: DeviceBatch, seg: SegStruct,
 
 def viterbi_cached(tbl: DeviceTables, batch: DeviceBatch,
                    slots: torch.Tensor, score_rows: torch.Tensor,
-                   C: int = 512, timer: Optional[PhaseTimer] = None):
+                   timer: Optional[PhaseTimer] = None,
+                   chains: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """(dp, best_l) for a group whose slots are cached: scores re-gathered
-    per cached slot, then `viterbi_chunk` over end-indexed views."""
+    per cached slot, then `viterbi_scan` once over the whole width, its
+    rows cut by `chains` (`chain_bounds`, made here when not given)."""
     with phase(timer, "regather"):
-        cache = (score_from_slots(score_rows, slots), slots)
-    return _scan_forward(tbl, batch, C, timer=timer, cache=cache)
+        cache = score_from_slots(score_rows, slots)
+    return _scan_viterbi(tbl, batch, timer=timer, cache=cache, chains=chains)
 
 
 def pick_span_values_device(A: torch.Tensor, rows_idx,

@@ -4,14 +4,16 @@ twins.
 Counterpart of tokengeex_tpu/ops/lattice_pallas.py: `viterbi_chunk`,
 `forward_chunk` and `backward_chunk`, built from csrc/<name>.cu, and of
 the XLA scan `_backward_betas_impl` of tokengeex_tpu/ops/lattice_jax.py
-(the betas). The E-step's two scans run over the whole row width:
+(the betas). Three scans run over the whole row width: `viterbi_scan`
+(csrc/viterbi_chunk.cu, encode and the frequency pass), and the E-step's
 `forward_scan` (csrc/forward_chunk.cu) and `backward_betas_scan`
-(csrc/backward_chunk.cu) read a start-indexed (W, L, B) score cache
+(csrc/backward_chunk.cu). They read a start-indexed (W, L, B) score cache
 directly, draw the dropout coins in the kernel, and cut each row into
 independent chains at sample boundaries and padding (`seg`, see
-ops/lattice.py `chain_bounds`). `forward_chunk` and `backward_betas_chunk`
-are the same two kernels over one end-indexed / start-indexed chunk;
-`backward_chunk` (the marginals) keeps its own chunk kernel. Each
+ops/lattice.py `chain_bounds`). `viterbi_chunk`, `forward_chunk` and
+`backward_betas_chunk` are the same three kernels over one end-indexed /
+start-indexed chunk; `backward_chunk` (the marginals) keeps its own
+chunk kernel. Each
 `*_plain` function is the same recurrence in plain PyTorch, used for
 tensors on the CPU and as the reference the kernel is held against on the
 card. The plain log-sum-exp twins sum over lengths in ascending order, as
@@ -64,16 +66,32 @@ def _roll_insert(hist: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
     return torch.cat([row[None], hist[:-1]], dim=0)
 
 
-def viterbi_chunk_plain(score: torch.Tensor, starts: torch.Tensor,
-                        hist0: torch.Tensor
-                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def _fresh_hist(L: int, B: int, device) -> torch.Tensor:
+    """(L, B) history at an inner chain start: a post-reset 0, then NEG."""
+    hist = torch.full((L, B), NEG, dtype=torch.float32, device=device)
+    hist[0] = 0.0
+    return hist
+
+
+def _viterbi_steps(score: torch.Tensor, starts: torch.Tensor,
+                   hist0: torch.Tensor,
+                   restart: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The max-plus recurrence over an end-indexed (n, L, B) slab, scores
+    clamped to NEG as the kernels read them; a row's history restarts
+    fresh at each step where `restart` is set. Returns dp, best_l and the
+    history after the last step."""
     C, L, B = score.shape
+    score = score.clamp(min=NEG)
     hist = hist0.clone()
+    fresh = _fresh_hist(L, B, score.device)
     jrow = torch.arange(L, device=score.device)[:, None]
     neg = torch.tensor(NEG, dtype=torch.float32, device=score.device)
     dp = torch.empty((C, B), dtype=torch.float32, device=score.device)
     best_l = torch.empty((C, B), dtype=torch.int32, device=score.device)
     for q in range(C):
+        if restart is not None:
+            hist = torch.where(restart[q], fresh, hist)
         s = score[q]
         cand = hist + s
         m = cand.max(dim=0).values
@@ -86,6 +104,12 @@ def viterbi_chunk_plain(score: torch.Tensor, starts: torch.Tensor,
         carry = torch.where(starts[q] > 0.5, torch.zeros_like(m), m)
         hist = _roll_insert(hist, carry)
     return dp, best_l, hist
+
+
+def viterbi_chunk_plain(score: torch.Tensor, starts: torch.Tensor,
+                        hist0: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _viterbi_steps(score, starts, hist0)
 
 
 def _check_slab(score: torch.Tensor, rows: dict, hist0: torch.Tensor) -> bool:
@@ -162,13 +186,6 @@ def _lse_step(cand: torch.Tensor) -> torch.Tensor:
     for j in range(1, cand.shape[0]):
         t = t + e[j]
     return torch.where(has, safe + torch.log(t), torch.full_like(m, NEG))
-
-
-def _fresh_hist(L: int, B: int, device) -> torch.Tensor:
-    """(L, B) history at an inner chain start: a post-reset 0, then NEG."""
-    hist = torch.full((L, B), NEG, dtype=torch.float32, device=device)
-    hist[0] = 0.0
-    return hist
 
 
 def _inner_bounds(seg: Optional[torch.Tensor], n: int) -> Optional[torch.Tensor]:
@@ -343,26 +360,40 @@ backward_betas_chunk.launches = 0
 # -- the whole-width scans over a start-indexed score cache --
 
 
-def _dropped(du: torch.Tensor, dropout: float, pad: int, W: int,
+def _dropped(du: torch.Tensor, dropout: float, row: int, n: int,
              L: int) -> torch.Tensor:
-    """(W, L, B) bool: the token of length j+1 starting at p is dropped
-    (its coin from du[pad + p]; never a single byte)."""
+    """(n, L, B) bool: the token of length j+1 whose start has its word
+    at du[row + i] is dropped (never a single byte)."""
     odd = H.wrap_i32(torch.arange(1, L + 1, dtype=torch.int64,
                                   device=du.device) * _ODD)
-    u = H.srl_i32(H.mul_i32(du[pad : pad + W][:, None, :],
+    u = H.srl_i32(H.mul_i32(du[row : row + n][:, None, :],
                             odd[None, :, None]), 1)
     lens = torch.arange(1, L + 1, device=du.device)[None, :, None]
     return (u < dropout_threshold_half(dropout)) & (lens > 1)
 
 
 def _scan_cache(cache: torch.Tensor, du: Optional[torch.Tensor],
-                dropout: float, pad: int) -> torch.Tensor:
+                dropout: float, pad: int, lead: int = 0) -> torch.Tensor:
     """The cache as the kernels read it: clamped to NEG, dropped tokens
-    NEG."""
-    W, L, _ = cache.shape
+    NEG. Its first `lead` rows hold the tokens starting before 0."""
+    n, L, _ = cache.shape
     score = cache.clamp(min=NEG)
     if du is not None and dropout > 0.0:
-        score = torch.where(_dropped(du, dropout, pad, W, L), NEG, score)
+        score = torch.where(_dropped(du, dropout, pad - lead, n, L), NEG,
+                            score)
+    return score
+
+
+def _end_view(start: torch.Tensor, n: int, lead: int = 0) -> torch.Tensor:
+    """End-indexed (n, L, B) view of a start-indexed (lead + n, L, B)
+    cache: row j at step q is the token starting at q - j, NEG where that
+    start lies before -lead."""
+    _, L, B = start.shape
+    score = start.new_full((n, L, B), NEG)
+    for j in range(L):
+        lo = max(j - lead, 0)  # the first step whose token is in the cache
+        if lo < n:
+            score[lo:, j] = start[lead + lo - j : lead + n - j, j]
     return score
 
 
@@ -370,13 +401,19 @@ def forward_scan_plain(cache: torch.Tensor, starts: torch.Tensor,
                        hist0: torch.Tensor, seg: Optional[torch.Tensor] = None,
                        du: Optional[torch.Tensor] = None, *,
                        dropout: float = 0.0, pad: int = 0) -> torch.Tensor:
-    W, L, B = cache.shape
-    start = _scan_cache(cache, du, dropout, pad)
-    # End-indexed view: row j at step q is the token starting at q - j.
-    score = torch.full_like(start, NEG)
-    for j in range(min(L, W)):
-        score[j:, j] = start[: W - j, j]
+    W = cache.shape[0]
+    score = _end_view(_scan_cache(cache, du, dropout, pad), W)
     return _forward_steps(score, starts, hist0, _inner_bounds(seg, W))[0]
+
+
+def viterbi_scan_plain(cache: torch.Tensor, starts: torch.Tensor,
+                       hist0: torch.Tensor, seg: Optional[torch.Tensor] = None,
+                       du: Optional[torch.Tensor] = None, *,
+                       dropout: float = 0.0, pad: int = 0, lead: int = 0
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    n = cache.shape[0] - lead
+    score = _end_view(_scan_cache(cache, du, dropout, pad, lead), n, lead)
+    return _viterbi_steps(score, starts, hist0, _inner_bounds(seg, n))[:2]
 
 
 def backward_betas_scan_plain(cache: torch.Tensor, ends: torch.Tensor,
@@ -411,12 +448,16 @@ def _check_seg(seg: torch.Tensor, B: int, W: int, device) -> None:
 def _check_scan(cache: torch.Tensor, flags: torch.Tensor,
                 hist0: torch.Tensor, seg: Optional[torch.Tensor],
                 du: Optional[torch.Tensor], dropout: float,
-                pad: int) -> bool:
-    """Validate a whole-width scan's arguments; returns True when the
-    caller is to launch the CUDA kernel, False for CPU tensors. Unlike
-    the chunk wrappers, contiguity is required on every device."""
+                pad: int, lead: int = 0) -> bool:
+    """Validate a whole-width scan's arguments (a cache of lead + W
+    positions); returns True when the caller is to launch the CUDA
+    kernel, False for CPU tensors. Unlike the chunk wrappers, contiguity
+    is required on every device."""
     _check(cache.dim() == 3, f"cache must be (W, L, B), got {tuple(cache.shape)}")
-    W, L, B = cache.shape
+    _, L, B = cache.shape
+    _check(0 <= lead <= min(L, cache.shape[0]),
+           f"lead {lead} outside 0..{min(L, cache.shape[0])}")
+    W = cache.shape[0] - lead
     named = {"cache": (cache, torch.float32, None),
              "flags": (flags, torch.float32, (W, B)),
              "hist0": (hist0, torch.float32, (L, B))}
@@ -511,3 +552,43 @@ def backward_betas_scan(cache: torch.Tensor, ends: torch.Tensor,
 
 
 backward_betas_scan.launches = 0
+
+
+def viterbi_scan(cache: torch.Tensor, starts: torch.Tensor,
+                 hist0: torch.Tensor, seg: Optional[torch.Tensor] = None,
+                 du: Optional[torch.Tensor] = None, *, dropout: float = 0.0,
+                 pad: int = 0, lead: int = 0
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Viterbi (max-plus) DP over the whole width of a START-indexed
+    (lead + W, L, B) score cache (-inf or NEG for no match): the token of
+    length j+1 ending at dp index q+1 is cache[lead + q - j, j]; the first
+    `lead` (<= L) rows hold the tokens starting before position 0 (a
+    chained window's carried tail). starts (W, B) is 1.0 where dp index
+    q+1 starts a sample, hist0 (L, B) the history before position 0.
+    `seg` (K+1, B), the forward's `chain_bounds`, cuts each row into
+    chains (the first from hist0, the others from a reset); None runs one
+    chain per row. Dropout as in `forward_scan`. Returns dp (W, B) f32
+    (NEG where no path reaches) and best_l (W, B) int32 (ties go to the
+    longest token; 1 where no path reaches).
+
+    CUDA tensors launch csrc/viterbi_chunk.cu on the current stream; CPU
+    tensors run `viterbi_scan_plain`."""
+    if not _check_scan(cache, starts, hist0, seg, du, dropout, pad, lead):
+        return viterbi_scan_plain(cache, starts, hist0, seg, du,
+                                  dropout=dropout, pad=pad, lead=lead)
+    _, L, B = cache.shape
+    W = cache.shape[0] - lead
+    dp = torch.empty((W, B), dtype=torch.float32, device=cache.device)
+    best_l = torch.empty((W, B), dtype=torch.int32, device=cache.device)
+    if W == 0 or B == 0:
+        return dp, best_l
+    use_drop = dropout > 0.0
+    _launch("viterbi_scan", cache, starts, hist0, seg,
+            du if use_drop else None, dp, best_l, None, W, L, B,
+            1 if seg is None else seg.shape[0] - 1, 1, lead, pad,
+            dropout_threshold_half(dropout) if use_drop else 0, int(use_drop))
+    viterbi_scan.launches += 1
+    return dp, best_l
+
+
+viterbi_scan.launches = 0

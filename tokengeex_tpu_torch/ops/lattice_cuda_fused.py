@@ -17,8 +17,8 @@ coin is keyed on the token's start position. The probe reads the (H, 2) `[check,
 of both cuckoo tables directly: the JAX kernel's linear scan over every
 table row was a VMEM layout and gives the same hits.
 
-The log-sum-exp kinds (`fused_forward_chunk("logsumexp")`,
-`fused_backward_chunk`) are chained, lane-parallel scans over the whole
+All three (`fused_forward_chunk` of either kind, `fused_backward_chunk`)
+are chained, lane-parallel scans over the whole
 width: `seg` (K+1, B) cuts each row into independent chains at sample
 boundaries and padding (ops/lattice.py `chain_bounds`: the forward's
 bounds for the forward, the backward's for the betas); None runs one chain
@@ -46,8 +46,7 @@ import torch
 from . import hashing as H
 from .lattice_cuda import (_ODD, MAX_LEN, NEG, _backward_steps, _check,
                            _check_seg, _forward_steps, _inner_bounds,
-                           _launch, dropout_threshold_half,
-                           viterbi_chunk_plain)
+                           _launch, _viterbi_steps, dropout_threshold_half)
 
 # Empty-slot score sentinel (f32 -3.0e38) as int32 bits.
 NEG_BITS = int(np.array([-3.0e38], np.float32).view(np.int32)[0])
@@ -168,10 +167,10 @@ def fused_forward_chunk_plain(kind, t1_fast, t2_fast, p1, p2, rinv1, rinv2,
         restart=None if inner is None else inner[:W])
     starts = is_start[1:].to(torch.float32)
     if kind == "viterbi":
-        dp, best_l, hist = viterbi_chunk_plain(score, starts, hist0)
+        dp, best_l, _ = _viterbi_steps(score, starts, hist0, inner)
     else:
         dp, best_l = _forward_steps(score, starts, hist0, inner)[0], None
-        hist = _hist_from_values(dp, is_start, hist0)
+    hist = _hist_from_values(dp, is_start, hist0)
     rl_out = rl[-1].clone() if rl.shape[0] else rl0.clone()
     return dp, best_l, hist, rl_out
 
@@ -241,15 +240,14 @@ def fused_forward_chunk(kind: str, t1_fast: torch.Tensor,
     returns dp (W, B) f32, best_l (W, B) int32, hist (L, B) f32 and rl (B,)
     int32; kind="logsumexp" returns the forward values a (W, B) f32 (NEG
     where no path reaches), None, hist and rl. `seg` (K+1, B), the
-    forward's `chain_bounds`, cuts the log-sum-exp kind's rows into chains
-    (chain 0 from hist0 and rl0, every other from a reset); the Viterbi
-    kind takes none.
+    forward's `chain_bounds`, cuts the rows into chains (chain 0 from
+    hist0 and rl0, every other from a reset); None runs one chain per
+    row. The kernel writes dp (or a), best_l and rl; hist is rebuilt from
+    the values (`_hist_from_values`), on the card as in the twin.
 
     CUDA tensors launch csrc/fused_forward.cu on the current stream; CPU
     tensors run `fused_forward_chunk_plain`."""
     _check(kind in ("viterbi", "logsumexp"), f"unknown kind {kind!r}")
-    _check(seg is None or kind == "logsumexp",
-           "chains (seg) are for kind='logsumexp'")
     W = is_start.shape[0] - 1
     B = is_start.shape[1]
     use_drop = dropout > 0.0
@@ -266,24 +264,22 @@ def fused_forward_chunk(kind: str, t1_fast: torch.Tensor,
     dp = torch.empty((W, B), dtype=torch.float32, device=dev)
     best_l = None if lse else torch.empty((W, B), dtype=torch.int32,
                                           device=dev)
-    hist = torch.empty((L, B), dtype=torch.float32, device=dev)
     rl = torch.empty((B,), dtype=torch.int32, device=dev)
     if B == 0:
-        return dp, best_l, hist, rl
+        return dp, best_l, hist0.clone(), rl
     if W == 0:
         return dp, best_l, hist0.clone(), rl0.clone()
     streams = (t1_fast, t2_fast, p1, p2, rinv1, rinv2, sid, is_start,
-               du if use_drop else None, hist0, rl0)
+               du if use_drop else None, hist0, rl0, seg, dp)
+    K = 1 if seg is None else seg.shape[0] - 1
     if lse:
-        K = 1 if seg is None else seg.shape[0] - 1
-        _launch("fused_forward_lse", *streams, seg, dp, rl, W, L, B, K, pad,
-                bits, *_drop_args(dropout))
-        hist = _hist_from_values(dp, is_start, hist0)
+        _launch("fused_forward_lse", *streams, rl, W, L, B, K, pad, bits,
+                *_drop_args(dropout))
     else:
-        _launch("fused_forward", *streams, dp, best_l, hist, rl, W, L, B,
-                pad, bits, *_drop_args(dropout))
+        _launch("fused_forward", *streams, best_l, rl, W, L, B, K, pad, bits,
+                *_drop_args(dropout))
     fused_forward_chunk.launches += 1
-    return dp, best_l, hist, rl
+    return dp, best_l, _hist_from_values(dp, is_start, hist0), rl
 
 
 fused_forward_chunk.launches = 0

@@ -136,9 +136,10 @@ class DeviceTrainSession:
         # Compact batch inputs on the device: the corpus crosses to the
         # device once per session.
         self.input_cache: Dict[object, tuple] = {}
-        # Each group's scan chain bounds (ops/lattice.py chain_bounds):
-        # pass-invariant, 2 (W / SCAN_SEGMENT + 1) ints per row.
-        self.chain_cache: Dict[int, tuple] = {}
+        # Each group's scan chain bounds (ops/lattice.py chain_bounds),
+        # keyed as the input cache: pass-invariant, 2 (W / SCAN_SEGMENT +
+        # 1) ints per row.
+        self.chain_cache: Dict[object, tuple] = {}
         self._group_list = None
         self._span_idx: Dict[int, dict] = {}
         self._freq_group_list = None
@@ -265,18 +266,22 @@ class DeviceTrainSession:
                     self.input_used += size
             return lat.prepare_batch_from_inputs(gbytes, gflags, self.L)
 
-    def _chains_for(self, gi: int, batch: lat.DeviceBatch, timer=None):
-        """The group's scan chain bounds, made once."""
-        if gi not in self.chain_cache:
+    def _chains_for(self, key, batch: lat.DeviceBatch, timer=None):
+        """The scan chain bounds of the group under `key` (a group index,
+        or `_freq_key`'s), made once."""
+        if key not in self.chain_cache:
             with lat.phase(timer, "prep"):
-                self.chain_cache[gi] = lat.chain_bounds(batch)
-        return self.chain_cache[gi]
+                self.chain_cache[key] = lat.chain_bounds(batch)
+        return self.chain_cache[key]
+
+    def _freq_key(self, gi: int):
+        """A frequency group's cache key: the EM group's where the
+        frequency packing is the EM packing, one of its own otherwise."""
+        return gi if self._freq_shared else ("freq", gi)
 
     def _freq_batch(self, gi: int, sub: PackedBatch, timer=None):
-        """Like _batch_for, under keys of their own when the frequency
-        packing differs from the EM packing."""
-        key = gi if self._freq_shared else ("freq", gi)
-        return self._batch_for(key, sub, timer)
+        """Like _batch_for, under the frequency group's key."""
+        return self._batch_for(self._freq_key(gi), sub, timer)
 
     def _probe_group(self, gi: int, batch: lat.DeviceBatch, timer=None):
         """(score, slots) of a group: the cached ranks with their scores
@@ -425,7 +430,8 @@ class DeviceTrainSession:
         (V,) int64. Whole samples count through the session's groups (the
         cached ranks where the frequency packing is the EM packing and the
         table takes the slab route, the fused kernel on small tables, a
-        probed slab otherwise), their backpointers walked on the host;
+        probed cache otherwise; each group's chain bounds made once per
+        session), their backpointers walked on the host;
         samples longer than the frequency packing's cap take the chained
         encode over the session's table. `timer` collects the seconds per
         phase (tables: the rebind, prep, probe, regather, kernel,
@@ -457,16 +463,17 @@ class DeviceTrainSession:
         pending = None
         for gi, sub in groups:
             batch = self._freq_batch(gi, sub, timer)
+            chains = self._chains_for(self._freq_key(gi), batch, timer)
             if self._freq_shared and not self._fused() \
                     and gi in self.slot_cache:
                 dp, best_l = lat.viterbi_cached(
                     self.dt, batch, self.slot_cache[gi], self.slot_rows,
-                    C=self.chunk, timer=timer)
+                    timer=timer, chains=chains)
             else:
                 dp, best_l = lat.viterbi(
                     self.dt, batch, C=self.chunk,
                     backend="fused" if self._fused() else "slab",
-                    timer=timer)
+                    timer=timer, chains=chains)
             info = self._freq_info(gi, sub)
             dp_ends = (lat.pick_span_values_device(
                 dp, info["whole_rows"], info["whole_ends"])

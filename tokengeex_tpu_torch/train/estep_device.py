@@ -27,7 +27,8 @@ from ..utils.device import resolve_device
 from ..utils.packing import PackedBatch, pack_samples
 from ..utils.task import Task
 
-# Position-chunk length of the slab route; width is padded to a multiple.
+# Position-chunk length of the slab route's probe; width is padded to a
+# multiple.
 CHUNK = 512
 # Target bytes per row group (rows_per_group * width).
 GROUP_BYTES = 1 << 22
@@ -120,7 +121,7 @@ def _slice_packed(packed: PackedBatch, r0: int, r1: int) -> PackedBatch:
 
 def _eff_backend(dt: lat.DeviceTables, probe: Optional[str]) -> str:
     """The fused probe kernel for tables small enough (has_vscan), the
-    probed score slab + viterbi_chunk otherwise."""
+    probed score cache + viterbi_scan otherwise."""
     if probe in (None, "fast", "bucket", "em") and lat.has_vscan(dt):
         return "fused"
     return "slab"
