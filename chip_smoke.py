@@ -34,10 +34,20 @@ Phases (any failure exits non-zero):
      equal to their twins bit for bit (a and run length; betas: the
      forward's history is rebuilt from a in PyTorch, not by the kernel),
      with one chain alone for the step latency and the table gathers
-     counted beside the bound; and seg_weights on seeded inputs at
-     H = 2^22 with n_hit inside the last block, cf within rtol 1e-5 with
-     equal finite masks; each timed with CUDA events beside its plain
-     version and its bound;
+     counted beside the bound; the marginal scan backward_marginal_scan
+     (the per-pass E-step's backward, and backward_chunk's kernel) on the
+     same session group and on the per-pass E-step's first group (W =
+     1024, 4096 rows), over the group's cache, its backward chains and
+     the forward values of the same cache, at dropout 0 and 0.1, equal to
+     its twin bit for bit (marginals and betas), timed beside
+     backward_betas_scan on the same inputs, with one chain alone;
+     seg_weights on seeded inputs at H = 2^22 with n_hit inside the last
+     block (the single-length entry), cf within rtol 1e-5 with equal
+     finite masks; and seg_weights_gather, the session's segsum in one
+     launch per group, on the session group's real SegStruct (the 32k
+     vocabulary's rank space) at dropout 0 and 0.1, cf and t equal to its
+     twin bit for bit, with the whole segsum_expected call timed; each
+     timed with CUDA events beside its plain version and its bound;
   3. encode end to end, Tokenizer.encode_batch(backend="device") on the
      card, for two configurations over a seeded ~8 MB code-like corpus
      at L = 16: (a) a 32,768-token vocabulary (slab route: bucket probe
@@ -48,8 +58,9 @@ Phases (any failure exits non-zero):
      kernel was launched once per row group; prints bytes/s, the peak
      device memory and the time per phase;
   3b. the EM E-step, run_e_step_device on the card, for (a) and (b) at
-     dropout 0 and 0.05 (the dropout-0.05 pass once, unsynchronised): both
-     kernels launched, counts on the first 64 samples equal to the CPU
+     dropout 0 and 0.05 (the dropout-0.05 pass once, unsynchronised):
+     forward_scan and backward_marginal_scan each launched once per row
+     group, counts on the first 64 samples equal to the CPU
      plain run (rtol 1e-3 / atol 1e-4 per
      token, 1e-5 on the total: the CPU's exp/log differ from the card's
      in the last ulp, and one ulp of a forward value near 4e3 moves the
@@ -59,16 +70,22 @@ Phases (any failure exits non-zero):
      bytes/s and the time per phase, at both dropouts;
   3d. the probe-once training session, DeviceTrainSession on the card,
      for (a) (cached route: forward_scan, backward_betas_scan,
-     seg_weights) and (b) (fused route: fused_forward_chunk(logsumexp),
-     fused_backward_chunk, seg_weights) at dropout 0 and 0.05: the first
-     pass (probe, remap, SegStruct build) and a steady-state pass timed
-     apart, with bytes/s and a synchronised phase split of each; the
-     route's kernels launched, each scan once per group in a steady pass;
+     seg_weights_gather) and (b) (fused route:
+     fused_forward_chunk(logsumexp), fused_backward_chunk,
+     seg_weights_gather) at dropout 0 and 0.05: the first pass (probe,
+     remap, SegStruct build) and a steady-state pass timed apart, with
+     bytes/s and a synchronised phase split of each; the route's kernels
+     launched, each once per group in a steady pass;
      at dropout 0 the second pass equal to the
      first, the counts within rtol 1e-3 / atol 1e-4 per token and 1e-4 on
      the total of run_e_step_device on the card (segsum against scatter,
      and expf ulps), and a session over the first 64 samples within 2e-3
-     of the f64 oracle's total;
+     of the f64 oracle's total; then, for (a) and (b) at dropout 0 and
+     0.05, a session with no cache budget (the over-budget branch: every
+     pass probes and counts through backward_marginal_scan, once per
+     group, and the scatter), two passes each within rtol 1e-3 / atol
+     1e-4 per token and 1e-4 on the total of the budgeted session's
+     counts, its peak device memory and phase split printed;
   3c. the trainer: VocabularyPruner (the README recipe's settings)
      prunes a 49,152-token vocabulary to 32,768 over the corpus (2
      rounds, 4 E-steps, 2 frequency passes) through one session, on the
@@ -670,6 +687,134 @@ def check_seg_weights(lcs, H: int, dev):
             "shape": {"H": H, "n_hit": n_hit}}
 
 
+def check_marginal_scan(lat, lc, tbl, batch, dev, tag: str):
+    """backward_marginal_scan against its twin on one group's
+    start-indexed cache, the group's backward chains, the forward values
+    of the same cache, at dropout 0 and 0.1: equal bit for bit (marginals
+    and betas). Timed beside its twin, its bound and backward_betas_scan
+    on the same inputs (the target: within 1.5x of it); one chain alone
+    (B = 1) for the latency of a step."""
+    cache = lat.match_cache(tbl, batch)
+    W, L, B = cache[0].shape
+    seg = lat.chain_bounds(batch)[1]
+    K = seg.shape[0] - 1
+    res = {"longest_chain": int((seg[1:] - seg[:-1]).max()), "chains": K * B,
+           "shape": {"W": W, "L": L, "B": B, "segments": K}}
+    for dropout in (0.0, 0.1):
+        du = drop_words(batch, dropout, dev)
+        A = lat.forward(tbl, batch, cache, drop_u=du, dropout=dropout)
+        a, z, ends, hist = lat._marginal_inputs(batch, A, L)
+        args = (cache[0], a, z, ends, hist, seg)
+        kw = {"pad": batch.pad}
+        if du is not None:
+            kw.update(du=du.t().contiguous(), dropout=dropout)
+        want = []
+        plain_ms = cuda_ms(lambda: want.append(
+            lc.backward_marginal_scan_plain(*args, **kw)), iters=1, warmup=0)
+        want = want[0]
+        got = lc.backward_marginal_scan(*args, **kw)
+        torch.cuda.synchronize()
+        check(float(want[0].max()) > 0.5, f"{tag}: all marginals ~0")
+        err = max(max_abs_err(got[1], want[1]),
+                  float((got[0] - want[0]).abs().max()))
+        for i, what in enumerate(("marginals", "betas")):
+            check(torch.equal(got[i], want[i]),
+                  f"{tag} (dropout {dropout}): {what} differ from the twin "
+                  f"(max |err| {err})")
+        del want, got
+        ms = cuda_ms(lambda: lc.backward_marginal_scan(*args, **kw),
+                     iters=10)
+        betas_ms = cuda_ms(lambda: lc.backward_betas_scan(
+            cache[0], ends, hist, seg, **kw), iters=10)
+        # Bytes: the cache, a, z, ends, history, chain bounds and dropout
+        # words read once, the marginals and betas written once.
+        # Operations: per (position, length) five for the marginal (three
+        # adds, a max, an exp) and five for the log-sum-exp; per position
+        # the log and the reset.
+        nbytes = (4 * (2 * W * L * B + 4 * W * B + L * B + (K + 1) * B)
+                  + (du.numel() * 4 if du is not None else 0))
+        b_ms, b_by = bound(nbytes, 10 * W * L * B + 4 * W * B)
+        res[f"dropout_{dropout}"] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "betas_scan_ms": betas_ms}
+        log(f"{tag} (W={W}, L={L}, B={B}, {K} segments, dropout {dropout}): "
+            f"{ms:.4f} ms in one launch, plain {plain_ms:.1f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), max |err| {err} (marginals, betas "
+            f"equal); backward_betas_scan on the same inputs {betas_ms:.4f} "
+            f"ms ({ms / betas_ms:.2f}x)")
+    one = [t[..., :1].contiguous() for t in args[:5]]
+    one_ms = cuda_ms(lambda: lc.backward_marginal_scan(*one), iters=5)
+    res["one_chain_ms"] = one_ms
+    res["us_per_step"] = one_ms * 1e3 / W
+    res["chain_floor_ms"] = res["longest_chain"] * one_ms / W
+    log(f"{tag}: one chain (B=1, W={W}) {one_ms:.4f} ms = "
+        f"{res['us_per_step']:.4f} us per step; longest chain "
+        f"{res['longest_chain']} steps -> chain floor "
+        f"{res['chain_floor_ms']:.4f} ms")
+    return res
+
+
+def check_segsum(lat, lcs, table, tbl, batch, dev):
+    """seg_weights_gather against its twin on one session group's real
+    SegStruct (the 32k vocabulary's rank space, as the session builds
+    it), with the forward values and betas of the group's cache, at
+    dropout 0 and 0.1: cf and t equal bit for bit. Timed beside its twin
+    and its bound at the group's real hit counts, and the whole
+    segsum_expected call."""
+    rank = lat.build_rank_space(table)
+    _, raw = lat.match_cache(tbl, batch)
+    slots = lat.remap_slots(torch.as_tensor(rank.lut, device=dev), raw)
+    del raw
+    rows = lat.rank_score_rows(rank, table, dev)
+    cache = (lat.score_from_slots(rows, slots), slots)
+    seg = lat.build_seg_struct(slots, rank.n_pad)
+    H = int(seg.perm_flat.shape[0])
+    B, W = batch.p1.shape[0], batch.width
+    res = {"hits": list(seg.n_hit), "capacity": H,
+           "shape": {"W": W, "B": B, "L": len(seg.perm), "H": H,
+                     "occurring": int(seg.occ_slot.shape[1])}}
+    for dropout in (0.0, 0.1):
+        du = drop_words(batch, dropout, dev)
+        A = lat.forward(tbl, batch, cache, drop_u=du, dropout=dropout)
+        Bt = lat.backward_betas(tbl, batch, cache, drop_u=du,
+                                dropout=dropout)
+        args = lat.seg_weight_inputs(batch, A, Bt, seg, rows)
+        kw = {"dropout": dropout, "pad": batch.pad}
+        want = []
+        plain_ms = cuda_ms(lambda: want.append(
+            lcs.seg_weights_gather_plain(*args, du, **kw)), iters=1,
+            warmup=0)
+        want = want[0]
+        got = lcs.seg_weights_gather(*args, du, **kw)
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        for i, what in enumerate(("cf", "t")):
+            check(torch.equal(got[i], want[i]),
+                  f"seg_weights_gather (dropout {dropout}): {what} differs "
+                  f"from the twin (max |err| {err})")
+        ms = cuda_ms(lambda: lcs.seg_weights_gather(*args, du, **kw),
+                     iters=20)
+        segsum_ms = cuda_ms(lambda: lat.segsum_expected(
+            tbl, batch, A, Bt, seg, rows, du, dropout), iters=10)
+        # Bytes: per hit its position and difference in and cf out, the
+        # anchors and block totals, the (B, W) alpha - Z and (B, W + 1)
+        # betas planes and the dropout words read once. Operations: per
+        # hit 14 scan adds, two adds, an exp, the mask, and ~5 for the
+        # gathers' index arithmetic.
+        nbytes = (12 * H + 8 * (H // lcs.SEG_BLK) + 4 * B * (2 * W + 1)
+                  + (du.numel() * 4 if du is not None else 0))
+        b_ms, b_by = bound(nbytes, 23 * H)
+        res[f"dropout_{dropout}"] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "segsum_ms": segsum_ms}
+        log(f"seg_weights_gather (W={W}, B={B}, {len(seg.perm)} lengths, "
+            f"H={H}, dropout {dropout}): {ms:.4f} ms in one launch, plain "
+            f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by}), max |err| "
+            f"{err} (cf, t equal); segsum_expected {segsum_ms:.4f} ms")
+    log(f"seg_weights_gather: hits per length {res['hits']}, capacity {H}")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the main path end to end
 # ---------------------------------------------------------------------------
@@ -794,8 +939,12 @@ def run_estep(name, vocab, samples, kernels, dev):
     counts = estep(samples)
     secs = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in kernels.items()}
-    for k in ("forward_scan", "backward_chunk"):
-        check(launches[k] > 0, f"{name}: the E-step launched {k} no time")
+    # Each scan once per row group.
+    check(launches["forward_scan"] > 0 and launches["backward_marginal_scan"]
+          == launches["forward_scan"],
+          f"{name}: the E-step launched forward_scan "
+          f"{launches['forward_scan']} and backward_marginal_scan "
+          f"{launches['backward_marginal_scan']} times")
     check(bool(np.isfinite(counts).all()) and counts.sum() > 0,
           f"{name}: E-step counts not finite")
     rate = total / secs
@@ -864,9 +1013,11 @@ def run_estep(name, vocab, samples, kernels, dev):
             "cpu_total_rel_diff": tot_rel}
 
 
-def run_session(name, vocab, samples, expect, kernels, oracle, dev):
+def run_session(name, vocab, samples, expect, kernels, oracle, dev,
+                counts=None):
     """Phase 3d: DeviceTrainSession on the card at dropout 0 and 0.05.
-    `oracle` is phase 3b's f64 oracle total over the first 64 samples."""
+    `oracle` is phase 3b's f64 oracle total over the first 64 samples;
+    `counts`, when given, keeps each dropout's first-pass counts."""
     from tokengeex_tpu_torch import Model
     from tokengeex_tpu_torch.ops import lattice as lat
     from tokengeex_tpu_torch.train import estep_device as ed
@@ -915,7 +1066,7 @@ def run_session(name, vocab, samples, expect, kernels, oracle, dev):
         sess.e_step(model, dropout, 3, timer=steady_timer)
         steady_t_s = time.perf_counter() - t0
         steady_launches = {k: fn.launches for k, fn in kernels.items()}
-        for k in expect[:2]:
+        for k in expect:
             check(steady_launches[k] == len(groups),
                   f"{tag}: a steady pass launched {k} "
                   f"{steady_launches[k]} times for {len(groups)} groups")
@@ -1002,6 +1153,76 @@ def run_session(name, vocab, samples, expect, kernels, oracle, dev):
             log(f"{tag} second pass equal to the first: "
                 f"{res['second_equals_first']}")
         out[f"dropout_{dropout}"] = res
+        if counts is not None:
+            counts[dropout] = first
+    return out
+
+
+def run_session_over_budget(name, vocab, samples, want, kernels, dev):
+    """Phase 3d, the over-budget branch: a session with no cache budget
+    probes every group on every pass and counts through the marginal scan
+    (once per group and pass) and the scatter. Its counts must match the
+    budgeted session's (`want`, by dropout) to rtol 1e-3 / atol 1e-4 per
+    token and 1e-4 on the total (segsum against scatter, whose atomic
+    adds land in no fixed order)."""
+    from tokengeex_tpu_torch import Model
+    from tokengeex_tpu_torch.ops import lattice as lat
+    from tokengeex_tpu_torch.train.device_session import DeviceTrainSession
+    from tokengeex_tpu_torch.train.prune import MAX_SAMPLE_LENGTH
+
+    model = Model(vocab)
+    total = sum(map(len, samples))
+    out = {}
+    for dropout in (0.0, 0.05):
+        tag = f"[{name}, over budget, dropout {dropout}]"
+        sess = DeviceTrainSession(model, samples, MAX_SAMPLE_LENGTH,
+                                  device=dev, cache_budget=0)
+        groups = len(sess._groups())
+        torch.cuda.reset_peak_memory_stats(dev)
+        passes = []
+        for _ in range(2):
+            for fn in kernels.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            got = sess.e_step(model, dropout, 3)
+            passes.append(time.perf_counter() - t0)
+            launches = {k: fn.launches for k, fn in kernels.items()}
+            for k in ("forward_scan", "backward_marginal_scan"):
+                check(launches[k] == groups,
+                      f"{tag}: a pass launched {k} {launches[k]} times for "
+                      f"{groups} groups")
+            check(launches["seg_weights_gather"] == 0
+                  and not sess.slot_cache and sess.cache_used == 0,
+                  f"{tag}: the session cached a group")
+            ref = want[dropout]
+            tot_rel = abs(got.sum() - ref.sum()) / ref.sum()
+            seen = ref >= 0.5
+            cnt_rel = float((np.abs(got - ref)[seen] / ref[seen]).max())
+            check(bool(np.allclose(got, ref, rtol=1e-3, atol=1e-4))
+                  and tot_rel <= 1e-4,
+                  f"{tag}: counts differ from the budgeted session's (max "
+                  f"rel {cnt_rel:.2e}, total rel {tot_rel:.2e})")
+        peak = torch.cuda.max_memory_allocated(dev)
+        timer = lat.PhaseTimer(dev)
+        t0 = time.perf_counter()
+        sess.e_step(model, dropout, 3, timer=timer)
+        split_s = time.perf_counter() - t0
+        sess.close()
+        del sess
+        torch.cuda.empty_cache()
+        split = {k: round(v, 6) for k, v in timer.seconds.items()}
+        log(f"{tag} {groups} groups; passes {passes[0]:.3f} / "
+            f"{passes[1]:.3f} s = {total / passes[1] / 1e6:.2f} MB/s; "
+            f"launches {launches}; peak device memory {peak / 2**20:.1f} "
+            f"MiB; counts against the budgeted session: max rel on counts "
+            f">= 0.5 {cnt_rel:.3e}, total rel {tot_rel:.3e}")
+        log(f"{tag} phases (synchronised, {split_s:.3f} s): {split}")
+        out[f"dropout_{dropout}"] = {
+            "groups": groups, "pass_seconds": passes,
+            "bytes_per_s": total / passes[1], "launches": launches,
+            "peak_bytes": peak, "phases": split,
+            "phases_run_seconds": split_s, "max_rel_diff": cnt_rel,
+            "total_rel_diff": tot_rel}
     return out
 
 
@@ -1235,7 +1456,27 @@ def main() -> None:
     # The same group with the 32k vocabulary's cache: the session's
     # cached route.
     scans = check_scans(lat, lc, lcf, dt_a, batch_s, dev)
-    del batch_s, dt_a
+    torch.cuda.empty_cache()
+    # The marginal scan on the same group (a session group over budget),
+    # and the session's segsum on its real SegStruct.
+    marg_s = check_marginal_scan(lat, lc, dt_a, batch_s, dev,
+                                 "backward_marginal_scan (session group)")
+    torch.cuda.empty_cache()
+    segsum = check_segsum(lat, lcs, TokenTable.build(vocab_a), dt_a, batch_s,
+                          dev)
+    del batch_s
+    torch.cuda.empty_cache()
+    # The per-pass E-step's first row group of (a): 1 KiB snippets packed
+    # at the snippet width, 4096 rows.
+    packed_e = pack_samples(samples, width=em_width,
+                            max_snippet=ed.DEVICE_EM_SNIPPET)
+    sub_e = next(g for _, g in ed._padded_groups(packed_e, em_width,
+                                                 ed.ROW_MULT))
+    check(sub_e.rows == em_rows, f"E-step group of {sub_e.rows} rows")
+    marg_e = check_marginal_scan(lat, lc, dt_a,
+                                 lat.prepare_batch(sub_e, L_MAX, dev), dev,
+                                 "backward_marginal_scan (E-step group)")
+    del dt_a
     torch.cuda.empty_cache()
 
     # -- 3. end to end --
@@ -1246,10 +1487,12 @@ def main() -> None:
                "forward_chunk": lc.forward_chunk,
                "forward_scan": lc.forward_scan,
                "backward_chunk": lc.backward_chunk,
+               "backward_marginal_scan": lc.backward_marginal_scan,
                "backward_betas_chunk": lc.backward_betas_chunk,
                "backward_betas_scan": lc.backward_betas_scan,
                "fused_backward_chunk": lcf.fused_backward_chunk,
-               "seg_weights": lcs.seg_weights}
+               "seg_weights": lcs.seg_weights,
+               "seg_weights_gather": lcs.seg_weights_gather}
     e2e = {
         "a_32k_slab": run_config("a: 32768 tokens, slab route", vocab_a,
                                  samples, long_sample, "viterbi_scan",
@@ -1267,27 +1510,37 @@ def main() -> None:
     }
     torch.cuda.empty_cache()
     phase_start("3d")
+    counts_a, counts_b = {}, {}
     session = {
         "a_32k": run_session("a: 32768 tokens", vocab_a, samples,
                              ("forward_scan", "backward_betas_scan",
-                              "seg_weights"), kernels,
-                             estep["a_32k"]["oracle_total"], dev),
+                              "seg_weights_gather"), kernels,
+                             estep["a_32k"]["oracle_total"], dev, counts_a),
         "b_4k": run_session("b: 4096 tokens", vocab_b, samples,
                             ("fused_forward_chunk", "fused_backward_chunk",
-                             "seg_weights"), kernels,
-                            estep["b_4k"]["oracle_total"], dev),
+                             "seg_weights_gather"), kernels,
+                            estep["b_4k"]["oracle_total"], dev, counts_b),
+    }
+    torch.cuda.empty_cache()
+    over_budget = {
+        "a_32k": run_session_over_budget("a: 32768 tokens", vocab_a, samples,
+                                         counts_a, kernels, dev),
+        "b_4k": run_session_over_budget("b: 4096 tokens", vocab_b, samples,
+                                        counts_b, kernels, dev),
     }
     torch.cuda.empty_cache()
     phase_start("3c")
     pruned = run_prune("cached", build_vocab(samples, 49152, prefixes=False),
                        32768, samples, ("forward_scan", "backward_betas_scan",
-                                        "seg_weights", "viterbi_scan"),
+                                        "seg_weights_gather",
+                                        "viterbi_scan"),
                        False, kernels, dev)
     # A table of 16,384 tokens has 15 bits: the fused route's E-steps.
     pruned_f = run_prune("fused", build_vocab(samples, 16384, prefixes=False),
                          8192, samples, ("fused_forward_chunk",
                                          "fused_backward_chunk",
-                                         "seg_weights"), True, kernels, dev)
+                                         "seg_weights_gather"), True,
+                         kernels, dev)
 
     # -- 4. kernels line --
     phase_start("4")
@@ -1322,7 +1575,10 @@ def main() -> None:
               max(scans["forward"][f"dropout_{d}"]["max_abs_err"]
                   for d in (0.0, 0.1))),
         entry("backward_chunk", "backward_chunk.cu", f"{pallas}:238",
-              estep["a_32k"]["launches"]["backward_chunk"], bwd),
+              estep["a_32k"]["launches"]["backward_marginal_scan"],
+              marg_e["dropout_0.0"],
+              max(m[f"dropout_{d}"]["max_abs_err"] for m in (marg_e, marg_s)
+                  for d in (0.0, 0.1))),
         entry("backward_chunk(betas)", "backward_chunk.cu",
               "tokengeex_tpu/ops/lattice_jax.py:1742",
               pruned["launches"]["backward_betas_scan"],
@@ -1333,7 +1589,9 @@ def main() -> None:
               b_sess["fused_backward_chunk"], fused_bwd[0],
               max(f["max_abs_err"] for f in fused_bwd)),
         entry("seg_weights", "seg_weights.cu", f"{fused_py}:531",
-              pruned["launches"]["seg_weights"], seg),
+              pruned["launches"]["seg_weights_gather"],
+              segsum["dropout_0.0"],
+              max(segsum[f"dropout_{d}"]["max_abs_err"] for d in (0.0, 0.1))),
     ]}
     record = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_seconds": build_s,
@@ -1341,10 +1599,13 @@ def main() -> None:
               "fused_forward": fused,
               "forward_chunk": fwd, "backward_chunk": bwd,
               "backward_betas_chunk": betas, "scans": scans,
-              "seg_weights": seg,
+              "seg_weights": seg, "backward_marginal_scan": {
+                  "e_step_group": marg_e, "session_group": marg_s},
+              "seg_weights_gather": segsum,
               "fused_forward_logsumexp": fused_lse,
               "fused_backward": fused_bwd, "encode": e2e, "estep": estep,
-              "session": session, "prune": pruned, "prune_fused": pruned_f,
+              "session": session, "session_over_budget": over_budget,
+              "prune": pruned, "prune_fused": pruned_f,
               "kernels": line["kernels"]}
     out = HERE / "chiprun_out"
     try:

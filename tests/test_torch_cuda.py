@@ -171,12 +171,13 @@ def test_cuda_backward_chunk_matches_twin(cuda_device, L):
 @pytest.mark.parametrize("hints,probe", [(None, None), ((16, None), "fast")])
 def test_cuda_e_step_matches_cpu(cuda_device, hints, probe):
     model, samples = _corpus(600, seed=2)
-    counts = (lc.forward_scan.launches, lc.backward_chunk.launches)
+    counts = (lc.forward_scan.launches, lc.backward_marginal_scan.launches)
     got = ed.run_e_step_device(model, samples, dropout=0.0, max_snippet=1024,
                                probe=probe, table_hints=hints,
                                device=cuda_device)
-    assert lc.forward_scan.launches > counts[0]
-    assert lc.backward_chunk.launches > counts[1]
+    # Each scan once per row group.
+    fwd = lc.forward_scan.launches - counts[0]
+    assert fwd > 0 and lc.backward_marginal_scan.launches - counts[1] == fwd
     want = ed.run_e_step_device(model, samples, dropout=0.0,
                                 max_snippet=1024, probe=probe,
                                 table_hints=hints, device="cpu")
@@ -323,6 +324,115 @@ def test_cuda_backward_betas_scan_matches_twin(cuda_device, L, dropout):
     _assert_close(got, want, TOL["betas"])
 
 
+def _marginal_inputs(L, dropout, dev):
+    """The marginal scan's arguments on the batch `_scan_inputs` packs: its
+    cache, the forward values of the same cache and dropout words, the
+    backward chains cut every 64 positions, and the dropout keywords."""
+    model, samples = _corpus(600, max_len=L)
+    tbl = lat.DeviceTables.from_table(
+        TokenTable.build(model.vocab, min_bits=16), dev)
+    batch = lat.prepare_batch(pack_samples(samples, width=1024), L, dev)
+    cache = lat.match_cache(tbl, batch, C=512)
+    du, kw = None, {"pad": batch.pad}
+    if dropout:
+        gen = torch.Generator(device=dev).manual_seed(L)
+        du = torch.randint(-(2**31), 2**31 - 1, tuple(batch.sid.shape),
+                           generator=gen, dtype=torch.int32, device=dev)
+        kw.update(du=du.t().contiguous(), dropout=dropout)
+    A = lat.forward(tbl, batch, cache, drop_u=du, dropout=dropout)
+    return (cache[0], *lat._marginal_inputs(batch, A, L),
+            lat.chain_bounds(batch, 64)[1]), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chained", [True, False])
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("L", [8, 16, 32, 64])
+def test_cuda_backward_marginal_scan_matches_twin(cuda_device, L, dropout,
+                                                  chained):
+    """The whole-width marginal scan, rows cut into chains every 64
+    positions or one chain per row, equals its twin bit for bit: the
+    marginals and the betas."""
+    args, kw = _marginal_inputs(L, dropout, cuda_device)
+    seg = args[5] if chained else None
+    want = lc.backward_marginal_scan_plain(*args[:5], seg, **kw)
+    before = lc.backward_marginal_scan.launches
+    got = lc.backward_marginal_scan(*args[:5], seg, **kw)
+    torch.cuda.synchronize()
+    assert lc.backward_marginal_scan.launches == before + 1
+    assert float(want[0].max()) > 0.5 and bool((want[1] == 0).any())
+    for g_, w in zip(got, want):
+        assert torch.equal(g_, w)
+
+
+def _seg_case(dev, n_vocab=600):
+    """One packed group of the `_corpus` vocabulary in the session's
+    rank space: its batch, tables, rank score rows, SegStruct and the
+    forward values and betas over its cache (the scans on the card)."""
+    model, samples = _corpus(n_vocab, seed=3)
+    table = TokenTable.build(model.vocab, min_bits=16)
+    tbl = lat.DeviceTables.from_table(table, dev)
+    batch = lat.prepare_batch(pack_samples(samples, width=1024), tbl.max_len,
+                              dev)
+    rank = lat.build_rank_space(table)
+    _, raw = lat.match_cache(tbl, batch, C=512)
+    slots = lat.remap_slots(torch.as_tensor(rank.lut, device=dev), raw)
+    rows = lat.rank_score_rows(rank, table, dev)
+    cache = (lat.score_from_slots(rows, slots), slots)
+    A = lat.forward(tbl, batch, cache)
+    Bt = lat.backward_betas(tbl, batch, cache)
+    return batch, tbl, rows, lat.build_seg_struct(slots, rank.n_pad), A, Bt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_cuda_seg_weights_gather_matches_twin(cuda_device, dropout):
+    """Every length of a group in one launch, its streams gathered in the
+    kernel, equals the twin bit for bit (cf and t)."""
+    batch, tbl, rows, seg, A, Bt = _seg_case(cuda_device)
+    args = lat.seg_weight_inputs(batch, A, Bt, seg, rows)
+    du = None
+    if dropout:
+        gen = torch.Generator(device=cuda_device).manual_seed(5)
+        du = torch.randint(-(2**31), 2**31 - 1, tuple(batch.sid.shape),
+                           generator=gen, dtype=torch.int32,
+                           device=cuda_device)
+    kw = {"dropout": dropout, "pad": batch.pad}
+    want = lcs.seg_weights_gather_plain(*args, du, **kw)
+    before = lcs.seg_weights_gather.launches
+    got = lcs.seg_weights_gather(*args, du, **kw)
+    torch.cuda.synchronize()
+    assert lcs.seg_weights_gather.launches == before + 1
+    assert len(seg.perm) == tbl.max_len and float(want[1].max()) > 1.0
+    for g_, w in zip(got, want):
+        assert torch.equal(g_, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.05])
+def test_cuda_session_over_budget_matches_budgeted(cuda_device, dropout):
+    """A session with no cache budget takes the per-pass branch on every
+    pass (the marginal scan once per group) and counts what the budgeted
+    session counts (segsum against scatter: rtol 1e-3 per token, 1e-4 on
+    the total). The scatter's atomic adds land in no fixed order, so two
+    passes agree to rounding, not bit for bit."""
+    model, samples = _corpus(600, seed=2)
+    want = DeviceTrainSession(model, samples, 1024, kernel="slab",
+                              device=cuda_device).e_step(model, dropout, 3)
+    before = (lc.backward_marginal_scan.launches,
+              lcs.seg_weights_gather.launches)
+    sess = DeviceTrainSession(model, samples, 1024, kernel="slab",
+                              cache_budget=0, device=cuda_device)
+    got = [sess.e_step(model, dropout, 3) for _ in range(2)]
+    groups = len(sess._groups())
+    assert lc.backward_marginal_scan.launches - before[0] == 2 * groups
+    assert lcs.seg_weights_gather.launches == before[1]
+    assert not sess.slot_cache
+    for counts in got:
+        np.testing.assert_allclose(counts, want, rtol=1e-3, atol=1e-4)
+        assert abs(counts.sum() - want.sum()) <= 1e-4 * want.sum()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dropout", [0.0, 0.1])
 @pytest.mark.parametrize("max_len", [8, 16, 32])
@@ -359,7 +469,8 @@ def test_cuda_fused_scans_with_chains_equal_twins(cuda_device, max_len,
 @pytest.mark.cuda
 @pytest.mark.parametrize("scan", ["fused_forward", "fused_backward",
                                   "forward_scan", "backward_betas_scan",
-                                  "fused_viterbi", "viterbi_scan"])
+                                  "fused_viterbi", "viterbi_scan",
+                                  "backward_marginal_scan"])
 def test_cuda_scans_clamp_chain_bounds(cuda_device, scan):
     """Bounds on the card are not read back: every scan clamps a chain
     into [0, W]. Ends past the width give the valid chains' values, and
@@ -390,6 +501,13 @@ def test_cuda_scans_clamp_chain_bounds(cuda_device, scan):
         def run(seg):
             dp, best_l = lc.viterbi_scan(*args[:3], seg, **kw)
             return torch.cat([dp.view(torch.int32), best_l])
+    elif scan == "backward_marginal_scan":
+        args, kw = _marginal_inputs(16, 0.0, cuda_device)
+        seg = args[5]
+
+        def run(seg):
+            marg, betas = lc.backward_marginal_scan(*args[:5], seg, **kw)
+            return torch.cat([marg.reshape(-1), betas.reshape(-1)])
     else:
         direction = "forward" if scan == "forward_scan" else "backward"
         args, kw = _scan_inputs(16, 0.0, cuda_device, direction)
@@ -522,7 +640,7 @@ def test_cuda_session_matches_cpu(cuda_device, kernel):
     kernels = ((lcf.fused_forward_chunk, lcf.fused_backward_chunk)
                if kernel is None else
                (lc.forward_scan, lc.backward_betas_scan))
-    kernels += (lcs.seg_weights,)
+    kernels += (lcs.seg_weights_gather,)
     before = [k.launches for k in kernels]
     sess = DeviceTrainSession(model, samples, 1024, kernel=kernel,
                               device=cuda_device)

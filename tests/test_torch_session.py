@@ -127,6 +127,43 @@ def test_session_over_budget_matches_jax(corpus, one_jax_device, kernel,
 
 
 @pytest.mark.parametrize("kernel,jkernel", ROUTES)
+def test_session_over_budget_dropout_matches_jax(corpus, one_jax_device,
+                                                 monkeypatch, kernel,
+                                                 jkernel):
+    """The over-budget route at dropout 0.05 (the marginal scan draws the
+    coins itself) against the JAX session's budgeted route, both fed the
+    JAX session's dropout words: its single-device ops expand group g's
+    key, the g-th split of PRNGKey(seed), into (rows, width) words."""
+    vocab, _, samples = corpus
+    jm, m = _models(vocab)
+    seed = 4
+    want = JDeviceTrainSession(jm, samples, max_snippet=256,
+                               kernel=jkernel).e_step(jm, 0.05, seed)
+
+    def jax_words():
+        key = jax.random.PRNGKey(seed)
+        while True:
+            key, sub = jax.random.split(key)
+            yield sub
+
+    keys = jax_words()
+
+    def words(gen, rows, cols, device):
+        return torch.as_tensor(np.array(jax.random.randint(
+            next(keys), (rows, cols), minval=-(2**31), maxval=2**31 - 1,
+            dtype=jax.numpy.int32)), device=device)
+
+    monkeypatch.setattr(ed, "_drop_words", words)
+    sess = DeviceTrainSession(m, samples, 256, kernel=kernel,
+                              cache_budget=0, device="cpu")
+    before = lc.backward_marginal_scan.launches
+    _close(sess.e_step(m, 0.05, seed), want)
+    assert not sess.slot_cache
+    # CPU tensors take the plain twin: no kernel launch is counted.
+    assert lc.backward_marginal_scan.launches == before
+
+
+@pytest.mark.parametrize("kernel,jkernel", ROUTES)
 def test_session_count_frequencies_match(corpus, one_jax_device, kernel,
                                          jkernel):
     vocab, vocab2, samples = corpus

@@ -45,10 +45,15 @@ KERNELS: Dict[str, Tuple[str, str, tuple]] = {
                      (P,) * 7 + (I,) * 6 + (U, I, P)),
     "backward_chunk": ("backward_chunk.cu", "tgx_backward_chunk",
                        (P, P, P, P, P, P, P, I, I, I, P)),
+    "backward_marginal_scan": ("backward_chunk.cu",
+                               "tgx_backward_marginal_scan",
+                               (P,) * 10 + (I,) * 5 + (U, I, P)),
     "backward_betas_scan": ("backward_chunk.cu", "tgx_backward_betas_scan",
                             (P,) * 7 + (I,) * 5 + (U, I, P)),
     "seg_weights": ("seg_weights.cu", "tgx_seg_weights",
                     (P, P, P, P, P, I, I, P)),
+    "seg_weights_gather": ("seg_weights.cu", "tgx_seg_weights_gather",
+                           (P,) * 9 + (I,) * 6 + (U, I, P)),
 }
 
 _LOCK = threading.Lock()

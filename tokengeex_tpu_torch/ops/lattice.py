@@ -36,10 +36,10 @@ The E-step probes each row group once (`match_cache`, start-indexed,
 without dropout), runs the forward log-sum-exp DP over that cache in one
 whole-width launch (`forward_scan`: it reads the cache end-indexed and
 draws the dropout coins itself, each row cut into independent chains at
-sample starts and padding by `chain_bounds`), then the backward DP over
-it chunk by chunk (`backward_chunk`, masking each chunk's dropped
-candidates), and adds the marginals into probe-slot bins that the host
-folds to token ids.
+sample starts and padding by `chain_bounds`), then the backward DP with
+the token marginals over it in one whole-width launch as well
+(`backward_marginal_scan`, cut at sample ends and padding), and adds the
+marginals into probe-slot bins that the host folds to token ids.
 
 The session (train/device_session.py) keeps each group's probe slots,
 remapped once to a dense rank space, and a `SegStruct` that sorts the
@@ -48,7 +48,8 @@ rank (`estep_cached`: `forward_scan` and `backward_betas_scan`, one
 launch each over the whole width) or re-probe inside the fused kernels
 (`estep_fused`: the same chained scans with the probe inside, one launch
 each), run the backward pass for betas only, and turn them
-into counts with the scatter-free `segsum_expected` (csrc/seg_weights.cu).
+into counts with the scatter-free `segsum_expected` (csrc/seg_weights.cu,
+one launch per group over every token length's hits).
 """
 
 from __future__ import annotations
@@ -68,7 +69,7 @@ from ..utils.packing import PackedBatch
 from . import hashing as H
 from . import lattice_cuda as lc
 from . import lattice_cuda_fused as lcf
-from .lattice_cuda_seg import SEG_BLK, seg_weights
+from .lattice_cuda_seg import SEG_BLK, seg_weights_gather
 from .match_table import TokenTable, _entry_arrays
 
 NEG_INF = float("-inf")
@@ -831,6 +832,24 @@ def forward(tbl: DeviceTables, batch: DeviceBatch,
 MISS_BINS = 4096
 
 
+def _marginal_inputs(batch: DeviceBatch, A: torch.Tensor, L: int):
+    """The marginal scan's (W, B) a, z and ends and its (L, B) history
+    for a batch and its forward values A (B, W+1)."""
+    W = batch.width
+    # Per-position normaliser z[p] = A[end of the sample holding p].
+    z = torch.gather(A, 1, batch.end_index.long())
+    z = torch.where(torch.isfinite(z) & (z > -1e37), z, 0.0)
+    # A[p] at a boundary holds the PREVIOUS sample's total; tokens
+    # starting at p belong to the next sample, whose forward value is the
+    # post-reset 0.
+    a = torch.where(batch.is_start[:, :W], 0.0, A[:, :W]).clamp(min=NEG)
+    ends = batch.is_end[:, :W].t().to(torch.float32).contiguous()
+    # hist[j] = beta[p + 1 + j]; a token ending exactly at W sees beta[W]
+    # = 0 when a sample ends there.
+    return (a.t().contiguous(), z.t().contiguous(), ends,
+            lcf.betas_hist0(batch.is_end[:, W], L))
+
+
 def backward_expected(
     tbl: DeviceTables,
     batch: DeviceBatch,
@@ -842,15 +861,22 @@ def backward_expected(
     probe: Optional[str] = None,
     nbins: Optional[int] = None,
     timer: Optional[PhaseTimer] = None,
+    chains: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Expected-count accumulator: the marginals
     exp(A[p] + score + beta[p+l] - z) of every matched token occurrence,
     added into its probe slot (reference: src/lattice.rs:245-312).
-    Chunks of the `match_cache` result `cache` are walked in descending
-    order with `backward_chunk`; A is `forward`'s result over the same
-    cache and dropout words. Returns an f32 (nbins,) slot-indexed tensor
-    (bucket slots in "bucket" mode, cuckoo slots in "fast" mode); fold it
-    to per-token counts with `fold_expected`."""
+    `backward_marginal_scan` walks the whole width of the `match_cache`
+    result `cache` once, its rows cut into chains by the backward bounds
+    of `chains` (`chain_bounds`, made here when not given), drawing the
+    dropout coins itself (a masked or dropped token's marginal is 0); A is
+    `forward`'s result over the same cache and dropout words. The
+    marginals are added into the bins C positions at a time, which bounds
+    the scatter's index temporaries, with the slots read in the order the
+    kernel lays the marginals out, (position, row, length). Returns an f32
+    (nbins,) slot-indexed tensor (bucket slots in "bucket" mode, cuckoo
+    slots in "fast" mode); fold it to per-token counts with
+    `fold_expected`."""
     B = batch.p1.shape[0]
     W = batch.width
     L = tbl.max_len
@@ -862,42 +888,23 @@ def backward_expected(
         nbins = tbl.bk_num_slots if mode == "bucket" else tbl.num_slots
     dev = A.device
     with phase(timer, "backward"):
-        # Per-position normaliser z[p] = A[end of the sample holding p].
-        z = torch.gather(A, 1, batch.end_index.long())
-        z = torch.where(torch.isfinite(z) & (z > -1e37), z, 0.0)
-        z = z.t().contiguous()  # (W, B)
-        # A[p] at a boundary holds the PREVIOUS sample's total; tokens
-        # starting at p belong to the next sample, whose forward value is
-        # the post-reset 0.
-        a = torch.where(batch.is_start[:, :W], 0.0, A[:, :W])
-        a = a.clamp(min=NEG).t().contiguous()
-        ends = batch.is_end[:, :W].t().to(torch.float32)
-        # hist[j] = beta[p + 1 + j]; a token ending exactly at W sees
-        # beta[W] = 0 when a sample ends there.
-        hist = torch.full((L, B), NEG, dtype=torch.float32, device=dev)
-        hist[0] = torch.where(batch.is_end[:, W], 0.0, NEG)
-    acc = torch.zeros(nbins + MISS_BINS, dtype=torch.float32, device=dev)
-    # Most probe points miss; sending every miss to one address would
-    # serialise the atomic adds there, so they spread over scratch bins.
-    spread = nbins + (torch.arange(C * L * B, dtype=torch.int32, device=dev)
-                      & (MISS_BINS - 1))
-    for cs in range(W - C, -1, -C):
-        with phase(timer, "backward"):
-            score_s = cache[0][cs : cs + C]
-            slot_s = cache[1][cs : cs + C]
-            if drop_u is not None and dropout > 0.0:
-                keep = _dropout_keep_window(drop_u, dropout, L, batch.pad,
-                                            cs, C)
-                score_s = torch.where(keep, score_s, NEG_INF)
-            matched = score_s > -1.0e37
-            marg, hist = lc.backward_chunk(
-                score_s.clamp(min=NEG).contiguous(),
-                a[cs : cs + C].contiguous(), z[cs : cs + C].contiguous(),
-                ends[cs : cs + C].contiguous(), hist)
-        with phase(timer, "scatter"):
-            bins = slot_s.reshape(-1)
+        if chains is None:
+            chains = chain_bounds(batch)
+        marg, _ = lc.backward_marginal_scan(
+            cache[0], *_marginal_inputs(batch, A, L), chains[1],
+            pad=batch.pad, **_scan_drop(drop_u, dropout))
+    with phase(timer, "scatter"):
+        acc = torch.zeros(nbins + MISS_BINS, dtype=torch.float32, device=dev)
+        # Most probe points miss; sending every miss to one address would
+        # serialise the atomic adds there, so they spread over scratch
+        # bins.
+        spread = nbins + (torch.arange(C * L * B, dtype=torch.int32,
+                                       device=dev) & (MISS_BINS - 1))
+        marg = marg.transpose(1, 2)  # the kernel's (W, B, L) memory
+        for cs in range(0, W, C):
+            bins = cache[1][cs : cs + C].transpose(1, 2).reshape(-1)
             bins = torch.where(bins >= nbins, spread, bins)
-            acc.index_add_(0, bins, torch.where(matched, marg, 0.0).reshape(-1))
+            acc.index_add_(0, bins, marg[cs : cs + C].reshape(-1))
     return acc[:nbins]
 
 
@@ -1086,6 +1093,12 @@ class SegStruct:
                 ascending, padded with nbins
       blk_slot: L-tuple of (cap_l / SEG_BLK,) int32, slot of the hit at
                 each block start (nbins past the hits)
+
+    The lengths' perm and blk_slot lie end to end in perm_flat and
+    blk_flat (the tuples are views of them), so that one launch reads
+    every length; meta (2L+1,) int32, on the device, holds each length's
+    first block (L+1 entries, the last the block count) and then its hit
+    count (`lattice_cuda_seg.seg_weights_gather`).
     """
 
     perm: tuple
@@ -1094,6 +1107,9 @@ class SegStruct:
     n_hit: tuple
     occ_slot: torch.Tensor
     blk_slot: tuple
+    perm_flat: torch.Tensor
+    blk_flat: torch.Tensor
+    meta: torch.Tensor
 
     def nbytes(self) -> int:
         return 4 * (sum(int(p.numel()) for p in self.perm)
@@ -1131,9 +1147,9 @@ def build_seg_struct(slots: torch.Tensor, nbins: int) -> SegStruct:
     counts = torch.cat([ss[:, nbins], present.sum(dim=1)]).tolist()
     n_hit, n_occ = counts[:L], counts[L:]
     OC = max(8, 1 << (max(max(n_occ), 1) - 1).bit_length())
-    perm_t, blk_t, occ2, pre2, end2 = [], [], [], [], []
-    for l0 in range(L):
-        cap = min(seg_cap(n_hit[l0]), BW)
+    caps = [min(seg_cap(n), BW) for n in n_hit]
+    occ2, pre2, end2 = [], [], []
+    for l0, cap in enumerate(caps):
         pre = torch.where(present[l0] & (ss[l0, :-1] > 0),
                           torch.clamp(ss[l0, :-1] - 1, max=cap), cap)
         end = torch.where(present[l0], torch.clamp(ss[l0, 1:] - 1, max=cap),
@@ -1144,43 +1160,108 @@ def build_seg_struct(slots: torch.Tensor, nbins: int) -> SegStruct:
         occ2.append(occ.to(torch.int32))
         pre2.append(torch.cat([pre, sent])[occ].to(torch.int32))
         end2.append(torch.cat([end, sent])[occ].to(torch.int32))
-        perm_t.append(perm[l0, :cap].to(torch.int32))
-        blk_t.append(torch.clamp(srt[l0, :cap:SEG_BLK], max=nbins)
-                     .to(torch.int32))
-    return SegStruct(perm=tuple(perm_t), pre_pos=torch.stack(pre2),
-                     end_pos=torch.stack(end2), n_hit=tuple(n_hit),
-                     occ_slot=torch.stack(occ2), blk_slot=tuple(blk_t))
+    perm_flat = torch.cat([perm[l0, :cap] for l0, cap in enumerate(caps)]
+                          ).to(torch.int32)
+    blk_flat = torch.cat([torch.clamp(srt[l0, :cap:SEG_BLK], max=nbins)
+                          for l0, cap in enumerate(caps)]).to(torch.int32)
+    nblk = [cap // SEG_BLK for cap in caps]
+    boff = np.concatenate([[0], np.cumsum(nblk)]).tolist()
+    return SegStruct(perm=torch.split(perm_flat, caps),
+                     pre_pos=torch.stack(pre2), end_pos=torch.stack(end2),
+                     n_hit=tuple(n_hit), occ_slot=torch.stack(occ2),
+                     blk_slot=torch.split(blk_flat, nblk),
+                     perm_flat=perm_flat, blk_flat=blk_flat,
+                     meta=torch.tensor(boff + list(n_hit), dtype=torch.int32,
+                                       device=dev))
 
 
 def _interval_from_blocks(cf: torch.Tensor, t: torch.Tensor,
-                          pre_pos: torch.Tensor,
-                          end_pos: torch.Tensor) -> torch.Tensor:
-    """Per-interval sums w[pre+1 ... end] from in-block inclusive cumsums
-    `cf` (H,) and block totals `t` (H / SEG_BLK,); index H (the cap
-    sentinel) reads 0. The block prefix is an f64 cumsum split into f32
-    hi + lo (at least as accurate as the JAX package's TwoSum scan), and
-    the block-prefix difference stays compensated: a plain f32 difference
-    rounds at ulp of the global prefix, enough to push small counts
-    negative."""
-    p = torch.cumsum(t.double(), dim=0)
+                          seg: SegStruct) -> torch.Tensor:
+    """(L, OC) per-interval sums w[pre+1 ... end] of every length of
+    `seg` at once, from the in-block inclusive cumsums `cf` (H,) and block
+    totals `t` (H / SEG_BLK,) of the lengths laid end to end; pre_pos and
+    end_pos index within their length, whose cap (the sentinel) reads 0.
+    The block prefix restarts at each length: an f64 cumsum along the rows
+    of an (L, blocks) array, split into f32 hi + lo (at least as accurate
+    as the JAX package's TwoSum scan), and the block-prefix difference
+    stays compensated: a plain f32 difference rounds at ulp of the length's
+    prefix, enough to push small counts negative."""
+    L = len(seg.perm)
+    M = max(p.shape[0] for p in seg.perm) // SEG_BLK
+    nb = t.shape[0]
+    dev = cf.device
+    boff = seg.meta[: L + 1].long()  # each length's first block
+    blocks = torch.arange(nb, device=dev)
+    row = torch.searchsorted(boff[1:].contiguous(), blocks, right=True)
+    t2 = torch.zeros(L * M, dtype=torch.float64, device=dev)
+    t2[row * M + blocks - boff[row]] = t.double()
+    p = torch.cumsum(t2.view(L, M), dim=1)
     hi = p.float()
     lo = (p - hi.double()).float()
-    zero = cf.new_zeros(1)
-    hip = torch.cat([zero, hi[:-1], zero])
-    lop = torch.cat([zero, lo[:-1], zero])
-    cfp = torch.cat([cf, zero])
-    end = end_pos.long()
-    pre = pre_pos.long()
+    # Block k's exclusive prefix; the cap's block reads 0.
+    nblk = (boff[1:] - boff[:-1])[:, None]
+    zero = cf.new_zeros((L, 1))
+    hip = torch.cat([zero, hi], dim=1).scatter_(1, nblk, 0.0)
+    lop = torch.cat([zero, lo], dim=1).scatter_(1, nblk, 0.0)
+    cap = nblk * SEG_BLK
+    first = boff[:-1, None] * SEG_BLK
+    end = seg.end_pos.long()
+    pre = seg.pre_pos.long()
+    H = cf.shape[0]
+    cfp = torch.cat([cf, cf.new_zeros(1)])
+    ce = torch.where(end == cap, H, first + end)
+    cp = torch.where(pre == cap, H, first + pre)
     be = end // SEG_BLK
     bb = pre // SEG_BLK
-    a = hip[be]
-    b = -hip[bb]
+    a = hip.gather(1, be)
+    b = -hip.gather(1, bb)
     s = a + b
     a1 = s - b
     b1 = s - a1
     err = (a - a1) + (b - b1)
-    small = err + (lop[be] - lop[bb]) + (cfp[end] - cfp[pre])
+    small = (err + (lop.gather(1, be) - lop.gather(1, bb))
+             + (cfp[ce] - cfp[cp]))
     return s + small
+
+
+def _seg_differences(seg: SegStruct, sc_pad: torch.Tensor) -> torch.Tensor:
+    """(H,) telescoping score differences over the sorted hits of every
+    length: between consecutive occurring slots, at each slot's segment
+    start (pad entries land in a dropped cell)."""
+    L = len(seg.perm)
+    H = seg.perm_flat.shape[0]
+    boff = seg.meta[: L + 1].long()[:, None] * SEG_BLK
+    cap = boff[1:] - boff[:-1]
+    pre = seg.pre_pos.long()
+    start = torch.where(seg.end_pos.long() != cap,
+                        torch.where(pre == cap, 0, pre + 1) + boff[:-1], H)
+    sc_occ = sc_pad[seg.occ_slot.long()]
+    dvals = sc_occ - torch.cat([sc_occ[:, :1], sc_occ[:, :-1]], dim=1)
+    d = torch.zeros(H + 1, dtype=torch.float32, device=sc_pad.device)
+    d.index_add_(0, start.reshape(-1), dvals.reshape(-1))
+    return d[:H]
+
+
+def seg_weight_inputs(batch: DeviceBatch, A: torch.Tensor, Bt: torch.Tensor,
+                      seg: SegStruct, score_rows: torch.Tensor) -> tuple:
+    """Positional arguments of `lattice_cuda_seg.seg_weights_gather`
+    (before du) for one group: the sorted hits, alpha - Z (B, W), the
+    betas (B, W+1), the telescoping score differences, the block anchors
+    and the lengths' layout."""
+    W = batch.width
+    Z = torch.gather(A, 1, batch.end_index.long())
+    Z = torch.where(torch.isfinite(Z) & (Z > -1e37), Z, 0.0)
+    # A[p] at a boundary holds the PREVIOUS sample's total; tokens
+    # starting at p belong to the next sample (forward value 0).
+    a = torch.where(batch.is_start[:, :W], 0.0, A[:, :W])
+    # Removed and empty slots carry the -3e38 sentinel, which would wreck
+    # the telescoping sums; their weights are exp(x - 200) = 0.
+    sc = torch.clamp(score_rows[: rows_nbins(score_rows)].view(torch.float32),
+                     min=-200.0)
+    sc_pad = torch.cat([sc, sc.new_zeros(1)])
+    return (seg.perm_flat, (a - Z).contiguous(), Bt.contiguous(),
+            _seg_differences(seg, sc_pad), sc_pad[seg.blk_flat.long()],
+            seg.meta)
 
 
 def segsum_expected(tbl: DeviceTables, batch: DeviceBatch, A: torch.Tensor,
@@ -1193,68 +1274,26 @@ def segsum_expected(tbl: DeviceTables, batch: DeviceBatch, A: torch.Tensor,
     (nbins,) accumulator as `backward_expected` (reference:
     src/lattice.rs:245-312), nbins = rows_nbins(score_rows).
 
-    Per length, each hit's [A - Z, beta] row is gathered in sorted order;
-    the score term is expanded over the sorted hits from the (nbins,)
-    score vector by telescoping differences between consecutive occurring
-    slots plus one anchor per block; `seg_weights` takes the in-block
-    scans of the TRUE marginal exp(A + score + beta - Z) in [0, 1], and
-    each slot's sum is an interval of those scans. Factoring exp(score)
-    out of the sum let a rare token sharing a block with e^40-scale
-    neighbours lose its whole count to rounding."""
-    B = A.shape[0]
-    W = batch.width
-    L = tbl.max_len
+    Every length's hits are taken in one `seg_weights_gather` launch,
+    which gathers each hit's alpha - Z and beta in sorted order; the score
+    term is expanded over the sorted hits from the (nbins,) score vector
+    by telescoping differences between consecutive occurring slots plus
+    one anchor per block; the kernel takes the in-block scans of the TRUE
+    marginal exp(A + score + beta - Z) in [0, 1], and each slot's sum is
+    an interval of those scans (one token has one length, so the lengths'
+    slots never share a bin). Factoring exp(score) out of the sum let a
+    rare token sharing a block with e^40-scale neighbours lose its whole
+    count to rounding."""
     nbins = rows_nbins(score_rows)
-    BW = B * W
-    dev = A.device
+    use_drop = drop_u is not None and dropout > 0.0
     with phase(timer, "segsum"):
-        Z = torch.gather(A, 1, batch.end_index.long())
-        Z = torch.where(torch.isfinite(Z) & (Z > -1e37), Z, 0.0)
-        # A[p] at a boundary holds the PREVIOUS sample's total; tokens
-        # starting at p belong to the next sample (forward value 0).
-        a = torch.where(batch.is_start[:, :W], 0.0, A[:, :W])
-        col1 = a - Z
-        btp = torch.nn.functional.pad(Bt, (0, L), value=NEG_INF)
-        use_drop = drop_u is not None and dropout > 0.0
-        if use_drop:
-            drop_base = drop_u[:, batch.pad : batch.pad + W]
-            odds = _len_mix(L, lcf._ODD, dev)
-            tt = lcf.dropout_threshold_half(dropout)
-        # Removed and empty slots carry the -3e38 sentinel, which would
-        # wreck the telescoping sums; their weights are exp(x - 200) = 0.
-        sc = torch.clamp(score_rows[:nbins].view(torch.float32), min=-200.0)
-        sc_pad = torch.cat([sc, sc.new_zeros(1)])
-        acc = torch.zeros(nbins + 1, dtype=torch.float32, device=dev)
-    for l0 in range(L):
-        with phase(timer, "segsum"):
-            perm_l = seg.perm[l0].long()
-            occ_l = seg.occ_slot[l0].long()
-            pre_l = seg.pre_pos[l0]
-            end_l = seg.end_pos[l0]
-            Hc = perm_l.shape[0]  # this length's capacity
-            beta_l = btp[:, l0 + 1 : l0 + 1 + W]
-            if use_drop and l0 > 0:
-                u = H.srl_i32(H.mul_i32(drop_base, odds[l0]), 1)
-                beta_l = torch.where(u < tt, NEG_INF, beta_l)
-            T = torch.stack([col1, beta_l], dim=-1).reshape(BW, 2)
-            rows = T[perm_l]
-            present = end_l != Hc
-            start_pos = torch.where(
-                present, torch.where(pre_l == Hc, 0, pre_l + 1), Hc).long()
-            # Telescoping score differences between consecutive occurring
-            # slots (pad entries land in the dropped cell Hc).
-            sc_occ = sc_pad[occ_l]
-            dvals = sc_occ - torch.cat([sc_occ[:1], sc_occ[:-1]])
-            d = torch.zeros(Hc + 1, dtype=torch.float32, device=dev)
-            d.index_add_(0, start_pos, dvals)
-            anchors = sc_pad[seg.blk_slot[l0].long()]
-            d2 = torch.cat([anchors[:, None],
-                            d[:Hc].reshape(-1, SEG_BLK)[:, 1:]], dim=1)
-            cf, t = seg_weights(rows[:, 0].contiguous(),
-                                rows[:, 1].contiguous(),
-                                d2.reshape(-1).contiguous(), seg.n_hit[l0])
-            acc.index_add_(0, occ_l, _interval_from_blocks(cf, t, pre_l,
-                                                           end_l))
+        cf, t = seg_weights_gather(
+            *seg_weight_inputs(batch, A, Bt, seg, score_rows),
+            drop_u if use_drop else None,
+            dropout=dropout if use_drop else 0.0, pad=batch.pad)
+        acc = torch.zeros(nbins + 1, dtype=torch.float32, device=A.device)
+        acc.index_add_(0, seg.occ_slot.reshape(-1).long(),
+                       _interval_from_blocks(cf, t, seg).reshape(-1))
     return acc[:nbins]
 
 
@@ -1284,7 +1323,8 @@ def estep_cached(tbl: DeviceTables, batch: DeviceBatch, slots: torch.Tensor,
         return A, segsum_expected(tbl, batch, A, Bt, seg, score_rows,
                                   drop_u, dropout, timer)
     return A, backward_expected(tbl, batch, A, cache, C, drop_u, dropout,
-                                nbins=rows_nbins(score_rows), timer=timer)
+                                nbins=rows_nbins(score_rows), timer=timer,
+                                chains=chains)
 
 
 def estep_fused(tbl: DeviceTables, batch: DeviceBatch, seg: SegStruct,

@@ -4,16 +4,16 @@ twins.
 Counterpart of tokengeex_tpu/ops/lattice_pallas.py: `viterbi_chunk`,
 `forward_chunk` and `backward_chunk`, built from csrc/<name>.cu, and of
 the XLA scan `_backward_betas_impl` of tokengeex_tpu/ops/lattice_jax.py
-(the betas). Three scans run over the whole row width: `viterbi_scan`
+(the betas). Four scans run over the whole row width: `viterbi_scan`
 (csrc/viterbi_chunk.cu, encode and the frequency pass), and the E-step's
-`forward_scan` (csrc/forward_chunk.cu) and `backward_betas_scan`
-(csrc/backward_chunk.cu). They read a start-indexed (W, L, B) score cache
-directly, draw the dropout coins in the kernel, and cut each row into
-independent chains at sample boundaries and padding (`seg`, see
-ops/lattice.py `chain_bounds`). `viterbi_chunk`, `forward_chunk` and
-`backward_betas_chunk` are the same three kernels over one end-indexed /
-start-indexed chunk; `backward_chunk` (the marginals) keeps its own
-chunk kernel. Each
+`forward_scan` (csrc/forward_chunk.cu), `backward_betas_scan` and
+`backward_marginal_scan` (csrc/backward_chunk.cu). They read a
+start-indexed (W, L, B) score cache directly, draw the dropout coins in
+the kernel, and cut each row into independent chains at sample
+boundaries and padding (`seg`, see ops/lattice.py `chain_bounds`).
+`viterbi_chunk`, `forward_chunk`, `backward_chunk` (the marginals) and
+`backward_betas_chunk` are the same four kernels over one end-indexed /
+start-indexed chunk. Each
 `*_plain` function is the same recurrence in plain PyTorch, used for
 tensors on the CPU and as the reference the kernel is held against on the
 card. The plain log-sum-exp twins sum over lengths in ascending order, as
@@ -223,23 +223,33 @@ def _forward_steps(score: torch.Tensor, starts: torch.Tensor,
 
 def _backward_steps(score: torch.Tensor, ends: torch.Tensor,
                     hist0: torch.Tensor,
-                    restart: Optional[torch.Tensor] = None
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+                    restart: Optional[torch.Tensor] = None,
+                    az: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor,
+                               Optional[torch.Tensor]]:
     """The betas recurrence over a start-indexed (n, L, B) slab, positions
     descending; a row's history restarts fresh at step q where
-    `restart[q + 1]` is set (a chain bound at q + 1)."""
+    `restart[q + 1]` is set (a chain bound at q + 1). With az = (a, z),
+    each (n, B), also the marginals exp(max(a + s + hist - z, NEG)) from
+    the history before each step. Returns the betas, the history after
+    the last step and the marginals (or None)."""
     C, L, B = score.shape
     score = score.clamp(min=NEG)
     hist = hist0.clone()
     fresh = _fresh_hist(L, B, score.device)
     betas = torch.empty((C, B), dtype=torch.float32, device=score.device)
+    marg = torch.empty_like(score) if az is not None else None
     for q in range(C - 1, -1, -1):
         if restart is not None:
             hist = torch.where(restart[q + 1], fresh, hist)
-        lse = _lse_step(score[q] + hist)
+        s = score[q]
+        if az is not None:
+            marg[q] = torch.exp(torch.clamp_min(az[0][q] + s + hist - az[1][q],
+                                                NEG))
+        lse = _lse_step(s + hist)
         betas[q] = torch.where(ends[q] > 0.5, torch.zeros_like(lse), lse)
         hist = _roll_insert(hist, betas[q])
-    return betas, hist
+    return betas, hist, marg
 
 
 def forward_chunk_plain(score: torch.Tensor, starts: torch.Tensor,
@@ -279,15 +289,7 @@ def backward_chunk_plain(score: torch.Tensor, a: torch.Tensor,
                          z: torch.Tensor, ends: torch.Tensor,
                          hist0: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    C, L, B = score.shape
-    hist = hist0.clone()
-    marg = torch.empty_like(score)
-    for q in range(C - 1, -1, -1):
-        s = score[q]
-        marg[q] = torch.exp(torch.clamp_min(a[q] + s + hist - z[q], NEG))
-        lse = _lse_step(s + hist)
-        hist = _roll_insert(
-            hist, torch.where(ends[q] > 0.5, torch.zeros_like(lse), lse))
+    _, hist, marg = _backward_steps(score, ends, hist0, az=(a, z))
     return marg, hist
 
 
@@ -302,21 +304,23 @@ def backward_chunk(score: torch.Tensor, a: torch.Tensor, z: torch.Tensor,
     marg (C, L, B) = exp(max(a + score + beta - z, NEG)) and the next
     history (L, B).
 
-    CUDA tensors launch csrc/backward_chunk.cu on the current stream; CPU
-    tensors run `backward_chunk_plain`."""
+    CUDA tensors launch csrc/backward_chunk.cu's marginal scan (one chain
+    per row) on the current stream, and its marginals are a (C, L, B) view
+    of (C, B, L) memory (`backward_marginal_scan`); CPU tensors run
+    `backward_chunk_plain`."""
     if not _check_slab(score, {"a": a, "z": z, "ends": ends}, hist0):
         return backward_chunk_plain(score, a, z, ends, hist0)
     C, L, B = score.shape
     dev = score.device
-    marg = torch.empty((C, L, B), dtype=torch.float32, device=dev)
+    marg = torch.empty((C, B, L), dtype=torch.float32, device=dev)
     hist = torch.empty((L, B), dtype=torch.float32, device=dev)
     if B == 0:
-        return marg, hist
+        return marg.transpose(1, 2), hist
     if C == 0:
-        return marg, hist0.clone()
+        return marg.transpose(1, 2), hist0.clone()
     _launch("backward_chunk", score, a, z, ends, hist0, marg, hist, C, L, B)
     backward_chunk.launches += 1
-    return marg, hist
+    return marg.transpose(1, 2), hist
 
 
 backward_chunk.launches = 0
@@ -325,7 +329,7 @@ backward_chunk.launches = 0
 def backward_betas_chunk_plain(score: torch.Tensor, ends: torch.Tensor,
                                hist0: torch.Tensor
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    return _backward_steps(score, ends, hist0)
+    return _backward_steps(score, ends, hist0)[:2]
 
 
 def backward_betas_chunk(score: torch.Tensor, ends: torch.Tensor,
@@ -427,6 +431,20 @@ def backward_betas_scan_plain(cache: torch.Tensor, ends: torch.Tensor,
                            _inner_bounds(seg, W))[0]
 
 
+def backward_marginal_scan_plain(cache: torch.Tensor, a: torch.Tensor,
+                                 z: torch.Tensor, ends: torch.Tensor,
+                                 hist0: torch.Tensor,
+                                 seg: Optional[torch.Tensor] = None,
+                                 du: Optional[torch.Tensor] = None, *,
+                                 dropout: float = 0.0, pad: int = 0
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    W = cache.shape[0]
+    betas, _, marg = _backward_steps(_scan_cache(cache, du, dropout, pad),
+                                     ends, hist0, _inner_bounds(seg, W),
+                                     az=(a, z))
+    return marg, betas
+
+
 def _check_seg(seg: torch.Tensor, B: int, W: int, device) -> None:
     """Chain bounds (K+1, B) int32, K >= 1, contiguous on `device`. On
     the CPU their values are checked too: row 0 is 0, row K is W and no
@@ -448,11 +466,12 @@ def _check_seg(seg: torch.Tensor, B: int, W: int, device) -> None:
 def _check_scan(cache: torch.Tensor, flags: torch.Tensor,
                 hist0: torch.Tensor, seg: Optional[torch.Tensor],
                 du: Optional[torch.Tensor], dropout: float,
-                pad: int, lead: int = 0) -> bool:
+                pad: int, lead: int = 0, rows: Optional[dict] = None) -> bool:
     """Validate a whole-width scan's arguments (a cache of lead + W
-    positions); returns True when the caller is to launch the CUDA
-    kernel, False for CPU tensors. Unlike the chunk wrappers, contiguity
-    is required on every device."""
+    positions, and besides `flags` the (W, B) f32 streams `rows`, by
+    name); returns True when the caller is to launch the CUDA kernel,
+    False for CPU tensors. Unlike the chunk wrappers, contiguity is
+    required on every device."""
     _check(cache.dim() == 3, f"cache must be (W, L, B), got {tuple(cache.shape)}")
     _, L, B = cache.shape
     _check(0 <= lead <= min(L, cache.shape[0]),
@@ -461,6 +480,8 @@ def _check_scan(cache: torch.Tensor, flags: torch.Tensor,
     named = {"cache": (cache, torch.float32, None),
              "flags": (flags, torch.float32, (W, B)),
              "hist0": (hist0, torch.float32, (L, B))}
+    for name, t in (rows or {}).items():
+        named[name] = (t, torch.float32, (W, B))
     if seg is not None:
         _check_seg(seg, B, W, cache.device)
     if dropout > 0.0:
@@ -552,6 +573,47 @@ def backward_betas_scan(cache: torch.Tensor, ends: torch.Tensor,
 
 
 backward_betas_scan.launches = 0
+
+
+def backward_marginal_scan(cache: torch.Tensor, a: torch.Tensor,
+                           z: torch.Tensor, ends: torch.Tensor,
+                           hist0: torch.Tensor,
+                           seg: Optional[torch.Tensor] = None,
+                           du: Optional[torch.Tensor] = None, *,
+                           dropout: float = 0.0, pad: int = 0
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`backward_betas_scan` with the token marginals: over the whole
+    width of a START-indexed (W, L, B) score cache, a (W, B) the forward
+    value of a token starting at each position (0 at sample starts), z
+    (W, B) its sample's normaliser, ends, hist0, `seg` (the backward
+    `chain_bounds`) and dropout as in `backward_betas_scan`. Returns the
+    marginals marg (W, L, B) = exp(max(a + score + beta - z, NEG)) (0
+    where the token is masked or dropped) and the post-reset betas (W, B).
+
+    CUDA tensors launch csrc/backward_chunk.cu's marginal scan on the
+    current stream; its marginals are a (W, L, B) view of (W, B, L)
+    memory (`marg.transpose(1, 2)` is contiguous), in which a warp's
+    stores are whole lines. CPU tensors run
+    `backward_marginal_scan_plain`."""
+    if not _check_scan(cache, ends, hist0, seg, du, dropout, pad,
+                       rows={"a": a, "z": z}):
+        return backward_marginal_scan_plain(cache, a, z, ends, hist0, seg,
+                                            du, dropout=dropout, pad=pad)
+    W, L, B = cache.shape
+    marg = torch.empty((W, B, L), dtype=torch.float32, device=cache.device)
+    betas = torch.empty((W, B), dtype=torch.float32, device=cache.device)
+    if W == 0 or B == 0:
+        return marg.transpose(1, 2), betas
+    use_drop = dropout > 0.0
+    _launch("backward_marginal_scan", cache, a, z, ends, hist0, seg,
+            du if use_drop else None, marg, betas, None, W, L, B,
+            1 if seg is None else seg.shape[0] - 1, pad,
+            dropout_threshold_half(dropout) if use_drop else 0, int(use_drop))
+    backward_marginal_scan.launches += 1
+    return marg.transpose(1, 2), betas
+
+
+backward_marginal_scan.launches = 0
 
 
 def viterbi_scan(cache: torch.Tensor, starts: torch.Tensor,

@@ -400,7 +400,8 @@ class DeviceTrainSession:
                 else:
                     exp_g = lat.backward_expected(
                         self.dt, batch, A, cache, self.chunk, drop_u,
-                        dropout, nbins=self._nbins(), timer=timer)
+                        dropout, nbins=self._nbins(), timer=timer,
+                        chains=chains)
                 del score, cache
             acc = exp_g if acc is None else acc.add_(exp_g)
             info = self._span_arrays(gi, sub)

@@ -349,12 +349,12 @@ def run_e_step_device(
 
     Samples are chopped into snippets of at most
     min(max_snippet, DEVICE_EM_SNIPPET) bytes and packed; each row group
-    is probed once (`match_cache`), then runs the forward DP (one
-    whole-width scan, its chain bounds made per call) and the backward DP
-    and adds its marginals into slot bins on the device. dropout > 0
-    skips multi-byte candidates with coins from a torch.Generator seeded
-    with `seed`: the forward scan draws them in its kernel, the backward
-    masks each chunk of the dropout-free cache. Every snippet's
+    is probed once (`match_cache`), then runs the forward DP and the
+    backward DP with the token marginals (one whole-width scan each, over
+    the group's chain bounds, made once per group) and adds the marginals
+    into slot bins on the device. dropout > 0 skips multi-byte candidates
+    with coins from a torch.Generator seeded with `seed`, which both scans
+    draw in their kernels from the dropout-free cache. Every snippet's
     normaliser is checked once, after the pass: a non-finite one (a
     snippet no token sequence covers) raises
     ValueError. device: a CUDA device by default, "cpu" for the kernels'
@@ -387,11 +387,13 @@ def run_e_step_device(
         # rows * width * L * 8 bytes: 512 MiB at L = 16.
         with lat.phase(timer, "probe"):
             cache = lat.match_cache(dt, batch, C=CHUNK, probe=probe)
+            chains = lat.chain_bounds(batch)
         A = lat.forward(dt, batch, cache, C=CHUNK, drop_u=drop_u,
-                        dropout=dropout, timer=timer)
+                        dropout=dropout, timer=timer, chains=chains)
         exp_g = lat.backward_expected(dt, batch, A, cache, C=CHUNK,
                                       drop_u=drop_u, dropout=dropout,
-                                      probe=probe, timer=timer)
+                                      probe=probe, timer=timer,
+                                      chains=chains)
         acc = exp_g if acc is None else acc.add_(exp_g)
         del cache
         if sub.spans:
