@@ -46,8 +46,13 @@ Phases (any failure exits non-zero):
      finite masks; and seg_weights_gather, the session's segsum in one
      launch per group, on the session group's real SegStruct (the 32k
      vocabulary's rank space) at dropout 0 and 0.1, cf and t equal to its
-     twin bit for bit, with the whole segsum_expected call timed; each
-     timed with CUDA events beside its plain version and its bound;
+     twin bit for bit, with the whole segsum_expected call timed; and
+     viterbi_walk, the backpointer walk with the exact-probe ids, on
+     encode's first group of both routes (the 32k vocabulary's
+     viterbi_scan backpointers and the 4k vocabulary's fused ones), in
+     count and ids mode, equal to its twin bit for bit (counts; ids and
+     tokens per span), with the longest span alone; each timed with CUDA
+     events beside its plain version and its bound;
   3. encode end to end, Tokenizer.encode_batch(backend="device") on the
      card, for two configurations over a seeded ~8 MB code-like corpus
      at L = 16: (a) a 32,768-token vocabulary (slab route: bucket probe
@@ -55,8 +60,9 @@ Phases (any failure exits non-zero):
      kernel). Each checks exact decode round trips, equality with the
      CPU plain run on the first 64 samples, dropout=1.0 -> single bytes,
      a > 2^15-byte sample through the chained path, and that its Viterbi
-     kernel was launched once per row group; prints bytes/s, the peak
-     device memory and the time per phase;
+     kernel and viterbi_walk (ids mode: no backpointers leave the card)
+     were launched once per row group; prints bytes/s, the peak device
+     memory and the time per phase;
   3b. the EM E-step, run_e_step_device on the card, for (a) and (b) at
      dropout 0 and 0.05 (the dropout-0.05 pass once, unsynchronised):
      forward_scan and backward_marginal_scan each launched once per row
@@ -92,11 +98,22 @@ Phases (any failure exits non-zero):
      cached route (table bits 17), then a 16,384-token vocabulary to
      8,192 on the fused route (bits 15: its E-steps launch the fused
      scans); every frequency pass launches the route's Viterbi kernel
-     (viterbi_scan, fused_forward_chunk(viterbi)) once per group; each
-     session is closed after; each result is a subset of
-     its input vocabulary and encodes and decodes the first 64 samples
-     exactly on the card; prints each round's size and seconds;
-  4. the kernels line, then the device line as the last line.
+     (viterbi_scan, fused_forward_chunk(viterbi)) and viterbi_walk
+     (count mode) once per group, and the first pass's counts equal a host
+     backtrack of the same groups; each session is closed after; each
+     result is a subset of its input vocabulary and encodes and decodes
+     the first 64 samples exactly on the card; prints each round's size
+     and seconds;
+  3e. merge on the card: VocabularyMerger over the corpus from the
+     4,096-token vocabulary, 200 merges in steps of 50 (four passes, each
+     an encode of the corpus packed and uploaded once, its ids walked on
+     the card, then the pair count) under an anchored identifier /
+     punctuation allow pattern the allow-DFA compiles; viterbi_walk
+     launched once per group a pass; on the first 64 samples the pair
+     counts and the merged vocabulary equal to a CPU run's; prints the
+     seconds per merge pass;
+  4. the kernels line (nine entries), then the device line as the last
+     line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -817,6 +834,87 @@ def check_segsum(lat, lcs, table, tbl, batch, dev):
 
 # ---------------------------------------------------------------------------
 # Phase 3: the main path end to end
+def check_viterbi_walk(lat, tbl, batch, spans, dev, route: str):
+    """viterbi_walk against its twin on encode's first group of `route`:
+    the route's own Viterbi backpointers, the group's spans, counts and
+    ids bit-equal, each mode timed beside the twin, the longest span alone
+    for the walk's floor."""
+    dp, best_l = lat.viterbi(tbl, batch, backend=route)
+    rows, starts, ends = lat.span_arrays(spans, dev)
+    ok = torch.isfinite(dp[rows.long(), ends.long() - 1])
+    args, kw = lat._walk_tables(tbl, batch)
+    walk = (best_l, *args, rows, starts, ends)
+    torch.cuda.synchronize()
+    res = {"route": route, "spans": len(spans)}
+    B, W = best_l.shape
+    walked = int(ok.sum())
+    # in_t1[id]: the token's exact row lies in T1, so its probe reads no
+    # T2 row; every other token (bin V too) reads both.
+    in_t1 = torch.zeros(tbl.vocab_size + 1, dtype=torch.bool, device=dev)
+    t1_ids = tbl.t1_exact[:, 2] & 0xFFFFFF
+    in_t1[t1_ids[t1_ids < tbl.vocab_size].long()] = True
+    for mode in ("count", "ids"):
+        ids = mode == "ids"
+        want = []
+        plain_ms = cuda_ms(lambda: want.append(lat.viterbi_walk_plain(
+            *walk, ok=ok, ids=ids, **kw)), iters=1, warmup=0)
+        want = want[0]
+        got = lat.viterbi_walk(*walk, ok=ok, ids=ids, **kw)
+        torch.cuda.synchronize()
+        if ids:
+            check(torch.equal(got[1], want[1]),
+                  f"viterbi_walk ({route}): token counts per span differ")
+            total = int(want[1].sum())
+            g = lat.compact_walk_ids(got[0], rows, ends, got[1], total)
+            w = lat.compact_walk_ids(want[0], rows, ends, want[1], total)
+            check(torch.equal(g, w), f"viterbi_walk ({route}): ids differ")
+            err = float((g - w).abs().max()) if total else 0.0
+            check(int(g.max()) < tbl.vocab_size,
+                  f"viterbi_walk ({route}): a token matched no table row")
+            t1_hits = int(in_t1[w.long()].sum())
+        else:
+            check(torch.equal(got, want),
+                  f"viterbi_walk ({route}): counts differ")
+            err = float((got - want).abs().max())
+            total = int(got[:-1].sum())
+            check(int(got[-1]) == 0,
+                  f"viterbi_walk ({route}): a token matched no table row")
+            t1_hits = int(want[in_t1].sum())
+        ms = cuda_ms(lambda: lat.viterbi_walk(*walk, ok=ok, ids=ids, **kw),
+                     iters=20)
+        # Bytes: best_l and the span arrays read once; the two prefix-hash
+        # words of every token boundary (tokens tile a walked span, so it
+        # has tokens + 1 boundaries) and the two inverse powers at each
+        # token's start; per token its 16-byte T1 row, and a T2 row for
+        # each token T1 misses (the kernel issues both gathers at once, so
+        # it reads more); the ids and token counts (ids) or the counts
+        # (count) written.
+        nbytes = (best_l.numel() * best_l.element_size() + 13 * len(spans)
+                  + 8 * (total + walked) + 8 * total
+                  + 16 * total + 16 * (total - t1_hits)
+                  + (4 * (total + len(spans)) if ids
+                     else 4 * (tbl.vocab_size + 1)))
+        b_ms, b_by = bound(nbytes, 0)
+        res[mode] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "tokens": total,
+                     "t2_reads": total - t1_hits, "bytes": nbytes}
+        log(f"viterbi_walk ({route}, {mode} mode, W={W}, B={B}, "
+            f"{len(spans)} spans, {total} tokens, {total - t1_hits} T2 "
+            f"reads, {nbytes} bytes): {ms:.4f} ms in one launch, plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"max |err| {err} (equal)")
+    # One span alone: the longest sample's walk, the kernel's chain floor.
+    k = int(torch.argmax((ends - starts) * ok))
+    one = (rows[k : k + 1], starts[k : k + 1], ends[k : k + 1])
+    one_ms = cuda_ms(lambda: lat.viterbi_walk(best_l, *args, *one,
+                                              ok=ok[k : k + 1], **kw),
+                     iters=20)
+    res["one_span_ms"] = one_ms
+    res["longest_span"] = int(ends[k] - starts[k])
+    log(f"viterbi_walk ({route}): the longest span alone "
+        f"({res['longest_span']} bytes) {one_ms:.4f} ms")
+    return res
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -844,10 +942,12 @@ def run_config(name, vocab, samples, long_sample, expect, groups, kernels,
     secs = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
     launches = {k: fn.launches for k, fn in kernels.items()}
-    # One launch of the route's Viterbi kernel per row group.
-    check(launches[expect] == groups,
-          f"{name}: the main path launched {expect} {launches[expect]} "
-          f"times for {groups} groups")
+    # One launch of the route's Viterbi kernel and of the walk per row
+    # group.
+    for k in (expect, "viterbi_walk"):
+        check(launches[k] == groups,
+              f"{name}: the main path launched {k} {launches[k]} "
+              f"times for {groups} groups")
     rate = total / secs
     log(f"[{name}] encode {total} bytes in {secs:.3f} s = "
         f"{rate / 1e6:.2f} MB/s; launches {launches} ({groups} groups); "
@@ -1263,16 +1363,56 @@ def run_prune(name, vocab, target: int, samples, expect, fused: bool,
         return run
 
     freq_kernel = "fused_forward_chunk" if fused else "viterbi_scan"
-    freq = {"passes": 0, "launches": 0}
+    freq = {"passes": 0, "launches": 0, "walks": 0, "host_checked": False}
     count_freq = pruner._count_frequencies
 
-    def counted_freq(*args, **kwargs):
+    def counted_freq(model, *args, **kwargs):
         before = kernels[freq_kernel].launches
+        walks = kernels["viterbi_walk"].launches
+        first = not freq["host_checked"]
+        if first:
+            # The first pass (it packs the frequency groups) split by phase.
+            timer = lat.PhaseTimer(dev)
+            sess = sessions[0]
+            plain = sess.count_frequencies
+            sess.count_frequencies = lambda m, task=None: plain(
+                m, task, timer=timer)
         try:
-            return count_freq(*args, **kwargs)
+            got = count_freq(model, *args, **kwargs)
         finally:
             freq["passes"] += 1
             freq["launches"] += kernels[freq_kernel].launches - before
+            freq["walks"] += kernels["viterbi_walk"].launches - walks
+            if first:
+                sess.count_frequencies = plain
+                freq["first_split"] = {k: round(v, 6)
+                                       for k, v in timer.seconds.items()}
+        if first:
+            # The first pass's counts against the host backtrack of the
+            # same groups, kept out of the round's frequency seconds.
+            freq["host_checked"] = True
+            t = time.perf_counter()
+            counts = {k: fn.launches for k, fn in kernels.items()}
+            want = host_frequency_counts(lat, sessions[0], model)
+            check(np.array_equal(got, want),
+                  f"{tag}: the walk's counts differ from the host backtrack")
+            # A second pass of the same model, split by phase.
+            timer = lat.PhaseTimer(dev)
+            t1 = time.perf_counter()
+            again = sessions[0].count_frequencies(model, timer=timer)
+            freq["split"] = {k: round(v, 6) for k, v in timer.seconds.items()}
+            freq["split_seconds"] = time.perf_counter() - t1
+            check(np.array_equal(again, got), f"{tag}: a second pass differs")
+            # Neither check counts as the prune's launches or seconds.
+            for k, fn in kernels.items():
+                fn.launches = counts[k]
+            spent["frequencies"] -= time.perf_counter() - t
+            log(f"{tag} first frequency pass: {int(got.sum())} tokens, "
+                "equal to the host backtrack of the same groups, "
+                f"synchronised split {freq['first_split']}; a second pass, "
+                f"synchronised: {freq['split_seconds']:.3f} s; "
+                f"{freq['split']}")
+        return got
 
     pruner.run_e_step = timed("e_steps", pruner.run_e_step)
     pruner._count_frequencies = timed("frequencies", counted_freq)
@@ -1328,17 +1468,19 @@ def run_prune(name, vocab, target: int, samples, expect, fused: bool,
           f"{tag}: built {len(sessions)} sessions, or did not close one")
     check(routes == [fused], f"{tag}: the session took the other route")
     freq_groups = len(sessions[0]._freq_groups())
-    check(freq["passes"] > 0
-          and freq["launches"] == freq["passes"] * freq_groups,
-          f"{tag}: {freq['passes']} frequency passes launched {freq_kernel} "
-          f"{freq['launches']} times for {freq_groups} groups")
+    for k, n in ((freq_kernel, freq["launches"]),
+                 ("viterbi_walk", freq["walks"])):
+        check(freq["passes"] > 0 and n == freq["passes"] * freq_groups,
+              f"{tag}: {freq['passes']} frequency passes launched {k} "
+              f"{n} times for {freq_groups} groups")
+    check(freq["host_checked"], f"{tag}: no frequency pass was checked")
     size = final.vocab_size()
     log(f"{tag} {len(vocab)} -> {size} tokens in {len(rounds)} rounds, "
         f"{secs:.3f} s, through one session (closed); {rebind['calls']} "
         f"rebinds took {rebind['seconds']:.3f} s (inside e_steps and "
         f"frequencies); launches {launches}; {freq['passes']} frequency "
         f"passes x {freq_groups} groups = {freq['launches']} launches of "
-        f"{freq_kernel}")
+        f"{freq_kernel}, {freq['walks']} of viterbi_walk")
     check(size <= target, f"{tag}: {size} tokens left, above {target}")
     check({t.value for t in final.vocab} <= {t.value for t in vocab},
           f"{tag}: a kept token is not in the input vocabulary")
@@ -1353,7 +1495,107 @@ def run_prune(name, vocab, target: int, samples, expect, fused: bool,
             "launches": launches, "rebind": rebind,
             "frequency_passes": freq["passes"],
             "frequency_launches": freq["launches"],
+            "frequency_walks": freq["walks"],
+            "frequency_split": freq["split"],
+            "frequency_first_split": freq["first_split"],
             "frequency_groups": freq_groups}
+
+
+def host_frequency_counts(lat, sess, model):
+    """Viterbi counts of the session's frequency groups with the host
+    backtrack: each group's Viterbi on the card, its backpointers read
+    back and walked by `lattice.backtrack` (the corpus has no sample past
+    the frequency packing's cap)."""
+    from tokengeex_tpu_torch.utils.packing import PackedBatch
+
+    check(not sess._freq_long, "a sample past the frequency cap")
+    index = lat.TokenIndex(model.oracle.token_to_ids)
+    counts = np.zeros(model.vocab_size(), np.int64)
+    for gi, sub in sess._freq_groups():
+        batch = sess._freq_batch(gi, sub)
+        dp, best_l = lat.viterbi(sess.dt, batch,
+                                 backend="fused" if sess._fused() else "slab")
+        spans = sess._freq_info(gi, sub)["countable"]
+        view = PackedBatch(sub.bytes_arr, sub.sample_id, sub.is_start,
+                           sub.end_index, spans)
+        ids = lat.backtrack(view, dp.cpu().numpy(),
+                            best_l.to(torch.int8).cpu().numpy(), index)
+        counts += np.bincount(np.concatenate(
+            [np.asarray(r, np.int64) for r in ids]), minlength=len(counts))
+    return counts
+
+
+# An anchored identifier / punctuation class the allow-DFA compiles.
+MERGE_ALLOW = r"^(?: ?[A-Za-z_][A-Za-z0-9_]*|[[:punct:]]+)$"
+
+
+def run_merge(vocab, samples, groups, kernels, dev):
+    """Phase 3e: VocabularyMerger on the card over the corpus, 200 merges
+    in steps of 50 (four passes, each a re-encode of the corpus packed and
+    uploaded once, the ids walked on the card, then the pair count); the
+    walk launched once per group a pass; on the first 64 samples, the pair
+    counts and the merged vocabulary equal to a CPU run's."""
+    from tokengeex_tpu_torch import Model
+    from tokengeex_tpu_torch.core.redfa import compile_is_match_dfa
+    from tokengeex_tpu_torch.train import estep_device as ed
+    from tokengeex_tpu_torch.train.merge import VocabularyMerger
+
+    compile_is_match_dfa(MERGE_ALLOW)  # the DFA takes it, no host regex
+    kw = dict(allow=MERGE_ALLOW, num_merges=200, step=50)
+    merger = VocabularyMerger(device=dev, **kw)
+    passes = []
+    count_pairs = merger._count_pairs
+
+    def timed(*args, **kwargs):
+        t = time.perf_counter()
+        walks = kernels["viterbi_walk"].launches
+        pairs = count_pairs(*args, **kwargs)  # ends in a readback
+        passes.append({"seconds": time.perf_counter() - t,
+                       "walks": kernels["viterbi_walk"].launches - walks,
+                       "pairs": len(pairs)})
+        return pairs
+
+    merger._count_pairs = timed
+    t0 = time.perf_counter()
+    merged = merger.merge(Model(vocab), samples)
+    secs = time.perf_counter() - t0
+    check(merged.vocab_size() == len(vocab) + 200,
+          f"[merge] {merged.vocab_size()} tokens, not {len(vocab) + 200}")
+    check(len(passes) == 4 and all(p["walks"] == groups for p in passes),
+          f"[merge] passes {passes}: not 4 passes of {groups} walks")
+    total = sum(map(len, samples))
+    for k, p in enumerate(passes):
+        log(f"[merge] pass {k}: {p['seconds']:.3f} s = "
+            f"{total / p['seconds'] / 1e6:.2f} MB/s, {p['walks']} walks, "
+            f"{p['pairs']} distinct pairs")
+    log(f"[merge] {len(vocab)} -> {merged.vocab_size()} tokens in "
+        f"{secs:.3f} s on {torch.cuda.get_device_name(dev)}")
+    # One more pass over the merged vocabulary, split by phase.
+    from tokengeex_tpu_torch.ops import lattice as lat
+
+    timer = lat.PhaseTimer(dev)
+    t = time.perf_counter()
+    ed.count_pairs_device(merged, samples, corpus=merger._corpus, timer=timer)
+    split = {k: round(v, 6) for k, v in timer.seconds.items()}
+    log(f"[merge] a pass over the merged vocabulary, synchronised: "
+        f"{time.perf_counter() - t:.3f} s; {split}")
+    head = samples[:64]
+    pairs = ed.count_pairs_device(Model(vocab), head, device=dev)
+    check(pairs == ed.count_pairs_device(Model(vocab), head, device="cpu"),
+          "[merge] pair counts on 64 samples differ from the CPU run")
+    small = VocabularyMerger(device=dev, **kw).merge(Model(vocab), head)
+    small_cpu = VocabularyMerger(device="cpu", **kw).merge(Model(vocab), head)
+    check([(t.value, t.score) for t in small.vocab]
+          == [(t.value, t.score) for t in small_cpu.vocab],
+          "[merge] the vocabulary merged over 64 samples differs from the "
+          "CPU run's")
+    log(f"[merge] checks passed: 4 passes x {groups} walks; on 64 samples "
+        f"{len(pairs)} pair counts and the merged vocabulary "
+        f"({small.vocab_size()} tokens) equal to the CPU run's")
+    return {"seconds": secs, "passes": passes, "bytes": total,
+            "pass_split": split,
+            "initial_size": len(vocab), "final_size": merged.vocab_size(),
+            "pairs_64": len(pairs)}
 
 
 def main() -> None:
@@ -1438,6 +1680,9 @@ def main() -> None:
              for d in (0.0, 0.1)]
     dt_a = lat.DeviceTables.from_table(TokenTable.build(vocab_a), dev)
     vit_scan = check_viterbi_scan(lat, lc, dt_a, batch, dev)
+    walk = {route: check_viterbi_walk(lat, tbl, batch, enc_groups[0][1].spans,
+                                      dev, route)
+            for route, tbl in (("slab", dt_a), ("fused", dt_b))}
     del batch
     torch.cuda.empty_cache()
     betas = check_backward_betas(lc, ed.CHUNK, L_MAX, sess_rows, dev)
@@ -1492,7 +1737,8 @@ def main() -> None:
                "backward_betas_scan": lc.backward_betas_scan,
                "fused_backward_chunk": lcf.fused_backward_chunk,
                "seg_weights": lcs.seg_weights,
-               "seg_weights_gather": lcs.seg_weights_gather}
+               "seg_weights_gather": lcs.seg_weights_gather,
+               "viterbi_walk": lat.viterbi_walk}
     e2e = {
         "a_32k_slab": run_config("a: 32768 tokens, slab route", vocab_a,
                                  samples, long_sample, "viterbi_scan",
@@ -1541,6 +1787,10 @@ def main() -> None:
                                          "fused_backward_chunk",
                                          "seg_weights_gather"), True,
                          kernels, dev)
+
+    torch.cuda.empty_cache()
+    phase_start("3e")
+    merged = run_merge(vocab_b, samples, len(enc_groups), kernels, dev)
 
     # -- 4. kernels line --
     phase_start("4")
@@ -1592,6 +1842,12 @@ def main() -> None:
               pruned["launches"]["seg_weights_gather"],
               segsum["dropout_0.0"],
               max(segsum[f"dropout_{d}"]["max_abs_err"] for d in (0.0, 0.1))),
+        entry("viterbi_walk", "viterbi_walk.cu",
+              "tokengeex_tpu/ops/lattice_jax.py:2374",
+              e2e["a_32k_slab"]["launches"]["viterbi_walk"],
+              walk["slab"]["ids"],
+              max(w[m]["max_abs_err"] for w in walk.values()
+                  for m in ("count", "ids"))),
     ]}
     record = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_seconds": build_s,
@@ -1603,7 +1859,8 @@ def main() -> None:
                   "e_step_group": marg_e, "session_group": marg_s},
               "seg_weights_gather": segsum,
               "fused_forward_logsumexp": fused_lse,
-              "fused_backward": fused_bwd, "encode": e2e, "estep": estep,
+              "fused_backward": fused_bwd, "viterbi_walk": walk,
+              "encode": e2e, "estep": estep, "merge": merged,
               "session": session, "session_over_budget": over_budget,
               "prune": pruned, "prune_fused": pruned_f,
               "kernels": line["kernels"]}

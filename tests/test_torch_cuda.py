@@ -652,3 +652,99 @@ def test_cuda_session_matches_cpu(cuda_device, kernel):
     _assert_counts_close(got[0], cpu.e_step(model, 0.0, 0), model, samples)
     np.testing.assert_array_equal(sess.count_frequencies(model),
                                   cpu.count_frequencies(model))
+
+
+def _walk_case(dev, width, fused, seed=3):
+    """A packed batch of whole samples, its tables and Viterbi outputs on
+    the card, and its spans with every fifth one marked unreachable."""
+    model, samples = _corpus(3000 if not fused else 600, seed=seed)
+    rng = random.Random(seed)
+    if width > 8192:
+        samples = samples + [b" ".join(rng.choice(samples)
+                                       for _ in range(90))[:width - 7]]
+    tbl = lat.DeviceTables.from_table(
+        TokenTable.build(model.vocab, min_bits=None if fused else 16), dev)
+    assert lat.has_vscan(tbl) == fused
+    packed = pack_samples(samples, width=width)
+    batch = lat.prepare_batch(packed, tbl.max_len, dev)
+    dp, best_l = lat.viterbi(tbl, batch, backend="fused" if fused else "slab")
+    spans = lat.span_arrays(packed.spans, dev)
+    ok = torch.ones(len(packed.spans), dtype=torch.bool, device=dev)
+    ok[::5] = False
+    return tbl, batch, dp, best_l, spans, ok
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,fused,layout", [
+    (2048, False, "int32"), (2048, True, "uint8"), (2048, False, "strided"),
+    (32768, False, "uint8")])
+def test_cuda_viterbi_walk_matches_twin(cuda_device, width, fused, layout):
+    tbl, batch, dp, best_l, spans, ok = _walk_case(cuda_device, width, fused)
+    bl = {"int32": best_l.contiguous(),
+          "uint8": best_l.to(torch.uint8).contiguous(),
+          "strided": best_l}[layout]
+    assert (layout == "strided") == (not bl.is_contiguous())
+    args, kw = lat._walk_tables(tbl, batch)
+    for use_ok in (torch.ones_like(ok), ok):
+        want = lat.viterbi_walk_plain(bl, *args, *spans, ok=use_ok, **kw)
+        before = lat.viterbi_walk.launches
+        got = lat.viterbi_walk(bl, *args, *spans, ok=use_ok, **kw)
+        torch.cuda.synchronize()
+        assert lat.viterbi_walk.launches == before + 1
+        assert torch.equal(got, want) and int(got[-1]) == 0
+        wgrid, wn = lat.viterbi_walk_plain(bl, *args, *spans, ok=use_ok,
+                                           ids=True, **kw)
+        ggrid, gn = lat.viterbi_walk(bl, *args, *spans, ok=use_ok, ids=True,
+                                     **kw)
+        assert torch.equal(gn, wn)
+        total = int(wn.sum())
+        assert torch.equal(
+            lat.compact_walk_ids(ggrid, spans[0], spans[2], gn, total),
+            lat.compact_walk_ids(wgrid, spans[0], spans[2], wn, total))
+        assert int(got[:-1].sum()) == total
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_cuda_encode_walks_on_the_card(cuda_device, fused, monkeypatch):
+    model, samples = _corpus(3000 if not fused else 600, seed=5)
+    texts = samples[:200] + [b"", samples[7]]
+    hints = None if fused else (16, None)
+
+    def no_host_walk(*a, **k):
+        raise AssertionError("a host backtrack ran")
+
+    want = ed.encode_corpus_device(model, texts, table_hints=hints,
+                                   device="cpu")
+    monkeypatch.setattr(lat, "backtrack", no_host_walk)
+    before = lat.viterbi_walk.launches
+    got = ed.encode_corpus_device(model, texts, table_hints=hints,
+                                  device=cuda_device)
+    assert got == want
+    assert lat.viterbi_walk.launches == before + 1
+    counts = ed.count_frequencies_device(model, texts, table_hints=hints,
+                                         device=cuda_device)
+    np.testing.assert_array_equal(counts, np.bincount(
+        np.concatenate([np.asarray(r, np.int64) for r in want if r]),
+        minlength=model.vocab_size()))
+
+
+@pytest.mark.cuda
+def test_cuda_viterbi_walk_clamps_spans(cuda_device):
+    """On the card the walk clamps span bounds into [0, W] instead of
+    checking them (a check would sync): out-of-range spans walk as their
+    clamped selves and touch no memory outside the row."""
+    tbl, batch, dp, best_l, spans, _ = _walk_case(cuda_device, 2048, False)
+    # One span a row: clamped, two spans of a row would overlap.
+    first = np.unique(spans[0].cpu().numpy(), return_index=True)[1]
+    keep = torch.as_tensor(first, device=cuda_device)
+    rows, starts, ends = (t[keep].contiguous() for t in spans)
+    W = best_l.shape[1]
+    wild = (rows, starts - 3000, ends + 3000)
+    clamped = (rows, torch.zeros_like(starts), torch.full_like(ends, W))
+    args, kw = lat._walk_tables(tbl, batch)
+    kw["ok"] = torch.ones_like(rows, dtype=torch.bool)
+    got = lat.viterbi_walk(best_l, *args, *wild, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, lat.viterbi_walk_plain(best_l, *args, *clamped,
+                                                   **kw))

@@ -164,7 +164,9 @@ def test_import_leaves_no_jax():
             "estep_device, tokengeex_tpu_torch.train.prune, "
             "tokengeex_tpu_torch.train.device_session, "
             "tokengeex_tpu_torch.ops.lattice_cuda_seg, "
-            "tokengeex_tpu_torch.ops._build; "
+            "tokengeex_tpu_torch.ops._build, tokengeex_tpu_torch.train.merge, "
+            "tokengeex_tpu_torch.train.filter, "
+            "tokengeex_tpu_torch.core.redfa; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'tokengeex_tpu' or "
             "m.startswith('tokengeex_tpu.')]; assert not bad, bad")
@@ -183,6 +185,8 @@ def test_port_sources_import_no_jax():
     files = sorted((REPO / "tokengeex_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
+    names = {p.name for p in files}
+    assert {"merge.py", "filter.py", "patterns.py", "redfa.py"} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

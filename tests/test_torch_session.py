@@ -22,6 +22,7 @@ from tokengeex_tpu.train.device_session import (
     DeviceTrainSession as JDeviceTrainSession)
 
 import tokengeex_tpu_torch as tg
+from tokengeex_tpu_torch.ops import lattice as lat
 from tokengeex_tpu_torch.ops import lattice_cuda as lc
 from tokengeex_tpu_torch.ops import lattice_cuda_fused as lcf
 from tokengeex_tpu_torch.ops import lattice_cuda_seg as lcs
@@ -165,8 +166,22 @@ def test_session_over_budget_dropout_matches_jax(corpus, one_jax_device,
 
 @pytest.mark.parametrize("kernel,jkernel", ROUTES)
 def test_session_count_frequencies_match(corpus, one_jax_device, kernel,
-                                         jkernel):
+                                         jkernel, monkeypatch):
     vocab, vocab2, samples = corpus
+    # The frequency pass walks the backpointers on the device (the walk's
+    # count mode), never on the host.
+    walks = []
+    walk_counts = lat.walk_counts
+
+    def spy(*args, **kwargs):
+        walks.append(1)
+        return walk_counts(*args, **kwargs)
+
+    def no_host_walk(*args, **kwargs):
+        raise AssertionError("the frequency pass walked on the host")
+
+    monkeypatch.setattr(lat, "walk_counts", spy)
+    monkeypatch.setattr(lat, "backtrack", no_host_walk)
     # Samples that fit one EM snippet count over the EM groups (and, on the
     # slab route, their cached ranks); samples longer than the snippet make
     # the frequency pass pack again at the encode width.
@@ -178,7 +193,9 @@ def test_session_count_frequencies_match(corpus, one_jax_device, kernel,
         sess = DeviceTrainSession(_models(vocab)[1], smp, 256, kernel=kernel,
                                   device="cpu")
         sess.e_step(m, 0.0, 0)  # warms the slot cache
+        before = len(walks)
         got = sess.count_frequencies(m)
+        assert len(walks) - before == len(sess._freq_groups())
         assert got.dtype == np.int64 and got.sum() > 0
         assert sess._freq_shared == shared
         np.testing.assert_array_equal(

@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 P = ctypes.c_void_p
 I = ctypes.c_int
 U = ctypes.c_uint
+LL = ctypes.c_longlong
 # C signatures: name -> (source file, symbol, argtypes).
 KERNELS: Dict[str, Tuple[str, str, tuple]] = {
     "viterbi_chunk": ("viterbi_chunk.cu", "tgx_viterbi_chunk",
@@ -54,6 +55,8 @@ KERNELS: Dict[str, Tuple[str, str, tuple]] = {
                     (P, P, P, P, P, I, I, P)),
     "seg_weights_gather": ("seg_weights.cu", "tgx_seg_weights_gather",
                            (P,) * 9 + (I,) * 6 + (U, I, P)),
+    "viterbi_walk": ("viterbi_walk.cu", "tgx_viterbi_walk",
+                     (P,) * 15 + (LL, LL) + (I,) * 7 + (P,)),
 }
 
 _LOCK = threading.Lock()

@@ -3,9 +3,10 @@ PyTorch.
 
 Counterpart of tokengeex_tpu/ops/lattice_jax.py (encode, the per-pass
 E-step: `match_cache`, `forward`, `backward_expected`, `fold_expected`,
-and the probe-once session's ops: the dense rank space, `score_from_slots`,
+the probe-once session's ops: the dense rank space, `score_from_slots`,
 `SegStruct`, `backward_betas`, `segsum_expected`, `estep_cached`,
-`estep_fused`, `viterbi_cached`). The dynamic lattice becomes dense tensors
+`estep_fused`, `viterbi_cached`, and the device frequency counts,
+`viterbi_freq`, as `viterbi_walk`). The dynamic lattice becomes dense tensors
 over a packed byte stream:
 
   - substrings are fingerprinted from per-row prefix hashes and matched
@@ -29,8 +30,12 @@ starts and padding (`chain_bounds`) and draw the dropout coins in the
 kernel.
 
 Ties keep the longest token (reference src/model.rs:83-110). Token ids
-are not formed on the device: `backtrack` resolves them on the host from
-the matched byte spans.
+are formed on the device: `viterbi_walk` (csrc/viterbi_walk.cu) walks
+every span's backpointers and resolves each token's id with the exact
+tables (`t1_exact`, `t2_exact`), counting the ids (the frequency pass,
+`walk_counts`) or handing them back per span (encode, `walk_ids`). The
+host `backtrack` stays as the reference they are held against and walks
+the chained windows of samples longer than the encode width.
 
 The E-step probes each row group once (`match_cache`, start-indexed,
 without dropout), runs the forward log-sum-exp DP over that cache in one
@@ -143,6 +148,11 @@ class DeviceTables:
       t1_fast, t2_fast  (H, 2) int32 cuckoo rows [check = fp2, f32 score
                         bits]; empty rows hold check 0 and the -3e38
                         score sentinel
+      t1_exact, t2_exact  (H, 4) int32 rows [fp1, fp2, len<<24 | id, 0];
+                        empty rows hold 0xFFFFFFFF in the id word. The
+                        backpointer walk (`viterbi_walk`) resolves a
+                        token's id with them; None in tables made without
+                        them
       t_bucket          (Hb, 16) int32 single-probe buckets of 8
                         interleaved [check, score] entries, or None
       scores            (V,) f32 per-id scores
@@ -166,6 +176,8 @@ class DeviceTables:
     slot_len: Optional[np.ndarray] = None
     bk_slot_to_id: Optional[np.ndarray] = None
     bk_slot_len: Optional[np.ndarray] = None
+    t1_exact: Optional[torch.Tensor] = None
+    t2_exact: Optional[torch.Tensor] = None
 
     @staticmethod
     def from_table(tbl: TokenTable, device) -> "DeviceTables":
@@ -181,6 +193,18 @@ class DeviceTables:
             return np.stack([fp2.view(np.int32), score.view(np.int32)],
                             axis=1)
 
+        def exact(t: np.ndarray) -> np.ndarray:
+            fp1 = t[:, 0].astype(np.uint32)
+            fp2 = t[:, 1].astype(np.uint32)
+            length = t[:, 2].astype(np.uint32)
+            tid = t[:, 3].astype(np.uint32)
+            empty = tid == np.uint32(0xFFFFFFFF)
+            idlen = (length << np.uint32(24)) | (tid & np.uint32(0xFFFFFF))
+            idlen = np.where(empty, np.uint32(0xFFFFFFFF), idlen)
+            return np.stack([fp1.view(np.int32), fp2.view(np.int32),
+                             idlen.view(np.int32),
+                             np.zeros_like(fp1).view(np.int32)], axis=1)
+
         def slots(t: np.ndarray):
             tid = t[:, 3].astype(np.uint32)
             empty = tid == np.uint32(0xFFFFFFFF)
@@ -193,6 +217,7 @@ class DeviceTables:
         assert tbl.vocab_size < (1 << 24), "id packing needs vocab < 16M"
         return DeviceTables.from_numpy(
             {"t1_fast": fast(tbl.t1), "t2_fast": fast(tbl.t2),
+             "t1_exact": exact(tbl.t1), "t2_exact": exact(tbl.t2),
              "t_bucket": tbl.bk, "scores": tbl.scores,
              "slot_to_id": np.concatenate([ids1, ids2]),
              "slot_len": np.concatenate([lens1, lens2]),
@@ -204,8 +229,9 @@ class DeviceTables:
     def from_numpy(arrays: Mapping[str, Optional[np.ndarray]], meta,
                    device) -> "DeviceTables":
         """Tables from host arrays: `arrays` holds t1_fast, t2_fast,
-        t_bucket (or None / empty) and scores, and optionally the host
-        slot maps slot_to_id, slot_len, bk_slot_to_id and bk_slot_len;
+        t_bucket (or None / empty) and scores, and optionally the exact
+        tables t1_exact and t2_exact and the host slot maps slot_to_id,
+        slot_len, bk_slot_to_id and bk_slot_len;
         `meta` is (bits, max_len, vocab_size, bk_bits, bk_salt). With the
         JAX DeviceTables fields turned into numpy, both packages run on the
         very same tables and fold counts through the same slot maps."""
@@ -220,6 +246,11 @@ class DeviceTables:
             return None if a is None else np.asarray(a, dtype=np.int64)
 
         tb = arrays.get("t_bucket")
+
+        def opt(name):
+            a = arrays.get(name)
+            return None if a is None else dev(a, torch.int32)
+
         return DeviceTables(
             t1_fast=dev(arrays["t1_fast"], torch.int32),
             t2_fast=dev(arrays["t2_fast"], torch.int32),
@@ -233,6 +264,7 @@ class DeviceTables:
             slot_to_id=host("slot_to_id"), slot_len=host("slot_len"),
             bk_slot_to_id=host("bk_slot_to_id"),
             bk_slot_len=host("bk_slot_len"),
+            t1_exact=opt("t1_exact"), t2_exact=opt("t2_exact"),
         )
 
     @property
@@ -1551,3 +1583,240 @@ def backtrack(
         out[int(k)] = part.tolist()
     return out
 
+
+# ---------------------------------------------------------------------------
+# Backpointer walk on the device
+# ---------------------------------------------------------------------------
+
+
+def span_arrays(spans, device) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """(row, start, end) int32 tensors of packed spans (5-tuples or
+    (row, start, end) triples), on `device`."""
+    sp = np.asarray([s[:3] for s in spans], dtype=np.int32).reshape(-1, 3)
+    t = torch.as_tensor(sp, device=device)
+    return t[:, 0].contiguous(), t[:, 1].contiguous(), t[:, 2].contiguous()
+
+
+def _walk_probe(bl: torch.Tensor, p1, p2, rinv1, rinv2, t1, t2,
+                pos: torch.Tensor, bits: int, pad: int,
+                V: int) -> torch.Tensor:
+    """Ids of the tokens ending at flat positions `pos` (b * W + p) of the
+    (B, W) backpointers, by the exact probe (lattice_jax.py
+    `_viterbi_freq_impl`): fingerprints over the token's span on both hash
+    streams, T1's row if its fp1, fp2 and length match, else T2's, else V."""
+    W = bl.shape[1]
+    r = pos // W
+    e = pos % W + 1
+    l = bl[r, e - 1].clamp(min=1)
+    st = e - l
+    fp1 = H.mul_i32(H.sub_i32(p1[r, pad + e], p1[r, pad + st]),
+                    rinv1[pad + st])
+    fp2 = H.mul_i32(H.sub_i32(p2[r, pad + e], p2[r, pad + st]),
+                    rinv2[pad + st])
+    l32 = l.to(torch.int32)
+    shift = 32 - bits
+    i1 = H.srl_i32(H.mul_i32(fp1 ^ H.mul_i32(l32, int(H.IDX_A1)),
+                             int(H.IDX_M1)), shift)
+    i2 = H.srl_i32(H.mul_i32(fp2 ^ H.mul_i32(l32, int(H.IDX_A2)),
+                             int(H.IDX_M2)), shift)
+    e1, e2 = t1[i1.long()], t2[i2.long()]
+
+    def hit(row: torch.Tensor) -> torch.Tensor:
+        return ((row[:, 0] == fp1) & (row[:, 1] == fp2)
+                & (H.srl_i32(row[:, 2], 24) == l32))
+
+    return torch.where(hit(e1), e1[:, 2] & 0xFFFFFF,
+                       torch.where(hit(e2), e2[:, 2] & 0xFFFFFF, V))
+
+
+def viterbi_walk_plain(best_l, p1, p2, rinv1, rinv2, t1_exact, t2_exact,
+                       rows, starts, ends, *, ok, bits: int, pad: int,
+                       vocab_size: int, ids: bool = False):
+    """The twin of `viterbi_walk`: every span steps back together, one
+    vectorised step per token of the longest span, recording each token's
+    end at the cell its id goes to (the k-th token from a span's end at
+    e - 1 - k); then the recorded tokens resolve their ids at once."""
+    B, W = best_l.shape
+    dev = best_l.device
+    flat_bl = best_l.to(torch.int64).reshape(-1)
+    r, s, e = rows.long(), starts.long(), ends.long()
+    n = r.shape[0]
+    tok = torch.full((B * W,), -1, dtype=torch.int64, device=dev)
+    ntok = torch.zeros(n, dtype=torch.int32, device=dev)
+    live = (e > s) & ok.bool()
+    idx = torch.nonzero(live).flatten()
+    cur = r * W + e - 1  # the cell of the next token's end
+    slot = cur.clone()  # the cell its id goes to
+    stop = r * W + s
+    while idx.numel():
+        c = cur[idx]
+        tok[slot[idx]] = c
+        ntok[idx] += 1
+        cur[idx] = c - flat_bl[c].clamp(min=1)
+        slot[idx] -= 1
+        idx = idx[cur[idx] >= stop[idx]]
+    cells = torch.nonzero(tok >= 0).flatten()
+    tid = _walk_probe(best_l.to(torch.int64), p1, p2, rinv1, rinv2,
+                      t1_exact, t2_exact, tok[cells], bits, pad, vocab_size)
+    if not ids:
+        return torch.bincount(tid, minlength=vocab_size + 1).to(torch.int32)
+    grid = torch.zeros(B * W, dtype=torch.int32, device=dev)
+    grid[cells] = tid.to(torch.int32)
+    return grid.view(B, W), ntok
+
+
+def viterbi_walk(best_l, p1, p2, rinv1, rinv2, t1_exact, t2_exact,
+                 rows, starts, ends, *, ok, bits: int, pad: int,
+                 vocab_size: int, ids: bool = False):
+    """Walk the backpointers of every span whose `ok` flag is set (rows,
+    starts, ends: (n,) int32 dp indices; whole samples, spans of a row
+    disjoint) from its end to its start and resolve each token's id with
+    the exact tables.
+
+    best_l (B, W) uint8 / int8 / int32, any strides; p1, p2 (B, pad + W +
+    1 + pad) int32 prefix hashes and rinv1, rinv2 (pad + W,) int32, as in
+    DeviceBatch; t1_exact, t2_exact (H, 4) int32 (DeviceTables); ok (n,)
+    bool, False for spans not to walk (unreachable ends). Count mode
+    returns (V + 1,) int32 token counts, bin V counting tokens no table
+    row matches (a model/table mismatch). ids=True returns a (B, W) int32
+    grid holding each span's ids in position order in its last ntok cells
+    [e - ntok, e) (other cells undefined) and ntok (n,) int32.
+
+    CUDA tensors launch csrc/viterbi_walk.cu on the current stream; CPU
+    tensors run `viterbi_walk_plain`."""
+    lc._check(best_l.dim() == 2, "best_l must be (B, W)")
+    lc._check(best_l.dtype in (torch.uint8, torch.int8, torch.int32),
+              f"best_l must be uint8, int8 or int32, got {best_l.dtype}")
+    B, W = best_l.shape
+    n = rows.shape[0]
+    named = {"p1": p1, "p2": p2, "rinv1": rinv1, "rinv2": rinv2,
+             "t1_exact": t1_exact, "t2_exact": t2_exact, "rows": rows,
+             "starts": starts, "ends": ends}
+    for name, t in named.items():
+        lc._check(t.dtype == torch.int32, f"{name} must be int32")
+        lc._check(t.device == best_l.device, f"{name} is on {t.device}")
+    for name in ("rows", "starts", "ends"):
+        lc._check(tuple(named[name].shape) == (n,), f"{name} must be ({n},)")
+    lc._check(tuple(p1.shape) == (B, 2 * pad + W + 1) and
+              p2.shape == p1.shape, f"p1, p2 must be {(B, 2 * pad + W + 1)}")
+    lc._check(tuple(rinv1.shape) == (pad + W,) and rinv2.shape == rinv1.shape,
+              f"rinv1, rinv2 must be {(pad + W,)}")
+    lc._check(t1_exact.dim() == 2 and t1_exact.shape[1] == 4 and
+              t2_exact.shape == t1_exact.shape and
+              t1_exact.shape[0] == 1 << bits,
+              f"exact tables must be ({1 << bits}, 4)")
+    lc._check(tuple(ok.shape) == (n,) and ok.device == best_l.device,
+              f"ok must be ({n},) on {best_l.device}")
+    kw = dict(bits=bits, pad=pad, vocab_size=vocab_size, ok=ok, ids=ids)
+    if best_l.device.type == "cpu":
+        if n:
+            lc._check(bool(((rows >= 0) & (rows < B) & (starts >= 0)
+                            & (starts <= ends) & (ends <= W)).all()),
+                      "spans outside the (B, W) batch")
+        return viterbi_walk_plain(best_l, p1, p2, rinv1, rinv2, t1_exact,
+                                  t2_exact, rows, starts, ends, **kw)
+    lc._check(best_l.device.type == "cuda",
+              f"unsupported device {best_l.device}")
+    lc._check(W < 0xFFFF, f"width {W} beyond the walk's 65,534")
+    for name, t in named.items():
+        lc._check(t.is_contiguous(), f"{name} must be contiguous")
+    dev = best_l.device
+    counts = grid = ntok = None
+    if ids:
+        grid = torch.empty((B, W), dtype=torch.int32, device=dev)
+        ntok = torch.zeros(n, dtype=torch.int32, device=dev)
+    else:
+        counts = torch.zeros(vocab_size + 1, dtype=torch.int32, device=dev)
+    if n and B:
+        # Each block finds its row's spans through a CSR over the spans
+        # sorted by row (rows outside [0, B) are never walked).
+        order = torch.argsort(rows, stable=True)
+        row_ptr = torch.searchsorted(
+            rows[order], torch.arange(B + 1, dtype=torch.int32, device=dev)
+        ).to(torch.int32)
+        ok8 = ok.to(torch.uint8).contiguous()
+        lc._launch("viterbi_walk", best_l, p1, p2, rinv1, rinv2, t1_exact,
+                   t2_exact, row_ptr, order.to(torch.int32), starts, ends,
+                   ok8, counts, grid, ntok, best_l.stride(0),
+                   best_l.stride(1), best_l.element_size(), B, W,
+                   p1.stride(0), pad, bits, vocab_size)
+        viterbi_walk.launches += 1
+    return (grid, ntok) if ids else counts
+
+
+viterbi_walk.launches = 0
+
+
+def _walk_tables(tbl: DeviceTables, batch: DeviceBatch) -> tuple:
+    if tbl.t1_exact is None or tbl.t2_exact is None:
+        raise ValueError("the tables carry no exact rows (t1_exact, "
+                         "t2_exact): build them with DeviceTables.from_table")
+    return ((batch.p1, batch.p2, batch.rinv1, batch.rinv2, tbl.t1_exact,
+             tbl.t2_exact),
+            {"bits": tbl.bits, "pad": batch.pad,
+             "vocab_size": tbl.vocab_size})
+
+
+def walk_counts(tbl: DeviceTables, batch: DeviceBatch, best_l: torch.Tensor,
+                spans: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+                ok: torch.Tensor) -> torch.Tensor:
+    """(V + 1,) int32 Viterbi counts of the spans' tokens on the device
+    (`viterbi_walk`, count mode); bin V counts mismatches."""
+    args, kw = _walk_tables(tbl, batch)
+    return viterbi_walk(best_l, *args, *spans, ok=ok, **kw)
+
+
+def compact_walk_ids(grid: torch.Tensor, rows: torch.Tensor,
+                     ends: torch.Tensor, ntok: torch.Tensor,
+                     total: int) -> torch.Tensor:
+    """The spans' ids of a `viterbi_walk` ids grid as one flat (total,)
+    int32 tensor, span after span, on the grid's device."""
+    W = grid.shape[1]
+    nt = ntok.long()
+    off = torch.cumsum(nt, 0) - nt
+    base = rows.long() * W + ends.long() - nt - off
+    idx = torch.repeat_interleave(base, nt, output_size=total)
+    idx += torch.arange(total, device=grid.device)
+    return grid.reshape(-1)[idx]
+
+
+def walk_ids(tbl: DeviceTables, batch: DeviceBatch, dp: torch.Tensor,
+             best_l: torch.Tensor, spans, raise_no_path: bool = True,
+             timer: Optional[PhaseTimer] = None
+             ) -> List[Optional[List[int]]]:
+    """Token id sequences per span, walked on the device: the counterpart
+    of `backtrack` that reads back only the span-end dp values, the
+    per-span token counts and one flat id buffer. An unreachable non-empty
+    span raises NoPath(len, len), or gives None with raise_no_path=False;
+    an empty span gives []."""
+    n = len(spans)
+    if n == 0:
+        return []
+    V = tbl.vocab_size
+    sp = np.asarray([s[:3] for s in spans], dtype=np.int64)
+    with phase(timer, "walk"):
+        rows, starts, ends = span_arrays(sp, dp.device)
+        dp_end = dp[rows.long(), (ends.long() - 1).clamp(min=0)]
+        ok = torch.isfinite(dp_end) & (ends > starts)
+        args, kw = _walk_tables(tbl, batch)
+        grid, ntok = viterbi_walk(best_l, *args, rows, starts, ends, ok=ok,
+                                  ids=True, **kw)
+    with phase(timer, "readback"):
+        dp_h = dp_end.cpu().numpy()
+        ntok_h = ntok.cpu().numpy().astype(np.int64)
+        nonempty = sp[:, 2] > sp[:, 1]
+        dead = nonempty & ~np.isfinite(dp_h)
+        if raise_no_path and dead.any():
+            k = int(np.nonzero(dead)[0][0])
+            raise NoPathError(int(sp[k, 2] - sp[k, 1]),
+                              int(sp[k, 2] - sp[k, 1]))
+        total = int(ntok_h.sum())
+        flat = (compact_walk_ids(grid, rows, ends, ntok, total).cpu().numpy()
+                if total else np.zeros(0, np.int32))
+    if (flat >= V).any():
+        raise KeyError("walk: a matched span is not a vocabulary token "
+                       "(model/table mismatch)")
+    with phase(timer, "split"):
+        parts = np.split(flat.astype(np.int64), np.cumsum(ntok_h)[:-1])
+        return [None if dead[k] else parts[k].tolist() for k in range(n)]

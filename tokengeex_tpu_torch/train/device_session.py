@@ -33,6 +33,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from ..core.types import NoPathError
 from ..models.unigram import Model
 from ..ops import lattice as lat
 from ..ops.match_table import TokenTable
@@ -140,6 +141,9 @@ class DeviceTrainSession:
         # keyed as the input cache: pass-invariant, 2 (W / SCAN_SEGMENT +
         # 1) ints per row.
         self.chain_cache: Dict[object, tuple] = {}
+        # Each frequency group's countable spans on the device, keyed as
+        # the input cache.
+        self.walk_spans: Dict[object, tuple] = {}
         self._group_list = None
         self._span_idx: Dict[int, dict] = {}
         self._freq_group_list = None
@@ -153,6 +157,7 @@ class DeviceTrainSession:
         self.seg_cache.clear()
         self.input_cache.clear()
         self.chain_cache.clear()
+        self.walk_spans.clear()
         self.dt = None
         self.tbl = None
         self.slot_rows = None
@@ -218,8 +223,8 @@ class DeviceTrainSession:
                 "nbytes": sum(e - s for (_, s, e, _, _) in spans),
                 "nsamples": len({si for (_, _, _, si, _) in spans}),
                 "whole": whole,
-                "whole_rows": [r for (r, _, _, _, _) in whole],
-                "whole_ends": [max(e - 1, 0) for (_, _, e, _, _) in whole],
+                # The spans the frequency pass walks: whole and non-empty.
+                "countable": [sp for sp in whole if sp[2] > sp[1]],
             }
         return cache[gi]
 
@@ -251,6 +256,14 @@ class DeviceTrainSession:
     def _freq_info(self, gi: int, sub: PackedBatch) -> dict:
         return self._span_arrays(gi, sub, cache=self._freq_span_idx,
                                  long_set=self._freq_long)
+
+    def _walk_spans_for(self, key, info: dict):
+        """The (row, start, end) device arrays of a frequency group's
+        countable spans, made once."""
+        if key not in self.walk_spans:
+            self.walk_spans[key] = lat.span_arrays(info["countable"],
+                                                   self.dev)
+        return self.walk_spans[key]
 
     def _batch_for(self, gi, sub: PackedBatch, timer=None) -> lat.DeviceBatch:
         """The group's DeviceBatch, from compact inputs cached on the
@@ -432,39 +445,25 @@ class DeviceTrainSession:
         cached ranks where the frequency packing is the EM packing and the
         table takes the slab route, the fused kernel on small tables, a
         probed cache otherwise; each group's chain bounds made once per
-        session), their backpointers walked on the host;
-        samples longer than the frequency packing's cap take the chained
-        encode over the session's table. `timer` collects the seconds per
-        phase (tables: the rebind, prep, probe, regather, kernel,
-        readback, backtrack)."""
+        session); their backpointers are walked and their ids counted on
+        the device (`lattice.walk_counts`), and only the (V,) counts and
+        the span-end dp values are read back, once per pass. Samples longer
+        than the frequency packing's cap take the chained encode over the
+        session's table. `timer` collects the seconds per phase (tables:
+        the rebind, pack: the frequency packing, made on the first pass,
+        prep, probe, regather, kernel, walk, readback)."""
         with lat.phase(timer, "tables"):
             self._rebind(model)
         V = model.vocab_size()
         freqs = np.zeros(V, dtype=np.int64)
-        index = lat.TokenIndex(model.oracle.token_to_ids)
-        groups = self._freq_groups()
-
-        def drain(pending) -> None:
-            sub, dp_ends, best_l, spans_whole = pending
-            if not spans_whole:
-                return
-            with lat.phase(timer, "readback"):
-                best_l_host = best_l.to(torch.int8).cpu().numpy()
-                dp_host = dp_ends.cpu().numpy()
-            view = PackedBatch(sub.bytes_arr, sub.sample_id, sub.is_start,
-                               sub.end_index, spans_whole)
-            with lat.phase(timer, "backtrack"):
-                ids = lat.backtrack(view, dp_host, best_l_host, index)
-                flat = np.concatenate([np.asarray(r, np.int64) for r in ids])
-                freqs[:] += np.bincount(flat, minlength=V)
-            if task is not None:
-                task.record(sum(e - s for (_, s, e, _, _) in spans_whole),
-                            len({sp[3] for sp in spans_whole}))
-
-        pending = None
+        counts = None
+        dp_ends, spans_checked = [], []
+        with lat.phase(timer, "pack"):
+            groups = self._freq_groups()
         for gi, sub in groups:
             batch = self._freq_batch(gi, sub, timer)
-            chains = self._chains_for(self._freq_key(gi), batch, timer)
+            key = self._freq_key(gi)
+            chains = self._chains_for(key, batch, timer)
             if self._freq_shared and not self._fused() \
                     and gi in self.slot_cache:
                 dp, best_l = lat.viterbi_cached(
@@ -476,16 +475,33 @@ class DeviceTrainSession:
                     backend="fused" if self._fused() else "slab",
                     timer=timer, chains=chains)
             info = self._freq_info(gi, sub)
-            dp_ends = (lat.pick_span_values_device(
-                dp, info["whole_rows"], info["whole_ends"])
-                if info["whole"] else None)
-            # One group deep: the host walks group g-1 while the device
-            # runs group g.
-            if pending is not None:
-                drain(pending)
-            pending = (sub, dp_ends, best_l, info["whole"])
-        if pending is not None:
-            drain(pending)
+            if info["countable"]:
+                with lat.phase(timer, "walk"):
+                    spans = self._walk_spans_for(key, info)
+                    # An unreachable end walks a garbage chain: it is not
+                    # walked, and the pass raises NoPath after the readback.
+                    dpe = dp[spans[0].long(), spans[2].long() - 1]
+                    cnt = lat.walk_counts(self.dt, batch, best_l, spans,
+                                          ok=torch.isfinite(dpe))
+                    counts = cnt if counts is None else counts.add_(cnt)
+                dp_ends.append(dpe)
+                spans_checked.extend(info["countable"])
+            if task is not None:
+                task.record(sum(e - s for (_, s, e, _, _) in info["whole"]),
+                            len({sp[3] for sp in info["whole"]}))
+        if counts is not None:
+            with lat.phase(timer, "readback"):
+                dpe_h = torch.cat(dp_ends).cpu().numpy()
+                counts_h = counts.cpu().numpy()
+            bad = np.nonzero(~np.isfinite(dpe_h))[0]
+            if bad.size:
+                _, s, e, _, _ = spans_checked[int(bad[0])]
+                raise NoPathError(e - s, e - s)
+            if counts_h[V]:
+                raise RuntimeError(
+                    f"walk: {int(counts_h[V])} matched spans are not "
+                    "vocabulary tokens (model/table mismatch)")
+            freqs += counts_h[:V]
 
         long_idx = sorted(self._freq_long)
         if long_idx:

@@ -1,15 +1,18 @@
-"""Device-backed corpus passes: batched Viterbi encode, the EM E-step
-and Viterbi frequency counts.
+"""Device-backed corpus passes: batched Viterbi encode, the EM E-step,
+Viterbi frequency counts and merge's pair counts.
 
 Counterpart of tokengeex_tpu/train/estep_device.py on one device:
 samples are packed into fixed-shape (rows x width) byte batches
 (utils/packing.py) and processed in row groups on the device
-(ops/lattice.py). Encode backtracks token ids on the host; samples
-longer than MAX_ENCODE_WIDTH chain fixed-width windows with a carried dp
-tail (_encode_chained). The E-step probes each group once, runs the
-forward DP over the whole width in one scan and the backward DP chunk by
-chunk, and adds the token marginals into slot bins that the host folds
-to expected counts per token.
+(ops/lattice.py). Encode walks the backpointers and resolves the token
+ids on the device (`lattice.walk_ids`) and reads back one flat id buffer
+per group; samples longer than MAX_ENCODE_WIDTH chain fixed-width windows
+with a carried dp tail and walk on the host (_encode_chained). The E-step
+probes each group once, runs the forward and the backward DP over the
+whole width in one scan each, and adds the token marginals into slot bins
+that the host folds to expected counts per token. The merge loop
+re-encodes one DeviceCorpus, packed and uploaded once, and counts
+adjacent id pairs (count_pairs_device).
 """
 
 from __future__ import annotations
@@ -119,6 +122,67 @@ def _slice_packed(packed: PackedBatch, r0: int, r1: int) -> PackedBatch:
     )
 
 
+# Device bytes a DeviceCorpus may hold in cached inputs (~2 bytes per
+# corpus byte), as the JAX package's default.
+INPUT_CACHE_BYTES = 2 << 30
+
+
+class DeviceCorpus:
+    """A corpus packed once for encode passes. Each row group's compact
+    inputs (bytes and boundary flags, ~2 bytes per corpus byte) and its
+    chain bounds stay on the device under `budget` bytes; they do not
+    depend on the vocabulary, so one corpus serves every model, as the
+    merge loop needs when it re-encodes the corpus after every batch of
+    merges. Single process only."""
+
+    def __init__(self, samples: Sequence[bytes],
+                 max_width: Optional[int] = None, device=None,
+                 budget: int = INPUT_CACHE_BYTES):
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized() \
+                and dist.get_world_size() > 1:
+            from .device_session import _not_ported
+
+            raise _not_ported("a multi-process DeviceCorpus", "Multi-GPU")
+        self.dev = resolve_device(device)
+        self.samples = samples
+        self.req_max_width = max_width
+        cap = max_width or MAX_ENCODE_WIDTH
+        self.cap = max(CHUNK, -(-cap // CHUNK) * CHUNK)
+        self.long_idx = [si for si, s in enumerate(samples)
+                         if len(s) > self.cap]
+        short = [s if len(s) <= self.cap else b"" for s in samples]
+        self.width = _pick_width(short, None)
+        self.packed = pack_samples(short, width=self.width, max_snippet=None)
+        self.groups = list(_padded_groups(self.packed, self.width, ROW_MULT))
+        self.budget = budget
+        self.used = 0
+        self._inputs: dict = {}
+        self._chains: dict = {}
+
+    def batch(self, gi: int, sub: PackedBatch, L: int) -> lat.DeviceBatch:
+        """Group gi's DeviceBatch, from its inputs cached on the device."""
+        if gi in self._inputs:
+            gbytes, gflags = self._inputs[gi]
+        else:
+            gbytes, gflags = lat.prepare_batch_inputs(sub, self.dev)
+            size = gbytes.numel() + gflags.numel()
+            if self.used + size <= self.budget:
+                self._inputs[gi] = (gbytes, gflags)
+                self.used += size
+        return lat.prepare_batch_from_inputs(gbytes, gflags, L)
+
+    def chains(self, gi: int, batch: lat.DeviceBatch):
+        """Group gi's chain bounds, kept beside its cached inputs."""
+        if gi in self._chains:
+            return self._chains[gi]
+        chains = lat.chain_bounds(batch)
+        if gi in self._inputs:
+            self._chains[gi] = chains
+        return chains
+
+
 def _eff_backend(dt: lat.DeviceTables, probe: Optional[str]) -> str:
     """The fused probe kernel for tables small enough (has_vscan), the
     probed score cache + viterbi_scan otherwise."""
@@ -144,6 +208,7 @@ def encode_corpus_device(
     device=None,
     timer: Optional[lat.PhaseTimer] = None,
     table: Optional[TokenTable] = None,
+    corpus: Optional["DeviceCorpus"] = None,
 ) -> List[List[int]]:
     """Viterbi-encode all samples on the device with the reference's
     semantics, NoPath included (src/model.rs:59-129). dropout > 0
@@ -158,8 +223,10 @@ def encode_corpus_device(
     windows with a carried dp tail. probe selects the slab route's
     table layout ("bucket"/"fast"; "em" is an alias of "fast").
     `timer` collects the seconds per phase (tables, pack, prep, probe,
-    kernel, readback, backtrack). `table` is a TokenTable bound to
-    `model` to use instead of building one (a training session's)."""
+    kernel, walk, readback, split; backtrack for chained samples). `table`
+    is a TokenTable bound to `model` to use instead of building one (a
+    training session's). `corpus` is a DeviceCorpus packed from these very
+    samples (same `max_width`), whose groups' inputs stay on the device."""
     lat.check_f32(dtype, probe)
     dev = resolve_device(device)
     with lat.phase(timer, "tables"):
@@ -167,44 +234,42 @@ def encode_corpus_device(
             hb, hl = table_hints or (None, None)
             table = TokenTable.build(model.vocab, min_bits=hb, min_len=hl)
         dt = lat.DeviceTables.from_table(table, dev)
-        index = lat.TokenIndex(model.oracle.token_to_ids)
     L = dt.max_len
     backend = _eff_backend(dt, probe)
 
+    if corpus is not None and (corpus.samples is not samples
+                               or corpus.req_max_width != max_width
+                               or corpus.dev != dev):
+        # Packed from other samples or at another width: its spans would
+        # be misassigned.
+        corpus = None
     with lat.phase(timer, "pack"):
-        cap = max_width or MAX_ENCODE_WIDTH
-        cap = max(CHUNK, -(-cap // CHUNK) * CHUNK)
-        long_idx = [si for si, s in enumerate(samples) if len(s) > cap]
-        short = [s if len(s) <= cap else b"" for s in samples]
-        width = _pick_width(short, None)
-        packed = pack_samples(short, width=width, max_snippet=None)
+        if corpus is None:
+            corpus = DeviceCorpus(samples, max_width, dev, budget=0)
     gen = (torch.Generator(device=dev).manual_seed(seed)
            if dropout > 0.0 else None)
 
     out: List[Optional[List[int]]] = [None] * len(samples)
-    for _, sub in _padded_groups(packed, width, ROW_MULT):
+    for gi, sub in corpus.groups:
         with lat.phase(timer, "prep"):
-            batch = lat.prepare_batch(sub, L, dev)
+            batch = corpus.batch(gi, sub, L)
+            chains = corpus.chains(gi, batch)
             drop_u = (_drop_words(gen, sub.rows, batch.sid.shape[1], dev)
                       if gen is not None else None)
         dp, best_l = lat.viterbi(dt, batch, C=CHUNK, backend=backend,
                                  drop_u=drop_u, dropout=dropout, probe=probe,
-                                 timer=timer)
-        # Fetch backpointers as int8 and only the span-end dp values.
-        with lat.phase(timer, "readback"):
-            best_l_host = best_l.to(torch.int8).contiguous().cpu().numpy()
-            rows_idx = [r for (r, _, _, _, _) in sub.spans]
-            ends_idx = [max(e - 1, 0) for (_, _, e, _, _) in sub.spans]
-            dp_ends = lat.pick_span_values(dp, rows_idx, ends_idx)
-        with lat.phase(timer, "backtrack"):
-            spans = lat.backtrack(sub, dp_ends, best_l_host, index)
+                                 timer=timer, chains=chains)
+        # The backpointers stay on the device: the walk reads back the
+        # span-end dp values, the per-span token counts and the ids.
+        spans = lat.walk_ids(dt, batch, dp, best_l, sub.spans, timer=timer)
         for (r, s, e, si, ci), ids in zip(sub.spans, spans):
             assert ci == 0, "encode packing must not chop samples"
             out[si] = ids
 
-    if long_idx:
+    if corpus.long_idx:
+        long_idx = corpus.long_idx
         chained = _encode_chained(
-            model, dt, [(si, samples[si]) for si in long_idx], cap,
+            model, dt, [(si, samples[si]) for si in long_idx], corpus.cap,
             backend=backend, dropout=dropout, seed=seed + 0x5151,
             probe=probe, device=dev, timer=timer)
         for si, ids in zip(long_idx, chained):
@@ -439,3 +504,40 @@ def count_frequencies_device(
     if task is not None:
         task.record(sum(len(s) for s in samples), len(samples))
     return freqs.astype(np.int64)
+
+
+def count_pairs_device(model: Model, samples: Sequence[bytes],
+                       task: Optional[Task] = None,
+                       table_hints: Optional[Tuple[int, int]] = None,
+                       corpus: Optional[DeviceCorpus] = None,
+                       device=None, timer: Optional[lat.PhaseTimer] = None
+                       ) -> List[Tuple[Tuple[int, int], int]]:
+    """Adjacent id pair counts of the device encode (reference:
+    src/merge.rs:53-84), [((a, b), count)] by descending count, equal
+    counts in ascending (a, b) order. table_hints (min_bits, min_len)
+    pins the table's shape across a merge loop's growing vocabulary;
+    `corpus` is the loop's DeviceCorpus over `samples`. `timer` collects
+    the encode's phases and the pair count's (pairs)."""
+    encoded = encode_corpus_device(
+        model, samples, table_hints=table_hints, corpus=corpus,
+        device=corpus.dev if corpus is not None and device is None
+        else device, timer=timer)
+    if task is not None:
+        task.record(sum(len(s) for s in samples), len(samples))
+    with lat.phase(timer, "pairs"):
+        # One vectorised count over every sample's ids: the pairs that
+        # straddle two samples are masked, the keys made unique once.
+        seqs = [np.asarray(ids, dtype=np.int64)
+                for ids in encoded if ids and len(ids) > 1]
+        if not seqs:
+            return []
+        big = np.concatenate(seqs)
+        ends = np.cumsum(np.fromiter((len(a) for a in seqs), np.int64,
+                                     len(seqs)))
+        keys = (big[:-1] << 32) | big[1:]
+        mask = np.ones(len(big) - 1, dtype=bool)
+        mask[ends[:-1] - 1] = False  # a sample's last id pairs with nothing
+        uniq, cnt = np.unique(keys[mask], return_counts=True)
+        order = np.argsort(-cnt, kind="stable")
+        return [((int(k) >> 32, int(k) & 0xFFFFFFFF), int(c))
+                for k, c in zip(uniq[order], cnt[order])]
