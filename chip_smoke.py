@@ -50,8 +50,11 @@ Phases (any failure exits non-zero):
      viterbi_walk, the backpointer walk with the exact-probe ids, on
      encode's first group of both routes (the 32k vocabulary's
      viterbi_scan backpointers and the 4k vocabulary's fused ones), in
-     count and ids mode, equal to its twin bit for bit (counts; ids and
-     tokens per span), with the longest span alone; each timed with CUDA
+     count and ids mode, equal to its twin bit for bit (counts; the flat
+     ids and tokens per span), also timed as device time alone (the
+     calls queued), beside the recorded device time of the walk's first
+     design (one thread per span, experiments/torch_walk_design.py), with
+     the chain floor (the longest span's row alone); each timed with CUDA
      events beside its plain version and its bound;
   3. encode end to end, Tokenizer.encode_batch(backend="device") on the
      card, for two configurations over a seeded ~8 MB code-like corpus
@@ -60,9 +63,9 @@ Phases (any failure exits non-zero):
      kernel). Each checks exact decode round trips, equality with the
      CPU plain run on the first 64 samples, dropout=1.0 -> single bytes,
      a > 2^15-byte sample through the chained path, and that its Viterbi
-     kernel and viterbi_walk (ids mode: no backpointers leave the card)
-     were launched once per row group; prints bytes/s, the peak device
-     memory and the time per phase;
+     kernel was launched and viterbi_walk (ids mode: the walk writes the
+     flat ids; no backpointers leave the card) called once per row group;
+     prints bytes/s, the peak device memory and the time per phase;
   3b. the EM E-step, run_e_step_device on the card, for (a) and (b) at
      dropout 0 and 0.05 (the dropout-0.05 pass once, unsynchronised):
      forward_scan and backward_marginal_scan each launched once per row
@@ -98,7 +101,7 @@ Phases (any failure exits non-zero):
      cached route (table bits 17), then a 16,384-token vocabulary to
      8,192 on the fused route (bits 15: its E-steps launch the fused
      scans); every frequency pass launches the route's Viterbi kernel
-     (viterbi_scan, fused_forward_chunk(viterbi)) and viterbi_walk
+     (viterbi_scan, fused_forward_chunk(viterbi)) and calls viterbi_walk
      (count mode) once per group, and the first pass's counts equal a host
      backtrack of the same groups; each session is closed after; each
      result is a subset of its input vocabulary and encodes and decodes
@@ -109,7 +112,7 @@ Phases (any failure exits non-zero):
      an encode of the corpus packed and uploaded once, its ids walked on
      the card, then the pair count) under an anchored identifier /
      punctuation allow pattern the allow-DFA compiles; viterbi_walk
-     launched once per group a pass; on the first 64 samples the pair
+     called once per group a pass; on the first 64 samples the pair
      counts and the merged vocabulary equal to a CPU run's; prints the
      seconds per merge pass;
   4. the kernels line (nine entries), then the device line as the last
@@ -136,6 +139,15 @@ F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 L_MAX = 16
 CORPUS_BYTES = 8_000_000
 SEED = 0
+# Device ms (calls queued behind a sleep) of the walk's first design, one
+# thread per span, on encode's first group of each route, as
+# experiments/torch_walk_design.py measured it beside the package's walk
+# in one process; chip_smoke.py prints them beside the walk's own.
+WALK_FIRST_DESIGN_ON = "NVIDIA H100 80GB HBM3, 700.00 W"
+WALK_FIRST_DESIGN_MS = {
+    "slab": {"ids": 0.1668, "count": 0.2877, "floor": 0.1071},
+    "fused": {"ids": 0.2081, "count": 0.3516, "floor": 0.1496},
+}
 
 
 START = time.perf_counter()
@@ -255,12 +267,19 @@ def build_vocab(samples, size: int, max_len: int = L_MAX,
 # ---------------------------------------------------------------------------
 
 
-def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
+def cuda_ms(fn, iters: int, warmup: int = 1, queued: bool = False) -> float:
+    """Mean device milliseconds of `fn` between two CUDA events over
+    `iters` calls. A call whose host work outlasts its kernels times the
+    host too; queued=True first parks the stream on a ~20 ms sleep kernel,
+    so that every call's launches are queued before the first event and
+    run back to back: the device time of the launches alone."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(40_000_000)
     a.record()
     for _ in range(iters):
         fn()
@@ -837,22 +856,24 @@ def check_segsum(lat, lcs, table, tbl, batch, dev):
 def check_viterbi_walk(lat, tbl, batch, spans, dev, route: str):
     """viterbi_walk against its twin on encode's first group of `route`:
     the route's own Viterbi backpointers, the group's spans, counts and
-    ids bit-equal, each mode timed beside the twin, the longest span alone
-    for the walk's floor."""
+    ids bit-equal, each mode timed beside the twin (as every kernel is,
+    host work included) and as device time alone (queued), and the chain
+    floor: the row of the longest span, alone."""
     dp, best_l = lat.viterbi(tbl, batch, backend=route)
-    rows, starts, ends = lat.span_arrays(spans, dev)
-    ok = torch.isfinite(dp[rows.long(), ends.long() - 1])
+    B, W = best_l.shape
+    index = lat.walk_index(spans, B, W, dev)
+    ok = torch.isfinite(index.dp_ends(dp))
     args, kw = lat._walk_tables(tbl, batch)
-    walk = (best_l, *args, rows, starts, ends)
+    walk = (best_l, *args, index)
     torch.cuda.synchronize()
     res = {"route": route, "spans": len(spans)}
-    B, W = best_l.shape
     walked = int(ok.sum())
-    # in_t1[id]: the token's exact row lies in T1, so its probe reads no
-    # T2 row; every other token (bin V too) reads both.
+    # in_t1[id]: the token's exact row lies in T1, so its probe needs no
+    # T2 row; every other token (bin V too) needs both.
     in_t1 = torch.zeros(tbl.vocab_size + 1, dtype=torch.bool, device=dev)
     t1_ids = tbl.t1_exact[:, 2] & 0xFFFFFF
     in_t1[t1_ids[t1_ids < tbl.vocab_size].long()] = True
+    first = WALK_FIRST_DESIGN_MS[route]
     for mode in ("count", "ids"):
         ids = mode == "ids"
         want = []
@@ -865,13 +886,13 @@ def check_viterbi_walk(lat, tbl, batch, spans, dev, route: str):
             check(torch.equal(got[1], want[1]),
                   f"viterbi_walk ({route}): token counts per span differ")
             total = int(want[1].sum())
-            g = lat.compact_walk_ids(got[0], rows, ends, got[1], total)
-            w = lat.compact_walk_ids(want[0], rows, ends, want[1], total)
+            g, w = got[0][:total], want[0][:total]
             check(torch.equal(g, w), f"viterbi_walk ({route}): ids differ")
             err = float((g - w).abs().max()) if total else 0.0
             check(int(g.max()) < tbl.vocab_size,
                   f"viterbi_walk ({route}): a token matched no table row")
-            t1_hits = int(in_t1[w.long()].sum())
+            seen = torch.zeros_like(in_t1)
+            seen[w.long()] = True
         else:
             check(torch.equal(got, want),
                   f"viterbi_walk ({route}): counts differ")
@@ -879,39 +900,56 @@ def check_viterbi_walk(lat, tbl, batch, spans, dev, route: str):
             total = int(got[:-1].sum())
             check(int(got[-1]) == 0,
                   f"viterbi_walk ({route}): a token matched no table row")
-            t1_hits = int(want[in_t1].sum())
+            seen = want > 0
         ms = cuda_ms(lambda: lat.viterbi_walk(*walk, ok=ok, ids=ids, **kw),
                      iters=20)
-        # Bytes: best_l and the span arrays read once; the two prefix-hash
-        # words of every token boundary (tokens tile a walked span, so it
-        # has tokens + 1 boundaries) and the two inverse powers at each
-        # token's start; per token its 16-byte T1 row, and a T2 row for
-        # each token T1 misses (the kernel issues both gathers at once, so
-        # it reads more); the ids and token counts (ids) or the counts
-        # (count) written.
+        # The launches alone: the calls queue behind a sleep, so the
+        # wrapper's host work does not enter the time.
+        device_ms = cuda_ms(lambda: lat.viterbi_walk(*walk, ok=ok, ids=ids,
+                                                     **kw),
+                            iters=20, queued=True)
+        # Bytes, each input read once: best_l and the span arrays; the two
+        # prefix-hash words of every token boundary (tokens tile a walked
+        # span, so it has tokens + 1 boundaries); the two (pad + W,)
+        # inverse-power arrays every row shares; the 16-byte T1 row of
+        # each distinct token this run resolves, and its T2 row where T1
+        # does not hold it (at most the tables' H rows each); the ids and
+        # token counts (ids) or the counts (count) written.
+        H = tbl.t1_exact.shape[0]
+        distinct = int(seen.sum())
+        t2_rows = int((seen & ~in_t1).sum())
         nbytes = (best_l.numel() * best_l.element_size() + 13 * len(spans)
-                  + 8 * (total + walked) + 8 * total
-                  + 16 * total + 16 * (total - t1_hits)
+                  + 8 * (total + walked) + 8 * args[2].numel()
+                  + 16 * min(distinct, H) + 16 * min(t2_rows, H)
                   + (4 * (total + len(spans)) if ids
                      else 4 * (tbl.vocab_size + 1)))
         b_ms, b_by = bound(nbytes, 0)
-        res[mode] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by, "tokens": total,
-                     "t2_reads": total - t1_hits, "bytes": nbytes}
+        res[mode] = {"max_abs_err": err, "ms": ms, "device_ms": device_ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "tokens": total,
+                     "distinct_ids": distinct, "t2_rows": t2_rows,
+                     "bytes": nbytes}
         log(f"viterbi_walk ({route}, {mode} mode, W={W}, B={B}, "
-            f"{len(spans)} spans, {total} tokens, {total - t1_hits} T2 "
-            f"reads, {nbytes} bytes): {ms:.4f} ms in one launch, plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"{len(spans)} spans, {total} tokens, {distinct} distinct ids, "
+            f"{t2_rows} of them in T2, {nbytes} bytes): {ms:.4f} ms "
+            f"({device_ms:.4f} ms queued, the launches alone: the byte "
+            f"copy and {'two launches and a cumsum' if ids else 'one launch'}"
+            f"; the first design {first[mode]:.4f} ms measured the same way "
+            f"by experiments/torch_walk_design.py on {WALK_FIRST_DESIGN_ON})"
+            f", plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), "
             f"max |err| {err} (equal)")
-    # One span alone: the longest sample's walk, the kernel's chain floor.
-    k = int(torch.argmax((ends - starts) * ok))
-    one = (rows[k : k + 1], starts[k : k + 1], ends[k : k + 1])
-    one_ms = cuda_ms(lambda: lat.viterbi_walk(best_l, *args, *one,
-                                              ok=ok[k : k + 1], **kw),
-                     iters=20)
-    res["one_span_ms"] = one_ms
-    res["longest_span"] = int(ends[k] - starts[k])
-    log(f"viterbi_walk ({route}): the longest span alone "
-        f"({res['longest_span']} bytes) {one_ms:.4f} ms")
+    # The chain floor: the row of the longest span, alone.
+    k = int(torch.argmax((index.ends - index.starts) * ok))
+    one = lat.walk_index([spans[k]], B, W, dev)
+    ok1 = ok[k : k + 1].contiguous()
+    rows8 = best_l.to(torch.uint8).contiguous()  # no group-wide copy
+    res["floor_ms"] = cuda_ms(lambda: lat.viterbi_walk(
+        rows8, *args, one, ok=ok1, **kw), iters=20, queued=True)
+    res["longest_span"] = int(index.ends[k] - index.starts[k])
+    log(f"viterbi_walk ({route}): chain floor, the longest span's row "
+        f"alone ({res['longest_span']} bytes, count mode, queued) "
+        f"{res['floor_ms']:.4f} ms, the first design {first['floor']:.4f} "
+        f"ms")
     return res
 
 
@@ -935,6 +973,8 @@ def run_config(name, vocab, samples, long_sample, expect, groups, kernels,
 
     for fn in kernels.values():
         fn.launches = 0
+    walk = kernels["viterbi_walk"]
+    calls = walk.calls
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     ids = tok.encode_batch(texts)
@@ -942,12 +982,16 @@ def run_config(name, vocab, samples, long_sample, expect, groups, kernels,
     secs = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
     launches = {k: fn.launches for k, fn in kernels.items()}
-    # One launch of the route's Viterbi kernel and of the walk per row
+    # One launch of the route's Viterbi kernel and one call of the walk
+    # (its launches: the byte copy, the token counts, the ids) per row
     # group.
-    for k in (expect, "viterbi_walk"):
-        check(launches[k] == groups,
-              f"{name}: the main path launched {k} {launches[k]} "
-              f"times for {groups} groups")
+    for k, n in ((expect, launches[expect]),
+                 ("viterbi_walk calls", walk.calls - calls)):
+        check(n == groups, f"{name}: the main path ran {k} {n} times for "
+              f"{groups} groups")
+    check(launches["viterbi_walk"] >= 2 * groups,
+          f"{name}: {launches['viterbi_walk']} walk launches for "
+          f"{groups} groups")
     rate = total / secs
     log(f"[{name}] encode {total} bytes in {secs:.3f} s = "
         f"{rate / 1e6:.2f} MB/s; launches {launches} ({groups} groups); "
@@ -1368,7 +1412,7 @@ def run_prune(name, vocab, target: int, samples, expect, fused: bool,
 
     def counted_freq(model, *args, **kwargs):
         before = kernels[freq_kernel].launches
-        walks = kernels["viterbi_walk"].launches
+        walks = kernels["viterbi_walk"].calls
         first = not freq["host_checked"]
         if first:
             # The first pass (it packs the frequency groups) split by phase.
@@ -1382,7 +1426,7 @@ def run_prune(name, vocab, target: int, samples, expect, fused: bool,
         finally:
             freq["passes"] += 1
             freq["launches"] += kernels[freq_kernel].launches - before
-            freq["walks"] += kernels["viterbi_walk"].launches - walks
+            freq["walks"] += kernels["viterbi_walk"].calls - walks
             if first:
                 sess.count_frequencies = plain
                 freq["first_split"] = {k: round(v, 6)
@@ -1469,9 +1513,9 @@ def run_prune(name, vocab, target: int, samples, expect, fused: bool,
     check(routes == [fused], f"{tag}: the session took the other route")
     freq_groups = len(sessions[0]._freq_groups())
     for k, n in ((freq_kernel, freq["launches"]),
-                 ("viterbi_walk", freq["walks"])):
+                 ("viterbi_walk calls", freq["walks"])):
         check(freq["passes"] > 0 and n == freq["passes"] * freq_groups,
-              f"{tag}: {freq['passes']} frequency passes launched {k} "
+              f"{tag}: {freq['passes']} frequency passes ran {k} "
               f"{n} times for {freq_groups} groups")
     check(freq["host_checked"], f"{tag}: no frequency pass was checked")
     size = final.vocab_size()
@@ -1480,7 +1524,7 @@ def run_prune(name, vocab, target: int, samples, expect, fused: bool,
         f"rebinds took {rebind['seconds']:.3f} s (inside e_steps and "
         f"frequencies); launches {launches}; {freq['passes']} frequency "
         f"passes x {freq_groups} groups = {freq['launches']} launches of "
-        f"{freq_kernel}, {freq['walks']} of viterbi_walk")
+        f"{freq_kernel}, {freq['walks']} calls of viterbi_walk")
     check(size <= target, f"{tag}: {size} tokens left, above {target}")
     check({t.value for t in final.vocab} <= {t.value for t in vocab},
           f"{tag}: a kept token is not in the input vocabulary")
@@ -1533,7 +1577,7 @@ def run_merge(vocab, samples, groups, kernels, dev):
     """Phase 3e: VocabularyMerger on the card over the corpus, 200 merges
     in steps of 50 (four passes, each a re-encode of the corpus packed and
     uploaded once, the ids walked on the card, then the pair count); the
-    walk launched once per group a pass; on the first 64 samples, the pair
+    walk called once per group a pass; on the first 64 samples, the pair
     counts and the merged vocabulary equal to a CPU run's."""
     from tokengeex_tpu_torch import Model
     from tokengeex_tpu_torch.core.redfa import compile_is_match_dfa
@@ -1548,10 +1592,10 @@ def run_merge(vocab, samples, groups, kernels, dev):
 
     def timed(*args, **kwargs):
         t = time.perf_counter()
-        walks = kernels["viterbi_walk"].launches
+        walks = kernels["viterbi_walk"].calls
         pairs = count_pairs(*args, **kwargs)  # ends in a readback
         passes.append({"seconds": time.perf_counter() - t,
-                       "walks": kernels["viterbi_walk"].launches - walks,
+                       "walks": kernels["viterbi_walk"].calls - walks,
                        "pairs": len(pairs)})
         return pairs
 
@@ -1680,8 +1724,8 @@ def main() -> None:
              for d in (0.0, 0.1)]
     dt_a = lat.DeviceTables.from_table(TokenTable.build(vocab_a), dev)
     vit_scan = check_viterbi_scan(lat, lc, dt_a, batch, dev)
-    walk = {route: check_viterbi_walk(lat, tbl, batch, enc_groups[0][1].spans,
-                                      dev, route)
+    walk = {route: check_viterbi_walk(lat, tbl, batch,
+                                      enc_groups[0][1].spans, dev, route)
             for route, tbl in (("slab", dt_a), ("fused", dt_b))}
     del batch
     torch.cuda.empty_cache()

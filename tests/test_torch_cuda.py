@@ -654,53 +654,73 @@ def test_cuda_session_matches_cpu(cuda_device, kernel):
                                   cpu.count_frequencies(model))
 
 
-def _walk_case(dev, width, fused, seed=3):
-    """A packed batch of whole samples, its tables and Viterbi outputs on
-    the card, and its spans with every fifth one marked unreachable."""
-    model, samples = _corpus(3000 if not fused else 600, seed=seed)
+def _walk_case(dev, width, fused, seed=3, max_len=11, gaps=False):
+    """A packed batch of whole samples (tokens up to max_len bytes), its
+    tables and Viterbi outputs on the card, and its walk index, with every
+    fifth span marked unreachable; `gaps` leaves every third span out, so
+    a row's spans have holes between them."""
+    model, samples = _corpus(3000 if not fused else 600, seed=seed,
+                             max_len=max_len)
     rng = random.Random(seed)
     if width > 8192:
         samples = samples + [b" ".join(rng.choice(samples)
                                        for _ in range(90))[:width - 7]]
     tbl = lat.DeviceTables.from_table(
         TokenTable.build(model.vocab, min_bits=None if fused else 16), dev)
-    assert lat.has_vscan(tbl) == fused
+    assert lat.has_vscan(tbl) == fused and tbl.max_len == max_len
     packed = pack_samples(samples, width=width)
     batch = lat.prepare_batch(packed, tbl.max_len, dev)
     dp, best_l = lat.viterbi(tbl, batch, backend="fused" if fused else "slab")
-    spans = lat.span_arrays(packed.spans, dev)
-    ok = torch.ones(len(packed.spans), dtype=torch.bool, device=dev)
+    spans = [sp for k, sp in enumerate(packed.spans) if not gaps or k % 3]
+    index = lat.walk_index(spans, *best_l.shape, dev)
+    ok = torch.ones(index.n, dtype=torch.bool, device=dev)
     ok[::5] = False
-    return tbl, batch, dp, best_l, spans, ok
+    return tbl, batch, dp, best_l, index, ok
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width,fused,layout", [
-    (2048, False, "int32"), (2048, True, "uint8"), (2048, False, "strided"),
-    (32768, False, "uint8")])
-def test_cuda_viterbi_walk_matches_twin(cuda_device, width, fused, layout):
-    tbl, batch, dp, best_l, spans, ok = _walk_case(cuda_device, width, fused)
+@pytest.mark.parametrize("width,fused,layout,max_len,gaps,segment", [
+    (2048, False, "int32", 11, False, 256),
+    (2048, True, "uint8", 11, False, 256),
+    (2048, False, "strided", 11, False, 256),
+    (32768, False, "uint8", 11, False, 256),
+    (8192, False, "uint8", 16, True, 256),
+    (8192, False, "strided", 16, False, 32),
+    (8192, True, "uint8", 24, True, 48),
+    (8192, False, "strided", 24, True, 256),
+    (32768, False, "strided", 16, True, 256),
+    (32768, False, "uint8", 24, False, 256)])
+def test_cuda_viterbi_walk_matches_twin(cuda_device, width, fused, layout,
+                                        max_len, gaps, segment, monkeypatch):
+    tbl, batch, dp, best_l, index, ok = _walk_case(
+        cuda_device, width, fused, max_len=max_len, gaps=gaps)
     bl = {"int32": best_l.contiguous(),
           "uint8": best_l.to(torch.uint8).contiguous(),
           "strided": best_l}[layout]
     assert (layout == "strided") == (not bl.is_contiguous())
+    monkeypatch.setattr(lat, "WALK_SEGMENT", segment)
+    copy = int(layout == "strided")  # the tiled copy to (B, W) bytes
     args, kw = lat._walk_tables(tbl, batch)
     for use_ok in (torch.ones_like(ok), ok):
-        want = lat.viterbi_walk_plain(bl, *args, *spans, ok=use_ok, **kw)
-        before = lat.viterbi_walk.launches
-        got = lat.viterbi_walk(bl, *args, *spans, ok=use_ok, **kw)
+        want = lat.viterbi_walk_plain(bl, *args, index, ok=use_ok, **kw)
+        before = (lat.viterbi_walk.launches, lat.viterbi_walk.calls)
+        got = lat.viterbi_walk(bl, *args, index, ok=use_ok, **kw)
         torch.cuda.synchronize()
-        assert lat.viterbi_walk.launches == before + 1
+        assert (lat.viterbi_walk.launches, lat.viterbi_walk.calls) == (
+            before[0] + copy + 1, before[1] + 1)
         assert torch.equal(got, want) and int(got[-1]) == 0
-        wgrid, wn = lat.viterbi_walk_plain(bl, *args, *spans, ok=use_ok,
+        wflat, wn = lat.viterbi_walk_plain(bl, *args, index, ok=use_ok,
                                            ids=True, **kw)
-        ggrid, gn = lat.viterbi_walk(bl, *args, *spans, ok=use_ok, ids=True,
+        before = (lat.viterbi_walk.launches, lat.viterbi_walk.calls)
+        gflat, gn = lat.viterbi_walk(bl, *args, index, ok=use_ok, ids=True,
                                      **kw)
+        torch.cuda.synchronize()
+        assert (lat.viterbi_walk.launches, lat.viterbi_walk.calls) == (
+            before[0] + copy + 2, before[1] + 1)
         assert torch.equal(gn, wn)
         total = int(wn.sum())
-        assert torch.equal(
-            lat.compact_walk_ids(ggrid, spans[0], spans[2], gn, total),
-            lat.compact_walk_ids(wgrid, spans[0], spans[2], wn, total))
+        assert gflat.shape == (index.cap,)
+        assert torch.equal(gflat[:total], wflat[:total])
         assert int(got[:-1].sum()) == total
 
 
@@ -717,11 +737,11 @@ def test_cuda_encode_walks_on_the_card(cuda_device, fused, monkeypatch):
     want = ed.encode_corpus_device(model, texts, table_hints=hints,
                                    device="cpu")
     monkeypatch.setattr(lat, "backtrack", no_host_walk)
-    before = lat.viterbi_walk.launches
+    before = lat.viterbi_walk.calls
     got = ed.encode_corpus_device(model, texts, table_hints=hints,
                                   device=cuda_device)
     assert got == want
-    assert lat.viterbi_walk.launches == before + 1
+    assert lat.viterbi_walk.calls == before + 1
     counts = ed.count_frequencies_device(model, texts, table_hints=hints,
                                          device=cuda_device)
     np.testing.assert_array_equal(counts, np.bincount(
@@ -734,17 +754,21 @@ def test_cuda_viterbi_walk_clamps_spans(cuda_device):
     """On the card the walk clamps span bounds into [0, W] instead of
     checking them (a check would sync): out-of-range spans walk as their
     clamped selves and touch no memory outside the row."""
-    tbl, batch, dp, best_l, spans, _ = _walk_case(cuda_device, 2048, False)
+    tbl, batch, dp, best_l, index, _ = _walk_case(cuda_device, 2048, False)
     # One span a row: clamped, two spans of a row would overlap.
-    first = np.unique(spans[0].cpu().numpy(), return_index=True)[1]
-    keep = torch.as_tensor(first, device=cuda_device)
-    rows, starts, ends = (t[keep].contiguous() for t in spans)
-    W = best_l.shape[1]
-    wild = (rows, starts - 3000, ends + 3000)
-    clamped = (rows, torch.zeros_like(starts), torch.full_like(ends, W))
+    rows = index.rows.cpu().numpy()
+    first = np.unique(rows, return_index=True)[1]
+    rows = rows[first]
+    B, W = best_l.shape
+    wild = [(r, s - 3000, e + 3000) for r, s, e in zip(
+        rows, index.starts.cpu().numpy()[first],
+        index.ends.cpu().numpy()[first])]
+    clamped = [(r, 0, W) for r in rows]
     args, kw = lat._walk_tables(tbl, batch)
-    kw["ok"] = torch.ones_like(rows, dtype=torch.bool)
-    got = lat.viterbi_walk(best_l, *args, *wild, **kw)
+    kw["ok"] = torch.ones(len(rows), dtype=torch.bool, device=cuda_device)
+    wild_index = lat.walk_index(wild, B, W, cuda_device)
+    assert wild_index.cap == len(rows) * W
+    got = lat.viterbi_walk(best_l, *args, wild_index, **kw)
     torch.cuda.synchronize()
-    assert torch.equal(got, lat.viterbi_walk_plain(best_l, *args, *clamped,
-                                                   **kw))
+    assert torch.equal(got, lat.viterbi_walk_plain(
+        best_l, *args, lat.walk_index(clamped, B, W, cuda_device), **kw))

@@ -22,6 +22,7 @@ tables; its plain twin, `viterbi_walk_plain`, is held here:
 tests/test_torch_cuda.py holds the CUDA kernel against the twin on a GPU.
 """
 
+import dataclasses
 import random
 
 import numpy as np
@@ -161,13 +162,13 @@ def test_walk_counts_match_viterbi_freq(route, scores):
     got_dp, got_bl = lat.viterbi(tbl, pb, backend=route)
     inside = case["packed"].sample_id >= 0
     np.testing.assert_array_equal(got_bl.numpy()[inside], bl[inside])
-    r, s, e = lat.span_arrays(spans, "cpu")
-    ok = torch.isfinite(torch.as_tensor(dp)[r.long(), e.long() - 1])
+    index = lat.walk_index(spans, *bl.shape, "cpu")
+    ok = torch.isfinite(index.dp_ends(torch.as_tensor(dp)))
     assert bool(ok.all())
     before = lat.viterbi_walk.launches
     for best_l in (torch.as_tensor(bl), got_bl,
                    torch.as_tensor(bl).to(torch.uint8)):
-        got = lat.walk_counts(tbl, pb, best_l, (r, s, e), ok)
+        got = lat.walk_counts(tbl, pb, best_l, index, ok)
         assert got.dtype == torch.int32 and got.shape == (V + 1,)
         assert int(got[V]) == 0
         np.testing.assert_array_equal(got[:V].numpy(), want)
@@ -192,7 +193,7 @@ def test_walk_ids_match_backtrack(route, dropout):
     want = lat.backtrack(case["packed"], dp, bl, token_to_id)
     jwant = lj.backtrack(case["jpacked"], dp, bl, token_to_id)
     got = lat.walk_ids(tbl, pb, torch.as_tensor(dp), torch.as_tensor(bl),
-                       spans)
+                       lat.walk_index(spans, *bl.shape, "cpu"))
     assert got == want == jwant
     assert sum(map(len, got)) > 1000
 
@@ -213,19 +214,19 @@ def test_walk_ids_no_path(route):
     token_to_id = {v: i for i, (v, _) in enumerate(case["vocab"])}
     want = lat.backtrack(case["packed"], dp, bl, token_to_id,
                          raise_no_path=False)
+    index = lat.walk_index(spans, *bl.shape, "cpu")
     got = lat.walk_ids(tbl, pb, torch.as_tensor(dp), torch.as_tensor(bl),
-                       spans, raise_no_path=False)
+                       index, raise_no_path=False)
     assert got == want
     assert [k for k, ids in enumerate(got) if ids is None] == dead
     n = spans[dead[0]][2] - spans[dead[0]][1]
     with pytest.raises(tg.NoPathError) as err:
-        lat.walk_ids(tbl, pb, torch.as_tensor(dp), torch.as_tensor(bl), spans)
+        lat.walk_ids(tbl, pb, torch.as_tensor(dp), torch.as_tensor(bl), index)
     assert (err.value.args, str(err.value)) == (
         tg.NoPathError(n, n).args, str(tg.NoPathError(n, n)))
     # Dead spans walk nothing in count mode either.
-    r, s, e = lat.span_arrays(spans, "cpu")
-    ok = torch.isfinite(torch.as_tensor(dp)[r.long(), e.long() - 1])
-    counts = lat.walk_counts(tbl, pb, torch.as_tensor(bl), (r, s, e), ok=ok)
+    ok = torch.isfinite(index.dp_ends(torch.as_tensor(dp)))
+    counts = lat.walk_counts(tbl, pb, torch.as_tensor(bl), index, ok=ok)
     live = [ids for ids in got if ids]
     np.testing.assert_array_equal(
         counts[:-1].numpy(),
@@ -356,25 +357,137 @@ def test_session_frequencies_walk_on_the_device(corpus, one_jax_device,
     assert all(sess.walk_spans[k] is v for k, v in made.items())
 
 
+def _segment_rows(L, S, seed, B=7):
+    """Seeded (B, W) backpointers in [0, L] (a 0 steps by 1) and a span
+    layout per row: one span over the whole row; spans cut exactly on
+    segment boundaries; runs of 1-byte and short spans; spans with gaps and
+    empty spans, cut at a boundary and one byte either side of it; random
+    cuts; an empty row. The spans come in a shuffled order, a sixth of them
+    with ok = 0."""
+    rng = np.random.default_rng(seed)
+    W = 4 * S + 37  # not a multiple of S: the last segment is short
+    # Mostly short steps, so a segment holds long chains; a third reach up
+    # to L, so the exits spread over the table.
+    bl = np.where(rng.random((B, W)) < 0.7, rng.integers(0, 4, (B, W)),
+                  rng.integers(0, L + 1, (B, W)))
+    bounds = [g * S + d for g in range(1, W // S + 1) for d in (-1, 0, 1)]
+    spans = [(0, 0, W)]
+    cuts = [0] + [g * S for g in range(1, W // S + 1)] + [W]
+    spans += [(1, a, b) for a, b in zip(cuts, cuts[1:])]
+    p = 0
+    while p < W:
+        n = int(rng.choice([1, 1, 2, 3, 7]))
+        spans.append((2, p, min(p + n, W)))
+        p += n + int(rng.integers(0, 2))
+    cuts = sorted({0, W, *bounds, *rng.integers(0, W, 6).tolist()})
+    for a, b in zip(cuts, cuts[1:]):
+        if rng.random() < 0.25:
+            continue  # a gap
+        spans.append((3, a, b))
+        if rng.random() < 0.3:
+            spans.append((3, b, b))  # an empty span at a cut
+    cuts = sorted({0, W, *rng.integers(0, W, 12).tolist()})
+    spans += [(4, a, b) for a, b in zip(cuts, cuts[1:])]
+    spans += [(5, S - 1, 2 * S + 1), (5, 2 * S + 1, 2 * S + 2),
+              (5, 3 * S, 3 * S)]
+    order = rng.permutation(len(spans))
+    spans = [spans[k] for k in order]
+    ok = rng.random(len(spans)) > 1 / 6
+    return bl, spans, ok
+
+
+@pytest.mark.parametrize("layout", ["uint8", "int32_strided"])
+@pytest.mark.parametrize("seg", ["2L", 256])
+@pytest.mark.parametrize("L", [16, 24, 64])
+def test_walk_segmented_matches_plain(L, seg, layout):
+    """The kernel's decomposition (exit tables, composition, emit), as a
+    plain emulation, walks every span to the same tokens as the
+    step-by-step twin, bit for bit."""
+    S = 2 * L if seg == "2L" else seg
+    bl, spans, ok = _segment_rows(L, S, seed=L + S)
+    best_l = (torch.as_tensor(bl.astype(np.uint8)) if layout == "uint8"
+              else torch.as_tensor(bl.T.astype(np.int32).copy()).T)
+    assert best_l.is_contiguous() == (layout == "uint8")
+    index = lat.walk_index(spans, *bl.shape, "cpu")
+    ok = torch.as_tensor(ok)
+    want_pos, want_n = lat.walk_positions_plain(best_l, index, ok)
+    got_pos, got_n = lat.walk_positions_segmented(best_l, index, ok, L, S)
+    assert torch.equal(got_n, want_n) and torch.equal(got_pos, want_pos)
+    # Dead and empty spans walk nothing; live ones tile their span.
+    nt = want_n.numpy()
+    for k, (r, s, e) in enumerate(spans):
+        assert nt[k] == 0 if not ok[k] or e == s else 1 <= nt[k] <= e - s
+    assert want_pos.numel() == nt.sum() > bl.shape[1] // 2
+    assert nt.sum() <= index.cap
+
+
+def test_walk_segmented_beyond_reach():
+    """Backpointers longer than the tables' reach (out of contract, but
+    possible off the path) leave the table for a step-by-step walk: still
+    the twin's tokens."""
+    bl, spans, ok = _segment_rows(40, 64, seed=9)
+    best_l = torch.as_tensor(bl.astype(np.uint8))
+    index = lat.walk_index(spans, *bl.shape, "cpu")
+    ok = torch.as_tensor(ok)
+    want = lat.walk_positions_plain(best_l, index, ok)
+    got = lat.walk_positions_segmented(best_l, index, ok, 16, 64)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("S", [16, 256])
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("route", ["slab", "fused"])
+def test_walk_segmented_matches_jax_backpointers(route, dropout, S):
+    """On the JAX package's Viterbi backpointers and packed spans, the
+    decomposition's emulation gives the twin's flat ids, which equal the
+    host backtrack's."""
+    case = _case(route, "int")
+    tbl, pb = case["tbl"], case["pb"]
+    dp, bl = case["outs"][dropout]
+    spans = case["packed"].spans
+    index = lat.walk_index(spans, *bl.shape, "cpu")
+    best_l = torch.as_tensor(bl)
+    ok = torch.isfinite(index.dp_ends(torch.as_tensor(dp)))
+    args, kw = lat._walk_tables(tbl, pb)
+    flat, ntok = lat.viterbi_walk(best_l, *args, index, ok=ok, ids=True,
+                                  **kw)
+    pos, n = lat.walk_positions_segmented(best_l, index, ok, kw["max_len"],
+                                          S)
+    assert torch.equal(n, ntok) and flat.shape == (index.cap,)
+    ids = lat._walk_probe(best_l.long(), *args, pos, kw["bits"], kw["pad"],
+                          kw["vocab_size"])
+    assert torch.equal(ids.to(torch.int32), flat[: ids.numel()])
+    token_to_id = {v: i for i, (v, _) in enumerate(case["vocab"])}
+    want = lat.backtrack(case["packed"], dp, bl, token_to_id)
+    parts = np.split(ids.numpy(), np.cumsum(n.numpy())[:-1])
+    assert [p.tolist() for p in parts] == want
+
+
 def test_walk_rejects_bad_input():
     case = _case("slab", "exact")
     tbl, pb = case["tbl"], case["pb"]
     dp, bl = case["outs"][0.0]
     bl = torch.as_tensor(bl)
     args, kw = lat._walk_tables(tbl, pb)
-    spans = lat.span_arrays(case["packed"].spans, "cpu")
-    ok = torch.ones(spans[0].shape, dtype=torch.bool)
+    index = lat.walk_index(case["packed"].spans, *bl.shape, "cpu")
+    ok = torch.ones(index.n, dtype=torch.bool)
     kw["ok"] = ok
     with pytest.raises(ValueError, match="best_l must be"):
-        lat.viterbi_walk(bl.float(), *args, *spans, **kw)
+        lat.viterbi_walk(bl.float(), *args, index, **kw)
     with pytest.raises(ValueError, match="rows must be int32"):
-        lat.viterbi_walk(bl, *args, spans[0].long(), *spans[1:], **kw)
+        lat.viterbi_walk(bl, *args, dataclasses.replace(
+            index, rows=index.rows.long()), **kw)
     with pytest.raises(ValueError, match="outside the"):
-        lat.viterbi_walk(bl, *args, spans[0], spans[1], spans[2] + W, **kw)
+        lat.viterbi_walk(bl, *args, dataclasses.replace(
+            index, ends=index.ends + W), **kw)
     with pytest.raises(ValueError, match="exact tables"):
-        lat.viterbi_walk(bl, *args, *spans, **{**kw, "bits": kw["bits"] - 1})
+        lat.viterbi_walk(bl, *args, index, **{**kw, "bits": kw["bits"] - 1})
     with pytest.raises(ValueError, match="ok must be"):
-        lat.viterbi_walk(bl, *args, *spans, **{**kw, "ok": ok[1:]})
+        lat.viterbi_walk(bl, *args, index, **{**kw, "ok": ok[1:]})
+    with pytest.raises(ValueError, match="walk index is of a"):
+        lat.viterbi_walk(bl[:-1], *args, index, **kw)
+    with pytest.raises(ValueError, match="max_len 65 outside"):
+        lat.viterbi_walk(bl, *args, index, **{**kw, "max_len": 65})
     with pytest.raises(ValueError, match="no exact rows"):
         lat._walk_tables(lat.DeviceTables.from_numpy(
             {"t1_fast": tbl.t1_fast.numpy(), "t2_fast": tbl.t2_fast.numpy(),

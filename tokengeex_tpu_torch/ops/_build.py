@@ -56,7 +56,9 @@ KERNELS: Dict[str, Tuple[str, str, tuple]] = {
     "seg_weights_gather": ("seg_weights.cu", "tgx_seg_weights_gather",
                            (P,) * 9 + (I,) * 6 + (U, I, P)),
     "viterbi_walk": ("viterbi_walk.cu", "tgx_viterbi_walk",
-                     (P,) * 15 + (LL, LL) + (I,) * 7 + (P,)),
+                     (P,) * 17 + (LL, LL) + (I,) * 10 + (P,)),
+    "walk_rows": ("viterbi_walk.cu", "tgx_walk_rows",
+                  (P, P, LL, LL, I, I, I, P)),
 }
 
 _LOCK = threading.Lock()

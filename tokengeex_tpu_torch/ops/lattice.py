@@ -31,9 +31,11 @@ kernel.
 
 Ties keep the longest token (reference src/model.rs:83-110). Token ids
 are formed on the device: `viterbi_walk` (csrc/viterbi_walk.cu) walks
-every span's backpointers and resolves each token's id with the exact
-tables (`t1_exact`, `t2_exact`), counting the ids (the frequency pass,
-`walk_counts`) or handing them back per span (encode, `walk_ids`). The
+every span's backpointers, a row's segments in parallel, over a span
+index each group makes once (`walk_index`), and resolves each token's id
+with the exact tables (`t1_exact`, `t2_exact`), counting the ids (the
+frequency pass, `walk_counts`) or writing them into one flat buffer,
+span after span (encode, `walk_ids`). The
 host `backtrack` stays as the reference they are held against and walks
 the chained windows of samples longer than the encode width.
 
@@ -1588,14 +1590,70 @@ def backtrack(
 # Backpointer walk on the device
 # ---------------------------------------------------------------------------
 
+# Segment length of the walk's decomposition (csrc/viterbi_walk.cu): at
+# least twice the longest token (MAX_LEN = 64).
+WALK_SEGMENT = 256
 
-def span_arrays(spans, device) -> Tuple[torch.Tensor, torch.Tensor,
-                                        torch.Tensor]:
-    """(row, start, end) int32 tensors of packed spans (5-tuples or
-    (row, start, end) triples), on `device`."""
-    sp = np.asarray([s[:3] for s in spans], dtype=np.int32).reshape(-1, 3)
-    t = torch.as_tensor(sp, device=device)
-    return t[:, 0].contiguous(), t[:, 1].contiguous(), t[:, 2].contiguous()
+
+@dataclasses.dataclass(frozen=True)
+class WalkIndex:
+    """A row group's spans, indexed once for `viterbi_walk`: the (n,)
+    int32 rows, starts and ends in the caller's order (dp indices); the
+    non-empty spans of rows in [0, B) sorted by (row, start) (`order`) with
+    each row's range in it (`row_ptr`, (B + 1,)); int64 copies of the rows
+    and of the end cells for picking span-end dp values; the spans'
+    lengths on the host (`lengths`, int64 numpy); and `cap`, an upper
+    bound of the tokens (one per byte of the spans clamped into [0, W]),
+    the length of the flat id buffer."""
+
+    rows: torch.Tensor
+    starts: torch.Tensor
+    ends: torch.Tensor
+    order: torch.Tensor
+    row_ptr: torch.Tensor
+    rows_l: torch.Tensor
+    last: torch.Tensor
+    nonempty: torch.Tensor
+    lengths: np.ndarray
+    cap: int
+    B: int
+    W: int
+
+    @property
+    def n(self) -> int:
+        return int(self.rows.shape[0])
+
+    def dp_ends(self, dp: torch.Tensor) -> torch.Tensor:
+        """The dp value at each span's end (its last cell)."""
+        return dp[self.rows_l, self.last]
+
+
+def walk_index(spans, B: int, W: int, device) -> WalkIndex:
+    """Index packed spans (5-tuples, (row, start, end) triples or an (n, 3)
+    array) of a (B, W) row group for `viterbi_walk`, on `device`; made
+    once per group by its owner (DeviceCorpus, the session)."""
+    sp = np.asarray([s[:3] for s in spans] if not isinstance(spans, np.ndarray)
+                    else spans[:, :3], dtype=np.int64).reshape(-1, 3)
+    r, s, e = sp[:, 0], sp[:, 1], sp[:, 2]
+    live = np.nonzero((e > s) & (r >= 0) & (r < B))[0]
+    order = live[np.lexsort((s[live], r[live]))]
+    row_ptr = np.searchsorted(r[order], np.arange(B + 1))
+    ce = np.clip(e, 0, W)
+    cs = np.clip(s, 0, None)
+    t = torch.as_tensor(sp.astype(np.int32), device=device)
+
+    def dev(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a).astype(dtype),
+                               device=device)
+
+    return WalkIndex(
+        rows=t[:, 0].contiguous(), starts=t[:, 1].contiguous(),
+        ends=t[:, 2].contiguous(), order=dev(order, np.int32),
+        row_ptr=dev(row_ptr, np.int32), rows_l=dev(np.clip(r, 0, None),
+                                                    np.int64),
+        last=dev(np.maximum(e - 1, 0), np.int64), nonempty=dev(e > s, bool),
+        lengths=e - s, cap=int(np.maximum(ce - np.minimum(cs, ce), 0).sum()),
+        B=B, W=W)
 
 
 def _walk_probe(bl: torch.Tensor, p1, p2, rinv1, rinv2, t1, t2,
@@ -1630,74 +1688,201 @@ def _walk_probe(bl: torch.Tensor, p1, p2, rinv1, rinv2, t1, t2,
                        torch.where(hit(e2), e2[:, 2] & 0xFFFFFF, V))
 
 
-def viterbi_walk_plain(best_l, p1, p2, rinv1, rinv2, t1_exact, t2_exact,
-                       rows, starts, ends, *, ok, bits: int, pad: int,
-                       vocab_size: int, ids: bool = False):
-    """The twin of `viterbi_walk`: every span steps back together, one
-    vectorised step per token of the longest span, recording each token's
-    end at the cell its id goes to (the k-th token from a span's end at
-    e - 1 - k); then the recorded tokens resolve their ids at once."""
+def _positions_in_order(span: torch.Tensor, from_end: torch.Tensor,
+                        pos: torch.Tensor, ntok: torch.Tensor
+                        ) -> torch.Tensor:
+    """Recorded tokens (span, index from the span's end, flat position)
+    into one (total,) buffer, span after span, each in position order."""
+    incl = torch.cumsum(ntok.long(), 0)
+    out = torch.empty(int(incl[-1]) if incl.numel() else 0,
+                      dtype=torch.int64, device=pos.device)
+    out[incl[span] - 1 - from_end] = pos
+    return out
+
+
+def walk_positions_plain(best_l: torch.Tensor, index: WalkIndex,
+                         ok: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The step-by-step walk: every span whose `ok` flag is set steps back
+    from its end together, one vectorised step per token of the longest
+    span. Returns each token's end as a flat position b * W + p, span after
+    span in the index's span order and in position order within a span,
+    and the (n,) int32 tokens per span."""
     B, W = best_l.shape
     dev = best_l.device
-    flat_bl = best_l.to(torch.int64).reshape(-1)
-    r, s, e = rows.long(), starts.long(), ends.long()
-    n = r.shape[0]
-    tok = torch.full((B * W,), -1, dtype=torch.int64, device=dev)
-    ntok = torch.zeros(n, dtype=torch.int32, device=dev)
-    live = (e > s) & ok.bool()
-    idx = torch.nonzero(live).flatten()
+    flat_bl = best_l.to(torch.int64).reshape(-1).clamp(min=1)
+    r, s, e = index.rows.long(), index.starts.long(), index.ends.long()
+    ntok = torch.zeros(index.n, dtype=torch.int32, device=dev)
+    idx = torch.nonzero((e > s) & ok.bool()).flatten()
     cur = r * W + e - 1  # the cell of the next token's end
-    slot = cur.clone()  # the cell its id goes to
     stop = r * W + s
+    spans, from_end, pos = [], [], []
     while idx.numel():
         c = cur[idx]
-        tok[slot[idx]] = c
+        spans.append(idx)
+        from_end.append(ntok[idx].long())
+        pos.append(c)
         ntok[idx] += 1
-        cur[idx] = c - flat_bl[c].clamp(min=1)
-        slot[idx] -= 1
+        cur[idx] = c - flat_bl[c]
         idx = idx[cur[idx] >= stop[idx]]
-    cells = torch.nonzero(tok >= 0).flatten()
+    if not spans:
+        return torch.zeros(0, dtype=torch.int64, device=dev), ntok
+    return (_positions_in_order(torch.cat(spans), torch.cat(from_end),
+                                torch.cat(pos), ntok), ntok)
+
+
+def walk_positions_segmented(best_l: torch.Tensor, index: WalkIndex,
+                             ok: torch.Tensor, max_len: int,
+                             segment: int = WALK_SEGMENT
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A plain emulation of csrc/viterbi_walk.cu's decomposition, with the
+    same outputs as `walk_positions_plain`:
+
+      (a) the exit tables: from every entry t < max_len of every segment
+          (g S, g S + S], walk down to the first node <= g S; record the
+          exit offset and the tokens;
+      (b) the composition: from each span's end, a segment whose bottom
+          lies at or above the span's start and that is entered at one of
+          its top max_len nodes is crossed by one table lookup (and
+          recorded with its real entry and the tokens before it); any
+          other piece is walked step by step down to the segment's bottom
+          or the span's start;
+      (c) the recorded segments walked again from their real entries.
+
+    The CPU tests hold it against the step-by-step walk."""
+    B, W = best_l.shape
+    L, S = int(max_len), int(segment)
+    dev = best_l.device
+    bl = best_l.to(torch.int64).clamp(min=1)
+    NS = -(-W // S)
+    rowsel = torch.arange(B, device=dev)[:, None]
+    # (a) One (B, NS * L) walk; an entry above W is never entered.
+    g = torch.arange(NS, device=dev).repeat_interleave(L)
+    lo = (g * S)[None, :].expand(B, -1)
+    q = (lo + S - torch.arange(L, device=dev).repeat(NS)).clone()
+    q = torch.where(q > W, lo, q)
+    tn = torch.zeros_like(q)
+    while True:
+        live = q > lo
+        if not bool(live.any()):
+            break
+        step = bl[rowsel, (q - 1).clamp(min=0)]
+        q = torch.where(live, q - step, q)
+        tn += live
+    tx = lo - q
+
+    # (b) The composition, one step or one table lookup per iteration.
+    r, s, e = index.rows.long(), index.starts.long(), index.ends.long()
+    ntok = torch.zeros(index.n, dtype=torch.int64, device=dev)
+    qs = e.clone()
+    direct_to = e.clone()  # a piece walked step by step stops here
+    tokens = ([], [], [])  # span, index from the end, position
+    segs = ([], [], [])  # span, real entry, tokens before it
+    act = torch.nonzero((e > s) & ok.bool()).flatten()
+    while act.numel():
+        qa, sa, ra = qs[act], s[act], r[act]
+        ga = (qa - 1) // S
+        la = ga * S
+        ta = la + S - qa
+        cont = qa > direct_to[act]
+        tab = ~cont & (la >= sa) & (ta < L)
+        start = ~cont & ~tab
+        direct_to[act[start]] = torch.maximum(la, sa)[start]
+        # Table lookups.
+        k = act[tab]
+        if k.numel():
+            j = ga[tab] * L + ta[tab]
+            for lst, v in zip(segs, (k, qa[tab], ntok[k])):
+                lst.append(v)
+            ntok[k] += tn[ra[tab], j]
+            qs[k] = la[tab] - tx[ra[tab], j]
+        # Steps.
+        step = cont | start
+        k = act[step]
+        if k.numel():
+            qk = qa[step]
+            for lst, v in zip(tokens, (k, ntok[k], ra[step] * W + qk - 1)):
+                lst.append(v)
+            qs[k] = qk - bl[ra[step], qk - 1]
+            ntok[k] += 1
+        act = act[qs[act] > s[act]]
+
+    # (c) The recorded segments, from their real entries.
+    if segs[0]:
+        k, qk, nb = (torch.cat(v) for v in segs)
+        lo_k = ((qk - 1) // S) * S
+        while k.numel():
+            for lst, v in zip(tokens, (k, nb, r[k] * W + qk - 1)):
+                lst.append(v)
+            qk = qk - bl[r[k], qk - 1]
+            nb = nb + 1
+            go = qk > lo_k
+            k, qk, nb, lo_k = k[go], qk[go], nb[go], lo_k[go]
+    ntok = ntok.to(torch.int32)
+    if not tokens[0]:
+        return torch.zeros(0, dtype=torch.int64, device=dev), ntok
+    return (_positions_in_order(*(torch.cat(v) for v in tokens), ntok),
+            ntok)
+
+
+def viterbi_walk_plain(best_l, p1, p2, rinv1, rinv2, t1_exact, t2_exact,
+                       index: WalkIndex, *, ok, bits: int, pad: int,
+                       vocab_size: int, max_len: Optional[int] = None,
+                       ids: bool = False):
+    """The twin of `viterbi_walk`: the step-by-step walk
+    (`walk_positions_plain`), then every token's id at once. `max_len`,
+    the kernel's table reach, does not enter the plain walk."""
+    pos, ntok = walk_positions_plain(best_l, index, ok)
     tid = _walk_probe(best_l.to(torch.int64), p1, p2, rinv1, rinv2,
-                      t1_exact, t2_exact, tok[cells], bits, pad, vocab_size)
+                      t1_exact, t2_exact, pos, bits, pad, vocab_size)
     if not ids:
         return torch.bincount(tid, minlength=vocab_size + 1).to(torch.int32)
-    grid = torch.zeros(B * W, dtype=torch.int32, device=dev)
-    grid[cells] = tid.to(torch.int32)
-    return grid.view(B, W), ntok
+    flat = torch.zeros(index.cap, dtype=torch.int32, device=best_l.device)
+    flat[: tid.numel()] = tid.to(torch.int32)
+    return flat, ntok
 
 
 def viterbi_walk(best_l, p1, p2, rinv1, rinv2, t1_exact, t2_exact,
-                 rows, starts, ends, *, ok, bits: int, pad: int,
-                 vocab_size: int, ids: bool = False):
-    """Walk the backpointers of every span whose `ok` flag is set (rows,
-    starts, ends: (n,) int32 dp indices; whole samples, spans of a row
-    disjoint) from its end to its start and resolve each token's id with
-    the exact tables.
+                 index: WalkIndex, *, ok, bits: int, pad: int,
+                 vocab_size: int, max_len: int, ids: bool = False):
+    """Walk the backpointers of every span of `index` whose `ok` flag is
+    set (whole samples, the non-empty spans of a row disjoint) from its end
+    to its start and resolve each token's id with the exact tables.
 
-    best_l (B, W) uint8 / int8 / int32, any strides; p1, p2 (B, pad + W +
-    1 + pad) int32 prefix hashes and rinv1, rinv2 (pad + W,) int32, as in
-    DeviceBatch; t1_exact, t2_exact (H, 4) int32 (DeviceTables); ok (n,)
-    bool, False for spans not to walk (unreachable ends). Count mode
-    returns (V + 1,) int32 token counts, bin V counting tokens no table
-    row matches (a model/table mismatch). ids=True returns a (B, W) int32
-    grid holding each span's ids in position order in its last ntok cells
-    [e - ntok, e) (other cells undefined) and ntok (n,) int32.
+    best_l (B, W) uint8 / int8 / int32, any strides, values at most
+    max_len (the longest token; a larger value walks correctly but
+    slowly); p1, p2 (B, pad + W + 1 + pad) int32 prefix hashes and rinv1,
+    rinv2 (pad + W,) int32, as in DeviceBatch; t1_exact, t2_exact (H, 4)
+    int32 (DeviceTables); index the group's `walk_index`; ok (n,) bool,
+    False for spans not to walk (unreachable ends). Count mode returns
+    (V + 1,) int32 token counts, bin V counting tokens no table row matches
+    (a model/table mismatch). ids=True returns a (index.cap,) int32 buffer
+    whose first ntok.sum() entries are the spans' ids, span after span in
+    the index's span order, each in position order, and ntok (n,) int32.
 
-    CUDA tensors launch csrc/viterbi_walk.cu on the current stream; CPU
-    tensors run `viterbi_walk_plain`."""
+    CUDA tensors launch csrc/viterbi_walk.cu on the current stream, with
+    segments of WALK_SEGMENT positions: a tiled copy of best_l to (B, W)
+    bytes when a row's elements are not adjacent, then the walk (count
+    mode: one launch; ids mode: a launch for the token counts, one cumsum
+    for the offsets and a launch for the ids). `viterbi_walk.launches`
+    counts every kernel launch, `viterbi_walk.calls` every call that
+    launched. CPU tensors run `viterbi_walk_plain`."""
     lc._check(best_l.dim() == 2, "best_l must be (B, W)")
     lc._check(best_l.dtype in (torch.uint8, torch.int8, torch.int32),
               f"best_l must be uint8, int8 or int32, got {best_l.dtype}")
     B, W = best_l.shape
-    n = rows.shape[0]
+    n = index.n
     named = {"p1": p1, "p2": p2, "rinv1": rinv1, "rinv2": rinv2,
-             "t1_exact": t1_exact, "t2_exact": t2_exact, "rows": rows,
-             "starts": starts, "ends": ends}
+             "t1_exact": t1_exact, "t2_exact": t2_exact, "rows": index.rows,
+             "starts": index.starts, "ends": index.ends,
+             "order": index.order, "row_ptr": index.row_ptr}
     for name, t in named.items():
         lc._check(t.dtype == torch.int32, f"{name} must be int32")
         lc._check(t.device == best_l.device, f"{name} is on {t.device}")
-    for name in ("rows", "starts", "ends"):
-        lc._check(tuple(named[name].shape) == (n,), f"{name} must be ({n},)")
+    lc._check((index.B, index.W) == (B, W) and
+              tuple(index.row_ptr.shape) == (B + 1,),
+              f"the walk index is of a ({index.B}, {index.W}) group, "
+              f"best_l is {(B, W)}")
     lc._check(tuple(p1.shape) == (B, 2 * pad + W + 1) and
               p2.shape == p1.shape, f"p1, p2 must be {(B, 2 * pad + W + 1)}")
     lc._check(tuple(rinv1.shape) == (pad + W,) and rinv2.shape == rinv1.shape,
@@ -1708,44 +1893,66 @@ def viterbi_walk(best_l, p1, p2, rinv1, rinv2, t1_exact, t2_exact,
               f"exact tables must be ({1 << bits}, 4)")
     lc._check(tuple(ok.shape) == (n,) and ok.device == best_l.device,
               f"ok must be ({n},) on {best_l.device}")
+    lc._check(1 <= max_len <= lc.MAX_LEN,
+              f"max_len {max_len} outside 1..{lc.MAX_LEN}")
     kw = dict(bits=bits, pad=pad, vocab_size=vocab_size, ok=ok, ids=ids)
     if best_l.device.type == "cpu":
         if n:
-            lc._check(bool(((rows >= 0) & (rows < B) & (starts >= 0)
-                            & (starts <= ends) & (ends <= W)).all()),
+            lc._check(bool(((index.rows >= 0) & (index.rows < B)
+                             & (index.starts >= 0)
+                             & (index.starts <= index.ends)
+                             & (index.ends <= W)).all()),
                       "spans outside the (B, W) batch")
         return viterbi_walk_plain(best_l, p1, p2, rinv1, rinv2, t1_exact,
-                                  t2_exact, rows, starts, ends, **kw)
+                                  t2_exact, index, **kw)
     lc._check(best_l.device.type == "cuda",
               f"unsupported device {best_l.device}")
     lc._check(W < 0xFFFF, f"width {W} beyond the walk's 65,534")
     for name, t in named.items():
         lc._check(t.is_contiguous(), f"{name} must be contiguous")
     dev = best_l.device
-    counts = grid = ntok = None
-    if ids:
-        grid = torch.empty((B, W), dtype=torch.int32, device=dev)
-        ntok = torch.zeros(n, dtype=torch.int32, device=dev)
-    else:
-        counts = torch.zeros(vocab_size + 1, dtype=torch.int32, device=dev)
-    if n and B:
-        # Each block finds its row's spans through a CSR over the spans
-        # sorted by row (rows outside [0, B) are never walked).
-        order = torch.argsort(rows, stable=True)
-        row_ptr = torch.searchsorted(
-            rows[order], torch.arange(B + 1, dtype=torch.int32, device=dev)
-        ).to(torch.int32)
-        ok8 = ok.to(torch.uint8).contiguous()
-        lc._launch("viterbi_walk", best_l, p1, p2, rinv1, rinv2, t1_exact,
-                   t2_exact, row_ptr, order.to(torch.int32), starts, ends,
-                   ok8, counts, grid, ntok, best_l.stride(0),
-                   best_l.stride(1), best_l.element_size(), B, W,
-                   p1.stride(0), pad, bits, vocab_size)
+    ok8 = (ok if ok.dtype == torch.bool and ok.is_contiguous()
+           else ok.to(torch.uint8).contiguous())
+    live = index.order.numel() > 0 and B > 0
+    if live and best_l.stride(1) != 1:
+        # A row's backpointers lie apart (the Viterbi kernels' (W, B)
+        # layout): one tiled pass makes them (B, W) bytes, which every
+        # block then stages with 16-byte loads.
+        rows = torch.empty((B, W), dtype=torch.uint8, device=dev)
+        lc._launch("walk_rows", best_l, rows, best_l.stride(0),
+                   best_l.stride(1), best_l.element_size(), B, W)
         viterbi_walk.launches += 1
-    return (grid, ntok) if ids else counts
+        best_l = rows
+    if live:
+        viterbi_walk.calls += 1
+    args = (best_l, p1, p2, rinv1, rinv2, t1_exact, t2_exact,
+            index.row_ptr, index.order, index.starts, index.ends, ok8)
+    shape = (best_l.stride(0), best_l.stride(1), best_l.element_size(), B,
+             W, p1.stride(0), pad, bits, vocab_size, max_len, WALK_SEGMENT)
+    if not ids:
+        counts = torch.zeros(vocab_size + 1, dtype=torch.int32, device=dev)
+        if live:
+            lc._launch("viterbi_walk", *args, counts, None, None, None,
+                       None, *shape, 0)
+            viterbi_walk.launches += 1
+        return counts
+    ntok = torch.zeros(n, dtype=torch.int32, device=dev)
+    flat = torch.empty(index.cap, dtype=torch.int32, device=dev)
+    if live:
+        # The first launch leaves each row's exit tables for the second.
+        tabs = torch.empty(B * 4 * -(-W // WALK_SEGMENT) * max_len,
+                           dtype=torch.uint8, device=dev)
+        lc._launch("viterbi_walk", *args, None, ntok, None, None, tabs,
+                   *shape, 1)
+        incl = torch.cumsum(ntok, 0, dtype=torch.int32)
+        lc._launch("viterbi_walk", *args, None, ntok, incl, flat, tabs,
+                   *shape, 2)
+        viterbi_walk.launches += 2
+    return flat, ntok
 
 
 viterbi_walk.launches = 0
+viterbi_walk.calls = 0
 
 
 def _walk_tables(tbl: DeviceTables, batch: DeviceBatch) -> tuple:
@@ -1755,65 +1962,47 @@ def _walk_tables(tbl: DeviceTables, batch: DeviceBatch) -> tuple:
     return ((batch.p1, batch.p2, batch.rinv1, batch.rinv2, tbl.t1_exact,
              tbl.t2_exact),
             {"bits": tbl.bits, "pad": batch.pad,
-             "vocab_size": tbl.vocab_size})
+             "vocab_size": tbl.vocab_size, "max_len": tbl.max_len})
 
 
 def walk_counts(tbl: DeviceTables, batch: DeviceBatch, best_l: torch.Tensor,
-                spans: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
-                ok: torch.Tensor) -> torch.Tensor:
+                index: WalkIndex, ok: torch.Tensor) -> torch.Tensor:
     """(V + 1,) int32 Viterbi counts of the spans' tokens on the device
     (`viterbi_walk`, count mode); bin V counts mismatches."""
     args, kw = _walk_tables(tbl, batch)
-    return viterbi_walk(best_l, *args, *spans, ok=ok, **kw)
-
-
-def compact_walk_ids(grid: torch.Tensor, rows: torch.Tensor,
-                     ends: torch.Tensor, ntok: torch.Tensor,
-                     total: int) -> torch.Tensor:
-    """The spans' ids of a `viterbi_walk` ids grid as one flat (total,)
-    int32 tensor, span after span, on the grid's device."""
-    W = grid.shape[1]
-    nt = ntok.long()
-    off = torch.cumsum(nt, 0) - nt
-    base = rows.long() * W + ends.long() - nt - off
-    idx = torch.repeat_interleave(base, nt, output_size=total)
-    idx += torch.arange(total, device=grid.device)
-    return grid.reshape(-1)[idx]
+    return viterbi_walk(best_l, *args, index, ok=ok, **kw)
 
 
 def walk_ids(tbl: DeviceTables, batch: DeviceBatch, dp: torch.Tensor,
-             best_l: torch.Tensor, spans, raise_no_path: bool = True,
+             best_l: torch.Tensor, index: WalkIndex,
+             raise_no_path: bool = True,
              timer: Optional[PhaseTimer] = None
              ) -> List[Optional[List[int]]]:
-    """Token id sequences per span, walked on the device: the counterpart
-    of `backtrack` that reads back only the span-end dp values, the
-    per-span token counts and one flat id buffer. An unreachable non-empty
-    span raises NoPath(len, len), or gives None with raise_no_path=False;
-    an empty span gives []."""
-    n = len(spans)
+    """Token id sequences of the spans of `index` (the group's
+    `walk_index`), in its order, walked on the device: the counterpart of
+    `backtrack` that reads back only the span-end dp values, the per-span
+    token counts and the flat id buffer the walk writes. An unreachable
+    non-empty span raises NoPath(len, len), or gives None with
+    raise_no_path=False; an empty span gives []."""
+    n = index.n
     if n == 0:
         return []
     V = tbl.vocab_size
-    sp = np.asarray([s[:3] for s in spans], dtype=np.int64)
     with phase(timer, "walk"):
-        rows, starts, ends = span_arrays(sp, dp.device)
-        dp_end = dp[rows.long(), (ends.long() - 1).clamp(min=0)]
-        ok = torch.isfinite(dp_end) & (ends > starts)
+        dp_end = index.dp_ends(dp)
+        ok = torch.isfinite(dp_end) & index.nonempty
         args, kw = _walk_tables(tbl, batch)
-        grid, ntok = viterbi_walk(best_l, *args, rows, starts, ends, ok=ok,
-                                  ids=True, **kw)
+        flat, ntok = viterbi_walk(best_l, *args, index, ok=ok, ids=True,
+                                  **kw)
     with phase(timer, "readback"):
         dp_h = dp_end.cpu().numpy()
         ntok_h = ntok.cpu().numpy().astype(np.int64)
-        nonempty = sp[:, 2] > sp[:, 1]
-        dead = nonempty & ~np.isfinite(dp_h)
+        dead = (index.lengths > 0) & ~np.isfinite(dp_h)
         if raise_no_path and dead.any():
             k = int(np.nonzero(dead)[0][0])
-            raise NoPathError(int(sp[k, 2] - sp[k, 1]),
-                              int(sp[k, 2] - sp[k, 1]))
+            raise NoPathError(int(index.lengths[k]), int(index.lengths[k]))
         total = int(ntok_h.sum())
-        flat = (compact_walk_ids(grid, rows, ends, ntok, total).cpu().numpy()
-                if total else np.zeros(0, np.int32))
+        flat = flat[:total].cpu().numpy()
     if (flat >= V).any():
         raise KeyError("walk: a matched span is not a vocabulary token "
                        "(model/table mismatch)")

@@ -141,9 +141,9 @@ class DeviceTrainSession:
         # keyed as the input cache: pass-invariant, 2 (W / SCAN_SEGMENT +
         # 1) ints per row.
         self.chain_cache: Dict[object, tuple] = {}
-        # Each frequency group's countable spans on the device, keyed as
-        # the input cache.
-        self.walk_spans: Dict[object, tuple] = {}
+        # Each frequency group's walk index of its countable spans
+        # (lattice.walk_index), keyed as the input cache.
+        self.walk_spans: Dict[object, lat.WalkIndex] = {}
         self._group_list = None
         self._span_idx: Dict[int, dict] = {}
         self._freq_group_list = None
@@ -257,12 +257,13 @@ class DeviceTrainSession:
         return self._span_arrays(gi, sub, cache=self._freq_span_idx,
                                  long_set=self._freq_long)
 
-    def _walk_spans_for(self, key, info: dict):
-        """The (row, start, end) device arrays of a frequency group's
-        countable spans, made once."""
+    def _walk_spans_for(self, key, info: dict, sub: PackedBatch,
+                        width: int) -> lat.WalkIndex:
+        """The walk index of a frequency group's countable spans, made
+        once."""
         if key not in self.walk_spans:
-            self.walk_spans[key] = lat.span_arrays(info["countable"],
-                                                   self.dev)
+            self.walk_spans[key] = lat.walk_index(
+                info["countable"], sub.rows, width, self.dev)
         return self.walk_spans[key]
 
     def _batch_for(self, gi, sub: PackedBatch, timer=None) -> lat.DeviceBatch:
@@ -477,11 +478,12 @@ class DeviceTrainSession:
             info = self._freq_info(gi, sub)
             if info["countable"]:
                 with lat.phase(timer, "walk"):
-                    spans = self._walk_spans_for(key, info)
+                    index = self._walk_spans_for(key, info, sub,
+                                                 best_l.shape[1])
                     # An unreachable end walks a garbage chain: it is not
                     # walked, and the pass raises NoPath after the readback.
-                    dpe = dp[spans[0].long(), spans[2].long() - 1]
-                    cnt = lat.walk_counts(self.dt, batch, best_l, spans,
+                    dpe = index.dp_ends(dp)
+                    cnt = lat.walk_counts(self.dt, batch, best_l, index,
                                           ok=torch.isfinite(dpe))
                     counts = cnt if counts is None else counts.add_(cnt)
                 dp_ends.append(dpe)

@@ -129,11 +129,11 @@ INPUT_CACHE_BYTES = 2 << 30
 
 class DeviceCorpus:
     """A corpus packed once for encode passes. Each row group's compact
-    inputs (bytes and boundary flags, ~2 bytes per corpus byte) and its
-    chain bounds stay on the device under `budget` bytes; they do not
-    depend on the vocabulary, so one corpus serves every model, as the
-    merge loop needs when it re-encodes the corpus after every batch of
-    merges. Single process only."""
+    inputs (bytes and boundary flags, ~2 bytes per corpus byte), its chain
+    bounds and its walk's span index stay on the device under `budget`
+    bytes; they do not depend on the vocabulary, so one corpus serves
+    every model, as the merge loop needs when it re-encodes the corpus
+    after every batch of merges. Single process only."""
 
     def __init__(self, samples: Sequence[bytes],
                  max_width: Optional[int] = None, device=None,
@@ -160,6 +160,7 @@ class DeviceCorpus:
         self.used = 0
         self._inputs: dict = {}
         self._chains: dict = {}
+        self._walks: dict = {}
 
     def batch(self, gi: int, sub: PackedBatch, L: int) -> lat.DeviceBatch:
         """Group gi's DeviceBatch, from its inputs cached on the device."""
@@ -181,6 +182,16 @@ class DeviceCorpus:
         if gi in self._inputs:
             self._chains[gi] = chains
         return chains
+
+    def walk_index(self, gi: int, sub: PackedBatch) -> lat.WalkIndex:
+        """Group gi's span index for the walk, kept beside its cached
+        inputs."""
+        if gi in self._walks:
+            return self._walks[gi]
+        index = lat.walk_index(sub.spans, sub.rows, self.width, self.dev)
+        if gi in self._inputs:
+            self._walks[gi] = index
+        return index
 
 
 def _eff_backend(dt: lat.DeviceTables, probe: Optional[str]) -> str:
@@ -254,6 +265,7 @@ def encode_corpus_device(
         with lat.phase(timer, "prep"):
             batch = corpus.batch(gi, sub, L)
             chains = corpus.chains(gi, batch)
+            index = corpus.walk_index(gi, sub)
             drop_u = (_drop_words(gen, sub.rows, batch.sid.shape[1], dev)
                       if gen is not None else None)
         dp, best_l = lat.viterbi(dt, batch, C=CHUNK, backend=backend,
@@ -261,7 +273,7 @@ def encode_corpus_device(
                                  timer=timer, chains=chains)
         # The backpointers stay on the device: the walk reads back the
         # span-end dp values, the per-span token counts and the ids.
-        spans = lat.walk_ids(dt, batch, dp, best_l, sub.spans, timer=timer)
+        spans = lat.walk_ids(dt, batch, dp, best_l, index, timer=timer)
         for (r, s, e, si, ci), ids in zip(sub.spans, spans):
             assert ci == 0, "encode packing must not chop samples"
             out[si] = ids
