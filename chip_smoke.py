@@ -54,8 +54,14 @@ Phases (any failure exits non-zero):
      ids and tokens per span), also timed as device time alone (the
      calls queued), beside the recorded device time of the walk's first
      design (one thread per span, experiments/torch_walk_design.py), with
-     the chain floor (the longest span's row alone); each timed with CUDA
-     events beside its plain version and its bound;
+     the chain floor (the longest span's row alone); and dfa_mask, the
+     generate feed's candidate mask, on the feed's first group of the
+     corpus (W8 = 8192, 1,024 rows) under the allow regex of all named
+     patterns (245 DFA states) at L = 16, p = 1.0 and 0.01, on the
+     shared and the global table route, bit for bit against its twin,
+     its bound's terms printed (bytes, and the table lookups this data
+     needs at the card's shared-memory rate); each timed with CUDA events
+     beside its plain version and its bound;
   3. encode end to end, Tokenizer.encode_batch(backend="device") on the
      card, for two configurations over a seeded ~8 MB code-like corpus
      at L = 16: (a) a 32,768-token vocabulary (slab route: bucket probe
@@ -115,7 +121,19 @@ Phases (any failure exits non-zero):
      called once per group a pass; on the first 64 samples the pair
      counts and the merged vocabulary equal to a CPU run's; prints the
      seconds per merge pass;
-  4. the kernels line (nine entries), then the device line as the last
+  3f. generate on the card: VocabularyGenerator (L = 16, p = 0.01, the
+     allow regex of all named patterns) feeds the corpus, dfa_mask
+     launched once per group, then generate(500_000); prints MB/s, a
+     synchronised phase split (pack, mask, drain, readback, decode,
+     generate) and the device's idle share; at p = 1 on the first 64
+     samples the counts equal the host `_feed_part` sets';
+  3g. the README recipe through the CLI: regex -> generate -> prune ->
+     filter -> merge -> encode -> decode, each a `python -m
+     tokengeex_tpu_torch.cli` process on the card, over a NUL-separated
+     .bin file of a ~2 MB slice of the corpus (sizes cut as printed under
+     `reduced`); each exits 0 and the decoded text equals the input;
+     prints each stage's seconds;
+  4. the kernels line (ten entries), then the device line as the last
      line.
 
 Imports nothing of JAX or of the JAX package.
@@ -125,6 +143,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1641,6 +1660,251 @@ def run_merge(vocab, samples, groups, kernels, dev):
             "initial_size": len(vocab), "final_size": merged.vocab_size(),
             "pairs_64": len(pairs)}
 
+# ---------------------------------------------------------------------------
+# The generate stage: the candidate mask, the feed, the CLI recipe
+# ---------------------------------------------------------------------------
+
+
+def allow_all_patterns() -> str:
+    """The allow regex of all named patterns (train/patterns.py)."""
+    from tokengeex_tpu_torch.train.patterns import (PATTERNS,
+                                                    build_allow_regex,
+                                                    load_patterns)
+
+    return build_allow_regex(load_patterns([p[0] for p in PATTERNS]))
+
+
+def smem_lookups_per_s(dev):
+    """The card's shared-memory lookup rate: each SM's 32 banks serve one
+    4-byte access each per clock, at the card's maximum SM clock
+    (`nvidia-smi --query-gpu=clocks.max.sm`). Returns (rate, SMs, MHz)."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return sms * 32 * mhz * 1e6, sms, mhz
+
+
+def dfa_walk_steps(ddfa, rows, lens, L: int) -> int:
+    """Table lookups the mask kernel makes on this data: from every start
+    inside a sample on a char start, one a step until the walk leaves the
+    sample, reaches L or falls into the dead state."""
+    B, W = rows.shape
+    b64 = rows.to(torch.int64)
+    pos = torch.arange(W, device=rows.device)[None, :]
+    lens = lens.to(torch.int64)[:, None]
+    alive = (pos < lens) & ((b64 & 0xC0) != 0x80)
+    room = lens - pos
+    state = torch.full((B, W), ddfa.start, dtype=torch.int64,
+                       device=rows.device)
+    nf = ddfa.next_flat.to(torch.int64)
+    steps = 0
+    for l in range(1, L + 1):
+        alive &= room >= l
+        steps += int(alive.sum())
+        state = nf[state * 256 + torch.nn.functional.pad(b64[:, l - 1:],
+                                                         (0, l - 1))]
+        alive &= state != 0
+    return steps
+
+
+def check_dfa_mask(dd, samples, dfa, dev):
+    """dfa_mask on the generate feed's first group of the corpus (W8 =
+    8192, 1024 rows) under the allow regex of all named patterns, at L =
+    16, p = 1.0 and 0.01, on both table routes, bit for bit against its
+    plain version; timed beside it and its bound."""
+    W8, B = dd.group_shape(samples, dd.GROUP_BYTES)
+    arr, lens = dd.pack_group(samples[:B], B, W8)
+    rows = torch.from_numpy(arr).to(dev)
+    lens = torch.from_numpy(lens).to(dev)
+    ddfa = dd._device_dfa_for(dfa, dev)
+    S = ddfa.num_states
+    check(dd.pick_route(ddfa) == "shared", f"a {S}-state table must take "
+          "the shared route")
+    res = {"W8": W8, "B": B, "states": S,
+           "smem_bytes": dd.shared_table_bytes(S)}
+    for p in (1.0, 0.01):
+        want = dd.packed_candidate_mask_plain(ddfa, rows, lens, L_MAX, p,
+                                              SEED, 0)
+        plain_ms = cuda_ms(lambda: dd.packed_candidate_mask_plain(
+            ddfa, rows, lens, L_MAX, p, SEED, 0), 1, warmup=0)
+        cands = sum(int(((want >> i) & 1).sum()) for i in range(8))
+        row = {"plain_ms": plain_ms, "candidates": cands}
+        for route in ("shared", "global"):
+            got = dd.packed_candidate_mask(ddfa, rows, lens, L_MAX, p, SEED,
+                                           0, table=route)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"dfa_mask ({route} table, p = {p}) differs from its twin")
+            row[route] = cuda_ms(lambda: dd.packed_candidate_mask(
+                ddfa, rows, lens, L_MAX, p, SEED, 0, table=route), 20)
+        res[f"p_{p}"] = row
+        del want
+    # Bound: the rows, lengths and mask once, the table once; the table
+    # lookups at the shared-memory rate, counted on this data.
+    nbytes = B * W8 + B * 4 + B * L_MAX * W8 // 8 + S * 256 * 4 + S
+    lookups = dfa_walk_steps(ddfa, rows, lens, L_MAX)
+    rate, sms, mhz = smem_lookups_per_s(dev)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = lookups / rate * 1e3
+    res.update({"bytes": nbytes, "lookups": lookups, "bytes_ms": t_bytes,
+                "lookups_ms": t_ops, "smem_lookups_per_s": rate,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "max_abs_err": 0.0, "ms": res["p_0.01"]["shared"],
+                "plain_ms": res["p_0.01"]["plain_ms"]})
+    for p in (1.0, 0.01):
+        row = res[f"p_{p}"]
+        log(f"[dfa_mask] W8={W8} B={B} L={L_MAX} S={S} p={p}: shared table "
+            f"{row['shared']:.4f} ms, global table {row['global']:.4f} ms, "
+            f"plain {row['plain_ms']:.2f} ms; {row['candidates']} "
+            f"candidates; equal to the twin bit for bit on both routes")
+    log(f"[dfa_mask] bound {res['bound_ms']:.4f} ms ({res['bound_by']}): "
+        f"{nbytes} bytes / 3.35 TB/s = {t_bytes:.4f} ms; {lookups} table "
+        f"lookups / ({sms} SMs x 32 banks x {mhz:.0f} MHz = {rate:.3e}/s) = "
+        f"{t_ops:.4f} ms; shared route {res['smem_bytes']} B of shared "
+        f"memory a block")
+    return res
+
+
+def run_generate(dd, samples, allow, dfa, dev):
+    """Phase 3f: VocabularyGenerator over the corpus on the card (L = 16,
+    p = 0.01, the allow regex of all named patterns), then generate(500_000)
+    (the README recipe's settings); dfa_mask launched once per group;
+    at p = 1 on the first 64 samples the counts equal the host sets'."""
+    from collections import Counter
+
+    from tokengeex_tpu_torch.ops import lattice as lat
+    from tokengeex_tpu_torch.train.generate import VocabularyGenerator
+
+    texts = [s.decode("utf-8") for s in samples]
+    total = sum(map(len, samples))
+    W8, B = dd.group_shape(samples, dd.GROUP_BYTES)
+    groups = -(-len(samples) // B)
+
+    def generator(p=0.01):
+        return VocabularyGenerator(max_token_length=L_MAX,
+                                   insert_probability=p, allow=allow,
+                                   seed=SEED, device=dev)
+
+    gen = generator()
+    dd.packed_candidate_mask.launches = 0
+    t0 = time.perf_counter()
+    gen.feed(texts)  # ends in the counts' readback
+    feed_s = time.perf_counter() - t0
+    launches = dd.packed_candidate_mask.launches
+    check(launches == groups, f"[generate] dfa_mask launched {launches} "
+          f"times for {groups} groups")
+    t0 = time.perf_counter()
+    vocab = gen.generate(500_000)
+    gen_s = time.perf_counter() - t0
+    check(256 <= len(vocab) <= 500_000, f"[generate] {len(vocab)} tokens")
+    timer = lat.PhaseTimer(dev)
+    t0 = time.perf_counter()
+    generator().feed(texts, timer=timer)
+    split_s = time.perf_counter() - t0
+    split = {k: round(v, 6) for k, v in timer.seconds.items()}
+    split["generate"] = round(gen_s, 6)
+    busy = device_busy(lambda: generator().feed(texts))
+    log(f"[generate] feed {feed_s:.3f} s = {total / feed_s / 1e6:.2f} MB/s "
+        f"({len(samples)} samples, {groups} groups of {B} rows at W8 = "
+        f"{W8}, dfa_mask launched {launches} times), "
+        f"{len(gen.frequencies)} distinct candidates; generate(500000) "
+        f"{gen_s:.3f} s -> {len(vocab)} tokens")
+    log(f"[generate] synchronised feed {split_s:.3f} s; {split}; device busy "
+        f"{busy['busy_s']:.4f} of {busy['wall_s']:.3f} s, idle share "
+        f"{busy['idle_share']:.4f}; top {busy['top_kernels_ms'][:4]}")
+    host: Counter = Counter()
+    ref = generator(1.0)
+    for t in texts[:64]:
+        found: set = set()
+        ref._feed_part(t, found)
+        host.update(found)
+    got = dd.feed_counts(dfa, samples[:64], L_MAX, 1.0, SEED, device=dev)
+    check(got == host, "[generate] p = 1 counts on 64 samples differ from "
+          "the host sets")
+    log(f"[generate] checks passed: {launches} launches for {groups} "
+        f"groups; at p = 1 on 64 samples {len(got)} candidates, "
+        f"{sum(got.values())} counts equal to the host sets")
+    return {"feed_seconds": feed_s, "mb_per_s": total / feed_s / 1e6,
+            "bytes": total, "groups": groups, "launches": launches,
+            "distinct": len(gen.frequencies), "generate_seconds": gen_s,
+            "vocab": len(vocab), "split": split,
+            "split_seconds": split_s, "busy": busy,
+            "p1_64_candidates": len(got)}
+
+
+# The README recipe through the CLI, cut to a ~2 MB slice of the corpus
+# and smaller sizes so that it fits the run's time.
+CLI_BYTES = 2_000_000
+CLI_REDUCED = ["corpus 8 MB -> a 2 MB slice", "generate -v 500,000 -> 16,384",
+               "prune -v 32,768 -> 8,192", "filter -v 30,000 -> 8,000",
+               "merge --num-merges 2,000 -> 100"]
+
+
+def run_cli_recipe(samples, dev):
+    """Phase 3g: regex -> generate -> prune -> filter -> merge -> encode ->
+    decode as `python -m tokengeex_tpu_torch.cli` processes on the card
+    (on the CPU with `--device cpu`), over a NUL-separated .bin file of a
+    ~2 MB slice of the corpus; each exits 0, and the decoded text equals
+    the encoded one."""
+    from tokengeex_tpu_torch.train.patterns import PATTERNS
+
+    root = HERE / "build" / "chip_smoke_cli"
+    root.mkdir(parents=True, exist_ok=True)
+    part, size = [], 0
+    for s in samples:
+        if size >= CLI_BYTES:
+            break
+        part.append(s)
+        size += len(s)
+    (root / "train.bin").write_bytes(b"\x00".join(part))
+    env = dict(os.environ, PYTHONPATH=str(HERE))
+    where = ["--device", "cpu"] if dev.type == "cpu" else []
+    stages = {}
+
+    def cli(name, *args, stdin=None):
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "tokengeex_tpu_torch.cli", name, *args,
+             *where], cwd=root, env=env, input=stdin, capture_output=True,
+            text=True, timeout=900)
+        stages[name] = time.perf_counter() - t0
+        check(r.returncode == 0, f"[cli] {name} exited {r.returncode}:\n"
+              f"{r.stderr[-3000:]}")
+        return r.stdout
+
+    train = ["--train", "code:train.bin"]
+    cli("regex", "-o", "allow.regex",
+        *[a for p in PATTERNS for a in ("-p", p[0])])
+    cli("generate", "-v", "16384", "-o", "v0.json", *train, "--processor",
+        "crlf", "--allow", "allow.regex", "--insert-probability", "0.01",
+        "--max-token-length", str(L_MAX), "--special", "<|eos|>")
+    cli("prune", "-i", "v0.json", "-o", "v1.json", "-v", "8192", *train,
+        "--dropout", "0.05", "--shrink-factor", "0.8", "--em-subiters", "2")
+    cli("filter", "-i", "v1.json", "-o", "v2.json", "-v", "8000",
+        "--min-score", "-13.0")
+    cli("merge", "-i", "v2.json", "-o", "v3.json", *train, "--allow",
+        "allow.regex", "--num-merges", "100")
+    text = part[0].decode("utf-8") + "<|eos|>" + part[1].decode("utf-8")
+    ids = cli("encode", "-v", "v3.json", stdin=text)
+    out = cli("decode", "-v", "v3.json", stdin=ids)
+    check(out == text + "\n", "[cli] decode(encode(text)) differs from "
+          "the text")
+    sizes = [len(json.loads((root / f"v{i}.json").read_text())["vocab"])
+             for i in range(4)]
+    check(sizes[0] <= 16384 and sizes[1] <= 8192
+          and sizes[2] <= min(8000, sizes[1]) and sizes[3] > sizes[2],
+          f"[cli] vocabulary sizes {sizes}")
+    log(f"[cli] reduced: {'; '.join(CLI_REDUCED)}")
+    log(f"[cli] {size} bytes in {len(part)} samples; vocabularies "
+        f"{' -> '.join(map(str, sizes))}; seconds per stage (each a "
+        f"process): " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+        + f"; {len(json.loads(ids))} ids round-trip {len(text)} chars")
+    return {"bytes": size, "samples": len(part), "stages": stages,
+            "sizes": sizes, "reduced": CLI_REDUCED}
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -1648,7 +1912,9 @@ def main() -> None:
     sys.path.insert(0, str(HERE))
     try:
         import tokengeex_tpu_torch
+        from tokengeex_tpu_torch.core.redfa import compile_dfa
         from tokengeex_tpu_torch.ops import _build
+        from tokengeex_tpu_torch.ops import dfa_device as dd
         from tokengeex_tpu_torch.ops import lattice as lat
         from tokengeex_tpu_torch.ops import lattice_cuda as lc
         from tokengeex_tpu_torch.ops import lattice_cuda_fused as lcf
@@ -1767,6 +2033,12 @@ def main() -> None:
                                  "backward_marginal_scan (E-step group)")
     del dt_a
     torch.cuda.empty_cache()
+    # The generate feed's first group: the candidate mask under the allow
+    # regex of all named patterns.
+    allow = allow_all_patterns()
+    dfa_all = compile_dfa(allow)
+    mask = check_dfa_mask(dd, samples, dfa_all, dev)
+    torch.cuda.empty_cache()
 
     # -- 3. end to end --
     phase_start("3")
@@ -1835,6 +2107,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_start("3e")
     merged = run_merge(vocab_b, samples, len(enc_groups), kernels, dev)
+    torch.cuda.empty_cache()
+    phase_start("3f")
+    generated = run_generate(dd, samples, allow, dfa_all, dev)
+    torch.cuda.empty_cache()
+    phase_start("3g")
+    recipe = run_cli_recipe(samples, dev)
 
     # -- 4. kernels line --
     phase_start("4")
@@ -1892,6 +2170,9 @@ def main() -> None:
               walk["slab"]["ids"],
               max(w[m]["max_abs_err"] for w in walk.values()
                   for m in ("count", "ids"))),
+        entry("dfa_mask", "dfa_mask.cu",
+              "tokengeex_tpu/ops/dfa_device.py:75", generated["launches"],
+              mask),
     ]}
     record = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_seconds": build_s,
@@ -1907,7 +2188,8 @@ def main() -> None:
               "encode": e2e, "estep": estep, "merge": merged,
               "session": session, "session_over_budget": over_budget,
               "prune": pruned, "prune_fused": pruned_f,
-              "kernels": line["kernels"]}
+              "dfa_mask": mask, "generate": generated,
+              "cli_recipe": recipe, "kernels": line["kernels"]}
     out = HERE / "chiprun_out"
     try:
         out.mkdir(exist_ok=True)

@@ -50,7 +50,7 @@ struct StagedTables {
 template <int LMAX, int G, bool DROP>
 __global__ void __launch_bounds__(32 * NW)
 fused_lse_smem_kernel(
-    const int2* __restrict__ t1,         // (H,) rows [check = fp2, f32 score bits]
+    const int2* __restrict__ t1,         // (H,) rows [check, f32 score bits]
     const int2* __restrict__ t2,         // (H,)
     const int32_t* __restrict__ p1,      // (pad + W + 1 + pad, B) prefix hashes R1
     const int32_t* __restrict__ p2,      // same for R2
@@ -127,7 +127,7 @@ fused_lse_smem_kernel(
   uint32_t pe2 = (uint32_t)p2[(size_t)(pad + lo) * Bs + rr];
   int rl = (lo == 0) ? rl_in[rr] : 0;
 
-  // Probe ring: step t's gathered rows, fp2, validity bits and reset flag.
+  // Probe ring: step t's gathered rows, check words, validity bits and reset flag.
   int2 g1[D][P], g2[D][P];
   uint32_t gf[D][P], gok[D];
   bool grs[D];
@@ -152,7 +152,7 @@ fused_lse_smem_kernel(
       const uint32_t fp2 = (pe2 - ph2[p]) * rv2[p];
       g1[i][p] = tab.row1(tgx_slot1(fp1, l, shift));
       g2[i][p] = tab.row2(tgx_slot2(fp2, l, shift));
-      gf[i][p] = fp2;
+      gf[i][p] = tgx_check(fp1, fp2);
       bool v = j < L && (int)l <= rl;
       if constexpr (DROP) v = v && !tgx_dropped(dh[p], j, thr_half);
       ok |= (uint32_t)v << p;
@@ -209,7 +209,7 @@ fused_lse_smem_kernel(
 template <int LMAX, int G, bool DROP>
 __global__ void __launch_bounds__(32 * NW)
 fused_backward_smem_kernel(
-    const int2* __restrict__ t1,         // (H,) rows [check = fp2, f32 score bits]
+    const int2* __restrict__ t1,         // (H,) rows [check, f32 score bits]
     const int2* __restrict__ t2,         // (H,)
     const int32_t* __restrict__ p1,      // (pad + W + 1 + pad, B) prefix hashes R1
     const int32_t* __restrict__ p2,      // same for R2
@@ -282,7 +282,7 @@ fused_backward_smem_kernel(
   uint32_t pin2 = (uint32_t)p2[(size_t)(pad + hi) * Bs + rr];
   int fr = 0;
 
-  // Probe ring: step t's gathered rows, fp2, validity bits and end flag.
+  // Probe ring: step t's gathered rows, check words, validity bits and end flag.
   int2 g1[D][P], g2[D][P];
   uint32_t gf[D][P], gok[D];
   bool gen[D];
@@ -305,7 +305,7 @@ fused_backward_smem_kernel(
       const uint32_t fp2 = (ph2[p] - pin2) * rv2;
       g1[i][p] = tab.row1(tgx_slot1(fp1, l, shift));
       g2[i][p] = tab.row2(tgx_slot2(fp2, l, shift));
-      gf[i][p] = fp2;
+      gf[i][p] = tgx_check(fp1, fp2);
       bool v = j < L && (int)l <= fr;
       if constexpr (DROP) v = v && !tgx_dropped(sdu[i], j, thr_half);
       ok |= (uint32_t)v << p;

@@ -18,9 +18,14 @@ from tokengeex_tpu_torch.ops import lattice as lat
 from tokengeex_tpu_torch.ops import lattice_cuda as lc
 from tokengeex_tpu_torch.ops import lattice_cuda_fused as lcf
 from tokengeex_tpu_torch.ops import lattice_cuda_seg as lcs
+from tokengeex_tpu_torch.core.redfa import compile_dfa
+from tokengeex_tpu_torch.ops import dfa_device as dd
 from tokengeex_tpu_torch.ops.match_table import TokenTable
 from tokengeex_tpu_torch.train import estep_device as ed
 from tokengeex_tpu_torch.train.device_session import DeviceTrainSession
+from tokengeex_tpu_torch.train.generate import VocabularyGenerator
+from tokengeex_tpu_torch.train.patterns import (PATTERNS, build_allow_regex,
+                                                load_patterns)
 from tokengeex_tpu_torch.utils.packing import pack_samples
 
 TOL = {"a": 1e-5, "marg": 1e-5, "hist": 1e-6, "betas": 1e-5, "cf": 1e-5}
@@ -772,3 +777,103 @@ def test_cuda_viterbi_walk_clamps_spans(cuda_device):
     torch.cuda.synchronize()
     assert torch.equal(got, lat.viterbi_walk_plain(
         best_l, *args, lat.walk_index(clamped, B, W, cuda_device), **kw))
+
+
+def _feed_samples(seed=0):
+    """Seeded code-like text with multi-byte chars, samples of 0 bytes,
+    one byte and one of 9 KB."""
+    rng = np.random.default_rng(seed)
+    pieces = ["def ", "return", " x", "(a, b)", "é", "中文", "😀", "  ", "\n",
+              "value_1", "0x1F", "# note", "ab ab", "'s'", "=="]
+    texts = ["".join(pieces[int(i)] for i in
+                     rng.integers(0, len(pieces), int(rng.integers(0, 40))))
+             for _ in range(60)]
+    long = "".join(pieces[int(i)] for i in rng.integers(0, len(pieces), 4000))
+    texts += ["", "a", long.encode()[:9216].decode("utf-8", "ignore")]
+    return [t.encode() for t in texts]
+
+
+_ALL_PATTERNS = None
+
+
+def _all_patterns_dfa():
+    global _ALL_PATTERNS
+    if _ALL_PATTERNS is None:
+        _ALL_PATTERNS = compile_dfa(build_allow_regex(
+            load_patterns([p[0] for p in PATTERNS])))
+    return _ALL_PATTERNS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["shared", "global", "none"])
+@pytest.mark.parametrize("p", [1.0, 0.3, 0.01])
+@pytest.mark.parametrize("L", [16, 24])
+def test_cuda_dfa_mask_matches_twin(cuda_device, route, p, L):
+    samples = _feed_samples()
+    W8, B = dd.group_shape(samples, 1 << 23)
+    assert W8 == 16384 and B == 64
+    arr, lens = dd.pack_group(samples, B, W8)
+    rows = torch.from_numpy(arr).to(cuda_device)
+    lens = torch.from_numpy(lens).to(cuda_device)
+    ddfa = None if route == "none" else dd._device_dfa_for(
+        _all_patterns_dfa(), cuda_device)
+    table = None if route == "none" else route
+    want = dd.packed_candidate_mask_plain(ddfa, rows, lens, L, p, 17, 1000)
+    before = dd.packed_candidate_mask.launches
+    got = dd.packed_candidate_mask(ddfa, rows, lens, L, p, 17, 1000,
+                                   table=table)
+    torch.cuda.synchronize()
+    assert dd.packed_candidate_mask.launches == before + 1
+    assert got.shape == (B, L, W8 // 8) and got.dtype == torch.uint8
+    assert torch.equal(got, want)
+    assert bool(got.any())
+
+
+@pytest.mark.cuda
+def test_cuda_feed_counts_match_cpu(cuda_device):
+    """Same coins and exact keys: the card's counts equal the CPU's, and
+    small groups (several launches) change nothing."""
+    samples = _feed_samples(1)
+    dfa = _all_patterns_dfa()
+    want = dd.feed_counts(dfa, samples, 16, 0.3, seed=8, device="cpu")
+    before = dd.packed_candidate_mask.launches
+    got = dd.feed_counts(dfa, samples, 16, 0.3, seed=8, group_bytes=1 << 16,
+                         device=cuda_device)
+    assert dd.packed_candidate_mask.launches == before + 16
+    assert got == want and sum(got.values()) > 0
+    gen = {}
+    for dev in ("cpu", cuda_device):
+        g = VocabularyGenerator(max_token_length=16, insert_probability=0.3,
+                                allow=build_allow_regex(load_patterns(
+                                    [p[0] for p in PATTERNS])),
+                                added_tokens=["def "], seed=3, device=dev)
+        g.feed([s.decode() for s in samples])
+        gen[str(dev)] = [(t.value, t.score, t.keep) for t in g.generate(2000)]
+    assert gen["cpu"] == gen[str(cuda_device)]
+
+
+@pytest.mark.cuda
+def test_cuda_fused_probe_rejects_a_t2_slot_collision(cuda_device):
+    """The fused kernels check the mixed word: a substring sharing a T2
+    token's fp2 (and so its slot) is no match on the card either (the CPU
+    case: tests/test_torch_prep.py)."""
+    from tokengeex_tpu_torch.ops import hashing as H
+
+    token, other = b"fiqsqmg", b"ceot\nsn"
+    vocab = [ScoredToken(bytes([b]), -10.0)
+             for b in sorted(set(token + other + b"x"))]
+    vocab.append(ScoredToken(token, -0.5))
+    pt = TokenTable.build(vocab)
+    r1 = int(np.nonzero(pt.t1[:, 3] == len(vocab) - 1)[0][0])
+    i2 = int(H.host_table_index(
+        np.array([H.host_fingerprints(token)[1]]), np.array([len(token)]),
+        H.IDX_A2, H.IDX_M2, pt.bits)[0])
+    pt.t2[i2] = pt.t1[r1]
+    pt.t1[r1] = np.array([0, 0, 0, 0xFFFFFFFF], dtype=np.uint32)
+    model = Model(vocab)
+    samples = [b"x" + other + b"x", token, b"x" + token + other]
+    before = lcf.fused_forward_chunk.launches
+    got = ed.encode_corpus_device(model, samples, table=pt,
+                                  device=cuda_device)
+    assert lcf.fused_forward_chunk.launches == before + 1
+    assert got == [model.oracle.encode(s.decode()) for s in samples]

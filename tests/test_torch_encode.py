@@ -166,7 +166,10 @@ def test_import_leaves_no_jax():
             "tokengeex_tpu_torch.ops.lattice_cuda_seg, "
             "tokengeex_tpu_torch.ops._build, tokengeex_tpu_torch.train.merge, "
             "tokengeex_tpu_torch.train.filter, "
-            "tokengeex_tpu_torch.core.redfa; "
+            "tokengeex_tpu_torch.core.redfa, tokengeex_tpu_torch.cli, "
+            "tokengeex_tpu_torch.train.generate, "
+            "tokengeex_tpu_torch.train.mine, "
+            "tokengeex_tpu_torch.ops.dfa_device; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'tokengeex_tpu' or "
             "m.startswith('tokengeex_tpu.')]; assert not bad, bad")
@@ -186,7 +189,8 @@ def test_port_sources_import_no_jax():
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
     names = {p.name for p in files}
-    assert {"merge.py", "filter.py", "patterns.py", "redfa.py"} <= names
+    assert {"merge.py", "filter.py", "patterns.py", "redfa.py",
+            "generate.py", "mine.py", "dfa_device.py", "cli.py"} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

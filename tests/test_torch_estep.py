@@ -99,9 +99,9 @@ def test_chunk_wrappers_reject_bad_input():
 def estep_setup():
     """One batch and the JAX tables, carried into the port with their
     slot maps, so that both packages fold through the same maps."""
-    dt, _, jb, pb = _setup(400, 16, seed=2)
+    dt, ptbl, jb, pb = _setup(400, 16, seed=2)
     tbl = lat.DeviceTables.from_numpy(
-        {"t1_fast": np.asarray(dt.t1_fast), "t2_fast": np.asarray(dt.t2_fast),
+        {"t1_fast": ptbl.t1_fast.numpy(), "t2_fast": ptbl.t2_fast.numpy(),
          "t_bucket": np.asarray(dt.t_bucket), "scores": np.asarray(dt.scores),
          "slot_to_id": dt.slot_to_id, "slot_len": dt.slot_len,
          "bk_slot_to_id": dt.bk_slot_to_id, "bk_slot_len": dt.bk_slot_len},

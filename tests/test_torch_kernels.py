@@ -24,6 +24,8 @@ from tokengeex_tpu_torch.ops import lattice_cuda as lc
 from tokengeex_tpu_torch.ops import lattice_cuda_fused as lcf
 from tokengeex_tpu_torch.utils.packing import pack_samples
 
+from test_torch_prep import _port_fast
+
 # The suite runs in several worker processes at once; torch's default
 # intra-op thread pool per worker would oversubscribe the cores.
 torch.set_num_threads(1)
@@ -113,7 +115,7 @@ def _setup(n_vocab, min_bits, seed=0, max_len=11):
                            min_bits=min_bits)
     dt = lj.DeviceTables.from_table(jt, dtype=jnp.float32)
     tbl = lat.DeviceTables.from_numpy(
-        {"t1_fast": np.asarray(dt.t1_fast), "t2_fast": np.asarray(dt.t2_fast),
+        {**_port_fast(dt, jt),
          "t_bucket": np.asarray(dt.t_bucket), "scores": np.asarray(dt.scores)},
         (dt.bits, dt.max_len, dt.vocab_size, dt.bk_bits, dt.bk_salt), "cpu")
     jb = lj.prepare_batch(jpack(samples, width=512, row_multiple=128),

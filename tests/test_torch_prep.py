@@ -16,6 +16,7 @@ from tokengeex_tpu.ops.match_table import TokenTable as JTokenTable
 from tokengeex_tpu.utils.packing import pack_samples as jpack
 
 from tokengeex_tpu_torch import ScoredToken
+from tokengeex_tpu_torch.ops import hashing as H
 from tokengeex_tpu_torch.ops import lattice as lat
 from tokengeex_tpu_torch.ops.match_table import TokenTable
 from tokengeex_tpu_torch.utils.packing import pack_samples
@@ -84,9 +85,25 @@ def _jax_tables(jt):
     return lj.DeviceTables.from_table(jt, dtype=jnp.float32)
 
 
-def _port_from_jax(dt):
-    arrays = {"t1_fast": np.asarray(dt.t1_fast),
-              "t2_fast": np.asarray(dt.t2_fast),
+def _port_fast(dt, jt):
+    """The JAX package's fast rows with the port's check word: the port
+    checks fp2 ^ rotl(fp1, 16) where the JAX package checks fp2 alone
+    (ops/hashing.py `host_check`); scores and empty rows are the same."""
+    out = {}
+    for name, rows in (("t1_fast", jt.t1), ("t2_fast", jt.t2)):
+        fast = np.asarray(getattr(dt, name)).copy()
+        rows = rows.astype(np.uint32)
+        empty = rows[:, 3] == np.uint32(0xFFFFFFFF)
+        np.testing.assert_array_equal(fast[:, 0].view(np.uint32),
+                                      np.where(empty, 0, rows[:, 1]))
+        fast[:, 0] = np.where(empty, np.uint32(0), H.host_check(
+            rows[:, 0], rows[:, 1])).view(np.int32)
+        out[name] = fast
+    return out
+
+
+def _port_from_jax(dt, jt):
+    arrays = {**_port_fast(dt, jt),
               "t_bucket": (np.asarray(dt.t_bucket)
                            if dt.t_bucket is not None else None),
               "scores": np.asarray(dt.scores)}
@@ -98,12 +115,15 @@ def _port_from_jax(dt):
 def test_device_tables_from_numpy_round_trip(min_bits):
     jt, pt = _both(_vocab(3, 120), min_bits)
     dt = _jax_tables(jt)
-    via_numpy = _port_from_jax(dt)
+    via_numpy = _port_from_jax(dt, jt)
     own = lat.DeviceTables.from_table(pt, "cpu")
+    fast = _port_fast(dt, jt)
     for name in ("t1_fast", "t2_fast", "t_bucket", "scores"):
         a, b = getattr(via_numpy, name), getattr(own, name)
         assert torch.equal(a, b), name
-        np.testing.assert_array_equal(a.numpy(), np.asarray(getattr(dt, name)))
+        np.testing.assert_array_equal(
+            a.numpy(), fast[name] if name in fast
+            else np.asarray(getattr(dt, name)))
     assert lat.has_vscan(own) == lj.has_vscan(dt) == (min_bits is None)
     assert (own.bits, own.max_len, own.bk_bits, own.bk_salt) == \
         (dt.bits, dt.max_len, dt.bk_bits, dt.bk_salt)
@@ -155,7 +175,7 @@ def probe_setup(packed_pair):
     jp, pp = packed_pair
     jt, _ = _both(_vocab(11, 150))
     dt = _jax_tables(jt)
-    tbl = _port_from_jax(dt)
+    tbl = _port_from_jax(dt, jt)
     L = dt.max_len
     jb = lj.prepare_batch(jp, L)
     pb = lat.prepare_batch(pp, L, "cpu")
@@ -181,3 +201,43 @@ def test_match_slab_equal(probe_setup, mode, end_indexed, dropout):
         np.testing.assert_array_equal(ps.numpy(), np.asarray(js))
         np.testing.assert_array_equal(pslot.numpy(), np.asarray(jslot))
         assert np.isfinite(ps.numpy()).any()
+
+
+def test_fast_probe_rejects_a_t2_slot_collision():
+    """A substring with a T2 token's fp2, at its length, lands in that
+    token's T2 slot (the slot is a function of fp2): a check of fp2 alone,
+    the JAX package's, takes it for the token. The port's check word mixes
+    in fp1. This pair was met in a generate -> prune run, where the false
+    token won a Viterbi path that the walk then refused."""
+    from tokengeex_tpu_torch import Model
+    from tokengeex_tpu_torch.train import estep_device as ed
+
+    token, other = b"fiqsqmg", b"ceot\nsn"
+    (f1t, f2t), (f1o, f2o) = (H.host_fingerprints(token),
+                              H.host_fingerprints(other))
+    assert f2t == f2o and f1t != f1o
+    vocab = [ScoredToken(bytes([b]), -10.0)
+             for b in sorted(set(token + other + b"x"))]
+    vocab.append(ScoredToken(token, -0.5))
+    pt = TokenTable.build(vocab)
+    # Move the token into its T2 slot, where a crowded table puts it.
+    tid = len(vocab) - 1
+    r1 = int(np.nonzero(pt.t1[:, 3] == tid)[0][0])
+    i2 = int(H.host_table_index(np.array([f2t]), np.array([len(token)]),
+                                H.IDX_A2, H.IDX_M2, pt.bits)[0])
+    assert pt.t2[i2, 3] == np.uint32(0xFFFFFFFF)
+    pt.t2[i2] = pt.t1[r1]
+    pt.t1[r1] = np.array([0, 0, 0, 0xFFFFFFFF], dtype=np.uint32)
+    tbl = lat.DeviceTables.from_table(pt, "cpu")
+    assert lat.has_vscan(tbl)
+    samples = [b"x" + other + b"x", token, b"x" + token + other]
+    pb = lat.prepare_batch(pack_samples(samples, width=512), len(token),
+                           "cpu")
+    for mode in ("fast", "bucket"):
+        score, _ = lat._match_slab(tbl, pb, 0, 512, len(token), mode=mode)
+        # Length 7 matches only where the token itself starts.
+        assert int(torch.isfinite(score[:, len(token) - 1]).sum()) == 2
+    # The fused route's probe (the table is small): the Viterbi paths.
+    model = Model(vocab)
+    assert ed.encode_corpus_device(model, samples, table=pt, device="cpu") \
+        == [model.oracle.encode(s.decode()) for s in samples]

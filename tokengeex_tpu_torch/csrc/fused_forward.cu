@@ -80,7 +80,7 @@
 
 template <int LMAX, int G, bool DROP, bool VIT>
 __global__ void __launch_bounds__(32) fused_forward_scan_kernel(
-    const int2* __restrict__ t1,         // (H,) rows [check = fp2, f32 score bits]
+    const int2* __restrict__ t1,         // (H,) rows [check, f32 score bits]
     const int2* __restrict__ t2,         // (H,)
     const int32_t* __restrict__ p1,      // (pad + W + 1 + pad, B) prefix hashes R1
     const int32_t* __restrict__ p2,      // same for R2
@@ -157,7 +157,7 @@ __global__ void __launch_bounds__(32) fused_forward_scan_kernel(
   uint32_t pe2 = (uint32_t)p2[(size_t)(pad + lo) * Bs + rr];
   int rl = (lo == 0) ? rl_in[rr] : 0;
 
-  // Probe ring: step t's gathered rows, fp2, validity bits and reset flag.
+  // Probe ring: step t's gathered rows, check words, validity bits and reset flag.
   int2 g1[D][P], g2[D][P];
   uint32_t gf[D][P], gok[D];
   bool grs[D];
@@ -182,7 +182,7 @@ __global__ void __launch_bounds__(32) fused_forward_scan_kernel(
       const uint32_t fp2 = (pe2 - ph2[p]) * rv2[p];
       g1[i][p] = __ldg(t1 + tgx_slot1(fp1, l, shift));
       g2[i][p] = __ldg(t2 + tgx_slot2(fp2, l, shift));
-      gf[i][p] = fp2;
+      gf[i][p] = tgx_check(fp1, fp2);
       bool v = j < L && (int)l <= rl;
       if constexpr (DROP) v = v && !tgx_dropped(dh[p], j, thr_half);
       ok |= (uint32_t)v << p;

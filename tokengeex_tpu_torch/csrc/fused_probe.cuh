@@ -2,7 +2,9 @@
 // vocabulary probe of one (fingerprint, length) point against the two
 // cuckoo tables.
 //
-// A table row is [check = fp2, f32 score bits]. The slot of a token of
+// A table row is [check, f32 score bits], check = fp2 ^ rotl(fp1, 16)
+// (ops/hashing.py `host_check`: T2's slot fixes the high bits of fp2, so
+// fp2 alone would be a weak check there). The slot of a token of
 // length l is ((fp ^ l*A) * M) >>> (32 - bits) per family (ops/hashing.py);
 // T1 wins over T2, and a T1 slot holding the empty-slot score sentinel
 // never counts (a zero-check pseudo-hit on an empty slot must not override
@@ -35,14 +37,18 @@ __device__ __forceinline__ uint32_t tgx_slot2(uint32_t fp2, uint32_t l,
   return ((fp2 ^ (l * TGX_IDX_A2)) * TGX_IDX_M2) >> shift;
 }
 
+__device__ __forceinline__ uint32_t tgx_check(uint32_t fp1, uint32_t fp2) {
+  return fp2 ^ ((fp1 << 16) | (fp1 >> 16));
+}
+
 // The score of a probed point from its two gathered rows: a T1 hit, else
 // a T2 hit, counted only when `ok` (the token fits its sample run and its
 // dropout coin is not drawn) and above NEG / 2; NEG otherwise.
 __device__ __forceinline__ float tgx_probe_score(int2 r1, int2 r2,
-                                                 uint32_t fp2, bool ok) {
+                                                 uint32_t check, bool ok) {
   int32_t sb = TGX_NEG_BITS;
-  if ((uint32_t)r2.x == fp2) sb = r2.y;
-  if ((uint32_t)r1.x == fp2 && r1.y != TGX_NEG_BITS) sb = r1.y;
+  if ((uint32_t)r2.x == check) sb = r2.y;
+  if ((uint32_t)r1.x == check && r1.y != TGX_NEG_BITS) sb = r1.y;
   const float sf = __int_as_float(sb);
   return (ok && sf > TGX_NEG * 0.5f) ? sf : TGX_NEG;
 }

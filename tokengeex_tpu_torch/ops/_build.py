@@ -59,6 +59,8 @@ KERNELS: Dict[str, Tuple[str, str, tuple]] = {
                      (P,) * 17 + (LL, LL) + (I,) * 10 + (P,)),
     "walk_rows": ("viterbi_walk.cu", "tgx_walk_rows",
                   (P, P, LL, LL, I, I, I, P)),
+    "dfa_mask": ("dfa_mask.cu", "tgx_dfa_mask",
+                 (P,) * 5 + (I,) * 6 + (U, I, LL, P)),
 }
 
 _LOCK = threading.Lock()

@@ -129,6 +129,24 @@ def srl_i32(a: torch.Tensor, k: int) -> torch.Tensor:
     return ((a.to(torch.int64) & _M32) >> k).to(torch.int32)
 
 
+def host_check(fp1: np.ndarray, fp2: np.ndarray) -> np.ndarray:
+    """The check word of a cuckoo row and of a probe: fp2 ^ rotl(fp1, 16)
+    (uint32). T2's slot is a function of fp2 alone, so a check of fp2
+    alone would let any substring whose fp2 shares its slot's high bits
+    (2^-(32 - bits) per probe of an occupied slot) pass as the occupant;
+    the check mixes in fp1, which the slot does not fix."""
+    fp1 = np.asarray(fp1).astype(np.uint32)
+    fp2 = np.asarray(fp2).astype(np.uint32)
+    return fp2 ^ ((fp1 << np.uint32(16)) | (fp1 >> np.uint32(16)))
+
+
+def check_i32(fp1: torch.Tensor, fp2: torch.Tensor) -> torch.Tensor:
+    """`host_check` on int32 tensors."""
+    a = fp1.to(torch.int64) & _M32
+    return wrap_i32((fp2.to(torch.int64) & _M32)
+                    ^ (((a << 16) | (a >> 16)) & _M32))
+
+
 def cumsum_i32(x: torch.Tensor, dim: int) -> torch.Tensor:
     """Inclusive prefix sum mod 2^32 (int32 in, int32 out)."""
     return wrap_i32(torch.cumsum(x.to(torch.int64), dim=dim))

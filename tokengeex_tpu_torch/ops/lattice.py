@@ -147,9 +147,16 @@ class DeviceBatch:
 class DeviceTables:
     """Vocabulary hash tables on the device.
 
-      t1_fast, t2_fast  (H, 2) int32 cuckoo rows [check = fp2, f32 score
-                        bits]; empty rows hold check 0 and the -3e38
-                        score sentinel
+      t1_fast, t2_fast  (H, 2) int32 cuckoo rows [check, f32 score
+                        bits], check = fp2 ^ rotl(fp1, 16)
+                        (ops/hashing.py `host_check`; the JAX package
+                        checks fp2 alone, which T2's slot, a function of
+                        fp2, half fixes); empty rows hold check 0 and
+                        the -3e38 score sentinel. The table builder
+                        (ops/match_table.py) pins T1-shadowed clusters by
+                        fp2; under this check a token in T2 is shadowed
+                        only when its T1 slot's occupant shares its check
+                        word, ~2^-32 a token
       t1_exact, t2_exact  (H, 4) int32 rows [fp1, fp2, len<<24 | id, 0];
                         empty rows hold 0xFFFFFFFF in the id word. The
                         backpointer walk (`viterbi_walk`) resolves a
@@ -186,13 +193,14 @@ class DeviceTables:
         scores64 = tbl.scores_f64
 
         def fast(t: np.ndarray) -> np.ndarray:
-            fp2 = t[:, 1].astype(np.uint32)
             tid = t[:, 3].astype(np.uint32)
             empty = tid == np.uint32(0xFFFFFFFF)
+            check = np.where(empty, np.uint32(0),
+                             H.host_check(t[:, 0], t[:, 1]))
             score = np.where(
                 empty, np.float32(-3.0e38),
                 scores64[np.where(empty, 0, tid)].astype(np.float32))
-            return np.stack([fp2.view(np.int32), score.view(np.int32)],
+            return np.stack([check.view(np.int32), score.view(np.int32)],
                             axis=1)
 
         def exact(t: np.ndarray) -> np.ndarray:
@@ -569,9 +577,10 @@ def _match_slab(
     c2 = tbl.t2_fast[:, 0][idx2.long()]
     s2 = tbl.t2_fast[:, 1][idx2.long()].view(torch.float32)
     # Empty slots store check 0 with the sentinel score; a probe with
-    # fp2 == 0 must fall through to t2, not mask its match.
-    match1 = (c1 == fp2) & (s1 > -1.0e38) & valid
-    match2 = (c2 == fp2) & (s2 > -1.0e38) & valid
+    # check 0 must fall through to t2, not mask its match.
+    check = H.check_i32(fp1, fp2)
+    match1 = (c1 == check) & (s1 > -1.0e38) & valid
+    match2 = (c2 == check) & (s2 > -1.0e38) & valid
     score = torch.where(match1, s1, torch.where(match2, s2, neg))
     score = torch.where(score <= -1.0e38, neg, score)
     slot = torch.where(match1, idx1,

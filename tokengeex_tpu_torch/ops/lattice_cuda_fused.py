@@ -102,9 +102,10 @@ def _probe_score(t1_fast, t2_fast, fp1, fp2, valid, du_s, lens, bits: int,
     idx2 = H.srl_i32(H.mul_i32(fp2 ^ a2, H.i32(int(H.IDX_M2))), shift).long()
     c1, s1 = t1_fast[:, 0][idx1], t1_fast[:, 1][idx1]
     c2, s2 = t2_fast[:, 0][idx2], t2_fast[:, 1][idx2]
+    check = H.check_i32(fp1, fp2)
     sb = torch.full_like(fp1, NEG_BITS)
-    sb = torch.where(c2 == fp2, s2, sb)
-    sb = torch.where((c1 == fp2) & (s1 != NEG_BITS), s1, sb)
+    sb = torch.where(c2 == check, s2, sb)
+    sb = torch.where((c1 == check) & (s1 != NEG_BITS), s1, sb)
     if dropout > 0.0:
         odd = H.wrap_i32(lens * _ODD)[None, :, None]
         u = H.srl_i32(H.mul_i32(du_s, odd), 1)
