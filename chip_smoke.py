@@ -133,8 +133,18 @@ Phases (any failure exits non-zero):
      .bin file of a ~2 MB slice of the corpus (sizes cut as printed under
      `reduced`); each exits 0 and the decoded text equals the input;
      prints each stage's seconds;
-  4. the kernels line (ten entries), then the device line as the last
-     line.
+  3h. the f64 / exact conformance mode on the card: encode at float64
+     (the exact probe, viterbi_scan's double instantiation, the walk) of
+     the corpus's first 64 samples and 8 samples of 40-80 KB (the chained
+     route, its dp tail carried in f64), ids equal to the oracle's; the
+     f64 E-step (81,920-byte snippets, forward_scan's and
+     backward_marginal_scan's double instantiations, an f64 scatter into
+     token-id bins), its total within rtol 1e-8 of the CPU f64 run's,
+     every count within rtol 1e-8 / atol 1e-9; each double kernel launched
+     on the path and no f32 scan; MB/s of both beside the f32 encode's
+     and E-step's on the same samples;
+  4. the kernels line (thirteen entries: the ten kernels and the three
+     double instantiations), then the device line as the last line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -155,6 +165,7 @@ import torch
 HERE = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+F64_OPS_PER_S = 34e12  # H100 SXM f64 outside the tensor cores
 L_MAX = 16
 CORPUS_BYTES = 8_000_000
 SEED = 0
@@ -167,6 +178,13 @@ WALK_FIRST_DESIGN_MS = {
     "slab": {"ids": 0.1668, "count": 0.2877, "floor": 0.1071},
     "fused": {"ids": 0.2081, "count": 0.3516, "floor": 0.1496},
 }
+# Milliseconds of dfa_mask's first design (one 1,024-thread block an SM
+# over the full (S, 256) table, experiments/torch_dfa_first.cu) on the
+# feed's first group at p = 0.01, as experiments/torch_dfa_design.py
+# measured it beside the package's kernel in one process; chip_smoke.py
+# prints them beside the kernel's own.
+DFA_FIRST_DESIGN_ON = "NVIDIA H100 80GB HBM3, 700.00 W"
+DFA_FIRST_DESIGN_MS = {"shared": 0.3504, "global": 0.3595}
 
 
 START = time.perf_counter()
@@ -332,9 +350,9 @@ def device_busy(fn) -> dict:
                                for e in top]}
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1691,20 +1709,20 @@ def dfa_walk_steps(ddfa, rows, lens, L: int) -> int:
     inside a sample on a char start, one a step until the walk leaves the
     sample, reaches L or falls into the dead state."""
     B, W = rows.shape
-    b64 = rows.to(torch.int64)
+    cls = ddfa.byte_class.to(torch.int64)[rows.to(torch.int64)]
     pos = torch.arange(W, device=rows.device)[None, :]
     lens = lens.to(torch.int64)[:, None]
-    alive = (pos < lens) & ((b64 & 0xC0) != 0x80)
+    alive = (pos < lens) & ((rows.to(torch.int64) & 0xC0) != 0x80)
     room = lens - pos
     state = torch.full((B, W), ddfa.start, dtype=torch.int64,
                        device=rows.device)
-    nf = ddfa.next_flat.to(torch.int64)
+    tab = ddfa.next_states().reshape(-1)
     steps = 0
     for l in range(1, L + 1):
         alive &= room >= l
         steps += int(alive.sum())
-        state = nf[state * 256 + torch.nn.functional.pad(b64[:, l - 1:],
-                                                         (0, l - 1))]
+        state = tab[state * ddfa.num_classes
+                    + torch.nn.functional.pad(cls[:, l - 1:], (0, l - 1))]
         alive &= state != 0
     return steps
 
@@ -1713,17 +1731,21 @@ def check_dfa_mask(dd, samples, dfa, dev):
     """dfa_mask on the generate feed's first group of the corpus (W8 =
     8192, 1024 rows) under the allow regex of all named patterns, at L =
     16, p = 1.0 and 0.01, on both table routes, bit for bit against its
-    plain version; timed beside it and its bound."""
+    plain version; timed beside it, its bound and its first design's
+    recorded time."""
     W8, B = dd.group_shape(samples, dd.GROUP_BYTES)
     arr, lens = dd.pack_group(samples[:B], B, W8)
     rows = torch.from_numpy(arr).to(dev)
     lens = torch.from_numpy(lens).to(dev)
     ddfa = dd._device_dfa_for(dfa, dev)
-    S = ddfa.num_states
+    S, C = ddfa.num_states, ddfa.num_classes
     check(dd.pick_route(ddfa) == "shared", f"a {S}-state table must take "
           "the shared route")
-    res = {"W8": W8, "B": B, "states": S,
-           "smem_bytes": dd.shared_table_bytes(S)}
+    res = {"W8": W8, "B": B, "states": S, "classes": C,
+           "entry_bytes": ddfa.entry_bytes,
+           "smem_bytes": dd.shared_table_bytes(ddfa),
+           "first_design_ms": DFA_FIRST_DESIGN_MS,
+           "first_design_on": DFA_FIRST_DESIGN_ON}
     for p in (1.0, 0.01):
         want = dd.packed_candidate_mask_plain(ddfa, rows, lens, L_MAX, p,
                                               SEED, 0)
@@ -1739,32 +1761,47 @@ def check_dfa_mask(dd, samples, dfa, dev):
                   f"dfa_mask ({route} table, p = {p}) differs from its twin")
             row[route] = cuda_ms(lambda: dd.packed_candidate_mask(
                 ddfa, rows, lens, L_MAX, p, SEED, 0, table=route), 20)
+            row[f"{route}_device"] = cuda_ms(lambda: dd.packed_candidate_mask(
+                ddfa, rows, lens, L_MAX, p, SEED, 0, table=route), 20,
+                queued=True)
         res[f"p_{p}"] = row
         del want
-    # Bound: the rows, lengths and mask once, the table once; the table
+    # Bound: the rows, lengths and mask once, the table as the kernel reads
+    # it once (the class table, its accept flags and the byte -> class
+    # map; the first design's full int32 table beside it); the table
     # lookups at the shared-memory rate, counted on this data.
-    nbytes = B * W8 + B * 4 + B * L_MAX * W8 // 8 + S * 256 * 4 + S
+    table_bytes = S * C * ddfa.entry_bytes + S + 256
+    first_table_bytes = S * 256 * 4 + S
+    nbytes = B * W8 + B * 4 + B * L_MAX * W8 // 8 + table_bytes
     lookups = dfa_walk_steps(ddfa, rows, lens, L_MAX)
     rate, sms, mhz = smem_lookups_per_s(dev)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = lookups / rate * 1e3
-    res.update({"bytes": nbytes, "lookups": lookups, "bytes_ms": t_bytes,
-                "lookups_ms": t_ops, "smem_lookups_per_s": rate,
+    res.update({"bytes": nbytes, "table_bytes": table_bytes,
+                "first_table_bytes": first_table_bytes, "lookups": lookups,
+                "bytes_ms": t_bytes, "lookups_ms": t_ops,
+                "smem_lookups_per_s": rate,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "max_abs_err": 0.0, "ms": res["p_0.01"]["shared"],
                 "plain_ms": res["p_0.01"]["plain_ms"]})
     for p in (1.0, 0.01):
         row = res[f"p_{p}"]
-        log(f"[dfa_mask] W8={W8} B={B} L={L_MAX} S={S} p={p}: shared table "
-            f"{row['shared']:.4f} ms, global table {row['global']:.4f} ms, "
-            f"plain {row['plain_ms']:.2f} ms; {row['candidates']} "
-            f"candidates; equal to the twin bit for bit on both routes")
+        log(f"[dfa_mask] W8={W8} B={B} L={L_MAX} S={S} C={C} p={p}: shared "
+            f"table {row['shared']:.4f} ms (device {row['shared_device']:.4f}"
+            f"), global table {row['global']:.4f} ms (device "
+            f"{row['global_device']:.4f}), plain {row['plain_ms']:.2f} ms; "
+            f"{row['candidates']} candidates; equal to the twin bit for bit "
+            "on both routes")
+    log(f"[dfa_mask] first design at p = 0.01 (recorded by "
+        f"experiments/torch_dfa_design.py on {DFA_FIRST_DESIGN_ON}): "
+        f"{DFA_FIRST_DESIGN_MS}")
     log(f"[dfa_mask] bound {res['bound_ms']:.4f} ms ({res['bound_by']}): "
-        f"{nbytes} bytes / 3.35 TB/s = {t_bytes:.4f} ms; {lookups} table "
-        f"lookups / ({sms} SMs x 32 banks x {mhz:.0f} MHz = {rate:.3e}/s) = "
-        f"{t_ops:.4f} ms; shared route {res['smem_bytes']} B of shared "
-        f"memory a block")
+        f"{nbytes} bytes (table {table_bytes}; the first design's full "
+        f"table {first_table_bytes}) / 3.35 TB/s = {t_bytes:.4f} ms; "
+        f"{lookups} table lookups / ({sms} SMs x 32 banks x {mhz:.0f} MHz "
+        f"= {rate:.3e}/s) = {t_ops:.4f} ms; shared route "
+        f"{res['smem_bytes']} B of shared memory a block")
     return res
 
 
@@ -1833,6 +1870,207 @@ def run_generate(dd, samples, allow, dfa, dev):
             "vocab": len(vocab), "split": split,
             "split_seconds": split_s, "busy": busy,
             "p1_64_candidates": len(got)}
+
+
+# ---------------------------------------------------------------------------
+# The f64 / exact conformance mode
+# ---------------------------------------------------------------------------
+
+F64_LONG = 8  # samples of 40-80 KB in the f64 phase
+F64_SHORT = 64  # the corpus's first samples in the f64 phase
+
+
+def f64_samples(samples):
+    """The f64 phase's samples: the corpus's first 64, then 8 of 40-80 KB
+    cut from the corpus joined (the chained encode route and the
+    81,920-byte E-step snippets)."""
+    import random
+
+    rng = random.Random(SEED + 64)
+    big = b"\n".join(samples[F64_SHORT:])
+    longs, off = [], 0
+    for _ in range(F64_LONG):
+        n = rng.randint(40_000, 80_000)
+        longs.append(big[off : off + n])
+        off += n
+    check(all(len(s) > 32768 for s in longs), "f64 phase: long samples")
+    return list(samples[:F64_SHORT]) + longs
+
+
+def check_f64_scans(lat, lc, vocab, samples, dev):
+    """The double instantiations of viterbi_scan, forward_scan and
+    backward_marginal_scan against their f64 twins on the card, on the f64
+    encode's and E-step's group of the corpus's first 64 samples (W =
+    8192, the exact probe's f64 cache, its chains): viterbi_scan bit for
+    bit, the two log-sum-exp scans within rtol 1e-12 (the card's double
+    exp / log against torch's); each timed beside its f32 instantiation
+    on the same inputs cast to float32, its plain version and its bound
+    (f64 operations at 34 TFLOP/s)."""
+    from tokengeex_tpu_torch.ops import lattice_cuda_fused as lcf
+    from tokengeex_tpu_torch.ops.match_table import TokenTable
+    from tokengeex_tpu_torch.train import estep_device as ed
+    from tokengeex_tpu_torch.utils.packing import pack_samples
+
+    f64 = torch.float64
+    tbl = lat.DeviceTables.from_table(TokenTable.build(vocab), dev, f64)
+    width = ed._pick_width(samples, None)
+    sub = next(g for _, g in ed._padded_groups(
+        pack_samples(samples, width=width), width, ed.ROW_MULT))
+    batch = lat.prepare_batch(sub, L_MAX, dev)
+    cache = lat.match_cache(tbl, batch, C=ed.CHUNK, dtype=f64)
+    W, L, B = cache[0].shape
+    fwd, bwd = lat.chain_bounds(batch)
+    K = fwd.shape[0] - 1
+    starts = batch.is_start[:, 1:].t().to(f64).contiguous()
+    hist = lat._hist0(batch, L, None, f64).clamp(min=lc.NEG).t().contiguous()
+    kw = {"pad": batch.pad}
+    A = lat.forward(tbl, batch, cache, chains=(fwd, bwd))
+    m_args = (cache[0], *lat._marginal_inputs(batch, A, L), bwd)
+    cases = {
+        "viterbi_scan": (lc.viterbi_scan, lc.viterbi_scan_plain,
+                         (cache[0], starts, hist, fwd),
+                         # the cache, starts, history and chain bounds
+                         # read, dp (8) and best_l (4) written; an add, a
+                         # max and a compare per (position, length)
+                         8 * (W * L * B + W * B + L * B) + 4 * (K + 1) * B
+                         + 12 * W * B, 3 * W * L * B),
+        "forward_scan": (lc.forward_scan, lc.forward_scan_plain,
+                         (cache[0], starts, hist, fwd),
+                         8 * (W * L * B + 2 * W * B + L * B)
+                         + 4 * (K + 1) * B, 5 * W * L * B + 4 * W * B),
+        "backward_marginal_scan": (
+            lc.backward_marginal_scan, lc.backward_marginal_scan_plain,
+            m_args,
+            # the cache, a, z, ends and history read, the marginals and
+            # betas written; per (position, length) the marginal's three
+            # adds, max and exp besides the betas' five operations
+            8 * (2 * W * L * B + 4 * W * B + L * B) + 4 * (K + 1) * B,
+            10 * W * L * B + 4 * W * B),
+    }
+    res = {"shape": {"W": W, "L": L, "B": B, "segments": K}}
+    for name, (fn, plain, args, nbytes, ops) in cases.items():
+        want = []
+        plain_ms = cuda_ms(lambda: want.append(plain(*args, **kw)), iters=1,
+                           warmup=0)
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        if name == "viterbi_scan":
+            for g_, w_ in zip(got, want[0]):
+                check(torch.equal(g_, w_), f"{name}[f64] differs from its "
+                      "twin")
+            err = max_abs_err(got[0], want[0][0])
+        elif name == "forward_scan":
+            err = assert_rel(got, want[0], f"{name}[f64]", 1e-12)
+        else:
+            err = max(assert_rel(g_, w_, f"{name}[f64]", 1e-12)
+                      for g_, w_ in zip(got, want[0]))
+        del want
+        ms = cuda_ms(lambda: fn(*args, **kw), iters=10)
+        a32 = [a.float() if a.is_floating_point() else a for a in args]
+        ms32 = cuda_ms(lambda: fn(*a32, **kw), iters=10)
+        b_ms, b_by = bound(nbytes, ops, F64_OPS_PER_S)
+        res[name] = {"max_abs_err": err, "ms": ms, "f32_ms": ms32,
+                     "f64_over_f32": ms / ms32, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by}
+        log(f"{name}[f64] (W={W}, L={L}, B={B}, {K} segments): {ms:.4f} ms "
+            f"(f32 on the same inputs {ms32:.4f} ms, x{ms / ms32:.2f}), "
+            f"plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), max "
+            f"|err| {err:.3e} against its f64 twin")
+        del a32
+    return res
+
+
+def run_f64(vocab, samples, dev):
+    """Phase 3h: the f64 / exact conformance mode on the card (see the
+    module docstring)."""
+    from tokengeex_tpu_torch import Model
+    from tokengeex_tpu_torch.ops import lattice as lat
+    from tokengeex_tpu_torch.ops import lattice_cuda as lc
+    from tokengeex_tpu_torch.train import estep_device as ed
+    from tokengeex_tpu_torch.train.prune import MAX_SAMPLE_LENGTH
+
+    f64 = torch.float64
+    model = Model(vocab)
+    batch = f64_samples(samples)
+    total = sum(map(len, batch))
+    scans = (lc.viterbi_scan, lc.forward_scan, lc.backward_marginal_scan)
+    ed.encode_corpus_device(model, batch[:4], dtype=f64, device=dev)  # warm
+    torch.cuda.synchronize()
+    for fn in scans:
+        fn.launches = fn.launches_f64 = 0
+    t0 = time.perf_counter()
+    ids = ed.encode_corpus_device(model, batch, dtype=f64, device=dev)
+    enc_s = time.perf_counter() - t0
+    enc_launches = lc.viterbi_scan.launches_f64
+    check(enc_launches > 0 and lc.viterbi_scan.launches == 0,
+          f"[f64] encode launched viterbi_scan[f64] {enc_launches} and "
+          f"viterbi_scan {lc.viterbi_scan.launches} times")
+    t0 = time.perf_counter()
+    want = [model.oracle.encode(s) for s in batch]
+    oracle_s = time.perf_counter() - t0
+    check(ids == want, "[f64] encode ids differ from the oracle's")
+    t0 = time.perf_counter()
+    ed.encode_corpus_device(model, batch, device=dev)
+    enc32_s = time.perf_counter() - t0
+
+    def estep(device=dev, dtype=f64):
+        return ed.run_e_step_device(model, batch, 0.0, MAX_SAMPLE_LENGTH,
+                                    dtype=dtype, device=device)
+
+    estep()  # warm
+    torch.cuda.synchronize()
+    for fn in scans:
+        fn.launches = fn.launches_f64 = 0
+    t0 = time.perf_counter()
+    got = estep()
+    est_s = time.perf_counter() - t0
+    est_launches = {"forward_scan": lc.forward_scan.launches_f64,
+                    "backward_marginal_scan":
+                        lc.backward_marginal_scan.launches_f64}
+    check(est_launches["forward_scan"] > 0
+          and est_launches["backward_marginal_scan"]
+          == est_launches["forward_scan"]
+          and lc.forward_scan.launches == 0
+          and lc.backward_marginal_scan.launches == 0,
+          f"[f64] E-step launches {est_launches}, f32 "
+          f"{lc.forward_scan.launches} / {lc.backward_marginal_scan.launches}")
+    t0 = time.perf_counter()
+    estep(dtype=None)
+    est32_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = estep(device="cpu")
+    cpu_s = time.perf_counter() - t0
+    tot_rel = abs(got.sum() - cpu.sum()) / cpu.sum()
+    check(tot_rel <= 1e-8 and bool(np.allclose(got, cpu, rtol=1e-8,
+                                               atol=1e-9)),
+          f"[f64] E-step total {got.sum()} is {tot_rel:.2e} from the CPU "
+          f"f64 run's {cpu.sum()}")
+    seen = cpu >= 0.5
+    cnt_rel = float((np.abs(got - cpu)[seen] / cpu[seen]).max())
+    res = {"samples": len(batch), "bytes": total,
+           "long_samples": F64_LONG,
+           "encode_seconds": enc_s, "encode_mb_per_s": total / enc_s / 1e6,
+           "encode_f32_seconds": enc32_s,
+           "encode_f32_mb_per_s": total / enc32_s / 1e6,
+           "encode_launches_f64": enc_launches, "oracle_seconds": oracle_s,
+           "estep_seconds": est_s, "estep_mb_per_s": total / est_s / 1e6,
+           "estep_f32_seconds": est32_s,
+           "estep_f32_mb_per_s": total / est32_s / 1e6,
+           "estep_launches_f64": est_launches, "cpu_seconds": cpu_s,
+           "total": float(got.sum()), "cpu_total": float(cpu.sum()),
+           "total_rel_diff": tot_rel, "max_rel_diff_counts_ge_0.5": cnt_rel,
+           "tokens": sum(map(len, ids))}
+    log(f"[f64] {len(batch)} samples, {total} bytes ({F64_LONG} of 40-80 "
+        f"KB): encode {enc_s:.3f} s = {res['encode_mb_per_s']:.2f} MB/s "
+        f"(f32 {enc32_s:.3f} s = {res['encode_f32_mb_per_s']:.2f} MB/s), "
+        f"viterbi_scan[f64] launched {enc_launches} times, ids equal to the "
+        f"oracle's ({oracle_s:.2f} s on the host); E-step {est_s:.3f} s = "
+        f"{res['estep_mb_per_s']:.2f} MB/s (f32, 1 KB snippets, "
+        f"{est32_s:.3f} s = {res['estep_f32_mb_per_s']:.2f} MB/s), launches "
+        f"{est_launches}; total {got.sum():.6f} vs the CPU f64 run's "
+        f"{cpu.sum():.6f} (rel {tot_rel:.2e}, {cpu_s:.1f} s), max rel on "
+        f"counts >= 0.5 {cnt_rel:.2e}")
+    return res
 
 
 # The README recipe through the CLI, cut to a ~2 MB slice of the corpus
@@ -2039,6 +2277,10 @@ def main() -> None:
     dfa_all = compile_dfa(allow)
     mask = check_dfa_mask(dd, samples, dfa_all, dev)
     torch.cuda.empty_cache()
+    # The double instantiations on the f64 route's group.
+    scans64 = check_f64_scans(lat, lc, vocab_a,
+                              f64_samples(samples)[:F64_SHORT], dev)
+    torch.cuda.empty_cache()
 
     # -- 3. end to end --
     phase_start("3")
@@ -2113,6 +2355,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_start("3g")
     recipe = run_cli_recipe(samples, dev)
+    torch.cuda.empty_cache()
+    phase_start("3h")
+    conform = run_f64(vocab_a, samples, dev)
 
     # -- 4. kernels line --
     phase_start("4")
@@ -2173,6 +2418,14 @@ def main() -> None:
         entry("dfa_mask", "dfa_mask.cu",
               "tokengeex_tpu/ops/dfa_device.py:75", generated["launches"],
               mask),
+        entry("viterbi_scan[f64]", "viterbi_chunk.cu", f"{pallas}:72",
+              conform["encode_launches_f64"], scans64["viterbi_scan"]),
+        entry("forward_chunk[f64]", "forward_chunk.cu", f"{pallas}:176",
+              conform["estep_launches_f64"]["forward_scan"],
+              scans64["forward_scan"]),
+        entry("backward_chunk[f64]", "backward_chunk.cu", f"{pallas}:238",
+              conform["estep_launches_f64"]["backward_marginal_scan"],
+              scans64["backward_marginal_scan"]),
     ]}
     record = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_seconds": build_s,
@@ -2189,7 +2442,8 @@ def main() -> None:
               "session": session, "session_over_budget": over_budget,
               "prune": pruned, "prune_fused": pruned_f,
               "dfa_mask": mask, "generate": generated,
-              "cli_recipe": recipe, "kernels": line["kernels"]}
+              "cli_recipe": recipe, "f64_scans": scans64, "f64": conform,
+              "kernels": line["kernels"]}
     out = HERE / "chiprun_out"
     try:
         out.mkdir(exist_ok=True)

@@ -829,6 +829,62 @@ def test_cuda_dfa_mask_matches_twin(cuda_device, route, p, L):
     assert bool(got.any())
 
 
+def _ragged_rows(samples, W8, dev):
+    """(B, W8) rows of the samples cut to W8 bytes, and their lengths."""
+    cut = [s[:W8] for s in samples]
+    arr, lens = dd.pack_group(cut, len(cut), W8)
+    return (torch.from_numpy(arr).to(dev), torch.from_numpy(lens).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["shared", "global"])
+@pytest.mark.parametrize("p", [1.0, 0.01])
+@pytest.mark.parametrize("L", [16, 24])
+@pytest.mark.parametrize("W8", [512, 1056, 3104])
+def test_cuda_dfa_mask_ragged_last_tile(cuda_device, route, p, L, W8):
+    """Rows whose width is not a multiple of the kernel's 1,024-position
+    tile: the row's last tile is shorter, its halo past the row."""
+    rows, lens = _ragged_rows(_feed_samples(2), W8, cuda_device)
+    ddfa = dd._device_dfa_for(_all_patterns_dfa(), cuda_device)
+    want = dd.packed_candidate_mask_plain(ddfa, rows, lens, L, p, 5, 77)
+    got = dd.packed_candidate_mask(ddfa, rows, lens, L, p, 5, 77,
+                                   table=route)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and bool(got.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["shared", "global"])
+@pytest.mark.parametrize("p", [1.0, 0.01])
+def test_cuda_dfa_mask_uint16_entries(cuda_device, route, p):
+    """A DFA of over 256 states takes the uint16 class table."""
+    from tokengeex_tpu_torch.core.redfa import ByteDFA
+
+    # As tests/test_torch_generate.py `_random_dfa` (this file runs
+    # without JAX, so it keeps its own copy).
+    rng = np.random.default_rng(9)
+    group = rng.permutation(np.arange(256) % 40)
+    cols = rng.integers(1, 300, (300, 40))
+    cols[rng.random((300, 40)) < 0.3] = 0
+    cols[0] = 0
+    accept = rng.random(300) < 0.4
+    accept[0] = False
+    dfa = ByteDFA(np.ascontiguousarray(cols[:, group]).astype(np.int32),
+                  accept, 1)
+    ddfa = dd.DeviceDFA.from_byte_dfa(dfa, cuda_device)
+    assert ddfa.entry_bytes == 2 and dd.pick_route(ddfa) == "shared"
+    samples = _feed_samples(3)
+    W8, B = dd.group_shape(samples, 1 << 23)
+    arr, lens = dd.pack_group(samples, B, W8)
+    rows = torch.from_numpy(arr).to(cuda_device)
+    lens = torch.from_numpy(lens).to(cuda_device)
+    want = dd.packed_candidate_mask_plain(ddfa, rows, lens, 16, p, 3, 0)
+    got = dd.packed_candidate_mask(ddfa, rows, lens, 16, p, 3, 0,
+                                   table=route)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and bool(got.any())
+
+
 @pytest.mark.cuda
 def test_cuda_feed_counts_match_cpu(cuda_device):
     """Same coins and exact keys: the card's counts equal the CPU's, and
@@ -877,3 +933,91 @@ def test_cuda_fused_probe_rejects_a_t2_slot_collision(cuda_device):
                                   device=cuda_device)
     assert lcf.fused_forward_chunk.launches == before + 1
     assert got == [model.oracle.encode(s.decode()) for s in samples]
+
+
+def _f64_scan_inputs(L, dropout, dev):
+    """`_scan_inputs`' batch in float64: the exact probe's f64 cache, the
+    forward's and the marginal scan's streams, both chain bounds."""
+    model, samples = _corpus(600, max_len=L)
+    tbl = lat.DeviceTables.from_table(
+        TokenTable.build(model.vocab, min_bits=16), dev, torch.float64)
+    batch = lat.prepare_batch(pack_samples(samples, width=1024), L, dev)
+    W = batch.width
+    cache = lat.match_cache(tbl, batch, C=512, dtype=torch.float64)
+    assert cache[0].dtype == torch.float64 and bool((cache[1] >= 0).any())
+    fwd, bwd = lat.chain_bounds(batch, 64)
+    du, kw = None, {"pad": batch.pad}
+    if dropout:
+        gen = torch.Generator(device=dev).manual_seed(L)
+        du = torch.randint(-(2**31), 2**31 - 1, tuple(batch.sid.shape),
+                           generator=gen, dtype=torch.int32, device=dev)
+        kw.update(du=du.t().contiguous(), dropout=dropout)
+    starts = batch.is_start[:, 1:].t().double().contiguous()
+    hist = lat._hist0(batch, L, None, torch.float64).clamp(
+        min=lc.NEG).t().contiguous()
+    A = lat.forward(tbl, batch, cache, drop_u=du, dropout=dropout)
+    assert A.dtype == torch.float64
+    marg = (cache[0], *lat._marginal_inputs(batch, A, L), bwd)
+    assert all(t.dtype == torch.float64 for t in marg[:5])
+    return (cache[0], starts, hist, fwd), marg, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("L", [8, 16, 32])
+def test_cuda_f64_scans_match_twins(cuda_device, L, dropout):
+    """The double instantiations of viterbi_scan (bit for bit),
+    forward_scan and backward_marginal_scan (rtol 1e-12: the card's
+    double exp / log against torch's) equal their f64 twins on the card,
+    each counted apart from the f32 launches."""
+    fwd_args, marg_args, kw = _f64_scan_inputs(L, dropout, cuda_device)
+    before = (lc.viterbi_scan.launches, lc.viterbi_scan.launches_f64,
+              lc.forward_scan.launches_f64,
+              lc.backward_marginal_scan.launches_f64)
+    want = lc.viterbi_scan_plain(*fwd_args, **kw)
+    got = lc.viterbi_scan(*fwd_args, **kw)
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.float64 and bool((want[1] > 1).any())
+    for g_, w in zip(got, want):
+        assert torch.equal(g_, w)
+    _assert_close(lc.forward_scan(*fwd_args, **kw),
+                  lc.forward_scan_plain(*fwd_args, **kw), 1e-12)
+    got = lc.backward_marginal_scan(*marg_args, **kw)
+    want = lc.backward_marginal_scan_plain(*marg_args, **kw)
+    torch.cuda.synchronize()
+    assert float(want[0].max()) > 0.5
+    for g_, w in zip(got, want):
+        _assert_close(g_, w, 1e-12)
+    assert (lc.viterbi_scan.launches, lc.viterbi_scan.launches_f64,
+            lc.forward_scan.launches_f64,
+            lc.backward_marginal_scan.launches_f64) == \
+        (before[0], before[1] + 1, before[2] + 1, before[3] + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_f64_encode_and_estep_match_cpu(cuda_device):
+    """Encode at f64 (a chained sample included) gives the CPU's ids; the
+    f64 E-step and session give the CPU's counts at rtol 1e-8; all
+    through the double kernels."""
+    model, samples = _corpus(600, seed=1)
+    mixed = samples[:80] + [b" ".join(samples)[:3000]]
+    f64 = torch.float64
+    before = (lc.viterbi_scan.launches_f64, lc.forward_scan.launches_f64,
+              lc.backward_marginal_scan.launches_f64)
+    got = ed.encode_corpus_device(model, mixed, dtype=f64, max_width=1024,
+                                  device=cuda_device)
+    assert got == ed.encode_corpus_device(model, mixed, dtype=f64,
+                                          max_width=1024, device="cpu")
+    assert got == [model.oracle.encode(s) for s in mixed]
+    est = ed.run_e_step_device(model, samples[:80], 0.0, 81920, dtype=f64,
+                               device=cuda_device)
+    want = ed.run_e_step_device(model, samples[:80], 0.0, 81920, dtype=f64,
+                                device="cpu")
+    np.testing.assert_allclose(est, want, rtol=1e-8, atol=1e-9)
+    sess = DeviceTrainSession(model, samples[:80], 81920, dtype=f64,
+                              device=cuda_device)
+    np.testing.assert_allclose(sess.e_step(model, 0.0, 0), want, rtol=1e-8,
+                               atol=1e-9)
+    after = (lc.viterbi_scan.launches_f64, lc.forward_scan.launches_f64,
+             lc.backward_marginal_scan.launches_f64)
+    assert all(a > b for a, b in zip(after, before))

@@ -117,13 +117,16 @@ def test_encode_dropout_properties(corpus, route):
 
 
 def test_f64_mode_not_ported(corpus):
+    """The f64 / exact mode, refused until it was ported, now runs: at
+    float64 and with probe="exact" at f32 the encode equals the oracle's
+    (tests/test_torch_f64.py holds it against the JAX package)."""
     _, model, samples = corpus
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ed.encode_corpus_device(model, samples[:2], dtype=torch.float64,
-                                device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ed.encode_corpus_device(model, samples[:2], probe="exact",
-                                device="cpu")
+    sub = [s if isinstance(s, bytes) else s.encode() for s in samples[:8]]
+    want = [model.oracle.encode(s) for s in sub]
+    assert ed.encode_corpus_device(model, sub, dtype=torch.float64,
+                                   device="cpu") == want
+    assert ed.encode_corpus_device(model, sub, probe="exact",
+                                   device="cpu") == want
 
 
 def test_tokenizer_matches_jax_checkpoint(tmp_path):

@@ -310,11 +310,85 @@ def test_generator_feeds_through_the_mask(monkeypatch):
 def test_all_named_patterns_compile_to_one_dfa():
     dfa = compile_dfa(build_allow_regex(load_patterns([p[0] for p in
                                                        PATTERNS])))
-    assert dfa.num_states * 512 < dd.SMEM_LIMIT
-    assert dd.pick_route(dd.DeviceDFA.from_byte_dfa(dfa, CPU)) == "shared"
+    ddfa = dd.DeviceDFA.from_byte_dfa(dfa, CPU)
+    # 245 states in 68 byte classes: a uint8 class table of 16,660 bytes.
+    assert (ddfa.num_states, ddfa.num_classes, ddfa.entry_bytes) == \
+        (245, 68, 1)
+    assert ddfa.table.numel() * ddfa.entry_bytes == 16660
+    # Several blocks of the shared route fit an SM.
+    assert dd.shared_table_bytes(ddfa) < dd.SMEM_LIMIT // 4
+    assert dd.pick_route(ddfa) == "shared"
     assert dd.pick_route(None) is None
-    big = type(dfa)(np.zeros((600, 256), np.int32), np.zeros(600, bool), 1)
-    assert dd.pick_route(dd.DeviceDFA.from_byte_dfa(big, CPU)) == "global"
+    # 600 states whose 256 byte columns all differ: 307,200 bytes of
+    # uint16 entries do not fit a block.
+    big = _random_dfa(type(dfa), 600, 256, seed=4)
+    dbig = dd.DeviceDFA.from_byte_dfa(big, CPU)
+    assert dbig.num_classes == 256 and dbig.entry_bytes == 2
+    assert dd.pick_route(dbig) == "global"
+
+
+def _random_dfa(cls, states, groups, seed):
+    """A ByteDFA of `states` states over `groups` random byte groups (the
+    bytes of a group share their columns), state 0 dead, a third of the
+    other transitions into it."""
+    rng = np.random.default_rng(seed)
+    group = rng.permutation(np.arange(256) % groups)
+    cols = rng.integers(1, states, (states, groups))
+    cols[rng.random((states, groups)) < 0.3] = 0
+    cols[0] = 0
+    accept = rng.random(states) < 0.4
+    accept[0] = False
+    return cls(np.ascontiguousarray(cols[:, group]).astype(np.int32),
+               accept, 1)
+
+
+def _class_table_dfas():
+    """(name, ByteDFA) of both packages: the named patterns' allow DFA,
+    the merge allow regex's, and a random DFA of 300 states (uint16
+    entries)."""
+    from tokengeex_tpu.core.redfa import ByteDFA as JByteDFA
+    from tokengeex_tpu_torch.core.redfa import ByteDFA
+
+    allow = build_allow_regex(load_patterns([p[0] for p in PATTERNS]))
+    merge = r"^(?: ?[A-Za-z_][A-Za-z0-9_]*|[[:punct:]]+)$"
+    big = _random_dfa(ByteDFA, 300, 40, seed=9)
+    return {"named_patterns": (jcompile_dfa(allow), compile_dfa(allow)),
+            "merge_allow": (jcompile_dfa(merge), compile_dfa(merge)),
+            "random_300": (JByteDFA(big.next, big.accept, big.start), big)}
+
+
+@pytest.mark.parametrize("name", ["named_patterns", "merge_allow",
+                                  "random_300"])
+def test_class_table_agrees_with_the_full_table(name):
+    _, dfa = _class_table_dfas()[name]
+    ddfa = dd.DeviceDFA.from_byte_dfa(dfa, CPU)
+    S = dfa.next.shape[0]
+    assert ddfa.num_states == S and ddfa.entry_bytes == (1 if S <= 256
+                                                         else 2)
+    assert ddfa.num_classes == len({tuple(c) for c in dfa.next.T})
+    tab = ddfa.next_states()
+    got = tab[:, ddfa.byte_class.to(torch.int64)]  # (S, 256)
+    assert np.array_equal(got.numpy(), dfa.next)
+
+
+@pytest.mark.parametrize("name", ["named_patterns", "merge_allow",
+                                  "random_300"])
+def test_class_table_twin_matches_jax(name):
+    """The twin walks the class table; the JAX package's XLA program the
+    full table: the same mask at p = 1."""
+    jdfa, dfa = _class_table_dfas()[name]
+    samples = [t.encode() for t in TEXTS + _texts(11, 60)]
+    samples += [b"def f(x):\n    return x + 1", b"  value_1 = 0x1F;"]
+    arr, lens = _rows(samples, 64)
+    L = 16
+    want = np.asarray(jdd.candidate_mask_device(
+        jdd.DeviceDFA.from_byte_dfa(jdfa), jnp.asarray(arr),
+        jnp.asarray(lens), L, 1.0, 0))
+    got = dd.candidate_mask(dd.DeviceDFA.from_byte_dfa(dfa, CPU),
+                            torch.from_numpy(arr), torch.from_numpy(lens),
+                            L, 1.0, 5)
+    assert np.array_equal(got.numpy(), want)
+    assert want.any()
 
 
 def test_device_dfa_is_uploaded_once():

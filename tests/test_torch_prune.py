@@ -105,12 +105,28 @@ def test_device_pruner_on_cpu_matches_oracle(oracle_pruned):
 
 
 @pytest.mark.parametrize("kw", [
-    {"backend": "auto"}, {"backend": "native"},
-    {"device_dtype": torch.float64}, {"corpus_sharded": True},
+    {"backend": "auto"}, {"backend": "native"}, {"corpus_sharded": True},
 ])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         prune.VocabularyPruner(80, **kw)
+
+
+def test_device_dtype_f64_runs(oracle_pruned):
+    """device_dtype=float64, refused until the f64 / exact mode was
+    ported, prunes through the session's f64 mode to the f64 oracle's
+    vocabulary and scores (tests/test_torch_f64.py holds it against the
+    JAX package's f64 pruner); other types raise."""
+    vocab, samples = _corpus()
+    got = prune.VocabularyPruner(backend="device", device="cpu",
+                                 device_dtype=torch.float64, **KW).prune(
+        _model(tg, vocab), samples)
+    want = {t.value: t.score for t in oracle_pruned.vocab}
+    assert sorted(t.value for t in got.vocab) == sorted(want)
+    np.testing.assert_allclose([t.score for t in got.vocab],
+                               [want[t.value] for t in got.vocab], rtol=1e-8)
+    with pytest.raises(ValueError, match="device_dtype"):
+        prune.VocabularyPruner(80, device_dtype=torch.float16)
 
 
 def test_device_pruner_needs_a_device_without_cuda(monkeypatch):

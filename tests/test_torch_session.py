@@ -310,8 +310,6 @@ def test_session_needs_a_device_without_cuda(corpus, monkeypatch):
 
 @pytest.mark.parametrize("kw,exc", [
     ({"local_shard": True}, NotImplementedError),
-    ({"dtype": torch.float64}, NotImplementedError),
-    ({"probe": "exact"}, NotImplementedError),
     ({"probe": "fast"}, ValueError),
     ({"kernel": "pallas"}, ValueError),
 ])
@@ -320,3 +318,22 @@ def test_session_unported_options_raise(corpus, kw, exc):
     _, m = _models(vocab)
     with pytest.raises(exc):
         DeviceTrainSession(m, samples, 256, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [{"dtype": torch.float64},
+                                {"probe": "exact"}])
+def test_session_f64_and_exact_probe_run(corpus, kw):
+    """dtype=float64 and probe="exact", refused until the f64 / exact mode
+    was ported, take the session's conformance mode: counts equal the
+    per-pass E-step's at the same type and probe, at the type's
+    tolerance (rtol 1e-8 at f64, 1e-5 at f32)."""
+    vocab, _, samples = corpus
+    _, m = _models(vocab)
+    sess = DeviceTrainSession(m, samples, 256, device="cpu", **kw)
+    assert sess.exact and not sess._fused()
+    got = sess.e_step(m, 0.0, 0)
+    want = ed.run_e_step_device(m, samples, 0.0, 256, device="cpu",
+                                dtype=kw.get("dtype"), probe="exact")
+    rtol = 1e-8 if kw.get("dtype") == torch.float64 else 1e-5
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol)
+    assert got.sum() > 0 and not sess.slot_cache

@@ -55,6 +55,11 @@
 // its bytes, the cache read once, are ~0.09 ms for a 8192 x 16 x 512
 // group.
 //
+// Float type: the marginal scan is templated on F, float everywhere and
+// double for the f64 / exact conformance E-step
+// (`tgx_backward_marginal_scan_f64`); the betas scan is f32 only (the f64
+// route takes no session betas).
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (tokengeex_tpu_torch/ops/_build.py).
 
@@ -65,24 +70,25 @@
 
 #include "scan_lanes.cuh"
 
-template <int LMAX, int G, bool DROP>
+template <typename F, int LMAX, int G, bool DROP>
 __global__ void __launch_bounds__(32) backward_marginal_scan_kernel(
-    const float* __restrict__ score,    // (n, L, B) start-indexed
-    const float* __restrict__ a,        // (n, B) forward value at a start
-    const float* __restrict__ z,        // (n, B) the sample's normaliser
-    const float* __restrict__ reset,    // (n, B) 1.0 where a sample ends at q
-    const float* __restrict__ hist_in,  // (L, B) betas after position n
+    const F* __restrict__ score,    // (n, L, B) start-indexed
+    const F* __restrict__ a,        // (n, B) forward value at a start
+    const F* __restrict__ z,        // (n, B) the sample's normaliser
+    const F* __restrict__ reset,    // (n, B) 1.0 where a sample ends at q
+    const F* __restrict__ hist_in,  // (L, B) betas after position n
     const int32_t* __restrict__ seg,    // (K+1, B) chain bounds, or null
     const int32_t* __restrict__ du,     // (pad + n + pad, B), DROP only
-    float* __restrict__ marg,           // (n, B, L)
-    float* __restrict__ betas,          // (n, B), or null
-    float* __restrict__ hist_out,       // (L, B), or null (K == 1 only)
+    F* __restrict__ marg,           // (n, B, L)
+    F* __restrict__ betas,          // (n, B), or null
+    F* __restrict__ hist_out,       // (L, B), or null (K == 1 only)
     int n, int L, int B, int pad, uint32_t thr_half) {
   constexpr int P = LMAX / G;   // lengths per lane: j = g + G * p
   constexpr int CH = 32 / G;    // chains (rows) per warp
   constexpr int D = TGX_SCAN_D;
+  const F NEG = tgx_neg<F>();
   // By step parity (one barrier a step), rows 16-byte aligned (SumRow).
-  __shared__ __align__(16) float e_s[2][CH][SumRow<LMAX>::stride];
+  __shared__ __align__(16) F e_s[2][CH][SumRow<LMAX>::stride];
   const int lane = threadIdx.x;
   const int g = lane % G;
   const int c = lane / G;
@@ -104,15 +110,15 @@ __global__ void __launch_bounds__(32) backward_marginal_scan_kernel(
   // The ring, D steps deep: this lane's P scores, the length-1 score, the
   // end flag, a, z and the dropout word of the step's start. Steps below
   // the array read its row 0, so no load is guarded by a branch.
-  float rs[D][P], r0[D], rf[D], ra[D], rz[D];
+  F rs[D][P], r0[D], rf[D], ra[D], rz[D];
   uint32_t ru[DROP ? D : 1];
   auto fetch = [&](int i, int q) {
     const int qc = max(q, 0);
-    const float* sq = score + (size_t)qc * L * Bs + rr;
+    const F* sq = score + (size_t)qc * L * Bs + rr;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
       const int j = g + G * p;
-      rs[i][p] = (j < L) ? sq[j * Bs] : TGX_NEG;
+      rs[i][p] = (j < L) ? sq[j * Bs] : NEG;
     }
     r0[i] = sq[0];
     const size_t o = (size_t)qc * Bs + rr;
@@ -124,17 +130,17 @@ __global__ void __launch_bounds__(32) backward_marginal_scan_kernel(
 
   // The history, as `tgx_lse_step` keeps it, and the one it takes at the
   // chain's first step: the row's (the last chain) or a reset's.
-  float h[P], hx[P], hs[P];
+  F h[P], hx[P], hs[P];
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     const int j = g + G * p;
-    h[p] = hx[p] = TGX_NEG;
-    hs[p] = (j >= L) ? TGX_NEG
+    h[p] = hx[p] = NEG;
+    hs[p] = (j >= L) ? NEG
           : (b1 == n) ? hist_in[j * Bs + rr]
-          : (j == 0 ? 0.0f : TGX_NEG);
+          : (j == 0 ? F(0) : NEG);
   }
-  float h0 = TGX_NEG;  // hist[0], on every lane of the group
-  const float hs0 = (b1 == n) ? hist_in[rr] : 0.0f;
+  F h0 = NEG;  // hist[0], on every lane of the group
+  const F hs0 = (b1 == n) ? hist_in[rr] : F(0);
 
   // One step, branch-free, so that the compiler can overlap a step's
   // shuffles and exponentials with its neighbours' across the ring.
@@ -146,30 +152,30 @@ __global__ void __launch_bounds__(32) backward_marginal_scan_kernel(
       hx[p] = start ? hs[p] : hx[p];
     }
     h0 = start ? hs0 : h0;
-    float sc[P];
+    F sc[P];
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      sc[p] = fmaxf(rs[i][p], TGX_NEG);
+      sc[p] = tgx_max(rs[i][p], NEG);
       if constexpr (DROP)
-        sc[p] = tgx_dropped(ru[i], g + G * p, thr_half) ? TGX_NEG : sc[p];
+        sc[p] = tgx_dropped(ru[i], g + G * p, thr_half) ? NEG : sc[p];
     }
     // The marginals read the history before the step: h holds every
     // hist[j], lane 0's h[0] included.
     const bool mine = q >= b0 && q < b1;
-    float* mq = marg + ((size_t)q * Bs + r) * L;
+    F* mq = marg + ((size_t)q * Bs + r) * L;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
       const int j = g + G * p;
-      const float m = expf(fmaxf(ra[i] + sc[p] + h[p] - rz[i], TGX_NEG));
+      const F m = tgx_exp(tgx_max(ra[i] + sc[p] + h[p] - rz[i], NEG));
       if (mine && j < L) mq[j] = m;
     }
     // Length 1 draws no coin; a + b == b + a, so the step adds as
     // cand[j] = s[j] + hist[j] did.
-    const bool end = rf[i] > 0.5f;
-    const float lse = tgx_lse_step<LMAX, G>(
-        h, hx, h0, sc, fmaxf(r0[i], TGX_NEG), end, &e_s[q & 1][c][0], g, L);
+    const bool end = rf[i] > F(0.5);
+    const F lse = tgx_lse_step<LMAX, G>(
+        h, hx, h0, sc, tgx_max(r0[i], NEG), end, &e_s[q & 1][c][0], g, L);
     if (betas != nullptr && g == 0 && mine)
-      betas[(size_t)q * Bs + r] = end ? 0.0f : lse;
+      betas[(size_t)q * Bs + r] = end ? F(0) : lse;
     fetch(i, q - D);  // the slot is consumed: refill it
   };
 
@@ -296,16 +302,16 @@ __global__ void __launch_bounds__(32) backward_betas_scan_kernel(
   }
 }
 
-template <int LMAX, int G>
-static int launch_marg(const float* score, const float* a, const float* z,
-                       const float* reset, const float* hist_in,
-                       const int32_t* seg, const int32_t* du, float* marg,
-                       float* betas, float* hist_out, int n, int L, int B,
+template <typename F, int LMAX, int G>
+static int launch_marg(const F* score, const F* a, const F* z,
+                       const F* reset, const F* hist_in,
+                       const int32_t* seg, const int32_t* du, F* marg,
+                       F* betas, F* hist_out, int n, int L, int B,
                        int K, int pad, uint32_t thr_half, bool drop,
                        cudaStream_t stream) {
   const int blocks = K * ((B + 32 / G - 1) / (32 / G));  // warp per (segment, 32/G rows)
-  auto kernel = drop ? backward_marginal_scan_kernel<LMAX, G, true>
-                     : backward_marginal_scan_kernel<LMAX, G, false>;
+  auto kernel = drop ? backward_marginal_scan_kernel<F, LMAX, G, true>
+                     : backward_marginal_scan_kernel<F, LMAX, G, false>;
   kernel<<<blocks, 32, 0, stream>>>(score, a, z, reset, hist_in, seg, du,
                                     marg, betas, hist_out, n, L, B, pad,
                                     thr_half);
@@ -350,22 +356,43 @@ extern "C" int tgx_backward_betas_scan(const float* score, const float* reset,
 // 1), betas and the history out only where their pointers are not null
 // (the history with K == 1). du may be null when use_drop == 0. Returns
 // cudaGetLastError() after the launch (0 on success).
+template <typename F>
+static int marginal_scan(const F* score, const F* a, const F* z,
+                         const F* reset, const F* hist_in, const int32_t* seg,
+                         const int32_t* du, F* marg, F* betas, F* hist_out,
+                         int n, int L, int B, int K, int pad,
+                         unsigned thr_half, int use_drop, void* stream) {
+#define TGX_LAUNCH(LM, GG)                                                   \
+  return launch_marg<F, LM, GG>(score, a, z, reset, hist_in, seg, du, marg,  \
+                                betas, hist_out, n, L, B, K, pad, thr_half,  \
+                                use_drop != 0, (cudaStream_t)stream)
+  TGX_SCAN_DISPATCH(L, TGX_LAUNCH);
+#undef TGX_LAUNCH
+}
+
 extern "C" int tgx_backward_marginal_scan(
     const float* score, const float* a, const float* z, const float* reset,
     const float* hist_in, const int32_t* seg, const int32_t* du, float* marg,
     float* betas, float* hist_out, int n, int L, int B, int K, int pad,
     unsigned thr_half, int use_drop, void* stream) {
-#define TGX_LAUNCH(LM, GG)                                                   \
-  return launch_marg<LM, GG>(score, a, z, reset, hist_in, seg, du, marg,     \
-                             betas, hist_out, n, L, B, K, pad, thr_half,     \
-                             use_drop != 0, (cudaStream_t)stream)
-  TGX_SCAN_DISPATCH(L, TGX_LAUNCH);
-#undef TGX_LAUNCH
+  return marginal_scan<float>(score, a, z, reset, hist_in, seg, du, marg,
+                              betas, hist_out, n, L, B, K, pad, thr_half,
+                              use_drop, stream);
 }
 
-// The chunk API: one START-indexed (C, L, B) slab, one chain per row, the
-// marginals ((C, B, L) in memory) and the history out. Returns
-// cudaGetLastError() after the launch.
+// The marginal scan in double (the f64 / exact conformance E-step):
+// double exp and log in full precision.
+extern "C" int tgx_backward_marginal_scan_f64(
+    const double* score, const double* a, const double* z,
+    const double* reset, const double* hist_in, const int32_t* seg,
+    const int32_t* du, double* marg, double* betas, double* hist_out, int n,
+    int L, int B, int K, int pad, unsigned thr_half, int use_drop,
+    void* stream) {
+  return marginal_scan<double>(score, a, z, reset, hist_in, seg, du, marg,
+                               betas, hist_out, n, L, B, K, pad, thr_half,
+                               use_drop, stream);
+}
+
 extern "C" int tgx_backward_chunk(const float* score, const float* a,
                                   const float* z, const float* ends,
                                   const float* hist_in, float* marg,

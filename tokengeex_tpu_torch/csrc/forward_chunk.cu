@@ -59,6 +59,10 @@
 // register ring. G = 16 at L <= 16 (one lane per length); G = 1 is one
 // thread per chain, the layout it was measured against (PERF.md).
 //
+// Float type: the kernel is templated on F, float everywhere and double
+// for the f64 / exact conformance E-step (`tgx_forward_scan_f64`): double
+// exp and log in full precision, the sentinel's value in double.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (tokengeex_tpu_torch/ops/_build.py).
 
@@ -69,21 +73,22 @@
 
 #include "scan_lanes.cuh"
 
-template <int LMAX, int G, bool DROP>
+template <typename F, int LMAX, int G, bool DROP>
 __global__ void __launch_bounds__(32) forward_scan_kernel(
-    const float* __restrict__ score,    // (n, L, B) cache or end-indexed slab
-    const float* __restrict__ reset,    // (n, B) 1.0 where dp index q+1 starts
-    const float* __restrict__ hist_in,  // (L, B)
+    const F* __restrict__ score,    // (n, L, B) cache or end-indexed slab
+    const F* __restrict__ reset,    // (n, B) 1.0 where dp index q+1 starts
+    const F* __restrict__ hist_in,  // (L, B)
     const int32_t* __restrict__ seg,    // (K+1, B) chain starts, or null
     const int32_t* __restrict__ du,     // (pad + n + pad, B), DROP only
-    float* __restrict__ a,              // (n, B)
-    float* __restrict__ hist_out,       // (L, B), or null (K == 1 only)
+    F* __restrict__ a,              // (n, B)
+    F* __restrict__ hist_out,       // (L, B), or null (K == 1 only)
     int n, int L, int B, int start_indexed, int pad, uint32_t thr_half) {
   constexpr int P = LMAX / G;   // lengths per lane: j = g + G * p
   constexpr int CH = 32 / G;    // chains (rows) per warp
   constexpr int D = TGX_SCAN_D;
+  const F NEG = tgx_neg<F>();
   // By step parity (one barrier a step), rows 16-byte aligned (SumRow).
-  __shared__ __align__(16) float e_s[2][CH][SumRow<LMAX>::stride];
+  __shared__ __align__(16) F e_s[2][CH][SumRow<LMAX>::stride];
   const int lane = threadIdx.x;
   const int g = lane % G;
   const int c = lane / G;
@@ -108,15 +113,15 @@ __global__ void __launch_bounds__(32) forward_scan_kernel(
 
   // The ring, D steps deep: this lane's P scores, the length-1 score, the
   // reset flag, and the dropout words of the lane's P tokens.
-  float rs[D][P], r0[D], rf[D];
+  F rs[D][P], r0[D], rf[D];
   uint32_t ru[DROP ? D : 1][DROP ? P : 1];
   auto fetch = [&](int i, int q) {
     if (row && q < hi) {
-      const float* sq = score + (long long)q * qs + r;
+      const F* sq = score + (long long)q * qs + r;
 #pragma unroll
       for (int p = 0; p < P; ++p) {
         const int j = g + G * p;
-        rs[i][p] = (j < L && q - j >= jlo) ? sq[j * js] : TGX_NEG;
+        rs[i][p] = (j < L && q - j >= jlo) ? sq[j * js] : NEG;
         if constexpr (DROP)
           ru[i][p] = (j < L) ? (uint32_t)du[(size_t)(pad + q - j) * Bs + r] : 0u;
       }
@@ -126,10 +131,10 @@ __global__ void __launch_bounds__(32) forward_scan_kernel(
   };
 
   // The history, as `tgx_lse_step` keeps it.
-  float h[P], hx[P];
+  F h[P], hx[P];
 #pragma unroll
-  for (int p = 0; p < P; ++p) h[p] = hx[p] = TGX_NEG;
-  float h0 = TGX_NEG;  // hist[0], on every lane of the group
+  for (int p = 0; p < P; ++p) h[p] = hx[p] = NEG;
+  F h0 = NEG;  // hist[0], on every lane of the group
 
 #pragma unroll
   for (int i = 0; i < D; ++i) fetch(i, lo + i);
@@ -143,23 +148,23 @@ __global__ void __launch_bounds__(32) forward_scan_kernel(
 #pragma unroll
         for (int p = 0; p < P; ++p) {
           const int j = g + G * p;
-          h[p] = (j >= L) ? TGX_NEG
+          h[p] = (j >= L) ? NEG
                : (b0 == 0) ? hist_in[j * Bs + r]
-               : (j == 0 ? 0.0f : TGX_NEG);
+               : (j == 0 ? F(0) : NEG);
           hx[p] = h[p];
         }
-        h0 = (b0 == 0) ? hist_in[r] : 0.0f;
+        h0 = (b0 == 0) ? hist_in[r] : F(0);
       }
-      float sc[P];
+      F sc[P];
 #pragma unroll
       for (int p = 0; p < P; ++p) {
-        sc[p] = fmaxf(rs[i][p], TGX_NEG);
+        sc[p] = tgx_max(rs[i][p], NEG);
         if constexpr (DROP)
-          if (tgx_dropped(ru[i][p], g + G * p, thr_half)) sc[p] = TGX_NEG;
+          if (tgx_dropped(ru[i][p], g + G * p, thr_half)) sc[p] = NEG;
       }
       // Length 1 draws no coin.
-      const float lse = tgx_lse_step<LMAX, G>(
-          h, hx, h0, sc, fmaxf(r0[i], TGX_NEG), rf[i] > 0.5f,
+      const F lse = tgx_lse_step<LMAX, G>(
+          h, hx, h0, sc, tgx_max(r0[i], NEG), rf[i] > F(0.5),
           &e_s[q & 1][c][0], g, L);
       if (g == 0 && q >= b0 && q < b1) a[(size_t)q * Bs + r] = lse;
       fetch(i, q + D);  // the slot is consumed: refill it
@@ -175,36 +180,56 @@ __global__ void __launch_bounds__(32) forward_scan_kernel(
   }
 }
 
-template <int LMAX, int G>
-static int launch(const float* score, const float* reset, const float* hist_in,
-                  const int32_t* seg, const int32_t* du, float* a,
-                  float* hist_out, int n, int L, int B, int K,
-                  int start_indexed, int pad, uint32_t thr_half, bool drop,
-                  cudaStream_t stream) {
+template <typename F, int LMAX, int G>
+static int launch(const F* score, const F* reset, const F* hist_in,
+                  const int32_t* seg, const int32_t* du, F* a, F* hist_out,
+                  int n, int L, int B, int K, int start_indexed, int pad,
+                  uint32_t thr_half, bool drop, cudaStream_t stream) {
   const int blocks = K * ((B + 32 / G - 1) / (32 / G));  // warp per (segment, 32/G rows)
   if (drop) {
-    forward_scan_kernel<LMAX, G, true><<<blocks, 32, 0, stream>>>(
+    forward_scan_kernel<F, LMAX, G, true><<<blocks, 32, 0, stream>>>(
         score, reset, hist_in, seg, du, a, hist_out, n, L, B, start_indexed,
         pad, thr_half);
   } else {
-    forward_scan_kernel<LMAX, G, false><<<blocks, 32, 0, stream>>>(
+    forward_scan_kernel<F, LMAX, G, false><<<blocks, 32, 0, stream>>>(
         score, reset, hist_in, seg, du, a, hist_out, n, L, B, start_indexed,
         pad, thr_half);
   }
   return (int)cudaGetLastError();
 }
 
-// Returns cudaGetLastError() after the launch (0 on success).
+template <typename F>
+static int scan(const F* score, const F* reset, const F* hist_in,
+                const int32_t* seg, const int32_t* du, F* a, F* hist_out,
+                int n, int L, int B, int K, int start_indexed, int pad,
+                unsigned thr_half, int use_drop, void* stream) {
+#define TGX_LAUNCH(LM, GG)                                                   \
+  return launch<F, LM, GG>(score, reset, hist_in, seg, du, a, hist_out, n,   \
+                           L, B, K, start_indexed, pad, thr_half,            \
+                           use_drop != 0, (cudaStream_t)stream)
+  TGX_SCAN_DISPATCH(L, TGX_LAUNCH);
+#undef TGX_LAUNCH
+}
+
 extern "C" int tgx_forward_scan(const float* score, const float* reset,
                                 const float* hist_in, const int32_t* seg,
                                 const int32_t* du, float* a, float* hist_out,
                                 int n, int L, int B, int K, int start_indexed,
                                 int pad, unsigned thr_half, int use_drop,
                                 void* stream) {
-#define TGX_LAUNCH(LM, GG)                                                   \
-  return launch<LM, GG>(score, reset, hist_in, seg, du, a, hist_out, n, L, B, \
-                        K, start_indexed, pad, thr_half, use_drop != 0,       \
-                        (cudaStream_t)stream)
-  TGX_SCAN_DISPATCH(L, TGX_LAUNCH);
-#undef TGX_LAUNCH
+  return scan<float>(score, reset, hist_in, seg, du, a, hist_out, n, L, B, K,
+                     start_indexed, pad, thr_half, use_drop, stream);
+}
+
+// The same scan in double (the f64 / exact conformance route): double
+// exp and log in full precision.
+extern "C" int tgx_forward_scan_f64(const double* score, const double* reset,
+                                    const double* hist_in,
+                                    const int32_t* seg, const int32_t* du,
+                                    double* a, double* hist_out, int n, int L,
+                                    int B, int K, int start_indexed, int pad,
+                                    unsigned thr_half, int use_drop,
+                                    void* stream) {
+  return scan<double>(score, reset, hist_in, seg, du, a, hist_out, n, L, B,
+                      K, start_indexed, pad, thr_half, use_drop, stream);
 }

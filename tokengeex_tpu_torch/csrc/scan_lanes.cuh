@@ -6,11 +6,21 @@
 // a butterfly of shuffles (exact in any order), the sum of the G * P
 // exponentials in ASCENDING j through shared memory, as the plain twins
 // sum them, so kernel and twin round alike.
+//
+// The helpers take the float type F of their values: float for every
+// kernel, double for the f64 instantiations of viterbi_scan, forward_scan
+// and backward_marginal_scan. A float step calls what the f32-only
+// helpers called (fmaxf, expf, logf, the -3e38f sentinel), so it compiles
+// to the same code; a double step takes fmax, exp and log in full
+// precision and the same sentinel's value in double.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #define TGX_NEG (-3.0e38f)
 #define TGX_ODD 2654435761u  // dropout per-length mixer
@@ -19,6 +29,33 @@
 // Steps whose loads are in flight ahead of the recurrence, in a register
 // ring (the step loop is unrolled D times, so every ring index is static).
 #define TGX_SCAN_D 8
+
+__device__ __forceinline__ float tgx_max(float a, float b) {
+  return fmaxf(a, b);
+}
+__device__ __forceinline__ double tgx_max(double a, double b) {
+  return fmax(a, b);
+}
+__device__ __forceinline__ float tgx_exp(float x) { return expf(x); }
+__device__ __forceinline__ double tgx_exp(double x) { return exp(x); }
+__device__ __forceinline__ float tgx_log(float x) { return logf(x); }
+__device__ __forceinline__ double tgx_log(double x) { return log(x); }
+
+// The sentinel "-inf" that survives the arithmetic (-3e38 as F), and -inf.
+template <typename F>
+__device__ __forceinline__ F tgx_neg() {
+  return static_cast<F>(TGX_NEG);
+}
+template <typename F>
+__device__ __forceinline__ F tgx_ninf() {
+  return static_cast<F>(-INFINITY);
+}
+
+// A parameter of type F that takes no part in deducing F.
+template <typename F>
+struct tgx_same {
+  using type = F;
+};
 
 // Token of length l = j + 1 > 1 is dropped iff its coin
 // ((du * (l * 2654435761)) >>> 1) falls under thr >>> 1 (uint32 math).
@@ -44,30 +81,31 @@ __device__ __forceinline__ void tgx_chain(const int32_t* seg, int k, int r,
 }
 
 // Max over the G lanes of a group (a butterfly; the max is exact).
-template <int G>
-__device__ __forceinline__ float tgx_group_max(float v) {
+template <int G, typename F>
+__device__ __forceinline__ F tgx_group_max(F v) {
 #pragma unroll
   for (int o = G / 2; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(TGX_FULL, v, o, G));
+    v = tgx_max(v, __shfl_xor_sync(TGX_FULL, v, o, G));
   return v;
 }
 
-// Row stride of a chain's exponentials in shared memory: 16-byte rows for
-// vector reads, and neighbouring chains' rows on other banks.
+// Row stride, in values, of a chain's exponentials in shared memory:
+// 16-byte rows for vector reads (LMAX + 4 is even, so double rows are too),
+// and neighbouring chains' rows on other banks.
 template <int LMAX>
 struct SumRow {
   static constexpr int stride = LMAX + 4;
 };
 
-// sum_j e[j] in ascending j, 0.0f first, as `_lse_step` adds; e is 0 for
-// j >= L, and adding +0.0f changes no sum, so every row adds all LMAX.
+// sum_j e[j] in ascending j, 0 first, as `_lse_step` adds; e is 0 for
+// j >= L, and adding +0 changes no sum, so every row adds all LMAX.
 // e_s is this chain's row of shared memory (G > 1), written by every lane
 // and read back whole by every lane.
-template <int LMAX, int G>
-__device__ __forceinline__ float tgx_ascending_sum(const float (&e)[LMAX / G],
-                                                   float* e_s, int g) {
+template <int LMAX, int G, typename F>
+__device__ __forceinline__ F tgx_ascending_sum(const F (&e)[LMAX / G],
+                                               F* e_s, int g) {
   constexpr int P = LMAX / G;
-  float t = 0.0f;
+  F t = F(0);
   if (G == 1) {
 #pragma unroll
     for (int j = 0; j < LMAX; ++j) t += e[j];
@@ -76,14 +114,24 @@ __device__ __forceinline__ float tgx_ascending_sum(const float (&e)[LMAX / G],
 #pragma unroll
   for (int p = 0; p < P; ++p) e_s[g + G * p] = e[p];
   __syncwarp();
-  const float4* v = reinterpret_cast<const float4*>(e_s);
+  if constexpr (std::is_same<F, float>::value) {
+    const float4* v = reinterpret_cast<const float4*>(e_s);
 #pragma unroll
-  for (int i = 0; i < LMAX / 4; ++i) {
-    const float4 x = v[i];
-    t += x.x;
-    t += x.y;
-    t += x.z;
-    t += x.w;
+    for (int i = 0; i < LMAX / 4; ++i) {
+      const float4 x = v[i];
+      t += x.x;
+      t += x.y;
+      t += x.z;
+      t += x.w;
+    }
+  } else {
+    const double2* v = reinterpret_cast<const double2*>(e_s);
+#pragma unroll
+    for (int i = 0; i < LMAX / 2; ++i) {
+      const double2 x = v[i];
+      t += x.x;
+      t += x.y;
+    }
   }
   return t;
 }
@@ -92,15 +140,15 @@ __device__ __forceinline__ float tgx_ascending_sum(const float (&e)[LMAX / G],
 // lane before, wrap[p] = hist[G - 1 + G*p] from the group's last lane.
 // Neither depends on the step's value, so a step issues them first and
 // `tgx_shift` only selects once the carry is known.
-template <int LMAX, int G>
-__device__ __forceinline__ void tgx_neighbours(const float (&h)[LMAX / G],
-                                               float (&up)[LMAX / G],
-                                               float (&wrap)[LMAX / G]) {
+template <int LMAX, int G, typename F>
+__device__ __forceinline__ void tgx_neighbours(const F (&h)[LMAX / G],
+                                               F (&up)[LMAX / G],
+                                               F (&wrap)[LMAX / G]) {
   constexpr int P = LMAX / G;
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     if (G == 1) {
-      up[p] = p > 0 ? h[p - 1] : 0.0f;
+      up[p] = p > 0 ? h[p - 1] : F(0);
       wrap[p] = h[p];
     } else {
       up[p] = __shfl_up_sync(TGX_FULL, h[p], 1, G);
@@ -110,11 +158,12 @@ __device__ __forceinline__ void tgx_neighbours(const float (&h)[LMAX / G],
 }
 
 // hist[j] <- hist[j-1], hist[0] <- carry, from `tgx_neighbours`' values.
-template <int LMAX, int G>
-__device__ __forceinline__ void tgx_shift(float (&h)[LMAX / G],
-                                          const float (&up)[LMAX / G],
-                                          const float (&wrap)[LMAX / G],
-                                          float carry, int g) {
+template <int LMAX, int G, typename F>
+__device__ __forceinline__ void tgx_shift(F (&h)[LMAX / G],
+                                          const F (&up)[LMAX / G],
+                                          const F (&wrap)[LMAX / G],
+                                          typename tgx_same<F>::type carry,
+                                          int g) {
   constexpr int P = LMAX / G;
 #pragma unroll
   for (int p = 0; p < P; ++p) {
@@ -137,42 +186,41 @@ __device__ __forceinline__ void tgx_shift(float (&h)[LMAX / G],
 // head needs no shuffle. The history shift's shuffles issue first. e_s is
 // the chain's row of shared memory for `tgx_ascending_sum`. Returns the
 // value.
-template <int LMAX, int G>
-__device__ __forceinline__ float tgx_lse_step(float (&h)[LMAX / G],
-                                              float (&hx)[LMAX / G],
-                                              float& h0,
-                                              const float (&s)[LMAX / G],
-                                              float s0, bool reset,
-                                              float* e_s, int g, int L) {
+template <int LMAX, int G, typename F>
+__device__ __forceinline__ F tgx_lse_step(F (&h)[LMAX / G], F (&hx)[LMAX / G],
+                                          F& h0, const F (&s)[LMAX / G],
+                                          typename tgx_same<F>::type s0,
+                                          bool reset, F* e_s, int g, int L) {
   constexpr int P = LMAX / G;
-  float up[P], wrap[P];
+  const F NEG = tgx_neg<F>();
+  F up[P], wrap[P];
   tgx_neighbours<LMAX, G>(h, up, wrap);
-  float cand[P];
-  float m1 = -INFINITY;  // max over j >= 1: ready before the carry
+  F cand[P];
+  F m1 = tgx_ninf<F>();  // max over j >= 1: ready before the carry
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     const int j = g + G * p;
-    cand[p] = -INFINITY;
+    cand[p] = tgx_ninf<F>();
     if (j < L) {
       cand[p] = hx[p] + s[p];
-      if (j > 0) m1 = fmaxf(m1, cand[p]);
+      if (j > 0) m1 = tgx_max(m1, cand[p]);
     }
   }
   m1 = tgx_group_max<G>(m1);
-  const float c0 = h0 + s0;
+  const F c0 = h0 + s0;
   if (g == 0) cand[0] = c0;
-  const float m = fmaxf(c0, m1);
-  const bool has = m > TGX_NEG * 0.5f;
-  const float safe = has ? m : 0.0f;
-  float e[P];
+  const F m = tgx_max(c0, m1);
+  const bool has = m > NEG * F(0.5);
+  const F safe = has ? m : F(0);
+  F e[P];
 #pragma unroll
   for (int p = 0; p < P; ++p)
-    e[p] = (g + G * p < L) ? expf(cand[p] - safe) : 0.0f;
-  const float t = tgx_ascending_sum<LMAX, G>(e, e_s, g);
-  const float lse = has ? safe + logf(t) : TGX_NEG;
-  const float carry = reset ? 0.0f : lse;
+    e[p] = (g + G * p < L) ? tgx_exp(cand[p] - safe) : F(0);
+  const F t = tgx_ascending_sum<LMAX, G>(e, e_s, g);
+  const F lse = has ? safe + tgx_log(t) : NEG;
+  const F carry = reset ? F(0) : lse;
   tgx_shift<LMAX, G>(h, up, wrap, carry, g);
-  tgx_shift<LMAX, G>(hx, up, wrap, TGX_NEG, g);
+  tgx_shift<LMAX, G>(hx, up, wrap, NEG, g);
   h0 = carry;
   return lse;
 }
@@ -193,25 +241,25 @@ __device__ __forceinline__ float tgx_lse_step(float (&h)[LMAX / G],
 //   m = max(c0, m1);  best = (j1 && m1 >= c0) ? j1 : (s0 valid && c0 >=
 //   m1) ? 0 : none.
 // Returns the value; best_l is set on every lane.
-template <int LMAX, int G>
-__device__ __forceinline__ float tgx_max_step(float (&h)[LMAX / G],
-                                              float (&hx)[LMAX / G],
-                                              float& h0,
-                                              const float (&s)[LMAX / G],
-                                              float s0, bool reset, int g,
-                                              int L, int& best_l) {
+template <int LMAX, int G, typename F>
+__device__ __forceinline__ F tgx_max_step(F (&h)[LMAX / G], F (&hx)[LMAX / G],
+                                          F& h0, const F (&s)[LMAX / G],
+                                          typename tgx_same<F>::type s0,
+                                          bool reset, int g, int L,
+                                          int& best_l) {
   constexpr int P = LMAX / G;
-  float up[P], wrap[P];
+  const F NEG = tgx_neg<F>();
+  F up[P], wrap[P];
   tgx_neighbours<LMAX, G>(h, up, wrap);
-  float cand[P];
-  float m1 = -INFINITY;  // max over j >= 1: ready before the carry
+  F cand[P];
+  F m1 = tgx_ninf<F>();  // max over j >= 1: ready before the carry
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     const int j = g + G * p;
-    cand[p] = -INFINITY;
+    cand[p] = tgx_ninf<F>();
     if (j > 0 && j < L) {
       cand[p] = hx[p] + s[p];
-      m1 = fmaxf(m1, cand[p]);
+      m1 = tgx_max(m1, cand[p]);
     }
   }
   m1 = tgx_group_max<G>(m1);
@@ -221,7 +269,7 @@ __device__ __forceinline__ float tgx_max_step(float (&h)[LMAX / G],
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     const int j = g + G * p;
-    const bool tie = j > 0 && j < L && cand[p] >= m1 && s[p] > TGX_NEG;
+    const bool tie = j > 0 && j < L && cand[p] >= m1 && s[p] > NEG;
     if (G == 1) {
       if (tie) j1 = p;
     } else {
@@ -229,15 +277,15 @@ __device__ __forceinline__ float tgx_max_step(float (&h)[LMAX / G],
       if (mine != 0u) j1 = (31 - __clz(mine)) + G * p;
     }
   }
-  const float c0 = h0 + s0;
-  const float m = fmaxf(c0, m1);
+  const F c0 = h0 + s0;
+  const F m = tgx_max(c0, m1);
   const int best = (j1 >= 0 && m1 >= c0) ? j1
-                   : (s0 > TGX_NEG && c0 >= m1) ? 0 : -1;
-  const float v = best >= 0 ? m : TGX_NEG;
+                   : (s0 > NEG && c0 >= m1) ? 0 : -1;
+  const F v = best >= 0 ? m : NEG;
   best_l = best >= 0 ? best + 1 : 1;
-  const float carry = reset ? 0.0f : v;
+  const F carry = reset ? F(0) : v;
   tgx_shift<LMAX, G>(h, up, wrap, carry, g);
-  tgx_shift<LMAX, G>(hx, up, wrap, TGX_NEG, g);
+  tgx_shift<LMAX, G>(hx, up, wrap, NEG, g);
   h0 = carry;
   return v;
 }

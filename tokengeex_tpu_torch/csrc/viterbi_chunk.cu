@@ -59,6 +59,11 @@
 // at L <= 16 were timed against 1, 2, 4 and 8
 // (experiments/torch_viterbi_design.py).
 //
+// Float type: the kernel is templated on F, float everywhere and double
+// for the f64 / exact conformance route (`tgx_viterbi_scan_f64`, the
+// f64 encode and frequency pass): the same adds and compares, the
+// sentinel's value in double, ties to the longest token.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (tokengeex_tpu_torch/ops/_build.py).
 
@@ -69,21 +74,22 @@
 
 #include "scan_lanes.cuh"
 
-template <int LMAX, int G, bool DROP>
+template <typename F, int LMAX, int G, bool DROP>
 __global__ void __launch_bounds__(32) viterbi_scan_kernel(
-    const float* __restrict__ score,    // (lead + n, L, B) cache or (n, L, B) slab
-    const float* __restrict__ reset,    // (n, B) 1.0 where dp index q+1 starts
-    const float* __restrict__ hist_in,  // (L, B)
+    const F* __restrict__ score,    // (lead + n, L, B) cache or (n, L, B) slab
+    const F* __restrict__ reset,    // (n, B) 1.0 where dp index q+1 starts
+    const F* __restrict__ hist_in,  // (L, B)
     const int32_t* __restrict__ seg,    // (K+1, B) chain starts, or null
     const int32_t* __restrict__ du,     // (pad + n + pad, B), DROP only
-    float* __restrict__ dp,             // (n, B)
+    F* __restrict__ dp,             // (n, B)
     int32_t* __restrict__ best_l,       // (n, B)
-    float* __restrict__ hist_out,       // (L, B), or null (K == 1 only)
+    F* __restrict__ hist_out,       // (L, B), or null (K == 1 only)
     int n, int L, int B, int start_indexed, int lead, int pad,
     uint32_t thr_half) {
   constexpr int P = LMAX / G;   // lengths per lane: j = g + G * p
   constexpr int CH = 32 / G;    // chains (rows) per warp
   constexpr int D = TGX_SCAN_D;
+  const F NEG = tgx_neg<F>();
   const int lane = threadIdx.x;
   const int g = lane % G;
   const int c = lane / G;
@@ -106,20 +112,20 @@ __global__ void __launch_bounds__(32) viterbi_scan_kernel(
   const long long qs = (long long)L * B;
   const long long js = start_indexed ? (long long)B - qs : (long long)B;
   const int jlo = start_indexed ? -lead : -LMAX;
-  const float* base = score + (start_indexed ? (long long)lead * qs : 0);
+  const F* base = score + (start_indexed ? (long long)lead * qs : 0);
 
   // The ring, D steps deep: this lane's P scores, the length-1 score, the
   // reset flag, and the dropout word of the token starting at q. Steps
   // past the array read its last one, so no load is guarded by a branch.
-  float rs[D][P], r0[D], rf[D];
+  F rs[D][P], r0[D], rf[D];
   uint32_t ru[DROP ? D : 1];
   auto fetch = [&](int i, int q) {
     const int qc = min(q, n - 1);
-    const float* sq = base + (long long)qc * qs + rr;
+    const F* sq = base + (long long)qc * qs + rr;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
       const int j = g + G * p;
-      rs[i][p] = (j < L && qc - j >= jlo) ? sq[j * js] : TGX_NEG;
+      rs[i][p] = (j < L && qc - j >= jlo) ? sq[j * js] : NEG;
     }
     r0[i] = sq[0];
     rf[i] = reset[(size_t)qc * Bs + rr];
@@ -141,17 +147,17 @@ __global__ void __launch_bounds__(32) viterbi_scan_kernel(
 
   // The history, as `tgx_max_step` keeps it, and the one it takes at the
   // chain's first step: the row's (chain 0) or a reset's.
-  float h[P], hx[P], hs[P];
+  F h[P], hx[P], hs[P];
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     const int j = g + G * p;
-    h[p] = hx[p] = TGX_NEG;
-    hs[p] = (j >= L) ? TGX_NEG
+    h[p] = hx[p] = NEG;
+    hs[p] = (j >= L) ? NEG
           : (b0 == 0) ? hist_in[j * Bs + rr]
-          : (j == 0 ? 0.0f : TGX_NEG);
+          : (j == 0 ? F(0) : NEG);
   }
-  float h0 = TGX_NEG;  // hist[0], on every lane of the group
-  const float hs0 = (b0 == 0) ? hist_in[rr] : 0.0f;
+  F h0 = NEG;  // hist[0], on every lane of the group
+  const F hs0 = (b0 == 0) ? hist_in[rr] : F(0);
 
   // One step, branch-free, so that the compiler can overlap a step's
   // shuffles with its neighbours' across the unrolled ring.
@@ -164,17 +170,17 @@ __global__ void __launch_bounds__(32) viterbi_scan_kernel(
     }
     h0 = start ? hs0 : h0;
     if constexpr (DROP) tgx_roll<LMAX, G>(dh, ru[i], g);
-    float sc[P];
+    F sc[P];
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      sc[p] = fmaxf(rs[i][p], TGX_NEG);
+      sc[p] = tgx_max(rs[i][p], NEG);
       if constexpr (DROP)
-        sc[p] = tgx_dropped(dh[p], g + G * p, thr_half) ? TGX_NEG : sc[p];
+        sc[p] = tgx_dropped(dh[p], g + G * p, thr_half) ? NEG : sc[p];
     }
     // Length 1 draws no coin.
     int bl;
-    const float v = tgx_max_step<LMAX, G>(
-        h, hx, h0, sc, fmaxf(r0[i], TGX_NEG), rf[i] > 0.5f, g, L, bl);
+    const F v = tgx_max_step<LMAX, G>(
+        h, hx, h0, sc, tgx_max(r0[i], NEG), rf[i] > F(0.5), g, L, bl);
     if (g == 0 && q >= b0 && q < b1) {
       dp[(size_t)q * Bs + r] = v;
       best_l[(size_t)q * Bs + r] = bl;
@@ -203,19 +209,33 @@ __global__ void __launch_bounds__(32) viterbi_scan_kernel(
   }
 }
 
-template <int LMAX, int G>
-static int launch(const float* score, const float* reset, const float* hist_in,
-                  const int32_t* seg, const int32_t* du, float* dp,
-                  int32_t* best_l, float* hist_out, int n, int L, int B, int K,
+template <typename F, int LMAX, int G>
+static int launch(const F* score, const F* reset, const F* hist_in,
+                  const int32_t* seg, const int32_t* du, F* dp,
+                  int32_t* best_l, F* hist_out, int n, int L, int B, int K,
                   int start_indexed, int lead, int pad, uint32_t thr_half,
                   bool drop, cudaStream_t stream) {
   const int blocks = K * ((B + 32 / G - 1) / (32 / G));  // warp per (segment, 32/G rows)
-  auto kernel = drop ? viterbi_scan_kernel<LMAX, G, true>
-                     : viterbi_scan_kernel<LMAX, G, false>;
+  auto kernel = drop ? viterbi_scan_kernel<F, LMAX, G, true>
+                     : viterbi_scan_kernel<F, LMAX, G, false>;
   kernel<<<blocks, 32, 0, stream>>>(score, reset, hist_in, seg, du, dp, best_l,
                                     hist_out, n, L, B, start_indexed, lead,
                                     pad, thr_half);
   return (int)cudaGetLastError();
+}
+
+template <typename F>
+static int scan(const F* score, const F* reset, const F* hist_in,
+                const int32_t* seg, const int32_t* du, F* dp, int32_t* best_l,
+                F* hist_out, int n, int L, int B, int K, int start_indexed,
+                int lead, int pad, unsigned thr_half, int use_drop,
+                void* stream) {
+#define TGX_LAUNCH(LM, GG)                                                   \
+  return launch<F, LM, GG>(score, reset, hist_in, seg, du, dp, best_l,       \
+                           hist_out, n, L, B, K, start_indexed, lead, pad,   \
+                           thr_half, use_drop != 0, (cudaStream_t)stream)
+  TGX_SCAN_DISPATCH(L, TGX_LAUNCH);
+#undef TGX_LAUNCH
 }
 
 // The whole-width scan: rows cut into K chains at seg (null: K = 1), the
@@ -229,12 +249,23 @@ extern "C" int tgx_viterbi_scan(const float* score, const float* reset,
                                 int start_indexed, int lead, int pad,
                                 unsigned thr_half, int use_drop,
                                 void* stream) {
-#define TGX_LAUNCH(LM, GG)                                                    \
-  return launch<LM, GG>(score, reset, hist_in, seg, du, dp, best_l, hist_out, \
-                        n, L, B, K, start_indexed, lead, pad, thr_half,       \
-                        use_drop != 0, (cudaStream_t)stream)
-  TGX_SCAN_DISPATCH(L, TGX_LAUNCH);
-#undef TGX_LAUNCH
+  return scan<float>(score, reset, hist_in, seg, du, dp, best_l, hist_out, n,
+                     L, B, K, start_indexed, lead, pad, thr_half, use_drop,
+                     stream);
+}
+
+// The same scan in double (the f64 / exact conformance route): every
+// float stream is double, the max-plus step the same adds and compares.
+extern "C" int tgx_viterbi_scan_f64(const double* score, const double* reset,
+                                    const double* hist_in, const int32_t* seg,
+                                    const int32_t* du, double* dp,
+                                    int32_t* best_l, double* hist_out, int n,
+                                    int L, int B, int K, int start_indexed,
+                                    int lead, int pad, unsigned thr_half,
+                                    int use_drop, void* stream) {
+  return scan<double>(score, reset, hist_in, seg, du, dp, best_l, hist_out, n,
+                      L, B, K, start_indexed, lead, pad, thr_half, use_drop,
+                      stream);
 }
 
 // The chunk API: one END-indexed (C, L, B) slab, one chain per row, the

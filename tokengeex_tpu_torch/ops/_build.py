@@ -36,6 +36,8 @@ KERNELS: Dict[str, Tuple[str, str, tuple]] = {
                       (P, P, P, P, P, P, I, I, I, P)),
     "viterbi_scan": ("viterbi_chunk.cu", "tgx_viterbi_scan",
                      (P,) * 8 + (I,) * 7 + (U, I, P)),
+    "viterbi_scan_f64": ("viterbi_chunk.cu", "tgx_viterbi_scan_f64",
+                         (P,) * 8 + (I,) * 7 + (U, I, P)),
     "fused_forward": ("fused_forward.cu", "tgx_fused_forward",
                       (P,) * 15 + (I,) * 7 + (U, P)),
     "fused_forward_lse": ("fused_forward.cu", "tgx_fused_forward_lse",
@@ -44,11 +46,16 @@ KERNELS: Dict[str, Tuple[str, str, tuple]] = {
                        (P,) * 12 + (I,) * 7 + (U, P)),
     "forward_scan": ("forward_chunk.cu", "tgx_forward_scan",
                      (P,) * 7 + (I,) * 6 + (U, I, P)),
+    "forward_scan_f64": ("forward_chunk.cu", "tgx_forward_scan_f64",
+                         (P,) * 7 + (I,) * 6 + (U, I, P)),
     "backward_chunk": ("backward_chunk.cu", "tgx_backward_chunk",
                        (P, P, P, P, P, P, P, I, I, I, P)),
     "backward_marginal_scan": ("backward_chunk.cu",
                                "tgx_backward_marginal_scan",
                                (P,) * 10 + (I,) * 5 + (U, I, P)),
+    "backward_marginal_scan_f64": ("backward_chunk.cu",
+                                   "tgx_backward_marginal_scan_f64",
+                                   (P,) * 10 + (I,) * 5 + (U, I, P)),
     "backward_betas_scan": ("backward_chunk.cu", "tgx_backward_betas_scan",
                             (P,) * 7 + (I,) * 5 + (U, I, P)),
     "seg_weights": ("seg_weights.cu", "tgx_seg_weights",
@@ -60,7 +67,7 @@ KERNELS: Dict[str, Tuple[str, str, tuple]] = {
     "walk_rows": ("viterbi_walk.cu", "tgx_walk_rows",
                   (P, P, LL, LL, I, I, I, P)),
     "dfa_mask": ("dfa_mask.cu", "tgx_dfa_mask",
-                 (P,) * 5 + (I,) * 6 + (U, I, LL, P)),
+                 (P,) * 6 + (I,) * 8 + (U, I, LL, P)),
 }
 
 _LOCK = threading.Lock()

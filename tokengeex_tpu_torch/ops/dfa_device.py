@@ -3,7 +3,9 @@
 Counterpart of tokengeex_tpu/ops/dfa_device.py. The reference tests every
 substring of every sample against the allow regex with a host regex
 engine (reference: src/generate.rs:80-111); the byte-DFA table
-(core/redfa.py) turns that into up to L table steps per start position.
+(core/redfa.py) turns that into up to L table steps per start position,
+which the device takes as a byte-class table (`DeviceDFA`: bytes with
+equal transition columns share a class).
 
 `packed_candidate_mask` computes the full (sample, pos, len) candidate
 mask -- allow-match AND insert-probability coin AND char boundaries --
@@ -39,11 +41,10 @@ log = logging.getLogger(__name__)
 
 MAX_LEN = 64  # longest candidate the kernel takes
 GROUP_BYTES = 1 << 23  # bytes of packed rows per mask group
-# The kernel's shared memory a block may use (H100: 227 KB), and what
-# it stages besides the table: the accept flags and a tile of 1024 bytes
-# with its halo.
+# The kernel's shared memory a block may use (H100: 227 KB), and its tile:
+# 1,024 positions with an L-byte halo (csrc/dfa_mask.cu).
 SMEM_LIMIT = 232448
-_TILE_SMEM = 1024 + MAX_LEN
+_TILE = 1024
 # Drain this many set mask bytes (up to 8 candidates each) at a time, so
 # that a chunk's (candidates, 8 ceil(L / 8)) int64 byte gathers stay
 # near 0.5 GB at L = 16 even at p = 1.
@@ -54,21 +55,48 @@ _ROUTES = {None: 0, "shared": 1, "global": 2}
 
 @dataclasses.dataclass(frozen=True)
 class DeviceDFA:
-    next_flat: torch.Tensor  # (num_states * 256,) int32 on the device
+    """A byte DFA as a byte-class table: bytes whose columns of the
+    transition table are equal across every state share a class, and
+    next(state, byte) = table[state * num_classes + byte_class[byte]]."""
+
+    byte_class: torch.Tensor  # (256,) uint8 on the device
+    # (num_states * num_classes,) next states: uint8 when num_states <=
+    # 256, else int16 holding the uint16 bits
+    table: torch.Tensor
     accept: torch.Tensor  # (num_states,) bool on the device
     start: int
     num_states: int
+    num_classes: int
+
+    @property
+    def entry_bytes(self) -> int:
+        return self.table.element_size()
 
     @staticmethod
     def from_byte_dfa(dfa: ByteDFA, device) -> "DeviceDFA":
+        nxt = np.asarray(dfa.next, dtype=np.int64)
+        S = nxt.shape[0]
+        if S > 1 << 16:
+            raise ValueError(f"{S} DFA states: the class table holds at "
+                             "most 65,536")
+        cols, cls = np.unique(nxt.T, axis=0, return_inverse=True)
+        tab = np.ascontiguousarray(cols.T).reshape(-1)
+        tab = (tab.astype(np.uint8) if S <= 256
+               else tab.astype(np.uint16).view(np.int16))
         return DeviceDFA(
-            next_flat=torch.as_tensor(np.ascontiguousarray(
-                dfa.next, dtype=np.int32).reshape(-1)).to(device),
+            byte_class=torch.as_tensor(
+                cls.reshape(-1).astype(np.uint8)).to(device),
+            table=torch.as_tensor(tab).to(device),
             accept=torch.as_tensor(np.asarray(dfa.accept, dtype=bool)).to(
                 device),
-            start=int(dfa.start),
-            num_states=int(dfa.next.shape[0]),
+            start=int(dfa.start), num_states=S, num_classes=cols.shape[0],
         )
+
+    def next_states(self) -> torch.Tensor:
+        """The class table as int64 next states, (num_states,
+        num_classes)."""
+        return (self.table.to(torch.int64) & 0xFFFF).reshape(
+            self.num_states, self.num_classes)
 
 
 def _device_dfa_for(dfa: ByteDFA, device) -> DeviceDFA:
@@ -104,9 +132,14 @@ def mix32(x: torch.Tensor) -> torch.Tensor:
 
 
 def seed_key(seed: int) -> int:
-    """k0 of the coin: mix(seed ^ 0x9E3779B9) as a Python int."""
-    x = torch.tensor([(int(seed) & _M32) ^ 0x9E3779B9], dtype=torch.int64)
-    return int(mix32(x)[0])
+    """k0 of the coin: mix(seed ^ 0x9E3779B9) as a Python int (`mix32`
+    in Python integers: no tensor work on the launch path)."""
+    x = (int(seed) & _M32) ^ 0x9E3779B9
+    x ^= x >> 16
+    x = (x * 0x7FEB352D) & _M32
+    x ^= x >> 15
+    x = (x * 0x846CA68B) & _M32
+    return x ^ (x >> 16)
 
 
 def coin_u32(seed: int, sample: torch.Tensor, pos: torch.Tensor,
@@ -139,15 +172,16 @@ def match_lengths(ddfa: DeviceDFA, bytes_arr: torch.Tensor,
     match."""
     B, W = bytes_arr.shape
     dev = bytes_arr.device
-    b64 = bytes_arr.to(torch.int64)
+    cls = ddfa.byte_class.to(torch.int64)[bytes_arr.to(torch.int64)]
     states = torch.full((B, W), ddfa.start, dtype=torch.int64, device=dev)
-    nf = ddfa.next_flat.to(torch.int64)
+    tab = ddfa.next_states().reshape(-1)
+    C = ddfa.num_classes
     pos = torch.arange(W, device=dev)[None, :]
     outs = []
     for l in range(1, max_len + 1):
         if l <= W:
-            stepped = torch.nn.functional.pad(b64[:, l - 1:], (0, l - 1))
-            states = nf[states * 256 + stepped]
+            stepped = torch.nn.functional.pad(cls[:, l - 1:], (0, l - 1))
+            states = tab[states * C + stepped]
             outs.append(ddfa.accept[states] & (pos + l <= W))
         else:
             outs.append(torch.zeros((B, W), dtype=torch.bool, device=dev))
@@ -223,20 +257,27 @@ def packed_candidate_mask_plain(ddfa: Optional[DeviceDFA],
 # ---------------------------------------------------------------------------
 
 
-def shared_table_bytes(num_states: int) -> int:
-    """Shared memory a block of the kernel's shared route takes."""
-    def pad16(n):
-        return -(-n // 16) * 16
-    return num_states * 512 + pad16(num_states) + pad16(_TILE_SMEM)
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def shared_table_bytes(ddfa: DeviceDFA) -> int:
+    """Shared memory a block of the kernel's shared route takes at the
+    longest candidate length (csrc/dfa_mask.cu `layout`): the class table
+    and the accept flags, the byte -> class map, the tile's class
+    halfwords with their halo, the tile's mask words, each warp's two
+    lists of live walks and the row length."""
+    return (_pad16(ddfa.num_states * ddfa.num_classes * ddfa.entry_bytes)
+            + _pad16(ddfa.num_states) + 256 + 2 * (_TILE + MAX_LEN)
+            + 128 * MAX_LEN + 8 * _TILE + 16)
 
 
 def pick_route(ddfa: Optional[DeviceDFA]) -> Optional[str]:
     """The kernel's table route: None without a DFA, "shared" when the
-    uint16 table fits a block's shared memory, else "global"."""
+    class table fits a block's shared memory, else "global"."""
     if ddfa is None:
         return None
-    return ("shared" if shared_table_bytes(ddfa.num_states) <= SMEM_LIMIT
-            else "global")
+    return "shared" if shared_table_bytes(ddfa) <= SMEM_LIMIT else "global"
 
 
 def packed_candidate_mask(ddfa: Optional[DeviceDFA], bytes_arr: torch.Tensor,
@@ -249,8 +290,8 @@ def packed_candidate_mask(ddfa: Optional[DeviceDFA], bytes_arr: torch.Tensor,
     row b holding sample `sample_base + b`).
 
     CUDA tensors launch csrc/dfa_mask.cu on the current stream; `table`
-    ("shared" or "global") forces the DFA table's route, which by default
-    `pick_route` takes by size. CPU tensors run
+    ("shared" or "global") forces the class table's route, which by
+    default `pick_route` takes by size. CPU tensors run
     `packed_candidate_mask_plain`."""
     B, W = bytes_arr.shape
     if not 1 <= max_len <= MAX_LEN:
@@ -273,32 +314,37 @@ def packed_candidate_mask(ddfa: Optional[DeviceDFA], bytes_arr: torch.Tensor,
         route = table or pick_route(ddfa)
         if route not in ("shared", "global"):
             raise ValueError(f"unknown table route {table!r}")
-        if route == "shared" and \
-                shared_table_bytes(ddfa.num_states) > SMEM_LIMIT:
-            raise ValueError(f"a {ddfa.num_states}-state table does not "
-                             "fit shared memory")
+        if route == "shared" and shared_table_bytes(ddfa) > SMEM_LIMIT:
+            raise ValueError(f"a {ddfa.num_states}-state class table does "
+                             "not fit shared memory")
     dev = bytes_arr.device
     out = torch.empty((B, max_len, W // 8), dtype=torch.uint8, device=dev)
     if B == 0:
         return out
+    if B * W >= 1 << 31:
+        raise ValueError(f"a ({B}, {W}) group is over 2^31 bytes")
     lens = valid_len.to(device=dev, dtype=torch.int32).contiguous()
     arr = bytes_arr.contiguous()
+    if arr.data_ptr() % 16:
+        arr = arr.clone()  # the kernel loads 16 bytes at a time
     if ddfa is None:
-        nf = acc = None
-        start, S = 0, 1
+        cls = tab = acc = None
+        start, S, C, esize = 0, 1, 1, 1
     else:
-        nf, acc = ddfa.next_flat, ddfa.accept
-        start, S = ddfa.start, ddfa.num_states
-        if nf.device != dev or acc.device != dev:
+        cls, tab, acc = ddfa.byte_class, ddfa.table, ddfa.accept
+        start, S, C = ddfa.start, ddfa.num_states, ddfa.num_classes
+        esize = ddfa.entry_bytes
+        if any(t.device != dev for t in (cls, tab, acc)):
             raise ValueError(f"the DFA tables are not on {dev}")
     fn = _build.load("dfa_mask")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(arr.data_ptr(), lens.data_ptr(),
-                None if nf is None else nf.data_ptr(),
-                None if acc is None else acc.data_ptr(), out.data_ptr(),
-                B, W, max_len, S, start, _ROUTES[route], seed_key(seed),
-                int(sample_base), coin_threshold(insert_probability), stream)
+                *(None if t is None else t.data_ptr()
+                  for t in (cls, tab, acc)), out.data_ptr(),
+                B, W, max_len, S, C, start, _ROUTES[route], esize,
+                seed_key(seed), int(sample_base),
+                coin_threshold(insert_probability), stream)
     if rc != 0:
         raise RuntimeError(f"dfa_mask launch failed: CUDA error {rc}")
     packed_candidate_mask.launches += 1

@@ -89,15 +89,6 @@ NEG = lc.NEG
 VSCAN_MAX_BITS = 15
 
 
-def check_f32(dtype=None, probe: Optional[str] = None) -> None:
-    """Raise for the float64 / exact-probe conformance mode, which is
-    not ported yet."""
-    if (dtype is not None and dtype != torch.float32) or probe == "exact":
-        raise NotImplementedError(
-            f"dtype={dtype}, probe={probe!r}: the float64 / exact-probe "
-            "conformance mode is not ported yet (ROADMAP.md, modules "
-            "still to port: 'f64 / exact mode')")
-
 
 class PhaseTimer:
     """Host seconds per phase of a pass. Synchronises the device at each
@@ -153,10 +144,9 @@ class DeviceTables:
                         checks fp2 alone, which T2's slot, a function of
                         fp2, half fixes); empty rows hold check 0 and
                         the -3e38 score sentinel. The table builder
-                        (ops/match_table.py) pins T1-shadowed clusters by
-                        fp2; under this check a token in T2 is shadowed
-                        only when its T1 slot's occupant shares its check
-                        word, ~2^-32 a token
+                        (ops/match_table.py) pins every (T1 slot, check
+                        word) cluster that would shadow a T2 token into
+                        T2, so each token resolves to itself
       t1_exact, t2_exact  (H, 4) int32 rows [fp1, fp2, len<<24 | id, 0];
                         empty rows hold 0xFFFFFFFF in the id word. The
                         backpointer walk (`viterbi_walk`) resolves a
@@ -164,7 +154,9 @@ class DeviceTables:
                         them
       t_bucket          (Hb, 16) int32 single-probe buckets of 8
                         interleaved [check, score] entries, or None
-      scores            (V,) f32 per-id scores
+      scores            (V,) per-id scores at the tables' float type:
+                        float64 for the f64 / exact route (the exact
+                        probe gathers them by id), float32 otherwise
       slot_to_id, slot_len        host (2H,) int64 token id (-1 empty) and
                                   length of each cuckoo slot (T1 then T2)
       bk_slot_to_id, bk_slot_len  host (8 Hb,) int64, the same per bucket
@@ -189,7 +181,10 @@ class DeviceTables:
     t2_exact: Optional[torch.Tensor] = None
 
     @staticmethod
-    def from_table(tbl: TokenTable, device) -> "DeviceTables":
+    def from_table(tbl: TokenTable, device,
+                   dtype: torch.dtype = torch.float32) -> "DeviceTables":
+        """The tables of `tbl` on `device`, the per-id scores at `dtype`
+        (float64 keeps the reference's f64 scores for the exact probe)."""
         scores64 = tbl.scores_f64
 
         def fast(t: np.ndarray) -> np.ndarray:
@@ -228,7 +223,8 @@ class DeviceTables:
         return DeviceTables.from_numpy(
             {"t1_fast": fast(tbl.t1), "t2_fast": fast(tbl.t2),
              "t1_exact": exact(tbl.t1), "t2_exact": exact(tbl.t2),
-             "t_bucket": tbl.bk, "scores": tbl.scores,
+             "t_bucket": tbl.bk,
+             "scores": scores64 if dtype == torch.float64 else tbl.scores,
              "slot_to_id": np.concatenate([ids1, ids2]),
              "slot_len": np.concatenate([lens1, lens2]),
              "bk_slot_to_id": tbl.bk_ids, "bk_slot_len": tbl.bk_lens},
@@ -241,7 +237,8 @@ class DeviceTables:
         """Tables from host arrays: `arrays` holds t1_fast, t2_fast,
         t_bucket (or None / empty) and scores, and optionally the exact
         tables t1_exact and t2_exact and the host slot maps slot_to_id,
-        slot_len, bk_slot_to_id and bk_slot_len;
+        slot_len, bk_slot_to_id and bk_slot_len; float64 scores stay
+        float64 (the exact route's), any other become float32;
         `meta` is (bits, max_len, vocab_size, bk_bits, bk_salt). With the
         JAX DeviceTables fields turned into numpy, both packages run on the
         very same tables and fold counts through the same slot maps."""
@@ -264,8 +261,10 @@ class DeviceTables:
         return DeviceTables(
             t1_fast=dev(arrays["t1_fast"], torch.int32),
             t2_fast=dev(arrays["t2_fast"], torch.int32),
-            scores=dev(np.asarray(arrays["scores"], np.float32),
-                       torch.float32),
+            scores=(dev(arrays["scores"], torch.float64)
+                    if np.asarray(arrays["scores"]).dtype == np.float64
+                    else dev(np.asarray(arrays["scores"], np.float32),
+                             torch.float32)),
             bits=int(bits), max_len=int(max_len),
             vocab_size=int(vocab_size),
             t_bucket=(dev(tb, torch.int32)
@@ -481,22 +480,27 @@ def _match_slab(
     L: int,
     drop_u: Optional[torch.Tensor] = None,  # (B, L+W+L) int32, padded like sid
     dropout: float = 0.0,
-    mode: str = "fast",  # "bucket" | "fast" ("em" is an alias of "fast")
+    mode: str = "fast",  # "bucket" | "fast" ("em" is an alias) | "exact"
     end_indexed: bool = False,
+    dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Match arrays for global positions [start, start+n_pos).
 
-    Returns (score, slot) of shape (B, L, n_pos), row j = token length
-    l = j+1, score -inf where no token matches. Start-indexed: column q
-    describes the token BEGINNING at position start+q. End-indexed: the
-    token ENDING at dp index start+q+1 (beginning at start+q-j).
+    Returns (score, aux) of shape (B, L, n_pos), row j = token length
+    l = j+1, score -inf where no token matches, at `dtype`. Start-indexed:
+    column q describes the token BEGINNING at position start+q.
+    End-indexed: the token ENDING at dp index start+q+1 (beginning at
+    start+q-j).
 
-    mode="bucket": one 16-word bucket row per probe, slot = bucket*8+k;
-    mode="fast": one (check, score) row per cuckoo table, T1 first, slot
-    = idx1 or H + idx2. Misses get slot num_slots / bk_num_slots.
+    mode="bucket": one 16-word bucket row per probe, aux = the slot
+    bucket*8+k; mode="fast": one (check, score) row per cuckoo table, T1
+    first, aux = the slot idx1 or H + idx2. Misses get slot num_slots /
+    bk_num_slots. mode="exact": one (fp1, fp2, len << 24 | id) row per
+    cuckoo table (t1_exact, t2_exact), both fingerprints and the length
+    checked, aux = the token id (-1 for a miss), the score gathered by id
+    from the tables' scores (the f64 / exact conformance route).
     """
-    check_f32(probe=mode)
-    if mode not in ("bucket", "fast", "em"):
+    if mode not in ("bucket", "fast", "em", "exact"):
         raise ValueError(f"unknown probe mode {mode!r}")
     dev = batch.p1.device
     off = batch.pad + start  # offset into padded arrays
@@ -549,6 +553,10 @@ def _match_slab(
     m2 = H.i32(int(H.IDX_M2))
     neg = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
 
+    if mode == "exact":
+        return _exact_probe(tbl, fp1, fp2, valid, lens, a1, a2, m1, m2,
+                            dtype)
+
     if mode == "bucket":
         # Descending k makes entry 0 win; build rejects duplicate
         # (bucket, fp2) pairs, so at most one entry truly matches.
@@ -566,7 +574,7 @@ def _match_slab(
             score = torch.where(m, sk, score)
             slot = torch.where(m, idxb * 8 + k, slot)
         ok = (score > -1.0e38) & valid
-        return (torch.where(ok, score, neg),
+        return (torch.where(ok, score, neg).to(dtype),
                 torch.where(ok, slot, tbl.bk_num_slots))
 
     shift = 32 - tbl.bits
@@ -587,10 +595,41 @@ def _match_slab(
                        torch.where(match2, idx2 + (1 << tbl.bits),
                                    tbl.num_slots))
     slot = torch.where(score > -1.0e38, slot, tbl.num_slots)
-    return score, slot.to(torch.int32)
+    return score.to(dtype), slot.to(torch.int32)
 
 
-def _probe_mode(tbl: DeviceTables) -> str:
+def _exact_probe(tbl: DeviceTables, fp1, fp2, valid, lens, a1, a2, m1, m2,
+                 dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`_match_slab`'s exact mode: a T1 or T2 row matches when it holds
+    both fingerprints and the length (its word 2 shifted right logically
+    by 24); the id is word 2's low 24 bits, T1 first; the score is
+    gathered by id at `dtype`, -inf for a miss."""
+    if tbl.t1_exact is None or tbl.t2_exact is None:
+        raise ValueError("the exact probe needs the tables' exact rows "
+                         "(DeviceTables.from_table makes them)")
+    shift = 32 - tbl.bits
+    idx1 = H.srl_i32(H.mul_i32(fp1 ^ a1, m1), shift).long()
+    idx2 = H.srl_i32(H.mul_i32(fp2 ^ a2, m2), shift).long()
+    ids = torch.full(fp1.shape, -1, dtype=torch.int32, device=fp1.device)
+    for t, idx in ((tbl.t2_exact, idx2), (tbl.t1_exact, idx1)):
+        row = t[idx]  # (..., 4); T1 last, so that it wins
+        hit = ((row[..., 0] == fp1) & (row[..., 1] == fp2)
+               & (H.srl_i32(row[..., 2], 24) == lens))
+        ids = torch.where(hit, row[..., 2] & 0xFFFFFF, ids)
+    ids = torch.where(valid, ids, -1)
+    found = ids >= 0
+    score = torch.where(found, tbl.scores[ids.clamp(min=0).long()],
+                        torch.tensor(NEG_INF, dtype=tbl.scores.dtype,
+                                     device=fp1.device)).to(dtype)
+    return score, ids
+
+
+def _probe_mode(tbl: DeviceTables, dtype: Optional[torch.dtype] = None
+                ) -> str:
+    """The probe a table and float type resolve to: exact for float64,
+    else bucket where the table has the buckets, else fast."""
+    if dtype == torch.float64:
+        return "exact"
     return "bucket" if tbl.t_bucket is not None else "fast"
 
 
@@ -601,6 +640,7 @@ def match_cache(
     probe: Optional[str] = None,
     lead: int = 0,
     slots: bool = True,
+    dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Probe the whole batch once: start-indexed (score, slot), each
     (lead + W, L, B) in the kernels' slab layout (positions major, rows
@@ -609,7 +649,9 @@ def match_cache(
     position p (the first `lead` <= pad columns the tokens beginning in
     the left pad: a chained window's tail); -inf score and slot = the
     miss index where nothing matches. slots=False keeps the scores only
-    (slot None). The cache holds no dropout: its readers draw the coins."""
+    (slot None). The cache holds no dropout: its readers draw the coins.
+    Scores are at `dtype` (float32 by default); float64 resolves the
+    exact probe, whose slots are token ids (-1 for a miss)."""
     B = batch.p1.shape[0]
     W = batch.width
     L = tbl.max_len
@@ -617,16 +659,17 @@ def match_cache(
         raise ValueError(f"chunk {C} does not divide width {W}")
     if not 0 <= lead <= batch.pad:
         raise ValueError(f"lead {lead} outside 0..{batch.pad}")
-    mode = probe or _probe_mode(tbl)
+    dtype = dtype or torch.float32
+    mode = probe or _probe_mode(tbl, dtype)
     dev = batch.p1.device
-    score = torch.empty((lead + W, L, B), dtype=torch.float32, device=dev)
+    score = torch.empty((lead + W, L, B), dtype=dtype, device=dev)
     slot = (torch.empty((lead + W, L, B), dtype=torch.int32, device=dev)
             if slots else None)
     spans = [(cs, C) for cs in range(0, W, C)]
     if lead:
         spans.insert(0, (-lead, lead))
     for cs, n in spans:
-        s, a = _match_slab(tbl, batch, cs, n, L, mode=mode)
+        s, a = _match_slab(tbl, batch, cs, n, L, mode=mode, dtype=dtype)
         score[lead + cs : lead + cs + n] = s.permute(2, 1, 0)
         if slots:
             slot[lead + cs : lead + cs + n] = a.permute(2, 1, 0)
@@ -697,17 +740,17 @@ def _scan_drop(drop_u: Optional[torch.Tensor], dropout: float) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _hist0(batch: DeviceBatch, L: int, carry) -> torch.Tensor:
+def _hist0(batch: DeviceBatch, L: int, carry,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(B, L) initial history: hist[:, j] = dp[-j]; rows whose carry mask
     is set take the previous window's last L dp values bit-exactly."""
     B = batch.p1.shape[0]
     dev = batch.p1.device
-    hist0 = torch.full((B, L), NEG_INF, dtype=torch.float32, device=dev)
+    hist0 = torch.full((B, L), NEG_INF, dtype=dtype, device=dev)
     hist0[:, 0] = torch.where(batch.is_start[:, 0], 0.0, NEG_INF)
     if carry is not None:
         mask, carry_hist = carry
-        hist0 = torch.where(mask[:, None], carry_hist.to(torch.float32),
-                            hist0)
+        hist0 = torch.where(mask[:, None], carry_hist.to(dtype), hist0)
     return hist0
 
 
@@ -726,10 +769,12 @@ def _scan_viterbi(
     cache: Optional[torch.Tensor] = None,
     chains: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     C: int = 512,
+    dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Slab route: probe the group once, start-indexed and without
-    dropout (scores only; `cache`, a start-indexed (W, L, B) score cache,
-    skips the probe), then run `viterbi_scan` once over the whole width,
+    dropout (scores only, at `dtype`; `cache`, a start-indexed (W, L, B)
+    score cache, skips the probe), then run `viterbi_scan` once over the
+    whole width,
     the rows cut into chains by the forward bounds of `chains`
     (`chain_bounds`, made here when not given), drawing the dropout coins
     in the kernel. carry = (mask (B,), hist0 (B, L)) chains the DP across
@@ -743,14 +788,14 @@ def _scan_viterbi(
         lead = L if carry is not None else 0
         with phase(timer, "probe"):
             cache = match_cache(tbl, batch, C, probe, lead=lead,
-                                slots=False)[0]
+                                slots=False, dtype=dtype)[0]
     with phase(timer, "kernel"):
         if chains is None:
             chains = chain_bounds(batch)
         dp, best_l = lc.viterbi_scan(
-            cache, batch.is_start[:, 1:].t().to(torch.float32).contiguous(),
-            _hist0(batch, L, carry).clamp(min=NEG).t().contiguous(),
-            chains[0], pad=batch.pad, lead=lead,
+            cache, batch.is_start[:, 1:].t().to(cache.dtype).contiguous(),
+            _hist0(batch, L, carry, cache.dtype).clamp(min=NEG).t()
+            .contiguous(), chains[0], pad=batch.pad, lead=lead,
             **_scan_drop(drop_u, dropout))
     return _finish(dp.t()), best_l.t()
 
@@ -820,10 +865,14 @@ def viterbi(tbl: DeviceTables, batch: DeviceBatch, C: int = 256,
     Returns (dp, best_l), each (B, W), indexed by dp index p-1.
     backend "slab" probes the group once (in chunks of C positions) and
     runs `viterbi_scan` over it; "fused" runs the fused probe kernel
-    (tables with has_vscan only). Both cut the rows into chains by
-    `chains` (`chain_bounds`, made here when not given). `carry` chains
-    windows of long samples (see _scan_viterbi)."""
-    check_f32(dtype, probe)
+    (tables with has_vscan only; f32 and the fast probe only). Both cut
+    the rows into chains by `chains` (`chain_bounds`, made here when not
+    given). `carry` chains windows of long samples (see _scan_viterbi).
+    dtype float64 (the f64 / exact route) takes the exact probe and the
+    double `viterbi_scan`; probe "exact" alone gathers f32 scores by id."""
+    if backend == "fused" and (dtype == torch.float64 or probe == "exact"):
+        raise ValueError("the fused kernels are f32 with the fast probe: "
+                         "the f64 / exact route takes backend='slab'")
     if backend == "fused":
         _check_fused_backend(tbl, None)
         return _scan_forward_fused(tbl, batch, drop_u, dropout, carry, timer,
@@ -831,7 +880,7 @@ def viterbi(tbl: DeviceTables, batch: DeviceBatch, C: int = 256,
     if backend != "slab":
         raise ValueError(f"unknown backend {backend!r}")
     return _scan_viterbi(tbl, batch, drop_u, dropout, probe, carry, timer,
-                         chains=chains, C=C)
+                         chains=chains, C=C, dtype=dtype)
 
 
 def forward(tbl: DeviceTables, batch: DeviceBatch,
@@ -857,17 +906,17 @@ def forward(tbl: DeviceTables, batch: DeviceBatch,
         raise ValueError(f"unknown backend {backend!r}")
     if cache is None:
         raise ValueError("the slab backend reads a match_cache cache")
+    ft = cache[0].dtype
     with phase(timer, "forward"):
         if chains is None:
             chains = chain_bounds(batch)
         a = lc.forward_scan(
-            cache[0], batch.is_start[:, 1:].t().to(torch.float32)
-            .contiguous(),
-            _hist0(batch, tbl.max_len, None).clamp(min=NEG).t()
+            cache[0], batch.is_start[:, 1:].t().to(ft).contiguous(),
+            _hist0(batch, tbl.max_len, None, ft).clamp(min=NEG).t()
             .contiguous(), chains[0], pad=batch.pad,
             **_scan_drop(drop_u, dropout))
         a = _finish(a.t())
-    a0 = torch.where(batch.is_start[:, :1], 0.0, NEG_INF)
+    a0 = torch.where(batch.is_start[:, :1], 0.0, NEG_INF).to(ft)
     return torch.cat([a0, a], dim=1)
 
 
@@ -886,11 +935,11 @@ def _marginal_inputs(batch: DeviceBatch, A: torch.Tensor, L: int):
     # starting at p belong to the next sample, whose forward value is the
     # post-reset 0.
     a = torch.where(batch.is_start[:, :W], 0.0, A[:, :W]).clamp(min=NEG)
-    ends = batch.is_end[:, :W].t().to(torch.float32).contiguous()
+    ends = batch.is_end[:, :W].t().to(A.dtype).contiguous()
     # hist[j] = beta[p + 1 + j]; a token ending exactly at W sees beta[W]
     # = 0 when a sample ends there.
     return (a.t().contiguous(), z.t().contiguous(), ends,
-            lcf.betas_hist0(batch.is_end[:, W], L))
+            lcf.betas_hist0(batch.is_end[:, W], L, A.dtype))
 
 
 def backward_expected(
@@ -916,18 +965,20 @@ def backward_expected(
     `forward`'s result over the same cache and dropout words. The
     marginals are added into the bins C positions at a time, which bounds
     the scatter's index temporaries, with the slots read in the order the
-    kernel lays the marginals out, (position, row, length). Returns an f32
-    (nbins,) slot-indexed tensor (bucket slots in "bucket" mode, cuckoo
-    slots in "fast" mode); fold it to per-token counts with
+    kernel lays the marginals out, (position, row, length). Returns a
+    (nbins,) slot-indexed tensor at the cache's float type (bucket slots
+    in "bucket" mode, cuckoo slots in "fast" mode, token ids in "exact"
+    mode, the f64 route's); fold it to per-token counts with
     `fold_expected`."""
     B = batch.p1.shape[0]
     W = batch.width
     L = tbl.max_len
     if W % C:
         raise ValueError(f"chunk {C} does not divide width {W}")
-    mode = probe or _probe_mode(tbl)
-    check_f32(probe=mode)
-    if nbins is None:
+    mode = probe or _probe_mode(tbl, cache[0].dtype)
+    if mode == "exact":
+        nbins = tbl.vocab_size
+    elif nbins is None:
         nbins = tbl.bk_num_slots if mode == "bucket" else tbl.num_slots
     dev = A.device
     with phase(timer, "backward"):
@@ -937,7 +988,7 @@ def backward_expected(
             cache[0], *_marginal_inputs(batch, A, L), chains[1],
             pad=batch.pad, **_scan_drop(drop_u, dropout))
     with phase(timer, "scatter"):
-        acc = torch.zeros(nbins + MISS_BINS, dtype=torch.float32, device=dev)
+        acc = torch.zeros(nbins + MISS_BINS, dtype=marg.dtype, device=dev)
         # Most probe points miss; sending every miss to one address would
         # serialise the atomic adds there, so they spread over scratch
         # bins.
@@ -946,7 +997,7 @@ def backward_expected(
         marg = marg.transpose(1, 2)  # the kernel's (W, B, L) memory
         for cs in range(0, W, C):
             bins = cache[1][cs : cs + C].transpose(1, 2).reshape(-1)
-            bins = torch.where(bins >= nbins, spread, bins)
+            bins = torch.where((bins >= nbins) | (bins < 0), spread, bins)
             acc.index_add_(0, bins, marg[cs : cs + C].reshape(-1))
     return acc[:nbins]
 
@@ -1415,11 +1466,15 @@ def pick_span_values(A: torch.Tensor, rows_idx, ends_idx) -> np.ndarray:
     return pick_span_values_device(A, rows_idx, ends_idx).cpu().numpy()
 
 
-def fold_expected(tbl: DeviceTables, acc: torch.Tensor) -> np.ndarray:
+def fold_expected(tbl: DeviceTables, acc: torch.Tensor,
+                  mode: Optional[str] = None) -> np.ndarray:
     """Fold a `backward_expected` accumulator to per-token counts (V,)
     f64 on the host, through the table's slot maps (bucket slots when
-    the accumulator has the bucket table's length, else cuckoo slots)."""
+    the accumulator has the bucket table's length, else cuckoo slots).
+    An "exact" mode accumulator is indexed by token id already."""
     acc = acc.detach().cpu().numpy().astype(np.float64)
+    if mode == "exact":
+        return acc
     if tbl.bk_slot_to_id is not None and \
             acc.shape[0] == tbl.bk_slot_to_id.shape[0]:
         mapping = tbl.bk_slot_to_id

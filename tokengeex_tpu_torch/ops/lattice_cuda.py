@@ -34,6 +34,10 @@ row = g * 128 + lane.
 
 Tie-breaking matches the reference: on equal candidates the LARGEST token
 length wins; a step with no candidate gives dp = NEG and best_l = 1.
+
+`viterbi_scan`, `forward_scan` and `backward_marginal_scan` also take
+float64 streams (the f64 / exact conformance route): the kernels' double
+instantiations, and the twins in float64, with the same NEG sentinel.
 """
 
 from __future__ import annotations
@@ -66,9 +70,10 @@ def _roll_insert(hist: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
     return torch.cat([row[None], hist[:-1]], dim=0)
 
 
-def _fresh_hist(L: int, B: int, device) -> torch.Tensor:
+def _fresh_hist(L: int, B: int, device,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(L, B) history at an inner chain start: a post-reset 0, then NEG."""
-    hist = torch.full((L, B), NEG, dtype=torch.float32, device=device)
+    hist = torch.full((L, B), NEG, dtype=dtype, device=device)
     hist[0] = 0.0
     return hist
 
@@ -84,10 +89,10 @@ def _viterbi_steps(score: torch.Tensor, starts: torch.Tensor,
     C, L, B = score.shape
     score = score.clamp(min=NEG)
     hist = hist0.clone()
-    fresh = _fresh_hist(L, B, score.device)
+    fresh = _fresh_hist(L, B, score.device, score.dtype)
     jrow = torch.arange(L, device=score.device)[:, None]
-    neg = torch.tensor(NEG, dtype=torch.float32, device=score.device)
-    dp = torch.empty((C, B), dtype=torch.float32, device=score.device)
+    neg = torch.tensor(NEG, dtype=score.dtype, device=score.device)
+    dp = torch.empty((C, B), dtype=score.dtype, device=score.device)
     best_l = torch.empty((C, B), dtype=torch.int32, device=score.device)
     for q in range(C):
         if restart is not None:
@@ -209,8 +214,8 @@ def _forward_steps(score: torch.Tensor, starts: torch.Tensor,
     C, L, B = score.shape
     score = score.clamp(min=NEG)
     hist = hist0.clone()
-    fresh = _fresh_hist(L, B, score.device)
-    a = torch.empty((C, B), dtype=torch.float32, device=score.device)
+    fresh = _fresh_hist(L, B, score.device, score.dtype)
+    a = torch.empty((C, B), dtype=score.dtype, device=score.device)
     for q in range(C):
         if restart is not None:
             hist = torch.where(restart[q], fresh, hist)
@@ -236,8 +241,8 @@ def _backward_steps(score: torch.Tensor, ends: torch.Tensor,
     C, L, B = score.shape
     score = score.clamp(min=NEG)
     hist = hist0.clone()
-    fresh = _fresh_hist(L, B, score.device)
-    betas = torch.empty((C, B), dtype=torch.float32, device=score.device)
+    fresh = _fresh_hist(L, B, score.device, score.dtype)
+    betas = torch.empty((C, B), dtype=score.dtype, device=score.device)
     marg = torch.empty_like(score) if az is not None else None
     for q in range(C - 1, -1, -1):
         if restart is not None:
@@ -466,22 +471,26 @@ def _check_seg(seg: torch.Tensor, B: int, W: int, device) -> None:
 def _check_scan(cache: torch.Tensor, flags: torch.Tensor,
                 hist0: torch.Tensor, seg: Optional[torch.Tensor],
                 du: Optional[torch.Tensor], dropout: float,
-                pad: int, lead: int = 0, rows: Optional[dict] = None) -> bool:
+                pad: int, lead: int = 0, rows: Optional[dict] = None,
+                f64: bool = False) -> bool:
     """Validate a whole-width scan's arguments (a cache of lead + W
-    positions, and besides `flags` the (W, B) f32 streams `rows`, by
-    name); returns True when the caller is to launch the CUDA kernel,
-    False for CPU tensors. Unlike the chunk wrappers, contiguity is
-    required on every device."""
+    positions, and besides `flags` the (W, B) streams `rows`, by name,
+    every float stream of the cache's type: float32, or float64 where the
+    scan has a double instantiation, `f64`); returns True when the caller
+    is to launch the CUDA kernel, False for CPU tensors. Unlike the chunk
+    wrappers, contiguity is required on every device."""
     _check(cache.dim() == 3, f"cache must be (W, L, B), got {tuple(cache.shape)}")
     _, L, B = cache.shape
     _check(0 <= lead <= min(L, cache.shape[0]),
            f"lead {lead} outside 0..{min(L, cache.shape[0])}")
     W = cache.shape[0] - lead
-    named = {"cache": (cache, torch.float32, None),
-             "flags": (flags, torch.float32, (W, B)),
-             "hist0": (hist0, torch.float32, (L, B))}
+    ft = cache.dtype if f64 and cache.dtype == torch.float64 \
+        else torch.float32
+    named = {"cache": (cache, ft, None),
+             "flags": (flags, ft, (W, B)),
+             "hist0": (hist0, ft, (L, B))}
     for name, t in (rows or {}).items():
-        named[name] = (t, torch.float32, (W, B))
+        named[name] = (t, ft, (W, B))
     if seg is not None:
         _check_seg(seg, B, W, cache.device)
     if dropout > 0.0:
@@ -517,27 +526,35 @@ def forward_scan(cache: torch.Tensor, starts: torch.Tensor,
     others from a reset);
     None runs one chain per row. With dropout > 0 a token of length > 1
     starting at p is dropped by its coin from du[pad + p]. Returns the
-    forward values a (W, B) f32, NEG where no path reaches.
+    forward values a (W, B) f32, NEG where no path reaches. Every float
+    stream in float64 runs the double instantiation (the f64 / exact
+    route), counted in `forward_scan.launches_f64`.
 
     CUDA tensors launch csrc/forward_chunk.cu on the current stream; CPU
     tensors run `forward_scan_plain`."""
-    if not _check_scan(cache, starts, hist0, seg, du, dropout, pad):
+    if not _check_scan(cache, starts, hist0, seg, du, dropout, pad,
+                       f64=True):
         return forward_scan_plain(cache, starts, hist0, seg, du,
                                   dropout=dropout, pad=pad)
     W, L, B = cache.shape
-    a = torch.empty((W, B), dtype=torch.float32, device=cache.device)
+    a = torch.empty((W, B), dtype=cache.dtype, device=cache.device)
     if W == 0 or B == 0:
         return a
     use_drop = dropout > 0.0
-    _launch("forward_scan", cache, starts, hist0, seg,
-            du if use_drop else None, a, None, W, L, B,
+    f64 = cache.dtype == torch.float64
+    _launch("forward_scan_f64" if f64 else "forward_scan", cache, starts,
+            hist0, seg, du if use_drop else None, a, None, W, L, B,
             1 if seg is None else seg.shape[0] - 1, 1, pad,
             dropout_threshold_half(dropout) if use_drop else 0, int(use_drop))
-    forward_scan.launches += 1
+    if f64:
+        forward_scan.launches_f64 += 1
+    else:
+        forward_scan.launches += 1
     return a
 
 
 forward_scan.launches = 0
+forward_scan.launches_f64 = 0
 
 
 def backward_betas_scan(cache: torch.Tensor, ends: torch.Tensor,
@@ -589,6 +606,8 @@ def backward_marginal_scan(cache: torch.Tensor, a: torch.Tensor,
     `chain_bounds`) and dropout as in `backward_betas_scan`. Returns the
     marginals marg (W, L, B) = exp(max(a + score + beta - z, NEG)) (0
     where the token is masked or dropped) and the post-reset betas (W, B).
+    Every float stream in float64 runs the double instantiation, counted
+    in `backward_marginal_scan.launches_f64`.
 
     CUDA tensors launch csrc/backward_chunk.cu's marginal scan on the
     current stream; its marginals are a (W, L, B) view of (W, B, L)
@@ -596,24 +615,30 @@ def backward_marginal_scan(cache: torch.Tensor, a: torch.Tensor,
     stores are whole lines. CPU tensors run
     `backward_marginal_scan_plain`."""
     if not _check_scan(cache, ends, hist0, seg, du, dropout, pad,
-                       rows={"a": a, "z": z}):
+                       rows={"a": a, "z": z}, f64=True):
         return backward_marginal_scan_plain(cache, a, z, ends, hist0, seg,
                                             du, dropout=dropout, pad=pad)
     W, L, B = cache.shape
-    marg = torch.empty((W, B, L), dtype=torch.float32, device=cache.device)
-    betas = torch.empty((W, B), dtype=torch.float32, device=cache.device)
+    marg = torch.empty((W, B, L), dtype=cache.dtype, device=cache.device)
+    betas = torch.empty((W, B), dtype=cache.dtype, device=cache.device)
     if W == 0 or B == 0:
         return marg.transpose(1, 2), betas
     use_drop = dropout > 0.0
-    _launch("backward_marginal_scan", cache, a, z, ends, hist0, seg,
-            du if use_drop else None, marg, betas, None, W, L, B,
-            1 if seg is None else seg.shape[0] - 1, pad,
-            dropout_threshold_half(dropout) if use_drop else 0, int(use_drop))
-    backward_marginal_scan.launches += 1
+    f64 = cache.dtype == torch.float64
+    _launch("backward_marginal_scan_f64" if f64 else "backward_marginal_scan",
+            cache, a, z, ends, hist0, seg, du if use_drop else None, marg,
+            betas, None, W, L, B, 1 if seg is None else seg.shape[0] - 1,
+            pad, dropout_threshold_half(dropout) if use_drop else 0,
+            int(use_drop))
+    if f64:
+        backward_marginal_scan.launches_f64 += 1
+    else:
+        backward_marginal_scan.launches += 1
     return marg.transpose(1, 2), betas
 
 
 backward_marginal_scan.launches = 0
+backward_marginal_scan.launches_f64 = 0
 
 
 def viterbi_scan(cache: torch.Tensor, starts: torch.Tensor,
@@ -631,26 +656,33 @@ def viterbi_scan(cache: torch.Tensor, starts: torch.Tensor,
     chains (the first from hist0, the others from a reset); None runs one
     chain per row. Dropout as in `forward_scan`. Returns dp (W, B) f32
     (NEG where no path reaches) and best_l (W, B) int32 (ties go to the
-    longest token; 1 where no path reaches).
+    longest token; 1 where no path reaches). Every float stream in float64
+    runs the double instantiation, counted in `viterbi_scan.launches_f64`.
 
     CUDA tensors launch csrc/viterbi_chunk.cu on the current stream; CPU
     tensors run `viterbi_scan_plain`."""
-    if not _check_scan(cache, starts, hist0, seg, du, dropout, pad, lead):
+    if not _check_scan(cache, starts, hist0, seg, du, dropout, pad, lead,
+                       f64=True):
         return viterbi_scan_plain(cache, starts, hist0, seg, du,
                                   dropout=dropout, pad=pad, lead=lead)
     _, L, B = cache.shape
     W = cache.shape[0] - lead
-    dp = torch.empty((W, B), dtype=torch.float32, device=cache.device)
+    dp = torch.empty((W, B), dtype=cache.dtype, device=cache.device)
     best_l = torch.empty((W, B), dtype=torch.int32, device=cache.device)
     if W == 0 or B == 0:
         return dp, best_l
     use_drop = dropout > 0.0
-    _launch("viterbi_scan", cache, starts, hist0, seg,
-            du if use_drop else None, dp, best_l, None, W, L, B,
+    f64 = cache.dtype == torch.float64
+    _launch("viterbi_scan_f64" if f64 else "viterbi_scan", cache, starts,
+            hist0, seg, du if use_drop else None, dp, best_l, None, W, L, B,
             1 if seg is None else seg.shape[0] - 1, 1, lead, pad,
             dropout_threshold_half(dropout) if use_drop else 0, int(use_drop))
-    viterbi_scan.launches += 1
+    if f64:
+        viterbi_scan.launches_f64 += 1
+    else:
+        viterbi_scan.launches += 1
     return dp, best_l
 
 
 viterbi_scan.launches = 0
+viterbi_scan.launches_f64 = 0

@@ -315,10 +315,11 @@ def fused_backward_probe_plain(t1_fast, t2_fast, p1, p2, rinv1, rinv2, sid,
                         bits, dropout)
 
 
-def betas_hist0(is_end_w: torch.Tensor, L: int) -> torch.Tensor:
+def betas_hist0(is_end_w: torch.Tensor, L: int,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(L, B) initial beta history: beta[W] = 0 where a sample ends at the
     width, NEG otherwise."""
-    hist = torch.full((L, is_end_w.shape[0]), NEG, dtype=torch.float32,
+    hist = torch.full((L, is_end_w.shape[0]), NEG, dtype=dtype,
                       device=is_end_w.device)
     hist[0] = torch.where(is_end_w, 0.0, NEG)
     return hist

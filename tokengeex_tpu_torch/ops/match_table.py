@@ -10,23 +10,25 @@ data-dependent control flow — ideal for XLA/Pallas.
 
 Collision guarantees, enforced by construction in `TokenTable.build`:
 
-  - Exact/fast probe paths: distinct vocabulary tokens with identical
-    (fp1, fp2, len) triples (~2^-64 per pair) are detected and rejected
-    with an error — they would be indistinguishable to every probe.
-  - EM probe path (1 gather per table, 16-bit check): a token stored in
-    t2 whose t1 slot holds an entry with the same high-16 fp2 bits would
-    be silently "shadowed" (scored and counted as the t1 occupant).
-    At 500k vocab a handful of such clusters are EXPECTED
-    (~V/2 / 2^16); build detects them by probing every vocabulary token
-    through an exact emulation of the device probe and repairs by
-    pinning whole collision clusters into t2 (each member then resolves
-    at its own t2 slot because the t1 check always misses), re-verifying
-    until every token resolves to itself.
+  - Exact probe (the walk's id lookup, the f64 route): distinct
+    vocabulary tokens with identical (fp1, fp2, len) triples (~2^-64 per
+    pair) are detected and rejected with an error -- they would be
+    indistinguishable to every probe.
+  - Fast probe (1 row gather per table, checking the 32-bit check word
+    `hashing.host_check(fp1, fp2)` = fp2 ^ rotl(fp1, 16)): a token stored
+    in t2 whose t1 slot holds another token with the same check word
+    (but another fp2) would be silently "shadowed" -- scored and counted
+    as the t1 occupant (~2^-32 per co-slotted pair). Build detects it by
+    probing every vocabulary token through an exact emulation of the
+    device probe and repairs it by pinning the whole (t1 slot, check
+    word) cluster into t2 (each member then resolves at its own t2 slot
+    because the t1 check always misses), re-verifying until every token
+    resolves to itself.
 
-Corpus substrings not in the vocabulary can still falsely match — with
-~1e-13 probability per probe on the fast path and ~2^-33 on the EM
-path. Those are one-off statistical noise, unlike vocabulary shadowing
-which would bias every occurrence of a token for the whole run.
+Corpus substrings not in the vocabulary can still falsely match the fast
+probe, with ~2^-32 probability per probe of an occupied slot. That is
+one-off statistical noise, unlike vocabulary shadowing, which would bias
+every occurrence of a token for the whole run.
 """
 
 from __future__ import annotations
@@ -300,9 +302,11 @@ def _check_fingerprint_uniqueness(by_bytes: dict, entries) -> None:
 def _shadowed_entries(entries, t1: np.ndarray, t2: np.ndarray,
                       bits: int) -> np.ndarray:
     """Indices of entries that do NOT resolve to their own slot under an
-    exact emulation of the device fast probe (full 32-bit fp2 check;
-    ops/lattice_jax._match_slab — the historical 16-bit "em" probe is
-    gone, so only full-fp2 t1 matches can shadow a t2 entry)."""
+    exact emulation of the device fast probe (ops/lattice.py
+    `_match_slab`): a t1 row matches when its check word
+    `host_check(fp1, fp2)` equals the probe's, else the probe falls
+    through to t2, so a t1 resident with the same check word shadows a
+    t2 entry."""
     fp1, fp2, lens, _ = entries
     if fp1.size == 0:
         return np.zeros(0, dtype=np.int64)
@@ -315,21 +319,22 @@ def _shadowed_entries(entries, t1: np.ndarray, t2: np.ndarray,
     self1 = occ1 & (row1[:, 0] == fp1) & (row1[:, 1] == fp2) & (row1[:, 2] == lens)
     self2 = occ2 & (row2[:, 0] == fp1) & (row2[:, 1] == fp2) & (row2[:, 2] == lens)
 
-    # Fast probe: t1 match on full fp2 wins; fall through to t2.
-    m1_fast = occ1 & (row1[:, 1] == fp2)
+    # Fast probe: a t1 match on the check word wins; fall through to t2.
+    m1_fast = occ1 & (H.host_check(row1[:, 0], row1[:, 1])
+                      == H.host_check(fp1, fp2))
     ok_fast = np.where(m1_fast, self1, self2)
     return np.nonzero(~ok_fast)[0].astype(np.int64)
 
 
 def _collision_clusters(entries, bits: int, bad: np.ndarray,
                         pinned: np.ndarray) -> np.ndarray:
-    """Expand shadowed entries to their full (idx1, fp2) clusters and
-    merge with the already-pinned set. Pinning every member of a
+    """Expand shadowed entries to their full (idx1, check word) clusters
+    and merge with the already-pinned set. Pinning every member of a
     cluster into t2 makes the t1 fast check miss for all of them."""
     fp1, fp2, lens, _ = entries
     idx1 = H.host_table_index(fp1, lens, H.IDX_A1, H.IDX_M1, bits)
     key = (idx1.astype(np.uint64) << np.uint64(32)) | \
-        fp2.astype(np.uint64)
+        H.host_check(fp1, fp2).astype(np.uint64)
     bad_keys = np.unique(key[bad])
     members = np.nonzero(np.isin(key, bad_keys))[0].astype(np.int64)
     return np.union1d(pinned, members)

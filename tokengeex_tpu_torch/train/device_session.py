@@ -24,6 +24,14 @@ rounds. The session therefore:
 
 A group whose slots do not fit the budget takes the per-pass route of
 train/estep_device.py (probe, forward, marginals scattered into bins).
+
+The f64 / exact conformance mode (dtype=torch.float64, or probe="exact")
+follows the JAX session's f64 branches: no rank space and no slot
+cache (exact probes yield token ids, which change on every rebind), so
+every pass probes each group afresh with the exact probe, runs the
+double scans (at f64) and scatters the marginals into token-id bins; the
+tables are rebuilt per model. Its frequency pass walks on the card too,
+over the exact probe's double Viterbi scan.
 """
 
 from __future__ import annotations
@@ -77,15 +85,20 @@ class DeviceTrainSession:
         group on the probed-slab kernels. device: a CUDA device by default,
         "cpu" for the kernels' plain versions; without a GPU and without
         `device` this raises. `timer` collects the construction's phases
-        (tables, pack); each pass takes its own."""
-        lat.check_f32(dtype, probe)
+        (tables, pack); each pass takes its own. dtype=torch.float64 or
+        probe="exact" takes the f64 / exact conformance mode (see the
+        module docstring); snippets then keep the caller's cap at f64."""
         if local_shard:
             raise _not_ported("local_shard=True", "Multi-GPU")
         if kernel not in (None, "slab"):
             raise ValueError(f"unknown kernel {kernel!r}")
+        if dtype not in (None, torch.float32, torch.float64):
+            raise ValueError(f"unsupported dtype {dtype}")
         self.dev = resolve_device(device)
         self.samples = samples
-        self.max_snippet = ed._em_snippet_cap(max_snippet)
+        self.dtype = dtype or torch.float32
+        self.exact = self.dtype == torch.float64 or probe == "exact"
+        self.max_snippet = ed._em_snippet_cap(max_snippet, self.dtype)
         self.kernel = kernel
         self.probe = probe
         self.chunk = ed.CHUNK
@@ -95,15 +108,16 @@ class DeviceTrainSession:
             # Cached slots live in the dense rank space of the bucket
             # probe, so the score regather reads a vocabulary-sized column
             # and count bins stay vocabulary-sized.
-            self.rank = lat.build_rank_space(self.base_tbl)
+            self.rank = (None if self.exact
+                         else lat.build_rank_space(self.base_tbl))
             self._lut_dev = None
             self._model: Optional[Model] = None
             self._rebind(model)
         # The count structures are sized for the probe the table resolves
         # by default; another slot space would misattribute counts.
-        default_mode = lat._probe_mode(self.dt)
+        default_mode = lat._probe_mode(self.dt, self.dtype)
         requested = {"em": "fast"}.get(probe, probe)
-        if requested is not None and requested != default_mode:
+        if requested not in (None, "exact") and requested != default_mode:
             raise ValueError(
                 f"DeviceTrainSession count structures are sized for the "
                 f"'{default_mode}' probe this table resolves to; "
@@ -173,11 +187,12 @@ class DeviceTrainSession:
             return
         tbl = self.base_tbl.rebind(model.vocab)
         self.tbl = tbl
-        self.dt = lat.DeviceTables.from_table(tbl, self.dev)
-        # Rank-indexed scores and the rank -> id map of this binding; the
-        # rank space itself is fixed for the session.
-        self.slot_rows = lat.rank_score_rows(self.rank, tbl, self.dev)
-        self.rank_ids = lat.rank_to_ids(self.rank, tbl)
+        self.dt = lat.DeviceTables.from_table(tbl, self.dev, self.dtype)
+        if not self.exact:
+            # Rank-indexed scores and the rank -> id map of this binding;
+            # the rank space itself is fixed for the session.
+            self.slot_rows = lat.rank_score_rows(self.rank, tbl, self.dev)
+            self.rank_ids = lat.rank_to_ids(self.rank, tbl)
         self._model = model
 
     def _nbins(self) -> int:
@@ -317,8 +332,10 @@ class DeviceTrainSession:
         return score, slots
 
     def _fused(self) -> bool:
-        """Whether this binding takes the fused probe kernels."""
-        return self.kernel is None and lat.has_vscan(self.dt)
+        """Whether this binding takes the fused probe kernels (never in
+        the f64 / exact mode)."""
+        return (self.kernel is None and not self.exact
+                and lat.has_vscan(self.dt))
 
     def _fused_seg(self, gi: int, batch: lat.DeviceBatch, timer=None):
         """SegStruct for the fused E-step (probing the group once to build
@@ -381,7 +398,20 @@ class DeviceTrainSession:
                     _group_seed(seed, gi))
                 drop_u = ed._drop_words(gen, batch.p1.shape[0],
                                         batch.sid.shape[1], self.dev)
-            if self._fused() and \
+            if self.exact:
+                # Conformance mode: a fresh exact probe each pass, the
+                # marginals scattered into token-id bins.
+                with lat.phase(timer, "probe"):
+                    cache = lat.match_cache(self.dt, batch, C=self.chunk,
+                                            probe="exact", dtype=self.dtype)
+                chains = self._chains_for(gi, batch, timer)
+                A = lat.forward(self.dt, batch, cache, self.chunk, drop_u,
+                                dropout, timer, chains=chains)
+                exp_g = lat.backward_expected(
+                    self.dt, batch, A, cache, self.chunk, drop_u, dropout,
+                    probe="exact", timer=timer, chains=chains)
+                del cache
+            elif self._fused() and \
                     (seg := self._fused_seg(gi, batch, timer)) is not None:
                 # Steady state of small tables: both scans re-probe in
                 # their kernels, the SegStruct turns betas into counts.
@@ -425,7 +455,9 @@ class DeviceTrainSession:
             if task is not None:
                 task.record(info["nbytes"], info["nsamples"])
         with lat.phase(timer, "fold"):
-            expected = self._fold(acc)
+            expected = (lat.fold_expected(self.dt, acc, "exact")
+                        if self.exact and acc is not None
+                        else self._fold(acc))
             z = (torch.cat(z_parts).cpu().numpy() if z_parts
                  else np.zeros(0, np.float32))
         # Per-snippet normaliser check (reference: src/prune.rs:90-96),
@@ -465,7 +497,11 @@ class DeviceTrainSession:
             batch = self._freq_batch(gi, sub, timer)
             key = self._freq_key(gi)
             chains = self._chains_for(key, batch, timer)
-            if self._freq_shared and not self._fused() \
+            if self.exact:
+                dp, best_l = lat.viterbi(
+                    self.dt, batch, C=self.chunk, dtype=self.dtype,
+                    probe="exact", timer=timer, chains=chains)
+            elif self._freq_shared and not self._fused() \
                     and gi in self.slot_cache:
                 dp, best_l = lat.viterbi_cached(
                     self.dt, batch, self.slot_cache[gi], self.slot_rows,
@@ -509,7 +545,8 @@ class DeviceTrainSession:
         if long_idx:
             encoded = ed.encode_corpus_device(
                 model, [self.samples[si] for si in long_idx], table=self.tbl,
-                device=self.dev, timer=timer)
+                device=self.dev, timer=timer, dtype=self.dtype,
+                probe="exact" if self.exact else None)
             ids = [np.asarray(r, np.int64) for r in encoded if r]
             if ids:
                 freqs += np.bincount(np.concatenate(ids), minlength=V)

@@ -45,13 +45,15 @@ ROW_MULT = 128
 # (src/prune.rs:75) with f64 lattices; in f32 the forward/backward
 # log-probs reach ~90k nats at that length and their rounding drift
 # scales the marginals by e^(noise). 1024 bytes bound the drift to ~1 %
-# even at ~10 nats per byte (PARITY.md "known deviations").
+# even at ~10 nats per byte (PARITY.md "known deviations"); the f64 route
+# keeps the caller's cap (the reference's 81920).
 DEVICE_EM_SNIPPET = 1024
 
 
-def _em_snippet_cap(max_snippet: Optional[int]) -> Optional[int]:
-    if max_snippet is None:
-        return None
+def _em_snippet_cap(max_snippet: Optional[int],
+                    dtype: Optional[torch.dtype] = None) -> Optional[int]:
+    if max_snippet is None or dtype == torch.float64:
+        return max_snippet
     return min(max_snippet, DEVICE_EM_SNIPPET)
 
 
@@ -194,10 +196,13 @@ class DeviceCorpus:
         return index
 
 
-def _eff_backend(dt: lat.DeviceTables, probe: Optional[str]) -> str:
-    """The fused probe kernel for tables small enough (has_vscan), the
-    probed score cache + viterbi_scan otherwise."""
-    if probe in (None, "fast", "bucket", "em") and lat.has_vscan(dt):
+def _eff_backend(dt: lat.DeviceTables, probe: Optional[str],
+                 dtype: Optional[torch.dtype] = None) -> str:
+    """The fused probe kernel for tables small enough (has_vscan) at f32
+    with the fast probe, the probed score cache + viterbi_scan otherwise
+    (the f64 / exact route among them)."""
+    if dtype in (None, torch.float32) and \
+            probe in (None, "fast", "bucket", "em") and lat.has_vscan(dt):
         return "fused"
     return "slab"
 
@@ -232,21 +237,25 @@ def encode_corpus_device(
     Samples up to `max_width` (default MAX_ENCODE_WIDTH) pack into rows
     sized to the longest sample; longer samples chain fixed-width
     windows with a carried dp tail. probe selects the slab route's
-    table layout ("bucket"/"fast"; "em" is an alias of "fast").
+    table layout ("bucket"/"fast"; "em" is an alias of "fast"; "exact"
+    checks both fingerprints and the length and gathers scores by id).
+    dtype float64 is the f64 / exact conformance route: the exact probe,
+    f64 scores and the double `viterbi_scan`, the chained windows' dp
+    tail carried in f64.
     `timer` collects the seconds per phase (tables, pack, prep, probe,
     kernel, walk, readback, split; backtrack for chained samples). `table`
     is a TokenTable bound to `model` to use instead of building one (a
     training session's). `corpus` is a DeviceCorpus packed from these very
     samples (same `max_width`), whose groups' inputs stay on the device."""
-    lat.check_f32(dtype, probe)
+    dtype = dtype or torch.float32
     dev = resolve_device(device)
     with lat.phase(timer, "tables"):
         if table is None:
             hb, hl = table_hints or (None, None)
             table = TokenTable.build(model.vocab, min_bits=hb, min_len=hl)
-        dt = lat.DeviceTables.from_table(table, dev)
+        dt = lat.DeviceTables.from_table(table, dev, dtype)
     L = dt.max_len
-    backend = _eff_backend(dt, probe)
+    backend = _eff_backend(dt, probe, dtype)
 
     if corpus is not None and (corpus.samples is not samples
                                or corpus.req_max_width != max_width
@@ -268,9 +277,10 @@ def encode_corpus_device(
             index = corpus.walk_index(gi, sub)
             drop_u = (_drop_words(gen, sub.rows, batch.sid.shape[1], dev)
                       if gen is not None else None)
-        dp, best_l = lat.viterbi(dt, batch, C=CHUNK, backend=backend,
-                                 drop_u=drop_u, dropout=dropout, probe=probe,
-                                 timer=timer, chains=chains)
+        dp, best_l = lat.viterbi(dt, batch, C=CHUNK, dtype=dtype,
+                                 backend=backend, drop_u=drop_u,
+                                 dropout=dropout, probe=probe, timer=timer,
+                                 chains=chains)
         # The backpointers stay on the device: the walk reads back the
         # span-end dp values, the per-span token counts and the ids.
         spans = lat.walk_ids(dt, batch, dp, best_l, index, timer=timer)
@@ -283,7 +293,7 @@ def encode_corpus_device(
         chained = _encode_chained(
             model, dt, [(si, samples[si]) for si in long_idx], corpus.cap,
             backend=backend, dropout=dropout, seed=seed + 0x5151,
-            probe=probe, device=dev, timer=timer)
+            probe=probe, device=dev, timer=timer, dtype=dtype)
         for si, ids in zip(long_idx, chained):
             out[si] = ids
 
@@ -302,6 +312,7 @@ def _encode_chained(
     probe: Optional[str],
     device,
     timer: Optional[lat.PhaseTimer] = None,
+    dtype: torch.dtype = torch.float32,
 ) -> List[List[int]]:
     """Encode samples longer than the pack width by chaining fixed-width
     windows. Window k covers bytes [k*W, (k+1)*W); its device row is
@@ -325,7 +336,7 @@ def _encode_chained(
             out_parts.extend(_encode_chained(
                 model, dt, long_samples[g0 : g0 + max_rows], width,
                 backend=backend, dropout=dropout, seed=seed + g0,
-                probe=probe, device=device, timer=timer))
+                probe=probe, device=device, timer=timer, dtype=dtype))
         return out_parts
     Rp = -(-R // ROW_MULT) * ROW_MULT
     nchunks = max(-(-len(s) // W) for _, s in long_samples)
@@ -335,7 +346,7 @@ def _encode_chained(
     # Per sample, per window: host backpointers + end info.
     best_l_store: List[dict] = [dict() for _ in range(R)]
     end_info: List[Tuple[int, int, float]] = [(0, 0, 0.0)] * R  # (k, n, dp)
-    carry_hist = torch.full((Rp, L), lat.NEG_INF, dtype=torch.float32,
+    carry_hist = torch.full((Rp, L), lat.NEG_INF, dtype=dtype,
                             device=device)
     mask = torch.zeros(Rp, dtype=torch.bool, device=device)
 
@@ -361,8 +372,9 @@ def _encode_chained(
                                               device)
             drop_u = (_drop_words(gen, Rp, batch.sid.shape[1], device)
                       if gen is not None else None)
-        dp, best_l = lat.viterbi(dt, batch, C=CHUNK, backend=backend,
-                                 drop_u=drop_u, dropout=dropout, probe=probe,
+        dp, best_l = lat.viterbi(dt, batch, C=CHUNK, dtype=dtype,
+                                 backend=backend, drop_u=drop_u,
+                                 dropout=dropout, probe=probe,
                                  carry=(mask, carry_hist), timer=timer)
         with lat.phase(timer, "readback"):
             best_l_host = best_l.to(torch.int8).cpu().numpy()
@@ -425,7 +437,10 @@ def run_e_step_device(
     src/prune.rs:64-120), as (V,) float64.
 
     Samples are chopped into snippets of at most
-    min(max_snippet, DEVICE_EM_SNIPPET) bytes and packed; each row group
+    min(max_snippet, DEVICE_EM_SNIPPET) bytes (max_snippet itself at
+    dtype float64, the f64 / exact conformance route: the exact probe,
+    f64 scores, the double scans and an f64 scatter into token-id bins)
+    and packed; each row group
     is probed once (`match_cache`), then runs the forward DP and the
     backward DP with the token marginals (one whole-width scan each, over
     the group's chain bounds, made once per group) and adds the marginals
@@ -438,15 +453,16 @@ def run_e_step_device(
     plain versions; without a GPU and without `device` this raises.
     `timer` collects the seconds per phase (tables, pack, prep, probe,
     forward, backward, scatter, fold)."""
-    lat.check_f32(dtype, probe)
+    dtype = dtype or torch.float32
     dev = resolve_device(device)
     with lat.phase(timer, "tables"):
         hb, hl = table_hints or (None, None)
         table = TokenTable.build(model.vocab, min_bits=hb, min_len=hl)
-        dt = lat.DeviceTables.from_table(table, dev)
+        dt = lat.DeviceTables.from_table(table, dev, dtype)
     L = dt.max_len
+    mode = probe or lat._probe_mode(dt, dtype)
     with lat.phase(timer, "pack"):
-        max_snippet = _em_snippet_cap(max_snippet)
+        max_snippet = _em_snippet_cap(max_snippet, dtype)
         width = _pick_width(samples, max_snippet)
         packed = pack_samples(samples, width=width, max_snippet=max_snippet)
     gen = (torch.Generator(device=dev).manual_seed(seed)
@@ -463,13 +479,14 @@ def run_e_step_device(
         # Probe once per group; forward and backward share the cache,
         # rows * width * L * 8 bytes: 512 MiB at L = 16.
         with lat.phase(timer, "probe"):
-            cache = lat.match_cache(dt, batch, C=CHUNK, probe=probe)
+            cache = lat.match_cache(dt, batch, C=CHUNK, probe=mode,
+                                    dtype=dtype)
             chains = lat.chain_bounds(batch)
         A = lat.forward(dt, batch, cache, C=CHUNK, drop_u=drop_u,
                         dropout=dropout, timer=timer, chains=chains)
         exp_g = lat.backward_expected(dt, batch, A, cache, C=CHUNK,
                                       drop_u=drop_u, dropout=dropout,
-                                      probe=probe, timer=timer,
+                                      probe=mode, timer=timer,
                                       chains=chains)
         acc = exp_g if acc is None else acc.add_(exp_g)
         del cache
@@ -482,7 +499,7 @@ def run_e_step_device(
                         len({sp[3] for sp in sub.spans}))
 
     with lat.phase(timer, "fold"):
-        expected = (lat.fold_expected(dt, acc) if acc is not None
+        expected = (lat.fold_expected(dt, acc, mode) if acc is not None
                     else np.zeros(dt.vocab_size, dtype=np.float64))
         z = (torch.cat(z_parts).cpu().numpy() if z_parts
              else np.zeros(0, np.float32))

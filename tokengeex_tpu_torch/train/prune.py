@@ -97,7 +97,8 @@ class VocabularyPruner:
     # stream so EM sub-iterations sample fresh masks (the reference uses
     # thread_rng, fresh every pass but non-reproducible).
     corpus_sharded: bool = False  # per-process corpus shards (multi-GPU)
-    device_dtype: object = None  # None / torch.float32: the f32 E-step
+    device_dtype: object = None  # None / torch.float32: the f32 E-step;
+    # torch.float64: the session's f64 / exact conformance mode
     device: object = None  # where the device backend runs; None = the
     # current CUDA device (raises without one), "cpu" = the kernels'
     # plain PyTorch versions
@@ -107,14 +108,13 @@ class VocabularyPruner:
             raise NotImplementedError(
                 f"backend={self.backend!r}: the port has the 'device' and "
                 "'oracle' backends; the native runtime and the 'auto' "
-                "crossover are still to port (ROADMAP.md)")
+                "crossover are not part of the port (ROADMAP.md)")
         if self.backend not in ("device", "oracle"):
             raise ValueError(f"unknown backend {self.backend!r}")
         if self.corpus_sharded:
             raise _not_ported("corpus_sharded=True", "Multi-GPU")
-        if self.device_dtype not in (None, torch.float32):
-            raise _not_ported(f"device_dtype={self.device_dtype}",
-                              "f64 / exact mode")
+        if self.device_dtype not in (None, torch.float32, torch.float64):
+            raise ValueError(f"unsupported device_dtype {self.device_dtype}")
 
     def prune(self, model: Model, samples: Sequence[bytes],
               checkpoint_cb=None) -> Model:
