@@ -143,6 +143,26 @@ Phases (any failure exits non-zero):
      every count within rtol 1e-8 / atol 1e-9; each double kernel launched
      on the path and no f32 scan; MB/s of both beside the f32 encode's
      and E-step's on the same samples;
+  3i. multi-GPU on the one card (parallel/mesh.py), each rank a process
+     this script starts (`chip_smoke.py --rank-worker ...`; a rank that
+     fails or outlasts MG_RANK_S fails the run): world size 1 under NCCL
+     runs the session (a)'s first and steady pass, encode (a) and
+     VocabularyPruner(corpus_sharded=True) on the fused route (16,384 ->
+     8,192) over the corpus, counts, ids and vocabulary bit-equal to
+     phases 3d, 3 and 3c, each route's kernels launched as there; prints
+     the seconds beside the unsharded ones and the all_reduce time of the
+     (V,) counts. Then two gloo ranks sharing the card (each an explicit
+     cache_budget, a quarter of the free memory): the session (a) at the
+     recipe's shapes (W = 8192, 1,024 rows, each group's rows split
+     between the ranks), counts within rtol 1e-4 / atol 1e-4 and 1e-5 on
+     the total of phase 3d's, printed beside MULTICHIP_r05.json's gap;
+     encode (a)'s gathered ids equal to phase 3's on both ranks; generate
+     at p = 1 over the first 64 samples as two shards equal to phase 3f's
+     counts; the corpus-sharded fused prune of the 2 MB slice on disjoint
+     shards: the same vocabulary on both ranks, a subset, at most 8,192
+     tokens, its overlap with one process's prune printed; which
+     collectives gloo takes on CUDA tensors; seconds per rank, labelled
+     "2 ranks sharing one card" (not a scaling figure);
   4. the kernels line (thirteen entries: the ten kernels and the three
      double instantiations), then the device line as the last line.
 
@@ -151,6 +171,7 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -354,6 +375,29 @@ def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ids_digest(ids) -> str:
+    """sha256 of token id lists (their lengths, then the ids)."""
+    h = hashlib.sha256(np.asarray([len(r) for r in ids], np.int64).tobytes())
+    for r in ids:
+        h.update(np.asarray(r, np.int32).tobytes())
+    return h.hexdigest()
+
+
+def vocab_digest(tokens) -> str:
+    """sha256 of a vocabulary: each token's bytes, score and keep flag."""
+    h = hashlib.sha256()
+    for t in tokens:
+        h.update(len(t.value).to_bytes(4, "little") + t.value
+                 + np.float64(t.score).tobytes() + bytes([t.keep]))
+    return h.hexdigest()
+
+
+def counter_digest(counts) -> str:
+    """sha256 of a Counter of strings, in key order."""
+    return hashlib.sha256(json.dumps(sorted(counts.items())).encode()
+                          ).hexdigest()
 
 
 def max_abs_err(got, want) -> float:
@@ -1081,7 +1125,7 @@ def run_config(name, vocab, samples, long_sample, expect, groups, kernels,
     return {"bytes": total, "seconds": secs, "bytes_per_s": rate,
             "launches": launches, "groups": groups, "peak_bytes": peak,
             "phases": phases, "phases_run_seconds": secs_t, "profiled": busy,
-            "tokens": sum(map(len, ids))}
+            "tokens": sum(map(len, ids)), "ids_digest": ids_digest(ids)}
 
 
 def oracle_total(model, samples, snippet: int) -> float:
@@ -1237,6 +1281,7 @@ def run_session(name, vocab, samples, expect, kernels, oracle, dev,
         route = "fused" if sess._fused() else "cached"
         groups = sess._groups()
         shape = {"width": sess.width, "rows": groups[0][1].rows,
+                 "block_rows": [sub.rows for _, sub in groups],
                  "groups": len(groups), "route": route,
                  "cache_bytes": sess.cache_used,
                  "cache_budget": sess.cache_budget}
@@ -1579,7 +1624,8 @@ def run_prune(name, vocab, target: int, samples, expect, fused: bool,
             "frequency_walks": freq["walks"],
             "frequency_split": freq["split"],
             "frequency_first_split": freq["first_split"],
-            "frequency_groups": freq_groups}
+            "frequency_groups": freq_groups,
+            "vocab_digest": vocab_digest(final.vocab)}
 
 
 def host_frequency_counts(lat, sess, model):
@@ -1869,7 +1915,7 @@ def run_generate(dd, samples, allow, dfa, dev):
             "distinct": len(gen.frequencies), "generate_seconds": gen_s,
             "vocab": len(vocab), "split": split,
             "split_seconds": split_s, "busy": busy,
-            "p1_64_candidates": len(got)}
+            "p1_64_candidates": len(got), "p1_64_digest": counter_digest(got)}
 
 
 # ---------------------------------------------------------------------------
@@ -2081,6 +2127,17 @@ CLI_REDUCED = ["corpus 8 MB -> a 2 MB slice", "generate -v 500,000 -> 16,384",
                "merge --num-merges 2,000 -> 100"]
 
 
+def cli_slice(samples):
+    """The corpus's first samples, ~CLI_BYTES of them."""
+    part, size = [], 0
+    for s in samples:
+        if size >= CLI_BYTES:
+            break
+        part.append(s)
+        size += len(s)
+    return part
+
+
 def run_cli_recipe(samples, dev):
     """Phase 3g: regex -> generate -> prune -> filter -> merge -> encode ->
     decode as `python -m tokengeex_tpu_torch.cli` processes on the card
@@ -2091,12 +2148,8 @@ def run_cli_recipe(samples, dev):
 
     root = HERE / "build" / "chip_smoke_cli"
     root.mkdir(parents=True, exist_ok=True)
-    part, size = [], 0
-    for s in samples:
-        if size >= CLI_BYTES:
-            break
-        part.append(s)
-        size += len(s)
+    part = cli_slice(samples)
+    size = sum(map(len, part))
     (root / "train.bin").write_bytes(b"\x00".join(part))
     env = dict(os.environ, PYTHONPATH=str(HERE))
     where = ["--device", "cpu"] if dev.type == "cpu" else []
@@ -2142,6 +2195,372 @@ def run_cli_recipe(samples, dev):
         + f"; {len(json.loads(ids))} ids round-trip {len(text)} chars")
     return {"bytes": size, "samples": len(part), "stages": stages,
             "sizes": sizes, "reduced": CLI_REDUCED}
+
+
+# ---------------------------------------------------------------------------
+# Phase 3i: multi-GPU on the one card
+# ---------------------------------------------------------------------------
+
+MG_DIR = HERE / "build" / "chip_smoke_3i"
+MG_RANK_S = 420  # a rank's whole run
+MG_COLLECTIVE_S = 180  # a collective's wait for the other ranks
+# The JAX package's sharded rank-space segsum at the recipe's shapes
+# (MULTICHIP_r05.json: its own vocabulary and corpus, 8 devices): the sum
+# and the largest per-token gap against one device.
+MULTICHIP_R05 = {"sum": 2397695.10, "sum_one_device": 2397695.08,
+                 "max_abs_diff": 7.81e-3}
+
+
+def mg_launch(mode: str, world: int, data: Path, label: str) -> list:
+    """Run `world` ranks of this script's worker (`rank_worker`) as
+    processes and return each rank's results; a rank that fails or
+    outlasts MG_RANK_S fails the phase."""
+    import pickle
+    import shutil
+
+    run = MG_DIR / mode
+    shutil.rmtree(run, ignore_errors=True)
+    run.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(HERE))
+    procs = [subprocess.Popen(
+        [sys.executable, str(HERE / "chip_smoke.py"), "--rank-worker", mode,
+         str(r), str(world), str(data), str(run)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MG_RANK_S)[0])
+    except subprocess.TimeoutExpired:
+        fail(f"[{label}] a rank outlasted {MG_RANK_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            log(f"  [{label}, rank {r}] {line}")
+        check(p.returncode == 0, f"[{label}] rank {r} exited {p.returncode}")
+    ranks = []
+    for r in range(world):
+        with open(run / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    return ranks
+
+
+def gloo_cuda_probe(dev) -> dict:
+    """Which collectives the installed torch's gloo backend takes on CUDA
+    tensors (the port's collectives hand gloo host arrays either way)."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size()
+    ops = {"all_reduce": lambda t: dist.all_reduce(t),
+           "broadcast": lambda t: dist.broadcast(t, 0),
+           "all_gather": lambda t: dist.all_gather(
+               [torch.empty_like(t) for _ in range(n)], t)}
+    out = {}
+    for name, op in ops.items():
+        t = torch.ones(4, device=dev)
+        try:
+            op(t)
+            torch.cuda.synchronize()
+            out[name] = "yes"
+        except RuntimeError as e:
+            out[name] = f"no ({str(e).splitlines()[0][:100]})"
+    return out
+
+
+def rank_worker(mode: str, rank: str, world: str, data_path: str,
+                out_dir: str) -> None:
+    """One rank of phase 3i on the card: mode "nccl" (world size 1 under
+    NCCL: the session (a), encode (a), the corpus-sharded fused prune of
+    the whole corpus) or "gloo" (two ranks sharing the card: the session
+    (a) and encode (a) over the replicated corpus, generate at p = 1 and
+    the corpus-sharded fused prune of the CLI slice on disjoint shards).
+    Pickles its results to OUT/rank{RANK}.pkl."""
+    import pickle
+
+    sys.path.insert(0, str(HERE))
+    from tokengeex_tpu_torch import Model, ScoredToken, Tokenizer
+    from tokengeex_tpu_torch.ops import lattice as lat
+    from tokengeex_tpu_torch.ops import lattice_cuda as lc
+    from tokengeex_tpu_torch.ops import lattice_cuda_fused as lcf
+    from tokengeex_tpu_torch.ops import lattice_cuda_seg as lcs
+    from tokengeex_tpu_torch.parallel import mesh
+    from tokengeex_tpu_torch.train.device_session import DeviceTrainSession
+    from tokengeex_tpu_torch.train.generate import VocabularyGenerator
+    from tokengeex_tpu_torch.train.prune import (MAX_SAMPLE_LENGTH,
+                                                 VocabularyPruner)
+
+    rank, world = int(rank), int(world)
+    with open(data_path, "rb") as f:
+        data = pickle.load(f)
+    dev = torch.device(data["device"])
+    t0 = time.perf_counter()
+    mesh.distributed_initialize(
+        dev, backend=mode if dev.type == "cuda" else "gloo",
+        init_method=f"file://{out_dir}/store", world_size=world, rank=rank,
+        timeout=MG_COLLECTIVE_S)
+    log(f"joined a {mode} group of {world} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    kernels = {"forward_scan": lc.forward_scan,
+               "backward_betas_scan": lc.backward_betas_scan,
+               "seg_weights_gather": lcs.seg_weights_gather,
+               "viterbi_scan": lc.viterbi_scan,
+               "fused_forward_chunk": lcf.fused_forward_chunk,
+               "fused_backward_chunk": lcf.fused_backward_chunk,
+               "viterbi_walk": lat.viterbi_walk}
+    reduce_s = []
+    plain_reduce = mesh.all_reduce_counts
+
+    def timed_reduce(counts):
+        t = time.perf_counter()
+        try:
+            return plain_reduce(counts)
+        finally:
+            reduce_s.append(time.perf_counter() - t)
+
+    mesh.all_reduce_counts = timed_reduce
+
+    def zero():
+        for fn in kernels.values():
+            fn.launches = 0
+        reduce_s.clear()
+
+    def counts():
+        return {k: fn.launches for k, fn in kernels.items()}
+
+    def vocab(rows):
+        return [ScoredToken(v, sc) for v, sc in rows]
+
+    samples = data["samples"]
+    texts = [s.decode() for s in samples]
+    model_a = Model(vocab(data["vocab_a"]))
+    res = {"gloo_cuda": gloo_cuda_probe(dev) if mode == "gloo" else None}
+
+    # The session (a) over the replicated corpus: this rank's block of
+    # each group's rows.
+    t0 = time.perf_counter()
+    sess = DeviceTrainSession(model_a, samples, MAX_SAMPLE_LENGTH,
+                              device=dev, cache_budget=data["cache_budget"])
+    build_s = time.perf_counter() - t0
+    zero()
+    t0 = time.perf_counter()
+    first = sess.e_step(model_a, 0.0, 3)
+    first_s = time.perf_counter() - t0
+    zero()
+    t0 = time.perf_counter()
+    steady = sess.e_step(model_a, 0.0, 3)
+    steady_s = time.perf_counter() - t0
+    res["session"] = {
+        "first": first, "steady": steady, "build_seconds": build_s,
+        "first_seconds": first_s, "steady_seconds": steady_s,
+        "steady_launches": counts(), "steady_reduce_seconds": sum(reduce_s),
+        "groups": len(sess._groups()), "route": sess._fused(),
+        "block_rows": [sub.rows for _, sub in sess._groups()],
+        "cache_budget": sess.cache_budget, "cache_used": sess.cache_used}
+    sess.close()
+    del sess
+    torch.cuda.empty_cache()
+
+    # Encode (a): each rank walks its block, the ids are gathered.
+    tok = Tokenizer(model_a, device=dev)
+    tok.encode_batch(texts[:64])  # warm-up, on every rank
+    zero()
+    calls = lat.viterbi_walk.calls
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = tok.encode_batch(texts)
+    torch.cuda.synchronize()
+    res["encode"] = {"digest": ids_digest(ids),
+                     "seconds": time.perf_counter() - t0,
+                     "launches": counts(),
+                     "walk_calls": lat.viterbi_walk.calls - calls}
+    del ids
+
+    # The (V,) count array's all_reduce alone, as a pass pays it.
+    V = len(data["vocab_a"])
+    times = []
+    for _ in range(21):
+        t0 = time.perf_counter()
+        plain_reduce(np.ones(V, np.float64))
+        times.append(time.perf_counter() - t0)
+    res["all_reduce_ms"] = float(np.median(times[1:]) * 1e3)
+
+    pruner = dict(vocab_size=data["prune_target"], shrink_factor=0.8,
+                  em_subiters=2, dropout=0.05, device=dev,
+                  corpus_sharded=True)
+    if mode == "gloo":
+        gen = VocabularyGenerator(max_token_length=L_MAX,
+                                  insert_probability=1.0,
+                                  allow=data["allow"], seed=SEED, device=dev)
+        gen.feed(texts[:64][rank::world])
+        gen.allreduce_frequencies()
+        res["generate_digest"] = counter_digest(gen.frequencies)
+        part = data["slice"][rank::world]
+    else:
+        part = samples
+    zero()
+    t0 = time.perf_counter()
+    final = VocabularyPruner(**pruner).prune(Model(vocab(data["vocab_f"])),
+                                             part)
+    res["prune"] = {"digest": vocab_digest(final.vocab),
+                    "tokens": [t.value for t in final.vocab],
+                    "seconds": time.perf_counter() - t0,
+                    "launches": counts(), "reduces": len(reduce_s),
+                    "reduce_seconds": sum(reduce_s), "samples": len(part)}
+    mesh.shutdown()
+    with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(res, f)
+    log(f"done in {time.perf_counter() - START:.1f} s")
+
+
+def run_multigpu(samples, vocab_a, vocab_f, prune_target, allow, expect,
+                 dev):
+    """Phase 3i: the multi-GPU entry points on the one card, each rank a
+    process this script starts (see the module docstring). `expect` holds
+    the earlier phases' results the ranks are held against."""
+    import pickle
+
+    from tokengeex_tpu_torch import Model
+    from tokengeex_tpu_torch.train.prune import VocabularyPruner
+
+    MG_DIR.mkdir(parents=True, exist_ok=True)
+    data = MG_DIR / "data.pkl"
+    cli_part = cli_slice(samples)
+
+    def save(budget):
+        with open(data, "wb") as f:
+            pickle.dump({"samples": samples, "slice": cli_part,
+                         "vocab_a": [(t.value, t.score) for t in vocab_a],
+                         "vocab_f": [(t.value, t.score) for t in vocab_f],
+                         "prune_target": prune_target, "allow": allow,
+                         "cache_budget": budget, "device": str(dev)}, f)
+
+    groups = expect["encode_groups"]
+    sess_groups = expect["session_groups"]
+    out = {}
+
+    # 1. World size 1 under NCCL: bit-equal to the unsharded runs.
+    save(None)
+    (one,) = mg_launch("nccl", 1, data, "3i nccl, world 1")
+    se, en, pr = one["session"], one["encode"], one["prune"]
+    check(np.array_equal(se["first"], expect["session_counts"])
+          and np.array_equal(se["steady"], se["first"]),
+          "[3i nccl] the session's counts differ from phase 3d's")
+    check(en["digest"] == expect["encode_digest"],
+          "[3i nccl] encode's ids differ from phase 3's")
+    check(pr["digest"] == expect["prune_digest"],
+          "[3i nccl] the corpus-sharded prune differs from phase 3c's")
+    for k in ("forward_scan", "backward_betas_scan", "seg_weights_gather"):
+        check(se["steady_launches"][k] == sess_groups,
+              f"[3i nccl] a steady pass launched {k} "
+              f"{se['steady_launches'][k]} times for {sess_groups} groups")
+    check(en["launches"]["viterbi_scan"] == groups
+          and en["walk_calls"] == groups,
+          f"[3i nccl] encode launched viterbi_scan "
+          f"{en['launches']['viterbi_scan']} times, the walk "
+          f"{en['walk_calls']}, for {groups} groups")
+    for k in ("fused_forward_chunk", "fused_backward_chunk",
+              "seg_weights_gather", "viterbi_walk"):
+        check(pr["launches"][k] > 0, f"[3i nccl] the prune launched {k} "
+              "no time")
+    log(f"[3i nccl, world 1] bit-equal to phases 3d, 3 and 3c; seconds "
+        f"(unsharded beside): session steady pass {se['steady_seconds']:.4f}"
+        f" ({expect['session_steady_s']:.4f}), first {se['first_seconds']:.3f}"
+        f"; encode (a) {en['seconds']:.3f} ({expect['encode_s']:.3f}); "
+        f"corpus-sharded prune {pr['seconds']:.3f} ({expect['prune_s']:.3f}"
+        f"); all_reduce of the ({len(vocab_a)},) f64 counts "
+        f"{one['all_reduce_ms']:.4f} ms (steady pass: "
+        f"{se['steady_reduce_seconds'] * 1e3:.4f} ms)")
+    out["nccl_world1"] = {
+        "encode": en, "all_reduce_ms": one["all_reduce_ms"],
+        "prune": {k: v for k, v in pr.items() if k != "tokens"},
+        "session": {k: v for k, v in se.items()
+                    if k not in ("first", "steady")}}
+
+    # 2. Two gloo ranks sharing the card.
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(dev)[0]
+    budget = free // 4
+    log(f"[3i gloo] cache_budget {budget / 2**30:.2f} GiB a rank (a quarter "
+        f"of {free / 2**30:.2f} GiB free)")
+    t0 = time.perf_counter()
+    ref = VocabularyPruner(vocab_size=prune_target, shrink_factor=0.8,
+                           em_subiters=2, dropout=0.05, device=dev).prune(
+        Model(vocab_f), cli_part)
+    ref_s = time.perf_counter() - t0
+    save(budget)
+    ranks = mg_launch("gloo", 2, data, "3i gloo, 2 ranks sharing one card")
+    want = expect["session_counts"]
+    for r, res in enumerate(ranks):
+        se = res["session"]
+        for name in ("first", "steady"):
+            got = se[name]
+            tot = abs(got.sum() - want.sum()) / want.sum()
+            gap = float(np.abs(got - want).max())
+            check(bool(np.allclose(got, want, rtol=1e-4, atol=1e-4))
+                  and tot <= 1e-5,
+                  f"[3i gloo] rank {r}'s {name} counts: max |diff| {gap:.3e},"
+                  f" total rel {tot:.2e}")
+        check(se["block_rows"] == [n // 2 for n in
+                                   expect["session_rows"]],
+              f"[3i gloo] rank {r}'s blocks {se['block_rows']}")
+        check(res["encode"]["digest"] == expect["encode_digest"],
+              f"[3i gloo] rank {r}'s gathered ids differ from phase 3's")
+        check(res["encode"]["launches"]["viterbi_scan"] == groups,
+              f"[3i gloo] rank {r} launched viterbi_scan "
+              f"{res['encode']['launches']['viterbi_scan']} times")
+        check(res["generate_digest"] == expect["generate_digest"],
+              f"[3i gloo] rank {r}'s sharded generate differs from 3f's")
+        tokens = res["prune"]["tokens"]
+        check(len(tokens) <= prune_target
+              and set(tokens) <= {t.value for t in vocab_f},
+              f"[3i gloo] rank {r}'s pruned vocabulary: {len(tokens)} "
+              "tokens, or not a subset")
+    a, b = ranks
+    check(np.array_equal(a["session"]["first"], b["session"]["first"])
+          and a["prune"]["digest"] == b["prune"]["digest"],
+          "[3i gloo] the two ranks disagree")
+    got = a["session"]["first"]
+    gap = float(np.abs(got - want).max())
+    overlap = len(set(a["prune"]["tokens"]) & {t.value for t in ref.vocab})
+    log(f"[3i gloo] gloo on CUDA tensors: {a['gloo_cuda']}")
+    log(f"[3i gloo] session (a), W = {expect['session_width']}, rows "
+        f"{expect['session_rows']} split 2 ways: counts sum {got.sum():.2f} "
+        f"vs {want.sum():.2f} in one process, max |diff| {gap:.3e} "
+        f"(MULTICHIP_r05.json, another vocabulary and corpus on 8 TPU "
+        f"devices: {MULTICHIP_R05['sum']} vs {MULTICHIP_R05['sum_one_device']}"
+        f", max |diff| {MULTICHIP_R05['max_abs_diff']})")
+    log(f"[3i gloo] checks passed: counts within rtol 1e-4 / atol 1e-4 "
+        f"(total 1e-5), both ranks' gathered ids equal phase 3's, sharded "
+        f"generate at p = 1 equal to phase 3f's, both ranks pruned "
+        f"{len(cli_part)} samples (~2 MB, shards of "
+        f"{[r['prune']['samples'] for r in ranks]}) to the same "
+        f"{len(a['prune']['tokens'])} tokens; {overlap} of them in the "
+        f"single-process prune's {len(ref.vocab)} ({ref_s:.3f} s)")
+    for r, res in enumerate(ranks):
+        se, pr = res["session"], res["prune"]
+        log(f"[3i gloo, 2 ranks sharing one card] rank {r}: session built "
+            f"{se['build_seconds']:.3f} s, first pass "
+            f"{se['first_seconds']:.3f} s, steady pass "
+            f"{se['steady_seconds']:.4f} s (gloo all_reduce "
+            f"{se['steady_reduce_seconds'] * 1e3:.3f} ms of it); encode (a) "
+            f"{res['encode']['seconds']:.3f} s; prune {pr['seconds']:.3f} s "
+            f"({pr['reduces']} all_reduces, {pr['reduce_seconds']:.4f} s); "
+            f"all_reduce of the ({len(vocab_a)},) counts alone "
+            f"{res['all_reduce_ms']:.4f} ms")
+    out["gloo_2_ranks"] = [{
+        "session": {k: v for k, v in r["session"].items()
+                    if k not in ("first", "steady")},
+        "encode": r["encode"], "all_reduce_ms": r["all_reduce_ms"],
+        "prune": {k: v for k, v in r["prune"].items() if k != "tokens"},
+        "gloo_cuda": r["gloo_cuda"]} for r in ranks]
+    out["gloo_2_ranks_session_max_abs_diff"] = gap
+    out["gloo_2_ranks_prune_overlap"] = [overlap, len(ref.vocab)]
+    return out
+
 
 
 def main() -> None:
@@ -2340,11 +2759,10 @@ def main() -> None:
                                         "viterbi_scan"),
                        False, kernels, dev)
     # A table of 16,384 tokens has 15 bits: the fused route's E-steps.
-    pruned_f = run_prune("fused", build_vocab(samples, 16384, prefixes=False),
-                         8192, samples, ("fused_forward_chunk",
-                                         "fused_backward_chunk",
-                                         "seg_weights_gather"), True,
-                         kernels, dev)
+    vocab_f = build_vocab(samples, 16384, prefixes=False)
+    pruned_f = run_prune("fused", vocab_f, 8192, samples,
+                         ("fused_forward_chunk", "fused_backward_chunk",
+                          "seg_weights_gather"), True, kernels, dev)
 
     torch.cuda.empty_cache()
     phase_start("3e")
@@ -2358,6 +2776,21 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_start("3h")
     conform = run_f64(vocab_a, samples, dev)
+    torch.cuda.empty_cache()
+    phase_start("3i")
+    a_sess = session["a_32k"]["dropout_0.0"]
+    multigpu = run_multigpu(samples, vocab_a, vocab_f, 8192, allow, {
+        "encode_groups": len(enc_groups),
+        "encode_digest": e2e["a_32k_slab"]["ids_digest"],
+        "encode_s": e2e["a_32k_slab"]["seconds"],
+        "session_counts": counts_a[0.0],
+        "session_groups": a_sess["shape"]["groups"],
+        "session_rows": a_sess["shape"]["block_rows"],
+        "session_width": a_sess["shape"]["width"],
+        "session_steady_s": a_sess["steady_seconds"],
+        "prune_digest": pruned_f["vocab_digest"],
+        "prune_s": pruned_f["seconds"],
+        "generate_digest": generated["p1_64_digest"]}, dev)
 
     # -- 4. kernels line --
     phase_start("4")
@@ -2443,6 +2876,7 @@ def main() -> None:
               "prune": pruned, "prune_fused": pruned_f,
               "dfa_mask": mask, "generate": generated,
               "cli_recipe": recipe, "f64_scans": scans64, "f64": conform,
+              "multigpu": multigpu,
               "kernels": line["kernels"]}
     out = HERE / "chiprun_out"
     try:
@@ -2457,4 +2891,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank-worker"]:
+        rank_worker(*sys.argv[2:7])
+    else:
+        main()

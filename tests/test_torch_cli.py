@@ -227,25 +227,66 @@ def test_prune_and_merge_match_jax_oracle(syllables, pure_python_jax):
     ["prune", "--corpus-sharded"], ["generate", "--corpus-sharded"],
 ])
 def test_unported_options_raise(corpus, pure_python_jax, argv):
+    """`--backend auto` / `native` raise (not part of the port);
+    `--corpus-sharded`, refused until multi-GPU was ported, runs, and in
+    one process (world size 1: the shard is the corpus) writes the
+    unsharded run's output byte for byte (tests/test_torch_multigpu.py
+    runs it in two ranks)."""
     tmp, train = corpus
     vocab0 = _vocab0(tmp, train)
     cmd, *rest = argv
+    out = str(tmp / f"x-{cmd}.json")
     args = {
-        "prune": ["-i", vocab0, "-o", str(tmp / "x.json"), "-v", "300"],
-        "merge": ["-i", vocab0, "-o", str(tmp / "x.json"), "--allow",
-                  _allow(tmp)],
-        "generate": ["-v", "300", "-o", str(tmp / "x.json")],
+        "prune": ["-i", vocab0, "-o", out, "-v", "300", "--dropout", "0.0"],
+        "merge": ["-i", vocab0, "-o", out, "--allow", _allow(tmp)],
+        "generate": ["-v", "300", "-o", out, "--insert-probability", "1.0",
+                     "--max-token-length", "8"],
     }[cmd]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_port(cmd, *args, "--train", f"code:{train}", *rest)
+    if "--corpus-sharded" not in rest:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            run_port(cmd, *args, "--train", f"code:{train}", *rest)
+        return
+    run_port(cmd, *args, "--train", f"code:{train}", *rest)
+    sharded = open(out, "rb").read()
+    run_port(cmd, *args, "--train", f"code:{train}")
+    assert open(out, "rb").read() == sharded
+    assert 256 < len(json.loads(sharded)["vocab"]) <= 300
 
 
 def test_cli_exits_without_a_device(monkeypatch, capsys):
+    """The subcommands that use the card exit non-zero without one."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["regex"])
-    assert exc.value.code not in (0, None)
-    assert "device='cpu'" in str(exc.value.code)
+    for argv in (["generate", "-v", "10", "-o", "x.json"],
+                 ["encode", "-v", "x.json", "-i", "a"]):
+        with pytest.raises(SystemExit) as exc:
+            cli.main(argv)
+        assert exc.value.code not in (0, None)
+        assert "device='cpu'" in str(exc.value.code)
+
+
+def test_cli_regex_needs_no_device(monkeypatch, capsys, tmp_path):
+    """regex, filter, mine and decode resolve no device: regex runs with
+    no GPU and no --device, creates no CUDA context, and in a process of
+    its own imports no torch."""
+    code = ("import sys; import tokengeex_tpu_torch.cli as c; "
+            "c.main(['regex']); assert 'torch' not in sys.modules")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=REPO, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=REPO))
+    assert r.returncode == 0, r.stderr
+    assert "lowercase-word" in r.stdout
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def no_context(*a, **k):
+        raise AssertionError("regex touched the CUDA device")
+
+    monkeypatch.setattr(torch.cuda, "current_device", no_context)
+    monkeypatch.setattr(torch.cuda, "init", no_context)
+    cli.main(["regex"])
+    assert "lowercase-word" in capsys.readouterr().out
+    out = tmp_path / "allow.regex"
+    cli.main(["regex", "-o", str(out), "-p", "space-lowercase-word"])
+    assert out.read_text()
 
 
 def test_cli_runs_as_a_module():
@@ -258,6 +299,7 @@ def test_cli_runs_as_a_module():
     assert "lowercase-word" in r.stdout
     if not torch.cuda.is_available():
         r = subprocess.run(
-            [sys.executable, "-m", "tokengeex_tpu_torch.cli", "regex"],
+            [sys.executable, "-m", "tokengeex_tpu_torch.cli", "encode",
+             "-v", "x.json", "-i", "a"],
             capture_output=True, text=True, env=env, cwd=REPO, timeout=300)
         assert r.returncode != 0 and "device='cpu'" in r.stderr

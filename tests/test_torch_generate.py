@@ -396,10 +396,27 @@ def test_device_dfa_is_uploaded_once():
     assert dd._device_dfa_for(dfa, "cpu") is dd._device_dfa_for(dfa, CPU)
 
 
-def test_allreduce_frequencies_is_not_ported():
-    g = generate.VocabularyGenerator(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_allreduce_frequencies_is_not_ported(tmp_path):
+    """allreduce_frequencies, refused until multi-GPU was ported, is a
+    no-op at world size 1, with or without a process group of one rank
+    (tests/test_torch_multigpu.py sums two ranks' shards)."""
+    from tokengeex_tpu_torch.parallel import mesh
+
+    g = generate.VocabularyGenerator(max_token_length=4,
+                                     insert_probability=1.0,
+                                     added_tokens=["absent"], device="cpu")
+    g.feed(["abc abd", "abd"])
+    want = dict(g.frequencies)
+    assert want["absent"] == 1 and want["ab"] == 2
+    g.allreduce_frequencies()
+    assert dict(g.frequencies) == want
+    mesh.distributed_initialize("cpu", init_method=f"file://{tmp_path}/pg",
+                                world_size=1, rank=0, timeout=60)
+    try:
         g.allreduce_frequencies()
+    finally:
+        mesh.shutdown()
+    assert dict(g.frequencies) == want
 
 
 def test_generator_needs_a_device_without_cuda(monkeypatch):

@@ -96,14 +96,29 @@ def test_device_corpus_reuse_and_mismatch(merge_corpus, monkeypatch):
     assert pairs == ed.count_pairs_device(m, samples, device="cpu")
 
 
-def test_device_corpus_is_single_process(merge_corpus, monkeypatch):
-    _, samples = merge_corpus
-    dist = torch.distributed
-    monkeypatch.setattr(dist, "is_available", lambda: True)
-    monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda *a: 2)
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        ed.DeviceCorpus(samples, device="cpu")
+def test_device_corpus_is_single_process(merge_corpus, tmp_path):
+    """A DeviceCorpus under a process group, refused until multi-GPU was
+    ported: at world size 1 it keeps every row, and its pair counts and
+    merges equal the run without a group (tests/test_torch_multigpu.py
+    merges through two ranks)."""
+    from tokengeex_tpu_torch.parallel import mesh
+
+    vocab, samples = merge_corpus
+    _, m = _models(vocab)
+    want = ed.count_pairs_device(m, samples, device="cpu")
+    merger = dict(allow=ALLOW, num_merges=6, step=3, device="cpu")
+    merged = VocabularyMerger(**merger).merge(_models(vocab)[1], samples)
+    mesh.distributed_initialize("cpu", init_method=f"file://{tmp_path}/pg",
+                                world_size=1, rank=0, timeout=60)
+    try:
+        corpus = ed.DeviceCorpus(samples, device="cpu")
+        assert [sub.rows for _, sub in corpus.groups] == \
+            [rows for rows, lo in corpus.blocks.values()]
+        assert ed.count_pairs_device(m, samples, corpus=corpus) == want
+        got = VocabularyMerger(**merger).merge(_models(vocab)[1], samples)
+    finally:
+        mesh.shutdown()
+    assert _as_tuples(got) == _as_tuples(merged)
 
 
 @pytest.mark.parametrize("backend", ["device", "oracle"])

@@ -108,8 +108,23 @@ def test_device_pruner_on_cpu_matches_oracle(oracle_pruned):
     {"backend": "auto"}, {"backend": "native"}, {"corpus_sharded": True},
 ])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prune.VocabularyPruner(80, **kw)
+    """The native and auto backends are not part of the port;
+    corpus_sharded, refused until multi-GPU was ported, prunes in one
+    process (world size 1: the shard is the corpus) to the unsharded
+    pruner's vocabulary (tests/test_torch_multigpu.py prunes two ranks'
+    shards)."""
+    if not kw.get("corpus_sharded"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            prune.VocabularyPruner(80, **kw)
+        return
+    vocab, samples = _corpus()
+    got, want = (prune.VocabularyPruner(backend="device", device="cpu",
+                                        corpus_sharded=sharded, **KW).prune(
+        _model(tg, vocab), samples) for sharded in (True, False))
+    assert [(t.value, t.score, t.keep) for t in got.vocab] == \
+        [(t.value, t.score, t.keep) for t in want.vocab]
+    with pytest.raises(ValueError, match="device backend"):
+        prune.VocabularyPruner(80, backend="oracle", **kw)
 
 
 def test_device_dtype_f64_runs(oracle_pruned):

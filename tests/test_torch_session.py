@@ -314,10 +314,23 @@ def test_session_needs_a_device_without_cuda(corpus, monkeypatch):
     ({"kernel": "pallas"}, ValueError),
 ])
 def test_session_unported_options_raise(corpus, kw, exc):
+    """Probe and kernel overrides raise. local_shard, refused until
+    multi-GPU was ported, is the plain session at world size 1 (the shard
+    is the corpus): the same counts and frequencies
+    (tests/test_torch_multigpu.py runs shards on four ranks)."""
     vocab, _, samples = corpus
     _, m = _models(vocab)
-    with pytest.raises(exc):
-        DeviceTrainSession(m, samples, 256, device="cpu", **kw)
+    if "local_shard" not in kw:
+        with pytest.raises(exc):
+            DeviceTrainSession(m, samples, 256, device="cpu", **kw)
+        return
+    got = DeviceTrainSession(m, samples, 256, device="cpu", **kw)
+    want = DeviceTrainSession(m, samples, 256, device="cpu")
+    assert not got.local_shard
+    np.testing.assert_array_equal(got.e_step(m, 0.05, 1),
+                                  want.e_step(m, 0.05, 1))
+    np.testing.assert_array_equal(got.count_frequencies(m),
+                                  want.count_frequencies(m))
 
 
 @pytest.mark.parametrize("kw", [{"dtype": torch.float64},

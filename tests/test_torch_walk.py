@@ -12,7 +12,8 @@ tables; its plain twin, `viterbi_walk_plain`, is held here:
     arbitrary and with half-integer scores (ties are common);
   - ids mode (`walk_ids`) against the host `backtrack` and the JAX
     package's `backtrack`, at dropout 0 and 0.1 (shared dropout words),
-    with unreachable spans (raising, and None with raise_no_path=False);
+    split through the encode's `_place_ids`, with unreachable spans (-1
+    tokens, and NoPath from the split);
   - the port's encode against the JAX package's with shared dropout words,
     empty samples, back-to-back samples in one row, NoPath, and a sample
     over 32 KiB (the chained path, walked on the host);
@@ -177,6 +178,17 @@ def test_walk_counts_match_viterbi_freq(route, scores):
     assert lat.viterbi_walk.launches == before
 
 
+def _place(tbl, spans, walked):
+    """walk_ids' flat ids and tokens per span, split a span through the
+    encode's own _place_ids: it raises NoPath for the first dead span."""
+    flat, ntok = walked
+    samples = [bytes(e - s) for _, s, e, _, _ in spans]
+    out = [None] * len(spans)
+    ed._place_ids(out, samples, [np.arange(len(spans))], [ntok], [flat],
+                  tbl.vocab_size, gather=False)
+    return out
+
+
 @pytest.mark.parametrize("dropout", [0.0, 0.1])
 @pytest.mark.parametrize("route", ["slab", "fused"])
 def test_walk_ids_match_backtrack(route, dropout):
@@ -192,16 +204,18 @@ def test_walk_ids_match_backtrack(route, dropout):
     spans = case["packed"].spans
     want = lat.backtrack(case["packed"], dp, bl, token_to_id)
     jwant = lj.backtrack(case["jpacked"], dp, bl, token_to_id)
-    got = lat.walk_ids(tbl, pb, torch.as_tensor(dp), torch.as_tensor(bl),
-                       lat.walk_index(spans, *bl.shape, "cpu"))
+    got = _place(tbl, spans, lat.walk_ids(
+        tbl, pb, torch.as_tensor(dp), torch.as_tensor(bl),
+        lat.walk_index(spans, *bl.shape, "cpu")))
     assert got == want == jwant
     assert sum(map(len, got)) > 1000
 
 
 @pytest.mark.parametrize("route", ["slab", "fused"])
 def test_walk_ids_no_path(route):
-    """Unreachable span ends are not walked: they raise NoPath(len, len),
-    or give None with raise_no_path=False, as the host backtrack does."""
+    """Unreachable span ends are not walked: they count -1 tokens, as the
+    host backtrack's None with raise_no_path=False, and the split raises
+    NoPath(len, len)."""
     case = _case(route, "exact")
     tbl, pb = case["tbl"], case["pb"]
     dp, bl = case["outs"][0.0]
@@ -215,13 +229,16 @@ def test_walk_ids_no_path(route):
     want = lat.backtrack(case["packed"], dp, bl, token_to_id,
                          raise_no_path=False)
     index = lat.walk_index(spans, *bl.shape, "cpu")
-    got = lat.walk_ids(tbl, pb, torch.as_tensor(dp), torch.as_tensor(bl),
-                       index, raise_no_path=False)
+    flat, ntok = lat.walk_ids(tbl, pb, torch.as_tensor(dp),
+                              torch.as_tensor(bl), index)
+    parts = np.split(flat.astype(np.int64),
+                     np.cumsum(np.maximum(ntok, 0))[:-1])
+    got = [None if c < 0 else p.tolist() for c, p in zip(ntok, parts)]
     assert got == want
     assert [k for k, ids in enumerate(got) if ids is None] == dead
     n = spans[dead[0]][2] - spans[dead[0]][1]
     with pytest.raises(tg.NoPathError) as err:
-        lat.walk_ids(tbl, pb, torch.as_tensor(dp), torch.as_tensor(bl), index)
+        _place(tbl, spans, (flat, ntok))
     assert (err.value.args, str(err.value)) == (
         tg.NoPathError(n, n).args, str(tg.NoPathError(n, n)))
     # Dead spans walk nothing in count mode either.

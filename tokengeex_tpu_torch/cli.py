@@ -7,10 +7,24 @@ as todo!(), src/cli.rs:737-742; here they are implemented.)
 
     python -m tokengeex_tpu_torch.cli <subcommand> ...
 
-Every subcommand runs on the current CUDA device, or where `--device`
-says (`--device cpu`: the kernels' plain PyTorch versions); without a GPU
-and without `--device cpu` the CLI exits non-zero. `--backend` of prune
-and merge takes `device` (the default) or `oracle`.
+The subcommands that use the card (generate, prune, merge, encode) run on
+the current CUDA device, or where `--device` says (`--device cpu`: the
+kernels' plain PyTorch versions); without a GPU and without `--device cpu`
+they exit non-zero. regex, filter, mine and decode touch no device.
+`--backend` of prune and merge takes `device` (the default) or `oracle`.
+
+Multi-GPU: with WORLD_SIZE in the environment (torchrun sets it, with
+RANK, LOCAL_RANK, MASTER_ADDR and MASTER_PORT; or set them by hand for each
+rank's own command line) the card's subcommands join a process group
+(parallel/mesh.py: NCCL on the card, gloo with `--device cpu`), one rank
+per GPU:
+
+    torchrun --nproc-per-node 8 -m tokengeex_tpu_torch.cli prune ...
+
+Every rank loads the same --train files and shuffles them alike (a
+replicated corpus: each row group's rows split over the ranks), or with
+`--corpus-sharded` (generate, prune) each rank's --train files are its own
+shard. Only rank 0 writes -o, checkpoints and encode's output.
 
 Train sources are `{name}:{path}[:proportion]` NUL-separated .bin files,
 loaded in parallel, UTF-8 validated, preprocessed at load time
@@ -32,10 +46,7 @@ from typing import List, Optional, Sequence
 from .core.processors import Processor, load_processors
 from .core.tokenizer import Tokenizer
 from .models.unigram import Model
-from .train.device_session import _not_ported
 from .train.filter import VocabularyFilter
-from .train.generate import VocabularyGenerator
-from .train.merge import VocabularyMerger
 from .train.mine import IdiomMiner
 from .train.patterns import (
     PATTERNS,
@@ -43,8 +54,9 @@ from .train.patterns import (
     build_mine_regex,
     load_patterns,
 )
-from .train.prune import VocabularyPruner
-from .utils.device import resolve_device
+
+# The subcommands that use the card import torch (and the modules that
+# need it) when they run: regex, filter, mine and decode start without it.
 
 log = logging.getLogger("tokengeex")
 
@@ -117,11 +129,31 @@ def load_tokens(paths: Sequence[str], mode: str) -> List[str]:
     return out
 
 
-def shuffled_train_samples(sources: Sequence[Source]) -> List[str]:
+def shuffled_train_samples(sources: Sequence[Source],
+                           rng=random) -> List[str]:
     """reference: src/cli.rs:370-379."""
     samples = [s for src in sources for s in src.processed_samples]
-    random.shuffle(samples)
+    rng.shuffle(samples)
     return samples
+
+
+def train_rng(sharded: bool = False):
+    """The shuffle's generator in a card's subcommand: ranks that hold a
+    replicated corpus (a process group, not `sharded`) shuffle it alike,
+    from rank 0's seed."""
+    from .parallel import mesh as pmesh
+
+    if pmesh.process_count() > 1 and not sharded:
+        return random.Random(pmesh.allgather_pickled(
+            random.getrandbits(63))[0])
+    return random
+
+
+def is_writer() -> bool:
+    """Whether this process writes the outputs: rank 0."""
+    from .parallel import mesh as pmesh
+
+    return pmesh.process_index() == 0
 
 
 # ---------------------------------------------------------------------------
@@ -131,14 +163,14 @@ def shuffled_train_samples(sources: Sequence[Source]) -> List[str]:
 
 def cmd_generate(args) -> None:
     """reference: src/cli.rs:386-452."""
+    from .train.generate import VocabularyGenerator
+
     log.info(
         "Generating vocabulary output=%r vocab_size=%d split=%r allow=%r "
         "insert_probability=%s max_token_length=%d",
         args.output, args.vocab_size, args.split, args.allow,
         args.insert_probability, args.max_token_length,
     )
-    if args.corpus_sharded:
-        raise _not_ported("--corpus-sharded", "Multi-GPU")
     processors = load_processors(args.processor)
     train = load_sources(args.train, processors, "train")
     allow = load_regex_file(args.allow) if args.allow else None
@@ -161,18 +193,26 @@ def cmd_generate(args) -> None:
             "Collected frequent tokens from %r. Total: %d",
             source.name, generator.current_size(),
         )
+    if args.corpus_sharded:
+        # This rank fed its shard only: sum the document frequencies over
+        # the ranks (every rank then generates the same vocabulary).
+        generator.allreduce_frequencies()
+        log.info("Merged frequencies across ranks. Total: %d",
+                 generator.current_size())
     vocab = generator.generate(args.vocab_size)
     log.info(
         "Generated initial vocabulary vocab_size=%d mem=%s",
         len(vocab), format_bytes_as_mb(sum(len(t) for t in vocab)),
     )
-    tokenizer = Tokenizer(Model(vocab), processors, args.special)
-    tokenizer.save(args.output)
-    log.info("Saved vocabulary to %r", args.output)
+    if is_writer():
+        Tokenizer(Model(vocab), processors, args.special).save(args.output)
+        log.info("Saved vocabulary to %r", args.output)
 
 
 def cmd_prune(args) -> None:
     """reference: src/cli.rs:455-494."""
+    from .train.prune import VocabularyPruner
+
     log.info(
         "Pruning vocabulary input=%r output=%r vocab_size=%d dropout=%s "
         "shrink_factor=%s em_subiters=%d",
@@ -185,7 +225,8 @@ def cmd_prune(args) -> None:
     )
     initial = model.vocab_size()
     train = load_sources(args.train, processors, "train")
-    samples = [s.encode("utf-8") for s in shuffled_train_samples(train)]
+    samples = [s.encode("utf-8") for s in shuffled_train_samples(
+        train, train_rng(args.corpus_sharded))]
 
     pruner = VocabularyPruner(
         vocab_size=args.vocab_size,
@@ -198,7 +239,7 @@ def cmd_prune(args) -> None:
     )
 
     checkpoint_cb = None
-    if args.checkpoint_every:
+    if args.checkpoint_every and is_writer():
         def checkpoint_cb(m, rounds):
             if rounds % args.checkpoint_every == 0:
                 path = f"{args.output}.round{rounds}"
@@ -211,8 +252,9 @@ def cmd_prune(args) -> None:
         initial, args.vocab_size,
         format_bytes_as_mb(sum(len(t) for t in model.vocab)),
     )
-    Tokenizer(model, processors, specials).save(args.output)
-    log.info("Saved pruned vocabulary to %r", args.output)
+    if is_writer():
+        Tokenizer(model, processors, specials).save(args.output)
+        log.info("Saved pruned vocabulary to %r", args.output)
 
 
 def cmd_filter(args) -> None:
@@ -240,6 +282,8 @@ def cmd_filter(args) -> None:
 
 def cmd_merge(args) -> None:
     """reference: src/cli.rs:554-606."""
+    from .train.merge import VocabularyMerger
+
     if not args.train:
         raise SystemExit("At least one train source must be provided.")
     log.info(
@@ -250,7 +294,8 @@ def cmd_merge(args) -> None:
     )
     tokenizer = Tokenizer.from_file(args.input)
     train = load_sources(args.train, tokenizer.processors, "train")
-    samples = [s.encode("utf-8") for s in shuffled_train_samples(train)]
+    samples = [s.encode("utf-8") for s in
+               shuffled_train_samples(train, train_rng())]
     initial = tokenizer.model.vocab_size()
     allow = load_regex_file(args.allow)
 
@@ -269,10 +314,10 @@ def cmd_merge(args) -> None:
         initial, model.vocab_size(),
         format_bytes_as_mb(sum(len(t) for t in model.vocab)),
     )
-    Tokenizer(model, tokenizer.processors, tokenizer.special_tokens()).save(
-        args.output
-    )
-    log.info("Saved merged vocabulary to %r", args.output)
+    if is_writer():
+        Tokenizer(model, tokenizer.processors,
+                  tokenizer.special_tokens()).save(args.output)
+        log.info("Saved merged vocabulary to %r", args.output)
 
 
 def cmd_regex(args) -> None:
@@ -324,7 +369,8 @@ def cmd_encode(args) -> None:
     text = args.input if args.input is not None else sys.stdin.read()
     ids = tokenizer.encode_batch([text], args.dropout, backend="device",
                                  seed=random.randrange(1 << 31))[0]
-    print(json.dumps(ids))
+    if is_writer():
+        print(json.dumps(ids))
 
 
 def cmd_decode(args) -> None:
@@ -371,9 +417,9 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--insert-probability", type=float, default=0.1)
     g.add_argument("--max-token-length", type=int, default=24)
     g.add_argument("--corpus-sharded", action="store_true",
-                   help="--train files are this process's shard of a "
-                        "multi-process corpus (not ported yet)")
-    g.set_defaults(fn=cmd_generate)
+                   help="--train files are this rank's shard of a "
+                        "multi-process corpus")
+    g.set_defaults(fn=cmd_generate, device_stage=True)
 
     # prune (reference: src/cli.rs:65-86, defaults :687-689)
     pr = sub.add_parser("prune")
@@ -389,9 +435,9 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--checkpoint-every", type=int, default=0,
                     help="save a checkpoint every N prune rounds")
     pr.add_argument("--corpus-sharded", action="store_true",
-                    help="--train files are this process's shard of a "
-                         "multi-process corpus (not ported yet)")
-    pr.set_defaults(fn=cmd_prune)
+                    help="--train files are this rank's shard of a "
+                         "multi-process corpus")
+    pr.set_defaults(fn=cmd_prune, device_stage=True)
 
     # filter (reference: src/cli.rs:90-103, defaults :697-700)
     f = sub.add_parser("filter")
@@ -414,7 +460,7 @@ def build_parser() -> argparse.ArgumentParser:
     m.add_argument("--max-token-length", type=int, default=24)
     m.add_argument("--backend", default="device",
                    help="device (default) or oracle")
-    m.set_defaults(fn=cmd_merge)
+    m.set_defaults(fn=cmd_merge, device_stage=True)
 
     # regex (reference: src/cli.rs:134-140)
     r = sub.add_parser("regex")
@@ -435,7 +481,7 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("-v", "--vocab", required=True)
     e.add_argument("-i", "--input")
     e.add_argument("--dropout", type=float, default=0.0)
-    e.set_defaults(fn=cmd_encode)
+    e.set_defaults(fn=cmd_encode, device_stage=True)
 
     d = sub.add_parser("decode")
     d.add_argument("-v", "--vocab", required=True)
@@ -445,8 +491,9 @@ def build_parser() -> argparse.ArgumentParser:
     for parser in sub.choices.values():
         parser.add_argument(
             "--device", default=None,
-            help="torch device to run on (default: the current CUDA "
-                 "device; cpu: the kernels' plain PyTorch versions)")
+            help="torch device of generate, prune, merge and encode "
+                 "(default: the current CUDA device, or under torchrun the "
+                 "rank's; cpu: the kernels' plain PyTorch versions)")
     return p
 
 
@@ -456,11 +503,24 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         format="[%(asctime)s %(levelname)s %(name)s] %(message)s",
     )
     args = build_parser().parse_args(argv)
+    if not getattr(args, "device_stage", False):
+        # regex, filter, mine and decode: no torch, no CUDA context.
+        args.fn(args)
+        return
+    from .parallel import mesh as pmesh
+    from .utils.device import resolve_device
+
     try:
-        args.device = resolve_device(args.device)
+        if "WORLD_SIZE" in os.environ:
+            args.device = pmesh.distributed_initialize(args.device)
+        else:
+            args.device = resolve_device(args.device)
     except RuntimeError as e:
         sys.exit(f"tokengeex-torch: {e}")
-    args.fn(args)
+    try:
+        args.fn(args)
+    finally:
+        pmesh.shutdown()
 
 
 if __name__ == "__main__":

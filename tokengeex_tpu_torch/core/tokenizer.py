@@ -89,7 +89,10 @@ class Tokenizer:
         backend="device" runs the Viterbi segmentation of all ordinary
         spans as one packed batch on `self.device`; "oracle" encodes
         span by span with the host float64 oracle. `timer` (an
-        ops.lattice.PhaseTimer) collects the device pass's phases.
+        ops.lattice.PhaseTimer) collects the device pass's phases. Under a
+        process group (parallel/mesh.py) the device backend splits each
+        row group's rows over the ranks and returns every text's ids on
+        every rank, so every rank must call it with the same texts.
         """
         return self._encode_batch_any(texts, ordinary=False, dropout=dropout,
                                       backend=backend, seed=seed, timer=timer)
@@ -153,7 +156,7 @@ class Tokenizer:
             raise NotImplementedError(
                 f"backend={backend!r}: the port has the 'device' and "
                 "'oracle' backends; the native runtime and the 'auto' "
-                "crossover are still to port (ROADMAP.md)")
+                "crossover are not part of the port (ROADMAP.md)")
         return self._stitch(layout, encoded)
 
     # -- Decode ------------------------------------------------------------

@@ -2039,19 +2039,17 @@ def walk_counts(tbl: DeviceTables, batch: DeviceBatch, best_l: torch.Tensor,
 
 def walk_ids(tbl: DeviceTables, batch: DeviceBatch, dp: torch.Tensor,
              best_l: torch.Tensor, index: WalkIndex,
-             raise_no_path: bool = True,
              timer: Optional[PhaseTimer] = None
-             ) -> List[Optional[List[int]]]:
-    """Token id sequences of the spans of `index` (the group's
-    `walk_index`), in its order, walked on the device: the counterpart of
-    `backtrack` that reads back only the span-end dp values, the per-span
-    token counts and the flat id buffer the walk writes. An unreachable
-    non-empty span raises NoPath(len, len), or gives None with
-    raise_no_path=False; an empty span gives []."""
+             ) -> Tuple[np.ndarray, np.ndarray]:
+    """Token ids of the spans of `index` (the group's `walk_index`), in
+    its order, walked on the device: the counterpart of `backtrack` that
+    reads back only the span-end dp values, the per-span token counts and
+    the flat id buffer the walk writes. Returns the flat int32 ids and the
+    (n,) int64 tokens per span, -1 for an unreachable non-empty span (0
+    for an empty one); the caller splits them (estep_device._place_ids)."""
     n = index.n
     if n == 0:
-        return []
-    V = tbl.vocab_size
+        return np.zeros(0, np.int32), np.zeros(0, np.int64)
     with phase(timer, "walk"):
         dp_end = index.dp_ends(dp)
         ok = torch.isfinite(dp_end) & index.nonempty
@@ -2061,15 +2059,6 @@ def walk_ids(tbl: DeviceTables, batch: DeviceBatch, dp: torch.Tensor,
     with phase(timer, "readback"):
         dp_h = dp_end.cpu().numpy()
         ntok_h = ntok.cpu().numpy().astype(np.int64)
-        dead = (index.lengths > 0) & ~np.isfinite(dp_h)
-        if raise_no_path and dead.any():
-            k = int(np.nonzero(dead)[0][0])
-            raise NoPathError(int(index.lengths[k]), int(index.lengths[k]))
-        total = int(ntok_h.sum())
-        flat = flat[:total].cpu().numpy()
-    if (flat >= V).any():
-        raise KeyError("walk: a matched span is not a vocabulary token "
-                       "(model/table mismatch)")
-    with phase(timer, "split"):
-        parts = np.split(flat.astype(np.int64), np.cumsum(ntok_h)[:-1])
-        return [None if dead[k] else parts[k].tolist() for k in range(n)]
+        flat = flat[: int(ntok_h.sum())].cpu().numpy()
+    ntok_h[(index.lengths > 0) & ~np.isfinite(dp_h)] = -1
+    return flat, ntok_h

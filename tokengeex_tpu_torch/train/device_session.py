@@ -1,7 +1,7 @@
 """Device training session: probe the corpus once, train many passes.
 
-Counterpart of tokengeex_tpu/train/device_session.py for one process on
-one device. During pruning the vocabulary only shrinks and gets rescored
+Counterpart of tokengeex_tpu/train/device_session.py. During pruning the
+vocabulary only shrinks and gets rescored
 (reference: src/prune.rs:23-57), so with a stable-slot table
 (TokenTable.rebind) the (position, length) -> slot matching of the whole
 corpus never changes across EM sub-iterations, frequency passes and prune
@@ -25,6 +25,13 @@ rounds. The session therefore:
 A group whose slots do not fit the budget takes the per-pass route of
 train/estep_device.py (probe, forward, marginals scattered into bins).
 
+Multi-GPU (parallel/mesh.py, one rank a GPU): every rank holds the whole
+corpus and keeps its block of each group's rows (the caches hold blocks),
+or with local_shard only its own samples and all of their rows. Each pass
+adds the rank's groups locally, agrees on failures, then sums the (V,)
+counts with one all_reduce; the routes (budgets, over-budget groups)
+may differ between ranks, the collectives never do.
+
 The f64 / exact conformance mode (dtype=torch.float64, or probe="exact")
 follows the JAX session's f64 branches: no rank space and no slot
 cache (exact probes yield token ids, which change on every rebind), so
@@ -45,6 +52,7 @@ from ..core.types import NoPathError
 from ..models.unigram import Model
 from ..ops import lattice as lat
 from ..ops.match_table import TokenTable
+from ..parallel import mesh as pmesh
 from ..utils.device import resolve_device
 from ..utils.packing import PackedBatch, pack_samples
 from . import estep_device as ed
@@ -62,11 +70,6 @@ CPU_SLOT_CACHE_BYTES = 6 << 30
 CPU_INPUT_CACHE_BYTES = 4 << 30
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, still to port: {item!r})")
-
-
 def _group_seed(seed: int, gi: int) -> int:
     """Seed of group gi's dropout words in pass `seed`."""
     return int(np.random.SeedSequence([seed, gi]).generate_state(
@@ -80,22 +83,24 @@ class DeviceTrainSession:
                  cache_budget: Optional[int] = None,
                  local_shard: bool = False, device=None,
                  timer: Optional[lat.PhaseTimer] = None):
-        """`samples` is the whole corpus. kernel=None lets tables small
-        enough (has_vscan) take the fused probe kernels; "slab" keeps every
-        group on the probed-slab kernels. device: a CUDA device by default,
-        "cpu" for the kernels' plain versions; without a GPU and without
-        `device` this raises. `timer` collects the construction's phases
-        (tables, pack); each pass takes its own. dtype=torch.float64 or
-        probe="exact" takes the f64 / exact conformance mode (see the
-        module docstring); snippets then keep the caller's cap at f64."""
-        if local_shard:
-            raise _not_ported("local_shard=True", "Multi-GPU")
+        """`samples` is the whole corpus, or with local_shard under a
+        process group of several ranks this rank's shard of it. kernel=None
+        lets tables small enough (has_vscan) take the fused probe kernels;
+        "slab" keeps every group on the probed-slab kernels. device: a CUDA
+        device by default, "cpu" for the kernels' plain versions; without a
+        GPU and without `device` this raises. `timer` collects the
+        construction's phases (tables, pack); each pass takes its own.
+        dtype=torch.float64 or probe="exact" takes the f64 / exact
+        conformance mode (see the module docstring); snippets then keep the
+        caller's cap at f64."""
         if kernel not in (None, "slab"):
             raise ValueError(f"unknown kernel {kernel!r}")
         if dtype not in (None, torch.float32, torch.float64):
             raise ValueError(f"unsupported dtype {dtype}")
         self.dev = resolve_device(device)
         self.samples = samples
+        # At world size 1 a shard is the corpus: the plain session.
+        self.local_shard = bool(local_shard) and pmesh.process_count() > 1
         self.dtype = dtype or torch.float32
         self.exact = self.dtype == torch.float64 or probe == "exact"
         self.max_snippet = ed._em_snippet_cap(max_snippet, self.dtype)
@@ -159,6 +164,7 @@ class DeviceTrainSession:
         # (lattice.walk_index), keyed as the input cache.
         self.walk_spans: Dict[object, lat.WalkIndex] = {}
         self._group_list = None
+        self._blocks: Dict[int, tuple] = {}
         self._span_idx: Dict[int, dict] = {}
         self._freq_group_list = None
 
@@ -214,9 +220,16 @@ class DeviceTrainSession:
     # -- Group machinery ----------------------------------------------------
 
     def _groups(self):
+        """(gi, block) of each EM row group: this rank's block of its rows
+        (ed.rank_groups), which every cache below keys by gi; `_blocks`
+        keeps each group's row count and first row for the dropout
+        words."""
         if self._group_list is None:
-            self._group_list = list(ed._padded_groups(
-                self.packed, self.width, ed.ROW_MULT))
+            self._group_list = []
+            for gi, rows, lo, block in ed.rank_groups(
+                    self.packed, self.width, self.local_shard):
+                self._group_list.append((gi, block))
+                self._blocks[gi] = (rows, lo)
         return self._group_list
 
     def _span_arrays(self, gi: int, sub: PackedBatch, cache=None,
@@ -260,8 +273,9 @@ class DeviceTrainSession:
             cap = ed.MAX_ENCODE_WIDTH
             width = ed._pick_width(self.samples, cap)
             packed = pack_samples(self.samples, width=width, max_snippet=cap)
-            self._freq_group_list = list(ed._padded_groups(packed, width,
-                                                           ed.ROW_MULT))
+            self._freq_group_list = [
+                (gi, block) for gi, _, _, block in
+                ed.rank_groups(packed, width, self.local_shard)]
             self._freq_span_idx = {}
             self._freq_long = {si for si, s in enumerate(self.samples)
                                if len(s) > cap}
@@ -396,8 +410,8 @@ class DeviceTrainSession:
             if dropout > 0.0:
                 gen = torch.Generator(device=self.dev).manual_seed(
                     _group_seed(seed, gi))
-                drop_u = ed._drop_words(gen, batch.p1.shape[0],
-                                        batch.sid.shape[1], self.dev)
+                drop_u = ed.block_drop_words(gen, *self._blocks[gi], sub,
+                                             batch.sid.shape[1], self.dev)
             if self.exact:
                 # Conformance mode: a fresh exact probe each pass, the
                 # marginals scattered into token-id bins.
@@ -461,14 +475,17 @@ class DeviceTrainSession:
             z = (torch.cat(z_parts).cpu().numpy() if z_parts
                  else np.zeros(0, np.float32))
         # Per-snippet normaliser check (reference: src/prune.rs:90-96),
-        # read back once for the whole pass.
+        # read back once for the whole pass and agreed by every rank before
+        # any raises; then one all_reduce of the counts.
         bad = np.nonzero(~np.isfinite(z))[0]
-        if bad.size:
-            k = int(bad[0])
-            raise ValueError(
-                f"normalization constant is not finite "
-                f"(z={float(z[k])}, sample={z_spans[k][3]})")
-        return expected
+        si, zk = ((z_spans[int(bad[0])][3], float(z[bad[0]])) if bad.size
+                  else (-1, 0.0))
+        si, zk = pmesh.allgather_fail(si, zk)
+        if si >= 0:
+            where = "shard sample" if self.local_shard else "sample"
+            raise ValueError(f"normalization constant is not finite "
+                             f"(z={zk}, {where}={si})")
+        return pmesh.all_reduce_counts(expected)
 
     def count_frequencies(self, model: Model, task=None,
                           timer: Optional[lat.PhaseTimer] = None
@@ -527,6 +544,7 @@ class DeviceTrainSession:
             if task is not None:
                 task.record(sum(e - s for (_, s, e, _, _) in info["whole"]),
                             len({sp[3] for sp in info["whole"]}))
+        fail, value = -1, 0.0
         if counts is not None:
             with lat.phase(timer, "readback"):
                 dpe_h = torch.cat(dp_ends).cpu().numpy()
@@ -534,23 +552,41 @@ class DeviceTrainSession:
             bad = np.nonzero(~np.isfinite(dpe_h))[0]
             if bad.size:
                 _, s, e, _, _ = spans_checked[int(bad[0])]
-                raise NoPathError(e - s, e - s)
-            if counts_h[V]:
-                raise RuntimeError(
-                    f"walk: {int(counts_h[V])} matched spans are not "
-                    "vocabulary tokens (model/table mismatch)")
+                fail, value = 0, e - s
+            elif counts_h[V]:
+                fail, value = 1, int(counts_h[V])
             freqs += counts_h[:V]
 
+        # Samples past the frequency packing's cap: this rank's own chained
+        # encode (every rank encodes all of them under a replicated corpus).
         long_idx = sorted(self._freq_long)
+        long_freqs = np.zeros(V, dtype=np.int64)
         if long_idx:
-            encoded = ed.encode_corpus_device(
-                model, [self.samples[si] for si in long_idx], table=self.tbl,
-                device=self.dev, timer=timer, dtype=self.dtype,
-                probe="exact" if self.exact else None)
-            ids = [np.asarray(r, np.int64) for r in encoded if r]
-            if ids:
-                freqs += np.bincount(np.concatenate(ids), minlength=V)
+            try:
+                encoded = ed.encode_corpus_device(
+                    model, [self.samples[si] for si in long_idx],
+                    table=self.tbl, device=self.dev, timer=timer,
+                    dtype=self.dtype, probe="exact" if self.exact else None,
+                    local=True)
+            except NoPathError as err:
+                if fail < 0:
+                    fail, value = 0, err.length
+            else:
+                ids = [np.asarray(r, np.int64) for r in encoded if r]
+                if ids:
+                    long_freqs += np.bincount(np.concatenate(ids),
+                                              minlength=V)
             if task is not None:
                 task.record(sum(len(self.samples[si]) for si in long_idx),
                             len(long_idx))
-        return freqs
+        # A failure on any rank raises on every rank, before the sum.
+        fail, value = pmesh.allgather_fail(fail, value)
+        if fail == 0:
+            raise NoPathError(int(value), int(value))
+        if fail == 1:
+            raise RuntimeError(
+                f"walk: {int(value)} matched spans are not vocabulary "
+                "tokens (model/table mismatch)")
+        if self.local_shard:
+            return pmesh.all_reduce_counts(freqs + long_freqs)
+        return pmesh.all_reduce_counts(freqs) + long_freqs

@@ -1,8 +1,8 @@
 """Device-backed corpus passes: batched Viterbi encode, the EM E-step,
 Viterbi frequency counts and merge's pair counts.
 
-Counterpart of tokengeex_tpu/train/estep_device.py on one device:
-samples are packed into fixed-shape (rows x width) byte batches
+Counterpart of tokengeex_tpu/train/estep_device.py: samples are packed
+into fixed-shape (rows x width) byte batches
 (utils/packing.py) and processed in row groups on the device
 (ops/lattice.py). Encode walks the backpointers and resolves the token
 ids on the device (`lattice.walk_ids`) and reads back one flat id buffer
@@ -13,6 +13,12 @@ whole width in one scan each, and adds the token marginals into slot bins
 that the host folds to expected counts per token. The merge loop
 re-encodes one DeviceCorpus, packed and uploaded once, and counts
 adjacent id pairs (count_pairs_device).
+
+Under a process group (parallel/mesh.py, one rank a GPU) the corpus is
+replicated: every rank packs every sample the same way and runs its block
+of each row group's rows (`rank_groups`); the E-step's counts are summed
+by one all_reduce a pass and encode's ids all_gathered, so every rank
+returns the whole corpus's result.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from ..core.types import NoPathError
 from ..models.unigram import Model
 from ..ops import lattice as lat
 from ..ops.match_table import TokenTable
+from ..parallel import mesh as pmesh
 from ..utils.device import resolve_device
 from ..utils.packing import PackedBatch, pack_samples
 from ..utils.task import Task
@@ -72,56 +79,46 @@ def _row_groups(packed: PackedBatch, width: int):
         yield start, min(rows, start + group)
 
 
-def pad_rows_to(packed: PackedBatch, rows: int) -> PackedBatch:
-    """Append empty rows (no spans) up to `rows`."""
-    extra = rows - packed.rows
-    if extra <= 0:
-        return packed
-    W = packed.width
-    return PackedBatch(
-        bytes_arr=np.concatenate(
-            [packed.bytes_arr, np.zeros((extra, W), np.uint8)]),
-        sample_id=np.concatenate(
-            [packed.sample_id, np.full((extra, W), -1, np.int32)]),
-        is_start=np.concatenate(
-            [packed.is_start, np.zeros((extra, W + 1), bool)]),
-        end_index=np.concatenate(
-            [packed.end_index, np.zeros((extra, W), np.int32)]),
-        spans=list(packed.spans),
-    )
-
-
-def pad_rows_to_multiple(packed: PackedBatch, mult: int) -> PackedBatch:
-    return pad_rows_to(packed, -(-packed.rows // mult) * mult)
-
-
 def _padded_groups(packed: PackedBatch, width: int, pad_mult: int):
     """Row groups padded (a) to pad_mult and (b) the trailing group up to
     the leading groups' row count."""
     target = None
     for gi, (r0, r1) in enumerate(_row_groups(packed, width)):
-        sub = _slice_packed(packed, r0, r1)
+        sub = pmesh.slice_rows(packed, r0, r1)
         if pad_mult > 1:
-            sub = pad_rows_to_multiple(sub, pad_mult)
+            sub = pmesh.pad_rows_to_multiple(sub, pad_mult)
         if target is None:
             target = sub.rows
         elif sub.rows < target:
-            sub = pad_rows_to_multiple(sub, target)
+            sub = pmesh.pad_rows_to_multiple(sub, target)
         yield gi, sub
 
 
-def _slice_packed(packed: PackedBatch, r0: int, r1: int) -> PackedBatch:
-    spans = [
-        (r - r0, s, e, si, ci) for (r, s, e, si, ci) in packed.spans
-        if r0 <= r < r1
-    ]
-    return PackedBatch(
-        bytes_arr=packed.bytes_arr[r0:r1],
-        sample_id=packed.sample_id[r0:r1],
-        is_start=packed.is_start[r0:r1],
-        end_index=packed.end_index[r0:r1],
-        spans=spans,
-    )
+def rank_groups(packed: PackedBatch, width: int, local: bool = False):
+    """(gi, rows, lo, block) of each padded row group: its row count and
+    this rank's block of its rows, from group row `lo` (`mesh.local_block`;
+    the whole group at world size 1 or with `local`, the rows of this
+    rank's own samples). Every rank walks every group of a replicated
+    corpus, so each pass's collectives come after the loop and group
+    counts need no agreement, nor pack widths (the JAX package's compile
+    shapes, its _local_group_list)."""
+    for gi, sub in _padded_groups(packed, width, ROW_MULT):
+        block, lo = (sub, 0) if local else pmesh.local_block(sub)
+        yield gi, sub.rows, lo, block
+
+
+def block_drop_words(gen: torch.Generator, rows: int, lo: int,
+                     block: PackedBatch, cols: int, device) -> torch.Tensor:
+    """A block's dropout words: the whole group's `rows` drawn from `gen`,
+    as one process draws them, then the block's rows (the rows padded for
+    the world size get zeros; they hold no span). So a run on N ranks at
+    dropout > 0 sees the single-process run's coins."""
+    words = _drop_words(gen, rows, cols, device)
+    if lo + block.rows > rows:
+        words = torch.cat([words, torch.zeros(
+            (lo + block.rows - rows, cols), dtype=words.dtype,
+            device=device)])
+    return words[lo : lo + block.rows]
 
 
 # Device bytes a DeviceCorpus may hold in cached inputs (~2 bytes per
@@ -135,21 +132,19 @@ class DeviceCorpus:
     bounds and its walk's span index stay on the device under `budget`
     bytes; they do not depend on the vocabulary, so one corpus serves
     every model, as the merge loop needs when it re-encodes the corpus
-    after every batch of merges. Single process only."""
+    after every batch of merges. Under a process group (parallel/mesh.py)
+    the corpus is replicated: every rank packs every sample and keeps its
+    block of each group's rows (`groups` holds the blocks, `blocks` each
+    group's row count and first row); local=True keeps every row of this
+    rank's own samples, for an encode with no collective."""
 
     def __init__(self, samples: Sequence[bytes],
                  max_width: Optional[int] = None, device=None,
-                 budget: int = INPUT_CACHE_BYTES):
-        import torch.distributed as dist
-
-        if dist.is_available() and dist.is_initialized() \
-                and dist.get_world_size() > 1:
-            from .device_session import _not_ported
-
-            raise _not_ported("a multi-process DeviceCorpus", "Multi-GPU")
+                 budget: int = INPUT_CACHE_BYTES, local: bool = False):
         self.dev = resolve_device(device)
         self.samples = samples
         self.req_max_width = max_width
+        self.local = local
         cap = max_width or MAX_ENCODE_WIDTH
         self.cap = max(CHUNK, -(-cap // CHUNK) * CHUNK)
         self.long_idx = [si for si, s in enumerate(samples)
@@ -157,7 +152,12 @@ class DeviceCorpus:
         short = [s if len(s) <= self.cap else b"" for s in samples]
         self.width = _pick_width(short, None)
         self.packed = pack_samples(short, width=self.width, max_snippet=None)
-        self.groups = list(_padded_groups(self.packed, self.width, ROW_MULT))
+        self.groups = []
+        self.blocks = {}
+        for gi, rows, lo, block in rank_groups(self.packed, self.width,
+                                               local):
+            self.groups.append((gi, block))
+            self.blocks[gi] = (rows, lo)
         self.budget = budget
         self.used = 0
         self._inputs: dict = {}
@@ -225,6 +225,7 @@ def encode_corpus_device(
     timer: Optional[lat.PhaseTimer] = None,
     table: Optional[TokenTable] = None,
     corpus: Optional["DeviceCorpus"] = None,
+    local: bool = False,
 ) -> List[List[int]]:
     """Viterbi-encode all samples on the device with the reference's
     semantics, NoPath included (src/model.rs:59-129). dropout > 0
@@ -243,10 +244,20 @@ def encode_corpus_device(
     f64 scores and the double `viterbi_scan`, the chained windows' dp
     tail carried in f64.
     `timer` collects the seconds per phase (tables, pack, prep, probe,
-    kernel, walk, readback, split; backtrack for chained samples). `table`
+    kernel, walk, readback, split (with the ids' gather); backtrack for
+    chained samples). `table`
     is a TokenTable bound to `model` to use instead of building one (a
     training session's). `corpus` is a DeviceCorpus packed from these very
-    samples (same `max_width`), whose groups' inputs stay on the device."""
+    samples (same `max_width`), whose groups' inputs stay on the device.
+
+    Under a process group (parallel/mesh.py) the corpus is replicated:
+    every rank walks its block of each row group's rows, the blocks' flat
+    ids are all_gathered as int32 tensors, and every rank returns every
+    sample's ids, so every rank must call it (the JAX package's sharded
+    Viterbi and allgather). A NoPath on any rank's rows raises on every
+    rank. Samples past the pack cap take the chained encode on every rank,
+    as in the JAX package. local=True encodes this rank's own samples with
+    no collective (a corpus shard's, the JAX package's force_local)."""
     dtype = dtype or torch.float32
     dev = resolve_device(device)
     with lat.phase(timer, "tables"):
@@ -259,23 +270,26 @@ def encode_corpus_device(
 
     if corpus is not None and (corpus.samples is not samples
                                or corpus.req_max_width != max_width
-                               or corpus.dev != dev):
-        # Packed from other samples or at another width: its spans would
-        # be misassigned.
+                               or corpus.dev != dev
+                               or corpus.local != local):
+        # Packed from other samples, at another width or for other rows:
+        # its spans would be misassigned.
         corpus = None
     with lat.phase(timer, "pack"):
         if corpus is None:
-            corpus = DeviceCorpus(samples, max_width, dev, budget=0)
+            corpus = DeviceCorpus(samples, max_width, dev, budget=0,
+                                  local=local)
     gen = (torch.Generator(device=dev).manual_seed(seed)
            if dropout > 0.0 else None)
 
-    out: List[Optional[List[int]]] = [None] * len(samples)
+    sids, ntoks, flats = [], [], []
     for gi, sub in corpus.groups:
         with lat.phase(timer, "prep"):
             batch = corpus.batch(gi, sub, L)
             chains = corpus.chains(gi, batch)
             index = corpus.walk_index(gi, sub)
-            drop_u = (_drop_words(gen, sub.rows, batch.sid.shape[1], dev)
+            drop_u = (block_drop_words(gen, *corpus.blocks[gi], sub,
+                                       batch.sid.shape[1], dev)
                       if gen is not None else None)
         dp, best_l = lat.viterbi(dt, batch, C=CHUNK, dtype=dtype,
                                  backend=backend, drop_u=drop_u,
@@ -283,10 +297,16 @@ def encode_corpus_device(
                                  chains=chains)
         # The backpointers stay on the device: the walk reads back the
         # span-end dp values, the per-span token counts and the ids.
-        spans = lat.walk_ids(dt, batch, dp, best_l, index, timer=timer)
-        for (r, s, e, si, ci), ids in zip(sub.spans, spans):
-            assert ci == 0, "encode packing must not chop samples"
-            out[si] = ids
+        flat, ntok = lat.walk_ids(dt, batch, dp, best_l, index, timer=timer)
+        assert all(sp[4] == 0 for sp in sub.spans), \
+            "encode packing must not chop samples"
+        sids.append(np.asarray([sp[3] for sp in sub.spans], np.int64))
+        ntoks.append(ntok)
+        flats.append(flat)
+    with lat.phase(timer, "split"):
+        out: List[Optional[List[int]]] = [None] * len(samples)
+        _place_ids(out, samples, sids, ntoks, flats, dt.vocab_size,
+                   gather=not corpus.local)
 
     if corpus.long_idx:
         long_idx = corpus.long_idx
@@ -299,6 +319,38 @@ def encode_corpus_device(
 
     # Zero-length samples produce no packed span; they encode to [].
     return [ids if ids is not None else [] for ids in out]
+
+
+def _cat(parts, dtype) -> np.ndarray:
+    return (np.concatenate(parts).astype(dtype) if parts
+            else np.zeros(0, dtype))
+
+
+def _place_ids(out: list, samples, sids, ntoks, flats, V: int,
+               gather: bool) -> None:
+    """Split the walked ids into `out[sample]` once: this rank's groups'
+    (sample ids, tokens per span (-1: no path), flat ids), and with
+    `gather` every rank's, all_gathered as one int32 tensor a rank. Every
+    rank then raises the same NoPath or mismatch."""
+    si, nt, ids = _cat(sids, np.int64), _cat(ntoks, np.int64), \
+        _cat(flats, np.int32)
+    if gather:
+        payload = np.concatenate([[si.size], si, nt, ids]).astype(np.int32)
+        ranks = []
+        for p in pmesh.allgather_ragged(payload):
+            n = int(p[0])
+            ranks.append((p[1 : 1 + n], p[1 + n : 1 + 2 * n], p[1 + 2 * n :]))
+        si, nt, ids = (np.concatenate(col) for col in zip(*ranks))
+    dead = np.nonzero(nt < 0)[0]
+    if dead.size:
+        n = len(samples[int(si[dead[0]])])
+        raise NoPathError(n, n)
+    if (ids >= V).any():
+        raise KeyError("walk: a matched span is not a vocabulary token "
+                       "(model/table mismatch)")
+    parts = np.split(ids.astype(np.int64), np.cumsum(nt)[:-1])
+    for k, part in zip(si.tolist(), parts):
+        out[k] = part.tolist()
 
 
 def _encode_chained(
@@ -452,7 +504,12 @@ def run_e_step_device(
     ValueError. device: a CUDA device by default, "cpu" for the kernels'
     plain versions; without a GPU and without `device` this raises.
     `timer` collects the seconds per phase (tables, pack, prep, probe,
-    forward, backward, scatter, fold)."""
+    forward, backward, scatter, fold). Under a process group
+    (parallel/mesh.py) the corpus is replicated: every rank runs its block
+    of each group's rows (its coins sliced from the group's, so the counts
+    equal one process's up to the summation order), and one
+    all_reduce(SUM) of the folded counts ends the pass on every rank (the
+    JAX package's sharded E-step and psum)."""
     dtype = dtype or torch.float32
     dev = resolve_device(device)
     with lat.phase(timer, "tables"):
@@ -471,10 +528,11 @@ def run_e_step_device(
     acc = None
     z_parts: List[torch.Tensor] = []
     z_spans: list = []
-    for _, sub in _padded_groups(packed, width, ROW_MULT):
+    for _, rows, lo, sub in rank_groups(packed, width):
         with lat.phase(timer, "prep"):
             batch = lat.prepare_batch(sub, L, dev)
-            drop_u = (_drop_words(gen, sub.rows, batch.sid.shape[1], dev)
+            drop_u = (block_drop_words(gen, rows, lo, sub,
+                                       batch.sid.shape[1], dev)
                       if gen is not None else None)
         # Probe once per group; forward and backward share the cache,
         # rows * width * L * 8 bytes: 512 MiB at L = 16.
@@ -504,15 +562,17 @@ def run_e_step_device(
         z = (torch.cat(z_parts).cpu().numpy() if z_parts
              else np.zeros(0, np.float32))
     # Per-snippet normaliser check (reference: src/prune.rs:90-96), read
-    # back once for the whole pass.
+    # back once for the whole pass and agreed by every rank before any
+    # raises.
     bad = np.nonzero(~np.isfinite(z))[0]
-    if bad.size:
-        k = int(bad[0])
-        si = z_spans[k][3]
+    si, zk = ((z_spans[int(bad[0])][3], float(z[bad[0]])) if bad.size
+              else (-1, 0.0))
+    si, zk = pmesh.allgather_fail(si, zk)
+    if si >= 0:
         raise ValueError(
             f"normalization constant is not finite "
-            f"(z={float(z[k])}, sample={si}, len={len(samples[si])})")
-    return expected
+            f"(z={zk}, sample={si}, len={len(samples[si])})")
+    return pmesh.all_reduce_counts(expected)
 
 
 def count_frequencies_device(

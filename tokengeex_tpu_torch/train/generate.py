@@ -29,6 +29,7 @@ import numpy as np
 
 from ..core.redfa import ByteDFA, compile_dfa
 from ..core.types import ScoredToken
+from ..parallel import mesh as pmesh
 from ..utils.device import resolve_device
 from ..utils.task import Task
 from .patterns import rust_to_python
@@ -120,11 +121,24 @@ class VocabularyGenerator:
         return list(self.added_tokens) + list(self.suggested_tokens)
 
     def allreduce_frequencies(self) -> None:
-        """Sum the document frequencies of a multi-process generate (the
-        JAX package's pod-scale feed)."""
-        from .device_session import _not_ported
-
-        raise _not_ported("allreduce_frequencies", "Multi-GPU")
+        """Multi-GPU generate: each rank fed only its corpus shard; sum
+        the document frequencies over the ranks (parallel/mesh.py, one
+        all_gather of each rank's counter: they are sparse string maps,
+        not dense tensors). The constructor's +1 per special entry
+        (reference: src/generate.rs:31-39) counts once. Every rank ends
+        with the same counter, so generate() gives the same vocabulary on
+        every rank. A no-op at world size 1."""
+        if pmesh.process_count() == 1:
+            return
+        seed: Counter = Counter(self._special_tokens())
+        local = Counter(self.frequencies)
+        local.subtract(seed)  # keeps zero entries (Counter - drops them)
+        merged: Counter = Counter()
+        for part in pmesh.allgather_pickled(dict(local)):
+            merged.update(part)
+        merged.update(seed)
+        # A key exists only once counted or seeded (current_size()).
+        self.frequencies = Counter({t: n for t, n in merged.items() if n})
 
     def _feed_special_sample(self, sample: str, tokens: set) -> None:
         """Added/suggested tokens: one coin per occurrence, break on the

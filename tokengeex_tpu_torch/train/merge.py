@@ -10,7 +10,9 @@ pass adds nothing.
 Pair counting backends:
   - device: the batched Viterbi encode on the GPU over a corpus packed and
     uploaded once per merge run (train/estep_device.py DeviceCorpus), the
-    ids walked on the device, then one vectorised pair count;
+    ids walked on the device, then one vectorised pair count; under a
+    process group each rank encodes its block of every group's rows and
+    the ids are gathered, so every rank makes the same merges;
   - oracle: the host f64 model, sample by sample (tests only).
 """
 
@@ -51,7 +53,7 @@ class VocabularyMerger:
             raise NotImplementedError(
                 f"backend={self.backend!r}: the port has the 'device' and "
                 "'oracle' backends; the native runtime and the 'auto' "
-                "crossover are still to port (ROADMAP.md)")
+                "crossover are not part of the port (ROADMAP.md)")
         if self.backend not in ("device", "oracle"):
             raise ValueError(f"unknown backend {self.backend!r}")
         self._corpus = None  # device-resident corpus, one per samples

@@ -11,6 +11,12 @@ E-step and frequency backends:
     (train/device_session.py), which probes the corpus once;
   - oracle: pure Python f64 lattices (tests only).
 The M-step, alternatives, and loss ranking are cheap host-side steps.
+
+Multi-GPU (parallel/mesh.py): under a process group the session splits
+each row group's rows over the ranks (every rank holds the corpus), or
+with corpus_sharded each rank holds its shard (the loss normaliser is the
+whole corpus's sample count); the counts are summed over the ranks, so
+every rank prunes to the same vocabulary.
 """
 
 from __future__ import annotations
@@ -26,7 +32,8 @@ import torch
 from ..core.types import ScoredToken
 from ..models.unigram import Model
 from ..utils.task import Task
-from .device_session import DeviceTrainSession, _not_ported
+from ..parallel import mesh as pmesh
+from .device_session import DeviceTrainSession
 
 log = logging.getLogger(__name__)
 
@@ -96,7 +103,9 @@ class VocabularyPruner:
     seed: int = 0  # dropout RNG base; each E-step call advances the
     # stream so EM sub-iterations sample fresh masks (the reference uses
     # thread_rng, fresh every pass but non-reproducible).
-    corpus_sharded: bool = False  # per-process corpus shards (multi-GPU)
+    corpus_sharded: bool = False  # True: `samples` is this rank's shard
+    # of a multi-process corpus (parallel/mesh.py; device backend only); at
+    # world size 1 the shard is the corpus
     device_dtype: object = None  # None / torch.float32: the f32 E-step;
     # torch.float64: the session's f64 / exact conformance mode
     device: object = None  # where the device backend runs; None = the
@@ -111,17 +120,20 @@ class VocabularyPruner:
                 "crossover are not part of the port (ROADMAP.md)")
         if self.backend not in ("device", "oracle"):
             raise ValueError(f"unknown backend {self.backend!r}")
-        if self.corpus_sharded:
-            raise _not_ported("corpus_sharded=True", "Multi-GPU")
+        if self.corpus_sharded and self.backend != "device":
+            raise ValueError("corpus_sharded pruning needs the device "
+                             "backend")
         if self.device_dtype not in (None, torch.float32, torch.float64):
             raise ValueError(f"unsupported device_dtype {self.device_dtype}")
 
     def prune(self, model: Model, samples: Sequence[bytes],
               checkpoint_cb=None) -> Model:
         """reference: src/prune.rs:23-57."""
-        # The loss normalizer is the sample count
-        # (reference: src/prune.rs:283 uses the full corpus).
+        # The loss normalizer is the sample count of the whole corpus
+        # (reference: src/prune.rs:283), over every shard when sharded.
         self._n_samples = len(samples)
+        if self.corpus_sharded:
+            self._n_samples = int(pmesh.allgather_ints([len(samples)]).sum())
         # The device backend probes the corpus once per prune run and
         # reuses the session's caches across EM sub-iterations, frequency
         # passes and rounds (the vocabulary only shrinks while pruning).
@@ -138,6 +150,7 @@ class VocabularyPruner:
     def _new_session(self, model: Model, samples) -> DeviceTrainSession:
         return DeviceTrainSession(model, samples, MAX_SAMPLE_LENGTH,
                                   dtype=self.device_dtype,
+                                  local_shard=self.corpus_sharded,
                                   device=self.device)
 
     def _with_session(self, model: Model, samples, fn):
