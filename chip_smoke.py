@@ -60,8 +60,13 @@ Phases (any failure exits non-zero):
      patterns (245 DFA states) at L = 16, p = 1.0 and 0.01, on the
      shared and the global table route, bit for bit against its twin,
      its bound's terms printed (bytes, and the table lookups this data
-     needs at the card's shared-memory rate); each timed with CUDA events
-     beside its plain version and its bound;
+     needs at the card's shared-memory rate); and the prune's
+     alternatives' two kernels on the first group of the masked f64 pass
+     over the 49,152-token vocabulary's own bytes (every token a sample,
+     W = 512, spans of at most 16 bytes): viterbi_scan's double
+     instantiation and viterbi_walk in both modes, bit for bit against
+     their twins; each timed with CUDA events beside its plain version
+     and its bound;
   3. encode end to end, Tokenizer.encode_batch(backend="device") on the
      card, for two configurations over a seeded ~8 MB code-like corpus
      at L = 16: (a) a 32,768-token vocabulary (slab route: bucket probe
@@ -109,10 +114,19 @@ Phases (any failure exits non-zero):
      scans); every frequency pass launches the route's Viterbi kernel
      (viterbi_scan, fused_forward_chunk(viterbi)) and calls viterbi_walk
      (count mode) once per group, and the first pass's counts equal a host
-     backtrack of the same groups; each session is closed after; each
+     backtrack of the same groups; every round's alternatives (one
+     masked f64 Viterbi pass over the vocabulary's bytes: viterbi_scan's
+     double instantiation and viterbi_walk) equal the oracle route's
+     nbest(2) for the whole vocabulary (keep flags; lists but where two
+     paths tie, counted and printed); each session is closed after; each
      result is a subset of its input vocabulary and encodes and decodes
-     the first 64 samples exactly on the card; prints each round's size
-     and seconds;
+     the first 64 samples exactly on the card; prints each round's size,
+     seconds and split (e_steps, frequencies, alternatives, m_step, model
+     builds, loss ranking, rebinds, the session's build, this script's
+     checks, rest); then the
+     alternatives of the README's 500,000-token generate vocabulary
+     (experiments/table500k.py's) on the card, timed and split, 2,000
+     seeded tokens of it held against the oracle's nbest(2);
   3e. merge on the card: VocabularyMerger over the corpus from the
      4,096-token vocabulary, 200 merges in steps of 50 (four passes, each
      an encode of the corpus packed and uploaded once, its ids walked on
@@ -163,8 +177,10 @@ Phases (any failure exits non-zero):
      tokens, its overlap with one process's prune printed; which
      collectives gloo takes on CUDA tensors; seconds per rank, labelled
      "2 ranks sharing one card" (not a scaling figure);
-  4. the kernels line (thirteen entries: the ten kernels and the three
-     double instantiations), then the device line as the last line.
+  4. the kernels line (fifteen entries: the ten kernels, the three
+     double instantiations, and viterbi_scan's double instantiation and
+     viterbi_walk at the alternatives' shape, with the prunes' launches),
+     then the device line as the last line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -934,13 +950,14 @@ def check_segsum(lat, lcs, table, tbl, batch, dev):
 
 # ---------------------------------------------------------------------------
 # Phase 3: the main path end to end
-def check_viterbi_walk(lat, tbl, batch, spans, dev, route: str):
-    """viterbi_walk against its twin on encode's first group of `route`:
+def check_viterbi_walk(lat, tbl, batch, spans, dev, route: str, scan=None):
+    """viterbi_walk against its twin on encode's first group of `route`
+    (or, with `scan`, the (dp, best_l) of another pass over `batch`):
     the route's own Viterbi backpointers, the group's spans, counts and
     ids bit-equal, each mode timed beside the twin (as every kernel is,
     host work included) and as device time alone (queued), and the chain
     floor: the row of the longest span, alone."""
-    dp, best_l = lat.viterbi(tbl, batch, backend=route)
+    dp, best_l = scan or lat.viterbi(tbl, batch, backend=route)
     B, W = best_l.shape
     index = lat.walk_index(spans, B, W, dev)
     ok = torch.isfinite(index.dp_ends(dp))
@@ -954,7 +971,7 @@ def check_viterbi_walk(lat, tbl, batch, spans, dev, route: str):
     in_t1 = torch.zeros(tbl.vocab_size + 1, dtype=torch.bool, device=dev)
     t1_ids = tbl.t1_exact[:, 2] & 0xFFFFFF
     in_t1[t1_ids[t1_ids < tbl.vocab_size].long()] = True
-    first = WALK_FIRST_DESIGN_MS[route]
+    first = WALK_FIRST_DESIGN_MS.get(route)
     for mode in ("count", "ids"):
         ids = mode == "ids"
         want = []
@@ -1015,9 +1032,10 @@ def check_viterbi_walk(lat, tbl, batch, spans, dev, route: str):
             f"{t2_rows} of them in T2, {nbytes} bytes): {ms:.4f} ms "
             f"({device_ms:.4f} ms queued, the launches alone: the byte "
             f"copy and {'two launches and a cumsum' if ids else 'one launch'}"
-            f"; the first design {first[mode]:.4f} ms measured the same way "
-            f"by experiments/torch_walk_design.py on {WALK_FIRST_DESIGN_ON})"
-            f", plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            + (f"; the first design {first[mode]:.4f} ms measured the same "
+               "way by experiments/torch_walk_design.py on "
+               f"{WALK_FIRST_DESIGN_ON}" if first else "")
+            + f"), plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), "
             f"max |err| {err} (equal)")
     # The chain floor: the row of the longest span, alone.
     k = int(torch.argmax((index.ends - index.starts) * ok))
@@ -1029,9 +1047,64 @@ def check_viterbi_walk(lat, tbl, batch, spans, dev, route: str):
     res["longest_span"] = int(index.ends[k] - index.starts[k])
     log(f"viterbi_walk ({route}): chain floor, the longest span's row "
         f"alone ({res['longest_span']} bytes, count mode, queued) "
-        f"{res['floor_ms']:.4f} ms, the first design {first['floor']:.4f} "
-        f"ms")
+        f"{res['floor_ms']:.4f} ms"
+        + (f", the first design {first['floor']:.4f} ms" if first else ""))
     return res
+
+
+def check_alternatives_kernels(lat, lc, ed, vocab, dev):
+    """The prune alternatives' two kernels on the first row group of the
+    masked f64 pass over `vocab`'s own bytes (ed.alternative_groups: every
+    token a sample, W = 512, spans of at most L bytes, chains every
+    ALT_SEGMENT positions): viterbi_scan's double instantiation over the
+    masked exact-probe cache, bit-equal to its twin, timed beside its f32
+    instantiation on the same inputs cast to float32, its plain version
+    and its bound; then viterbi_walk in both modes on its backpointers
+    (check_viterbi_walk)."""
+    from tokengeex_tpu_torch import Model
+    from tokengeex_tpu_torch.ops.match_table import TokenTable
+
+    f64 = torch.float64
+    dt = lat.DeviceTables.from_table(TokenTable.build(vocab), dev, f64)
+    sub, batch, cache, chains, _, _ = next(
+        ed.alternative_groups(Model(vocab), dt))
+    W, L, B = cache.shape
+    K = chains[0].shape[0] - 1
+    starts = batch.is_start[:, 1:].t().to(f64).contiguous()
+    hist = lat._hist0(batch, L, None, f64).clamp(min=lc.NEG).t().contiguous()
+    args = (cache, starts, hist, chains[0])
+    kw = {"pad": batch.pad}
+    want = []
+    plain_ms = cuda_ms(lambda: want.append(lc.viterbi_scan_plain(*args,
+                                                                  **kw)),
+                       iters=1, warmup=0)
+    got = lc.viterbi_scan(*args, **kw)
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got, want[0]):
+        check(torch.equal(g_, w_), "viterbi_scan[f64] (alternatives) "
+              "differs from its twin")
+    err = max_abs_err(got[0], want[0][0])
+    del want
+    ms = cuda_ms(lambda: lc.viterbi_scan(*args, **kw), iters=20)
+    a32 = [a.float() if a.is_floating_point() else a for a in args]
+    ms32 = cuda_ms(lambda: lc.viterbi_scan(*a32, **kw), iters=20)
+    del a32
+    # The cache, starts, history and chain bounds read, dp (8) and best_l
+    # (4) written; an add, a max and a compare per (position, length).
+    b_ms, b_by = bound(8 * (W * L * B + W * B + L * B) + 4 * (K + 1) * B
+                       + 12 * W * B, 3 * W * L * B, F64_OPS_PER_S)
+    scan = {"max_abs_err": err, "ms": ms, "f32_ms": ms32,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+    log(f"viterbi_scan[f64] (alternatives: W={W}, L={L}, B={B}, "
+        f"{len(sub.spans)} tokens, {K} segments): {ms:.4f} ms (f32 on the "
+        f"same inputs {ms32:.4f} ms), plain {plain_ms:.1f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}), max |err| {err:.3e} (equal)")
+    walk = check_viterbi_walk(lat, dt, batch, sub.spans, dev,
+                              "alternatives",
+                              scan=(lat._finish(got[0].t()), got[1].t()))
+    return {"shape": {"W": W, "L": L, "B": B, "segments": K,
+                      "tokens": len(sub.spans)},
+            "viterbi_scan": scan, "walk": walk}
 
 
 # ---------------------------------------------------------------------------
@@ -1452,16 +1525,62 @@ def run_session_over_budget(name, vocab, samples, want, kernels, dev):
     return out
 
 
+def tie_kind(scores, a, b) -> str:
+    """How two segmentations of one token, a and b, tie: "exact" when
+    their f64 sums in the forward order are equal, "reordered" when they
+    are the same tokens in another order (equal in exact arithmetic) and
+    their f64 sums at most 2 ulps apart; "" otherwise."""
+    sa = sb = 0.0
+    for i in a:
+        sa += scores[i]
+    for i in b:
+        sb += scores[i]
+    if sa == sb:
+        return "exact"
+    if sorted(a) == sorted(b) and abs(sa - sb) <= 2 * np.spacing(abs(sa)):
+        return "reordered"
+    return ""
+
+
+def check_alternatives(tag, vocab, got, want, tids=None) -> dict:
+    """The card's (always_keep, alternatives) against the oracle route's
+    on the tokens `tids` (every token by default): keep flags equal, lists
+    equal but where two multi-token paths tie (`tie_kind`), each such list
+    a segmentation of its token. Returns the tie counts."""
+    tids = range(len(vocab)) if tids is None else tids
+    scores = [t.score for t in vocab]
+    ties = {"exact": 0, "reordered": 0}
+    for k, t in enumerate(tids):
+        check(bool(got[0][t]) == bool(want[0][k]),
+              f"{tag}: token {t} ({vocab[t].value!r}) keep flag differs "
+              "from the oracle route's")
+        g, w = got[1][t], want[1][k]
+        if g == w:
+            continue
+        kind = tie_kind(scores, g, w) if g and w else ""
+        check(kind != "" and b"".join(vocab[i].value for i in g)
+              == vocab[t].value,
+              f"{tag}: token {t} ({vocab[t].value!r}) alternatives {g} "
+              f"differ from the oracle route's {w}, not a tie")
+        ties[kind] += 1
+    return ties
+
+
 def run_prune(name, vocab, target: int, samples, expect, fused: bool,
               kernels, dev):
     """Phase 3c: VocabularyPruner from `vocab` down to `target` tokens
     through one session, whose E-steps take the fused route when `fused`
     (the initial table has has_vscan) and the cached route otherwise;
     `expect` names the kernels the run must launch. Every frequency pass
-    launches the route's Viterbi kernel once per frequency group."""
+    launches the route's Viterbi kernel once per frequency group; each
+    round's alternatives (one masked f64 pass on the card) launch
+    viterbi_scan's double instantiation and the walk, and are held against
+    the oracle route's, outside the round's timed steps."""
     from tokengeex_tpu_torch import Model, NoPathError, Tokenizer
     from tokengeex_tpu_torch.ops import lattice as lat
+    from tokengeex_tpu_torch.ops import lattice_cuda as lc
     from tokengeex_tpu_torch.ops.match_table import TokenTable
+    from tokengeex_tpu_torch.train import prune as prune_mod
     from tokengeex_tpu_torch.train.prune import VocabularyPruner
 
     tag = f"[prune {name}]"
@@ -1474,18 +1593,35 @@ def run_prune(name, vocab, target: int, samples, expect, fused: bool,
                               em_subiters=2, dropout=0.05, device=dev)
     rounds = []
     mark = [time.perf_counter()]
-    # Host-clock seconds per step of a round; each step ends in a readback
-    # to the host, so no synchronisation is needed. The rest of a round is
-    # the M-steps, the loss ranking and building the models.
-    spent = dict.fromkeys(("e_steps", "frequencies", "alternatives"), 0.0)
+    # Host-clock seconds per step of a round, each step's own (a step
+    # inside another is not the outer one's); each step ends in a readback
+    # to the host or is host work, so no synchronisation is needed.
+    # `checks` are this script's comparisons; `rest` is what none of the
+    # named steps covers.
+    keys = ("e_steps", "frequencies", "alternatives", "m_step", "model",
+            "loss", "rebind", "session", "checks")
+    spent = dict.fromkeys(keys, 0.0)
+    stack = []
+
+    class span:
+        def __init__(self, key):
+            self.key = key
+
+        def __enter__(self):
+            stack.append(self.key)
+            self.t = time.perf_counter()
+
+        def __exit__(self, *exc):
+            took = time.perf_counter() - self.t
+            stack.pop()
+            spent[self.key] += took
+            if stack:
+                spent[stack[-1]] -= took
 
     def timed(key, fn):
         def run(*args, **kwargs):
-            t = time.perf_counter()
-            try:
+            with span(key):
                 return fn(*args, **kwargs)
-            finally:
-                spent[key] += time.perf_counter() - t
         return run
 
     freq_kernel = "fused_forward_chunk" if fused else "viterbi_scan"
@@ -1517,22 +1653,23 @@ def run_prune(name, vocab, target: int, samples, expect, fused: bool,
             # The first pass's counts against the host backtrack of the
             # same groups, kept out of the round's frequency seconds.
             freq["host_checked"] = True
-            t = time.perf_counter()
-            counts = {k: fn.launches for k, fn in kernels.items()}
-            want = host_frequency_counts(lat, sessions[0], model)
-            check(np.array_equal(got, want),
-                  f"{tag}: the walk's counts differ from the host backtrack")
-            # A second pass of the same model, split by phase.
-            timer = lat.PhaseTimer(dev)
-            t1 = time.perf_counter()
-            again = sessions[0].count_frequencies(model, timer=timer)
-            freq["split"] = {k: round(v, 6) for k, v in timer.seconds.items()}
-            freq["split_seconds"] = time.perf_counter() - t1
-            check(np.array_equal(again, got), f"{tag}: a second pass differs")
-            # Neither check counts as the prune's launches or seconds.
-            for k, fn in kernels.items():
-                fn.launches = counts[k]
-            spent["frequencies"] -= time.perf_counter() - t
+            with span("checks"):
+                counts = {k: fn.launches for k, fn in kernels.items()}
+                want = host_frequency_counts(lat, sessions[0], model)
+                check(np.array_equal(got, want), f"{tag}: the walk's counts "
+                      "differ from the host backtrack")
+                # A second pass of the same model, split by phase.
+                timer = lat.PhaseTimer(dev)
+                t1 = time.perf_counter()
+                again = sessions[0].count_frequencies(model, timer=timer)
+                freq["split"] = {k: round(v, 6)
+                                 for k, v in timer.seconds.items()}
+                freq["split_seconds"] = time.perf_counter() - t1
+                check(np.array_equal(again, got),
+                      f"{tag}: a second pass differs")
+                # Neither check counts as the prune's launches.
+                for k, fn in kernels.items():
+                    fn.launches = counts[k]
             log(f"{tag} first frequency pass: {int(got.sum())} tokens, "
                 "equal to the host backtrack of the same groups, "
                 f"synchronised split {freq['first_split']}; a second pass, "
@@ -1540,16 +1677,43 @@ def run_prune(name, vocab, target: int, samples, expect, fused: bool,
                 f"{freq['split']}")
         return got
 
+    alt = {"launches_f64": 0, "walk_launches": 0, "ties": []}
+    alternatives = pruner._alternatives
+    oracle = VocabularyPruner(target, backend="oracle")
+
+    def checked_alternatives(model):
+        f64, walks = lc.viterbi_scan.launches_f64, lat.viterbi_walk.launches
+        got = alternatives(model)
+        alt["launches_f64"] += lc.viterbi_scan.launches_f64 - f64
+        alt["walk_launches"] += lat.viterbi_walk.launches - walks
+        with span("checks"):
+            # The oracle route on a model of its own: the pruner's model
+            # keeps its trie unbuilt.
+            t = time.perf_counter()
+            want = VocabularyPruner._alternatives(
+                oracle, Model(list(model.vocab)))
+            oracle_s = time.perf_counter() - t
+            ties = check_alternatives(tag, model.vocab, got, want)
+        alt["ties"].append(ties)
+        log(f"{tag} alternatives of {model.vocab_size()} tokens equal to "
+            f"the oracle route's ({oracle_s:.3f} s on the host), ties "
+            f"{ties}, {int((~got[0]).sum())} tokens not kept, "
+            f"{sum(bool(a) for a in got[1])} with alternatives")
+        return got
+
     pruner.run_e_step = timed("e_steps", pruner.run_e_step)
+    pruner.run_m_step = timed("m_step", pruner.run_m_step)
+    pruner.prune_vocab = timed("loss", pruner.prune_vocab)
     pruner._count_frequencies = timed("frequencies", counted_freq)
-    pruner._alternatives = timed("alternatives", pruner._alternatives)
+    pruner._alternatives = timed("alternatives", checked_alternatives)
     sessions, routes = [], []
     new_session = pruner._new_session
 
     rebind = {"seconds": 0.0, "calls": 0}
 
     def counted_session(*args):
-        sess = new_session(*args)
+        with span("session"):
+            sess = new_session(*args)
         sessions.append(sess)
         routes.append(sess._fused())
         orig_rebind = sess._rebind
@@ -1557,7 +1721,8 @@ def run_prune(name, vocab, target: int, samples, expect, fused: bool,
         def timed_rebind(model):
             t = time.perf_counter()
             before = sess._model
-            orig_rebind(model)
+            with span("rebind"):
+                orig_rebind(model)
             if sess._model is not before:
                 rebind["seconds"] += time.perf_counter() - t
                 rebind["calls"] += 1
@@ -1571,20 +1736,27 @@ def run_prune(name, vocab, target: int, samples, expect, fused: bool,
         split = {key: round(v, 6) for key, v in spent.items()}
         split["rest"] = round(now - mark[0] - sum(spent.values()), 6)
         rounds.append({"round": k, "vocab_size": model.vocab_size(),
-                       "seconds": now - mark[0], "split": split})
+                       "seconds": now - mark[0],
+                       "seconds_without_checks": now - mark[0]
+                       - spent["checks"], "split": split})
         log(f"{tag} round {k}: {model.vocab_size()} tokens in "
-            f"{now - mark[0]:.3f} s; {split}")
+            f"{now - mark[0]:.3f} s, {now - mark[0] - spent['checks']:.3f} s "
+            f"without this script's checks; {split}")
         mark[0] = now
         spent.update(dict.fromkeys(spent, 0.0))
 
     for fn in kernels.values():
         fn.launches = 0
+    lc.viterbi_scan.launches_f64 = 0
+    prune_mod.Model = timed("model", Model)
     t0 = time.perf_counter()
     try:
         final = pruner.prune(Model(vocab), samples, checkpoint_cb=on_round)
     except NoPathError as e:
         fail(f"{tag}: the frequency pass found no path ({e}): the M-step "
              "dropped a byte token the corpus needs")
+    finally:
+        prune_mod.Model = Model
     secs = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in kernels.items()}
     for k in expect:
@@ -1600,11 +1772,21 @@ def run_prune(name, vocab, target: int, samples, expect, fused: bool,
               f"{tag}: {freq['passes']} frequency passes ran {k} "
               f"{n} times for {freq_groups} groups")
     check(freq["host_checked"], f"{tag}: no frequency pass was checked")
+    check(len(alt["ties"]) == freq["passes"]
+          and alt["launches_f64"] >= freq["passes"]
+          and lc.viterbi_scan.launches_f64 == alt["launches_f64"]
+          and alt["walk_launches"] >= 2 * freq["passes"],
+          f"{tag}: {len(alt['ties'])} alternatives calls launched "
+          f"viterbi_scan[f64] {alt['launches_f64']} and viterbi_walk "
+          f"{alt['walk_launches']} times in {freq['passes']} rounds")
     size = final.vocab_size()
     log(f"{tag} {len(vocab)} -> {size} tokens in {len(rounds)} rounds, "
-        f"{secs:.3f} s, through one session (closed); {rebind['calls']} "
-        f"rebinds took {rebind['seconds']:.3f} s (inside e_steps and "
-        f"frequencies); launches {launches}; {freq['passes']} frequency "
+        f"{secs:.3f} s with this script's checks, "
+        f"{sum(r['seconds_without_checks'] for r in rounds):.3f} s without, "
+        f"through one session (closed); {rebind['calls']} "
+        f"rebinds took {rebind['seconds']:.3f} s; launches {launches}, "
+        f"the alternatives' viterbi_scan[f64] {alt['launches_f64']} and "
+        f"viterbi_walk {alt['walk_launches']}; {freq['passes']} frequency "
         f"passes x {freq_groups} groups = {freq['launches']} launches of "
         f"{freq_kernel}, {freq['walks']} calls of viterbi_walk")
     check(size <= target, f"{tag}: {size} tokens left, above {target}")
@@ -1615,10 +1797,14 @@ def run_prune(name, vocab, target: int, samples, expect, fused: bool,
     ids = tok.encode_batch(texts)
     check(all(tok.decode(r) == t for r, t in zip(ids, texts)),
           f"{tag}: the pruned tokenizer does not round-trip")
-    log(f"{tag} checks passed: route, size, subset, 64-sample round trip")
+    log(f"{tag} checks passed: route, size, subset, alternatives, 64-sample "
+        "round trip")
     return {"route": "fused" if fused else "cached", "seconds": secs,
+            "seconds_without_checks": sum(r["seconds_without_checks"]
+                                          for r in rounds),
             "rounds": rounds, "initial_size": len(vocab), "final_size": size,
             "launches": launches, "rebind": rebind,
+            "alternatives": alt,
             "frequency_passes": freq["passes"],
             "frequency_launches": freq["launches"],
             "frequency_walks": freq["walks"],
@@ -1626,6 +1812,104 @@ def run_prune(name, vocab, target: int, samples, expect, fused: bool,
             "frequency_first_split": freq["first_split"],
             "frequency_groups": freq_groups,
             "vocab_digest": vocab_digest(final.vocab)}
+
+
+# The README recipe's generate size: the vocabulary the first prune round
+# starts from (experiments/table500k.py builds it), and the tokens of it
+# held against the oracle's nbest(2).
+ALT_BIG = 500_000
+ALT_SAMPLE = 2_000
+
+
+def table500k_vocab():
+    """The 500,000-token vocabulary of experiments/table500k.py:24-35
+    (seed 0): the 256 bytes, then words of 1-7 of 16 syllables cut at 16
+    bytes, scores uniform in (-12, -2]."""
+    from tokengeex_tpu_torch import ScoredToken
+
+    rng = np.random.default_rng(0)
+    vocab = [ScoredToken(bytes([b]), -10.0) for b in range(256)]
+    seen = set(t.value for t in vocab)
+    syll = [b"an", b"er", b"ti", b"on", b"ra", b"lo", b"de", b"mi",
+            b"cu", b"va", b"be", b"so", b"ne", b"pa", b"ge", b"st"]
+    while len(vocab) < ALT_BIG:
+        n = rng.integers(1, 8)
+        w = b"".join(syll[i] for i in rng.integers(0, 16, n))[:16]
+        if w not in seen:
+            seen.add(w)
+            vocab.append(ScoredToken(w, float(-2 - 10 * rng.random())))
+    return vocab
+
+
+def run_alternatives_big(dev):
+    """Phase 3c: the alternatives of the 500,000-token vocabulary on the
+    card, over a table built once as a prune session's (its build timed
+    apart): a first and a second call (equal), a third split by phase;
+    viterbi_scan[f64] and viterbi_walk launched; ALT_SAMPLE seeded tokens
+    held against the oracle's nbest(2) (check_alternatives)."""
+    from tokengeex_tpu_torch import Model
+    from tokengeex_tpu_torch.models.oracle import Lattice, OracleModel
+    from tokengeex_tpu_torch.ops import lattice as lat
+    from tokengeex_tpu_torch.ops import lattice_cuda as lc
+    from tokengeex_tpu_torch.ops.match_table import TokenTable
+    from tokengeex_tpu_torch.train import estep_device as ed
+
+    tag = "[alternatives 500k]"
+    t = time.perf_counter()
+    vocab = table500k_vocab()
+    vocab_s = time.perf_counter() - t
+    model = Model(vocab)
+    t = time.perf_counter()
+    table = TokenTable.build(vocab)
+    table_s = time.perf_counter() - t
+    f64, walks = lc.viterbi_scan.launches_f64, lat.viterbi_walk.launches
+    seconds, got = [], None
+    for _ in range(2):
+        t = time.perf_counter()
+        res = ed.prune_alternatives_device(model, table=table, device=dev)
+        seconds.append(time.perf_counter() - t)
+        check(got is None or (np.array_equal(res[0], got[0])
+                              and res[1] == got[1]),
+              f"{tag}: a second call differs")
+        got = res
+    launches = {"viterbi_scan[f64]": (lc.viterbi_scan.launches_f64 - f64) // 2,
+                "viterbi_walk": (lat.viterbi_walk.launches - walks) // 2}
+    check(min(launches.values()) > 0, f"{tag}: launches {launches}")
+    timer = lat.PhaseTimer(dev)
+    ed.prune_alternatives_device(model, table=table, device=dev, timer=timer)
+    split = {k: round(v, 6) for k, v in timer.seconds.items()}
+    t = time.perf_counter()
+    om = OracleModel(vocab)
+    trie_s = time.perf_counter() - t
+    tids = sorted(np.random.default_rng(SEED + 500).choice(
+        len(vocab), ALT_SAMPLE, replace=False).tolist())
+    keep, alts = [], []
+    t = time.perf_counter()
+    for tid in tids:
+        lattice = Lattice(vocab[tid].value)
+        om.populate_nodes(lattice, 0.0)
+        nb = lattice.nbest(2)
+        keep.append(not (len(nb) > 1 and len(nb[0]) > 1))
+        alts.append([n.token_id for n in nb[1]]
+                    if len(nb) > 1 and len(nb[0]) == 1 else [])
+    nbest_s = time.perf_counter() - t
+    ties = check_alternatives(tag, vocab, got, (keep, alts), tids)
+    res = {"tokens": len(vocab), "bytes": sum(len(t.value) for t in vocab),
+           "vocab_seconds": vocab_s, "table_seconds": table_s,
+           "seconds": seconds, "split": split, "launches": launches,
+           "not_kept": int((~got[0]).sum()),
+           "with_alternatives": sum(bool(a) for a in got[1]),
+           "sample": ALT_SAMPLE, "ties": ties, "trie_seconds": trie_s,
+           "nbest_seconds": nbest_s}
+    log(f"{tag} {len(vocab)} tokens ({res['bytes']} bytes; built in "
+        f"{vocab_s:.2f} s, its table in {table_s:.2f} s): alternatives on "
+        f"the card {seconds[0]:.3f} / {seconds[1]:.3f} s (first / second "
+        f"call), synchronised split {split}, launches {launches} a call; "
+        f"{res['not_kept']} tokens not kept, {res['with_alternatives']} with "
+        f"alternatives; {ALT_SAMPLE} seeded tokens equal to the oracle's "
+        f"nbest(2) (its trie {trie_s:.2f} s, the lattices {nbest_s:.2f} s "
+        f"on the host), ties {ties}")
+    return res
 
 
 def host_frequency_counts(lat, sess, model):
@@ -2609,6 +2893,7 @@ def main() -> None:
     check(len(long_sample) > ed.MAX_ENCODE_WIDTH, "long sample too short")
     vocab_a = build_vocab(samples, 32768)
     vocab_b = build_vocab(samples, 4096)
+    vocab_c = build_vocab(samples, 49152, prefixes=False)
     width = ed._pick_width(samples, None)
     rows = ed.GROUP_BYTES // width
     em_width = ed._pick_width(samples, ed.DEVICE_EM_SNIPPET)
@@ -2651,6 +2936,9 @@ def main() -> None:
                                       enc_groups[0][1].spans, dev, route)
             for route, tbl in (("slab", dt_a), ("fused", dt_b))}
     del batch
+    torch.cuda.empty_cache()
+    # The cached prune's alternatives: its vocabulary's own bytes.
+    alts_k = check_alternatives_kernels(lat, lc, ed, vocab_c, dev)
     torch.cuda.empty_cache()
     betas = check_backward_betas(lc, ed.CHUNK, L_MAX, sess_rows, dev)
     seg = check_seg_weights(lcs, 1 << 22, dev)
@@ -2753,7 +3041,7 @@ def main() -> None:
     }
     torch.cuda.empty_cache()
     phase_start("3c")
-    pruned = run_prune("cached", build_vocab(samples, 49152, prefixes=False),
+    pruned = run_prune("cached", vocab_c,
                        32768, samples, ("forward_scan", "backward_betas_scan",
                                         "seg_weights_gather",
                                         "viterbi_scan"),
@@ -2763,6 +3051,8 @@ def main() -> None:
     pruned_f = run_prune("fused", vocab_f, 8192, samples,
                          ("fused_forward_chunk", "fused_backward_chunk",
                           "seg_weights_gather"), True, kernels, dev)
+    torch.cuda.empty_cache()
+    alts_big = run_alternatives_big(dev)
 
     torch.cuda.empty_cache()
     phase_start("3e")
@@ -2859,6 +3149,17 @@ def main() -> None:
         entry("backward_chunk[f64]", "backward_chunk.cu", f"{pallas}:238",
               conform["estep_launches_f64"]["backward_marginal_scan"],
               scans64["backward_marginal_scan"]),
+        entry("viterbi_scan[f64](alternatives)", "viterbi_chunk.cu",
+              f"{pallas}:72", sum(p["alternatives"]["launches_f64"]
+                                  for p in (pruned, pruned_f)),
+              alts_k["viterbi_scan"]),
+        entry("viterbi_walk(alternatives)", "viterbi_walk.cu",
+              "tokengeex_tpu/ops/lattice_jax.py:2374",
+              sum(p["alternatives"]["walk_launches"]
+                  for p in (pruned, pruned_f)),
+              alts_k["walk"]["ids"],
+              max(alts_k["walk"][m]["max_abs_err"]
+                  for m in ("count", "ids"))),
     ]}
     record = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_seconds": build_s,
@@ -2874,6 +3175,7 @@ def main() -> None:
               "encode": e2e, "estep": estep, "merge": merged,
               "session": session, "session_over_budget": over_budget,
               "prune": pruned, "prune_fused": pruned_f,
+              "alternatives_kernels": alts_k, "alternatives_500k": alts_big,
               "dfa_mask": mask, "generate": generated,
               "cli_recipe": recipe, "f64_scans": scans64, "f64": conform,
               "multigpu": multigpu,

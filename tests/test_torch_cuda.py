@@ -1021,3 +1021,23 @@ def test_cuda_f64_encode_and_estep_match_cpu(cuda_device):
     after = (lc.viterbi_scan.launches_f64, lc.forward_scan.launches_f64,
              lc.backward_marginal_scan.launches_f64)
     assert all(a > b for a, b in zip(after, before))
+
+
+@pytest.mark.cuda
+def test_cuda_prune_alternatives_match_cpu(cuda_device):
+    """The prune round's alternatives on the card (one masked f64 Viterbi
+    pass: viterbi_scan's double instantiation and the walk's ids mode)
+    equal the plain route's on the CPU, and the oracle's nbest(2) keep
+    flags."""
+    from tokengeex_tpu_torch.train.prune import VocabularyPruner
+
+    model, _ = _corpus(2000, seed=3, max_len=16)
+    before = (lc.viterbi_scan.launches_f64, lat.viterbi_walk.launches)
+    got = ed.prune_alternatives_device(model, device=cuda_device)
+    assert (lc.viterbi_scan.launches_f64, lat.viterbi_walk.launches) == \
+        (before[0] + 1, before[1] + 3)
+    want = ed.prune_alternatives_device(model, device="cpu")
+    assert np.array_equal(got[0], want[0]) and got[1] == want[1]
+    oracle = VocabularyPruner(10, backend="oracle")._alternatives(model)
+    assert np.array_equal(got[0], oracle[0])
+    assert int((~got[0]).sum()) > 0 and sum(map(bool, got[1])) > 1000

@@ -201,6 +201,13 @@ class DeviceTrainSession:
             self.rank_ids = lat.rank_to_ids(self.rank, tbl)
         self._model = model
 
+    def table_for(self, model: Model) -> TokenTable:
+        """The session's table bound to `model`, rebound once a model: the
+        pruner's alternatives and the frequency pass after them share
+        it."""
+        self._rebind(model)
+        return self.tbl
+
     def _nbins(self) -> int:
         """Count-bin space of the cached slot arrays: the dense ranks."""
         return self.rank.n_pad

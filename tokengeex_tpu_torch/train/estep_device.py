@@ -1,5 +1,6 @@
 """Device-backed corpus passes: batched Viterbi encode, the EM E-step,
-Viterbi frequency counts and merge's pair counts.
+Viterbi frequency counts, merge's pair counts and the prune round's
+nbest(2) alternatives.
 
 Counterpart of tokengeex_tpu/train/estep_device.py: samples are packed
 into fixed-shape (rows x width) byte batches
@@ -12,7 +13,9 @@ probes each group once, runs the forward and the backward DP over the
 whole width in one scan each, and adds the token marginals into slot bins
 that the host folds to expected counts per token. The merge loop
 re-encodes one DeviceCorpus, packed and uploaded once, and counts
-adjacent id pairs (count_pairs_device).
+adjacent id pairs (count_pairs_device). The pruner's alternatives are one
+Viterbi pass over the vocabulary's own bytes with each token's whole-token
+entry masked (prune_alternatives_device).
 
 Under a process group (parallel/mesh.py, one rank a GPU) the corpus is
 replicated: every rank packs every sample the same way and runs its block
@@ -446,7 +449,7 @@ def _encode_chained(
                                                   device=device))
 
     # Chained backtrack: positions <= 0 jump into the previous window.
-    token_to_id = model.oracle.token_to_ids
+    token_to_id = model.token_to_ids
     out: List[List[int]] = []
     with lat.phase(timer, "backtrack"):
         for r, (si, s) in enumerate(long_samples):
@@ -630,3 +633,144 @@ def count_pairs_device(model: Model, samples: Sequence[bytes],
         order = np.argsort(-cnt, kind="stable")
         return [((int(k) >> 32, int(k) & 0xFFFFFFFF), int(c))
                 for k, c in zip(uniq[order], cnt[order])]
+
+
+# Chain length of the alternatives' Viterbi scan: every token of the
+# vocabulary is a sample of at most L bytes, so each row is cut into a
+# chain every ALT_SEGMENT positions (at the next token's start) and a
+# chain runs at most ALT_SEGMENT + L steps, where one chain per row
+# (SCAN_SEGMENT >= the width) would run 512.
+ALT_SEGMENT = 64
+
+
+def _pack_tokens(values: Sequence[bytes]) -> PackedBatch:
+    """Every non-empty token as one sample of a PackedBatch `_pick_width`
+    would give them (CHUNK columns, the probe's chunk and the least width
+    there is, for tokens of up to CHUNK bytes): the tokens of length n
+    fill rows of width // n, in id order, rows of shorter tokens first.
+    Unlike `pack_samples`' best-fit search, Python per sample, the layout
+    needs no search and is built with numpy."""
+    lens = np.fromiter(map(len, values), np.int64, len(values))
+    width = max(CHUNK, -(-int(lens.max(initial=1)) // CHUNK) * CHUNK)
+    live = np.nonzero(lens > 0)[0]
+    order = live[np.argsort(lens[live], kind="stable")]
+    n = lens[order]
+    uniq, first, count = np.unique(n, return_index=True, return_counts=True)
+    g = np.repeat(np.arange(uniq.size), count)
+    per_row = width // uniq
+    row_base = np.concatenate([[0], np.cumsum(-(-count // per_row))])
+    rank = np.arange(order.size) - first[g]
+    row = row_base[g] + rank // per_row[g]
+    start = (rank % per_row[g]) * n
+    rows = -(-max(int(row_base[-1]), 1) // 8) * 8  # pack_samples' multiple
+    nbytes = int(n.sum())
+    # Every byte's flat cell: its token's first cell, then its offset.
+    first_byte = np.cumsum(n) - n
+    cell = (np.repeat(row * width + start, n)
+            + np.arange(nbytes) - np.repeat(first_byte, n))
+    bytes_arr = np.zeros((rows, width), np.uint8)
+    sample_id = np.full((rows, width), -1, np.int32)
+    end_index = np.zeros((rows, width), np.int32)
+    is_start = np.zeros((rows, width + 1), bool)
+    bytes_arr.flat[cell] = np.frombuffer(
+        b"".join([values[i] for i in order.tolist()]), np.uint8)
+    sample_id.flat[cell] = np.repeat(np.arange(order.size, dtype=np.int32), n)
+    end_index.flat[cell] = np.repeat(start + n, n)
+    is_start[row, start] = True
+    spans = list(zip(row.tolist(), start.tolist(), (start + n).tolist(),
+                     order.tolist(), [0] * order.size))
+    return PackedBatch(bytes_arr, sample_id, is_start, end_index, spans)
+
+
+def alternative_groups(model: Model, dt: lat.DeviceTables,
+                       timer: Optional[lat.PhaseTimer] = None):
+    """The inputs of the alternatives' masked Viterbi pass, per row group
+    of the vocabulary's own bytes (`_pack_tokens`): (sub, batch, cache,
+    chains, index, whole), the group's packed rows, its DeviceBatch on
+    dt's device, the exact probe's start-indexed (W, L, B) cache at dt's
+    float type with every token's whole-span entry (column = its start,
+    row = its length - 1, lane = its row) set to the probe's miss value
+    -inf, its chain bounds cut every ALT_SEGMENT positions, its walk index
+    and the whole-span entries' scores before the mask, one a span: the
+    score of the id the whole token resolves to. Every group holds the
+    whole group's rows (no collective)."""
+    dev = dt.scores.device
+    with lat.phase(timer, "pack"):
+        packed = _pack_tokens([t.value for t in model.vocab])
+    for _, _, _, sub in rank_groups(packed, packed.width, local=True):
+        with lat.phase(timer, "prep"):
+            batch = lat.prepare_batch(sub, dt.max_len, dev)
+            chains = lat.chain_bounds(batch, ALT_SEGMENT)
+            index = lat.walk_index(sub.spans, sub.rows, packed.width, dev)
+        with lat.phase(timer, "probe"):
+            cache = lat.match_cache(dt, batch, C=CHUNK, probe="exact",
+                                    slots=False, dtype=dt.scores.dtype)[0]
+            entry = (index.starts.long(),
+                     (index.ends - index.starts - 1).long(),
+                     index.rows.long())
+            whole = cache[entry]
+            cache.index_put_(entry, torch.tensor(
+                lat.NEG_INF, dtype=cache.dtype, device=dev))
+        yield sub, batch, cache, chains, index, whole
+
+
+def prune_alternatives_device(model: Model,
+                              table: Optional[TokenTable] = None,
+                              device=None,
+                              timer: Optional[lat.PhaseTimer] = None
+                              ) -> Tuple[np.ndarray, List[List[int]]]:
+    """(always_keep (V,) bool, alternatives: list[list[int]]) of every
+    token (reference: src/prune.rs:179-203), the counterpart of the JAX
+    package's native `NativeModel.prune_alternatives`, in one masked f64
+    Viterbi pass over the vocabulary's own bytes on the device: each token
+    is a sample whose whole-token entry is masked (`alternative_groups`),
+    so the double `viterbi_scan` finds M, the best segmentation without
+    the whole token W, and `walk_ids` walks it (-1 tokens: no M). Then,
+    with s_W the whole-token entry's score (that of the id the token
+    resolves to, the last duplicate's) and s_M M's f64 sum, in the
+    oracle's forward order: no M keeps the token with no alternatives;
+    s_W >= s_M keeps it with M's ids; s_W < s_M neither keeps it nor
+    gives alternatives. This is `nbest(2)`'s rule: on an exact tie of s_W
+    and s_M the A* pops W first, and the scan's ties go to the longest
+    token, W. Where two multi-token paths tie for M, the A* and the scan
+    may pick either (the reference breaks such ties arbitrarily).
+
+    `table` is a TokenTable bound to `model` (the pruner's session's), or
+    one is built. device: a CUDA device by default, "cpu" for the
+    kernels' plain versions. Under a process group every rank computes
+    the whole answer. `timer` collects the seconds per phase (tables,
+    pack, prep, probe, kernel, walk, readback, decide)."""
+    dev = resolve_device(device)
+    with lat.phase(timer, "tables"):
+        if table is None:
+            table = TokenTable.build(model.vocab)
+        dt = lat.DeviceTables.from_table(table, dev, torch.float64)
+    sids, ntoks, flats, s_m, s_w = [], [], [], [], []
+    for sub, batch, cache, chains, index, whole in alternative_groups(
+            model, dt, timer):
+        dp, best_l = lat._scan_viterbi(dt, batch, cache=cache, chains=chains,
+                                       timer=timer)
+        flat, ntok = lat.walk_ids(dt, batch, dp, best_l, index, timer=timer)
+        with lat.phase(timer, "readback"):
+            s_m.append(index.dp_ends(dp).cpu().numpy())
+            s_w.append(whole.cpu().numpy())
+        sids.append(np.asarray([sp[3] for sp in sub.spans], np.int64))
+        ntoks.append(ntok)
+        flats.append(flat)
+    with lat.phase(timer, "decide"):
+        V = model.vocab_size()
+        sid, nt = _cat(sids, np.int64), _cat(ntoks, np.int64)
+        s_m, s_w = _cat(s_m, np.float64), _cat(s_w, np.float64)
+        live = nt >= 0
+        always_keep = np.ones(V, dtype=bool)
+        always_keep[sid[live & (s_w < s_m)]] = False
+        # Each token's slice of the flat ids: M's where it is kept with M,
+        # empty otherwise.
+        with_m = live & (s_w >= s_m)
+        ends = np.cumsum(np.maximum(nt, 0))
+        lo, hi = np.zeros(V, np.int64), np.zeros(V, np.int64)
+        lo[sid[with_m]] = (ends - nt)[with_m]
+        hi[sid[with_m]] = ends[with_m]
+        ids = _cat(flats, np.int32).tolist()
+        alternatives = [ids[a:b] for a, b in zip(lo.tolist(), hi.tolist())]
+    return always_keep, alternatives

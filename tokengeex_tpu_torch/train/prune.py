@@ -5,12 +5,14 @@ outer loop runs `em_subiters` EM rounds (E-step expected counts -> M-step
 Bayesian rescoring) and then removes the lowest-loss tokens until the
 target vocabulary size is reached.
 
-E-step and frequency backends:
+E-step, frequency and alternatives backends:
   - device: the packed-batch forward/backward DPs and the Viterbi encode
     on the GPU through one DeviceTrainSession per prune run
-    (train/device_session.py), which probes the corpus once;
+    (train/device_session.py), which probes the corpus once; each round's
+    nbest(2) alternatives as one masked f64 Viterbi pass over the
+    vocabulary's bytes (estep_device.prune_alternatives_device);
   - oracle: pure Python f64 lattices (tests only).
-The M-step, alternatives, and loss ranking are cheap host-side steps.
+The M-step and loss ranking are host-side steps.
 
 Multi-GPU (parallel/mesh.py): under a process group the session splits
 each row group's rows over the ranks (every rank holds the corpus), or
@@ -34,6 +36,7 @@ from ..models.unigram import Model
 from ..utils.task import Task
 from ..parallel import mesh as pmesh
 from .device_session import DeviceTrainSession
+from .estep_device import prune_alternatives_device
 
 log = logging.getLogger(__name__)
 
@@ -361,7 +364,16 @@ class VocabularyPruner:
         return pruned_vocab
 
     def _alternatives(self, model: Model):
-        """nbest(2) per token (reference: src/prune.rs:179-203)."""
+        """nbest(2) per token (reference: src/prune.rs:179-203): on the
+        device backend one masked f64 Viterbi pass over the vocabulary's
+        bytes (`prune_alternatives_device`, over the session's table),
+        on the oracle backend a Python lattice per token."""
+        if self.backend == "device":
+            session = getattr(self, "_session", None)
+            if session is None:
+                return prune_alternatives_device(model, device=self.device)
+            return prune_alternatives_device(
+                model, table=session.table_for(model), device=session.dev)
         from ..models.oracle import Lattice
 
         V = model.vocab_size()
