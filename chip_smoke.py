@@ -65,8 +65,13 @@ Phases (any failure exits non-zero):
      over the 49,152-token vocabulary's own bytes (every token a sample,
      W = 512, spans of at most 16 bytes): viterbi_scan's double
      instantiation and viterbi_walk in both modes, bit for bit against
-     their twins; each timed with CUDA events beside its plain version
-     and its bound;
+     their twins; and pair_count, merge's pair count, on the merge's
+     first group (the 4k vocabulary at the merge's table hints, the
+     group's ids walked on the card): the kernel's compacted table sorted
+     by key equal to pair_count_plain (integers, max |err| 0), timed as
+     the merge runs it a group (unqueued) and its launches alone (queued),
+     beside torch.unique(return_counts=True) on the same keys; each timed
+     with CUDA events beside its plain version and its bound;
   3. encode end to end, Tokenizer.encode_batch(backend="device") on the
      card, for two configurations over a seeded ~8 MB code-like corpus
      at L = 16: (a) a 32,768-token vocabulary (slab route: bucket probe
@@ -129,12 +134,21 @@ Phases (any failure exits non-zero):
      seeded tokens of it held against the oracle's nbest(2);
   3e. merge on the card: VocabularyMerger over the corpus from the
      4,096-token vocabulary, 200 merges in steps of 50 (four passes, each
-     an encode of the corpus packed and uploaded once, its ids walked on
-     the card, then the pair count) under an anchored identifier /
-     punctuation allow pattern the allow-DFA compiles; viterbi_walk
-     called once per group a pass; on the first 64 samples the pair
-     counts and the merged vocabulary equal to a CPU run's; prints the
-     seconds per merge pass;
+     an encode of the corpus packed and uploaded once, its ids walked and
+     their pairs counted in a hash table on the card, only the sorted
+     arrays read back) under an anchored identifier / punctuation allow
+     pattern the allow-DFA compiles; the fused Viterbi kernel and
+     viterbi_walk once per group a pass, pair_count at least once per
+     group a pass plus the compaction (counts set to 0 just before the
+     run); a second run, each pass split by phase (pairs, readback, ...),
+     holds every pass's pair list equal to the host route's (np.unique
+     over encode's ids, `host_pairs`) and merges the same vocabulary; on
+     the first 64 samples the pair counts and the merged vocabulary equal
+     to a CPU run's; prints the seconds per merge pass; then one pass at
+     the README recipe's merge shape (the 32,768-token vocabulary, slab
+     route, hints of --num-merges 2000): first and steady pass timed, the
+     steady pass's launches counted, a split pass, its pairs equal to the
+     host route's;
   3f. generate on the card: VocabularyGenerator (L = 16, p = 0.01, the
      allow regex of all named patterns) feeds the corpus, dfa_mask
      launched once per group, then generate(500_000); prints MB/s, a
@@ -170,17 +184,21 @@ Phases (any failure exits non-zero):
      recipe's shapes (W = 8192, 1,024 rows, each group's rows split
      between the ranks), counts within rtol 1e-4 / atol 1e-4 and 1e-5 on
      the total of phase 3d's, printed beside MULTICHIP_r05.json's gap;
-     encode (a)'s gathered ids equal to phase 3's on both ranks; generate
+     encode (a)'s gathered ids equal to phase 3's on both ranks; merge's
+     pair count (a) with every rank's table gathered into a fresh one
+     (the weighted entry launched on each rank), equal to phase 3e's
+     single-process pass on both ranks; generate
      at p = 1 over the first 64 samples as two shards equal to phase 3f's
      counts; the corpus-sharded fused prune of the 2 MB slice on disjoint
      shards: the same vocabulary on both ranks, a subset, at most 8,192
      tokens, its overlap with one process's prune printed; which
      collectives gloo takes on CUDA tensors; seconds per rank, labelled
      "2 ranks sharing one card" (not a scaling figure);
-  4. the kernels line (fifteen entries: the ten kernels, the three
-     double instantiations, and viterbi_scan's double instantiation and
-     viterbi_walk at the alternatives' shape, with the prunes' launches),
-     then the device line as the last line.
+  4. the kernels line (sixteen entries: the ten kernels, the three
+     double instantiations, viterbi_scan's double instantiation and
+     viterbi_walk at the alternatives' shape, with the prunes' launches,
+     and pair_count with the merge run's launches), then the device line
+     as the last line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -408,6 +426,13 @@ def vocab_digest(tokens) -> str:
         h.update(len(t.value).to_bytes(4, "little") + t.value
                  + np.float64(t.score).tobytes() + bytes([t.keep]))
     return h.hexdigest()
+
+
+def pairs_digest(keys, counts) -> str:
+    """sha256 of a pair count's (keys, counts) int64 arrays, in order."""
+    return hashlib.sha256(np.ascontiguousarray(keys, np.int64).tobytes()
+                          + np.ascontiguousarray(counts, np.int64).tobytes()
+                          ).hexdigest()
 
 
 def counter_digest(counts) -> str:
@@ -981,8 +1006,10 @@ def check_viterbi_walk(lat, tbl, batch, spans, dev, route: str, scan=None):
         got = lat.viterbi_walk(*walk, ok=ok, ids=ids, **kw)
         torch.cuda.synchronize()
         if ids:
-            check(torch.equal(got[1], want[1]),
-                  f"viterbi_walk ({route}): token counts per span differ")
+            check(torch.equal(got[1], want[1])
+                  and torch.equal(got[2], want[2]),
+                  f"viterbi_walk ({route}): token counts per span or their "
+                  "offsets differ")
             total = int(want[1].sum())
             g, w = got[0][:total], want[0][:total]
             check(torch.equal(g, w), f"viterbi_walk ({route}): ids differ")
@@ -1936,6 +1963,128 @@ def host_frequency_counts(lat, sess, model):
     return counts
 
 
+def merge_group_ids(lat, ed, vocab, sub, hints, dev):
+    """The merge pass's walk of one row group: the route's Viterbi over
+    tables built with the merge's `hints`, then `walk_ids_device`;
+    (flat, incl, dead, vocabulary size), on the card."""
+    from tokengeex_tpu_torch.ops.match_table import TokenTable
+
+    dt = lat.DeviceTables.from_table(
+        TokenTable.build(vocab, min_bits=hints[0], min_len=hints[1]), dev)
+    batch = lat.prepare_batch(sub, dt.max_len, dev)
+    dp, best_l = lat.viterbi(dt, batch, C=ed.CHUNK,
+                             backend=ed._eff_backend(dt, None))
+    index = lat.walk_index(sub.spans, *best_l.shape, dev)
+    flat, _, incl, dead = lat.walk_ids_device(dt, batch, dp, best_l, index)
+    torch.cuda.synchronize()
+    return flat, incl, dead, dt.vocab_size
+
+
+def table_pair_count(pc, flat, incl, vocab_size):
+    """One group's pair count through a PairTable on the card, as
+    `pair_count_plain` gives it (keys ascending, counts, mismatch): a table
+    reserved for flat.numel() pairs, the insert, the compaction and its
+    readback, a sort by key."""
+    table = pc.PairTable(flat.device)
+    table.reserve(flat.numel())
+    table.insert_ids(flat, incl, vocab_size)
+    keys, counts = table.compact()
+    keys, order = torch.sort(keys)
+    return keys, counts[order], table.state[2] != 0
+
+
+def check_pair_count(lat, pc, ed, vocab, sub, hints, dev):
+    """pair_count against its plain version on the merge's first row group
+    (the 4k vocabulary, tables at the merge's hints): the group's walked
+    ids and offsets on the card, the kernel's compacted table sorted by key
+    equal to `pair_count_plain` (integers: max |err| 0). Timed: one group's
+    count as the merge pass runs it (a fresh table reserved for the group's
+    pairs, the insert, the compaction and its readback), unqueued; the
+    launches alone queued (the table's fill, the insert, the compaction;
+    and the fill and insert alone); torch.unique(return_counts=True) on the
+    same keys; the plain version."""
+    flat, incl, dead, V = merge_group_ids(lat, ed, vocab, sub, hints, dev)
+    check(not bool(dead.any()), "pair_count: a span of the group is dead")
+    keys, ids = pc.pair_keys(flat, incl)
+    tokens, pairs, spans = ids.numel(), keys.numel(), incl.numel()
+    want = []
+    plain_ms = cuda_ms(lambda: want.append(pc.pair_count_plain(flat, incl,
+                                                               V)),
+                       iters=1, warmup=0)
+    want = want[0]
+    got = table_pair_count(pc, flat, incl, V)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, want, ("keys", "counts", "mismatch")):
+        check(torch.equal(g, w), f"pair_count: {name} differ from the plain "
+              "version's")
+    check(not bool(got[2]), "pair_count: a walked id is no vocabulary token")
+    err = float((got[1] - want[1]).abs().max()) if pairs else 0.0
+
+    def group(launch_only=False, insert_only=False):
+        table = pc.PairTable(dev)
+        table.reserve(pairs, 0)
+        table.insert_ids(flat, incl, V)
+        if insert_only:
+            return table
+        return table._compact_launch() if launch_only else table.compact()
+
+    slots = group(insert_only=True).slots
+    ms = cuda_ms(group, iters=20)
+    device_ms = cuda_ms(lambda: group(launch_only=True), iters=20,
+                        queued=True)
+    insert_ms = cuda_ms(lambda: group(insert_only=True), iters=20,
+                        queued=True)
+    library_ms = cuda_ms(lambda: torch.unique(keys, return_counts=True),
+                         iters=20)
+    # Bytes the function needs: the ids and the offsets read once, each
+    # distinct (key, count) row written once. The table's own traffic
+    # (16 B a pair: a key's compare or claim, a count's add) is this
+    # design's, not the function's, and is logged beside it.
+    distinct = int(want[0].numel())
+    nbytes = 4 * tokens + 4 * spans + 16 * distinct
+    table_bytes = 4 * tokens + 4 * spans + 16 * pairs
+    b_ms, b_by = bound(nbytes, 0)
+    table_ms = bound(table_bytes, 0)[0]
+    log(f"pair_count (merge's first group: {spans} spans, {tokens} tokens, "
+        f"{pairs} pairs, {distinct} distinct, a table of {slots} "
+        f"slots): {ms:.4f} ms a group (fresh table, insert, compaction and "
+        f"its readback; queued: {device_ms:.4f} ms, the fill and the insert "
+        f"alone {insert_ms:.4f} ms), torch.unique on the same keys "
+        f"{library_ms:.4f} ms, plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}, {nbytes} bytes: the ids and offsets read, the distinct "
+        f"rows written; with the table's 16 B a pair, this design's own "
+        f"traffic, {table_bytes} bytes, {table_ms:.4f} ms), max |err| {err} "
+        "(equal)")
+    return {"max_abs_err": err, "ms": ms, "device_ms": device_ms,
+            "insert_device_ms": insert_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "spans": spans, "tokens": tokens, "pairs": pairs,
+            "distinct": distinct, "slots": slots, "bytes": nbytes,
+            "table_bytes": table_bytes, "table_bound_ms": table_ms}
+
+
+def host_pairs(ed, model, samples, hints, corpus):
+    """The pair count's old host route, for the checks: the ids of
+    `encode_corpus_device` for the same model read back into one list a
+    sample, then np.unique over the keys of each sample's adjacent ids,
+    by descending count (stable): (keys, counts)."""
+    encoded = ed.encode_corpus_device(model, samples, table_hints=hints,
+                                      corpus=corpus, device=corpus.dev)
+    keys = [(a[:-1] << 32) | a[1:]
+            for a in (np.asarray(r, np.int64) for r in encoded) if a.size > 1]
+    uniq, cnt = np.unique(np.concatenate(keys) if keys
+                          else np.zeros(0, np.int64), return_counts=True)
+    order = np.argsort(-cnt, kind="stable")
+    return uniq[order], cnt[order]
+
+
+def check_pairs_equal(tag, got, want) -> None:
+    check(got[0].shape == want[0].shape and np.array_equal(got[0], want[0])
+          and np.array_equal(got[1], want[1]),
+          f"[{tag}] the pair list differs from the host route's "
+          f"({got[0].size} against {want[0].size} pairs)")
+
+
 # An anchored identifier / punctuation class the allow-DFA compiles.
 MERGE_ALLOW = r"^(?: ?[A-Za-z_][A-Za-z0-9_]*|[[:punct:]]+)$"
 
@@ -1943,53 +2092,98 @@ MERGE_ALLOW = r"^(?: ?[A-Za-z_][A-Za-z0-9_]*|[[:punct:]]+)$"
 def run_merge(vocab, samples, groups, kernels, dev):
     """Phase 3e: VocabularyMerger on the card over the corpus, 200 merges
     in steps of 50 (four passes, each a re-encode of the corpus packed and
-    uploaded once, the ids walked on the card, then the pair count); the
-    walk called once per group a pass; on the first 64 samples, the pair
-    counts and the merged vocabulary equal to a CPU run's."""
+    uploaded once, the ids walked and their pairs counted on the card,
+    only the sorted arrays read back). The merge run times each pass; its
+    kernels' counts are set to 0 just before it and read just after: the
+    fused Viterbi kernel and the walk once a group a pass, pair_count at
+    least once a group a pass plus the compaction. A second run of the
+    same merge, each pass split by phase (synchronised), holds every
+    pass's pair list equal to the host route's over the same model
+    (`host_pairs`, run outside the pass's timing) and merges the same
+    vocabulary; on the first 64 samples, the pair counts and the merged
+    vocabulary equal to a CPU run's."""
     from tokengeex_tpu_torch import Model
     from tokengeex_tpu_torch.core.redfa import compile_is_match_dfa
+    from tokengeex_tpu_torch.ops import lattice as lat
+    from tokengeex_tpu_torch.ops import pair_count as pc
     from tokengeex_tpu_torch.train import estep_device as ed
     from tokengeex_tpu_torch.train.merge import VocabularyMerger
 
     compile_is_match_dfa(MERGE_ALLOW)  # the DFA takes it, no host regex
     kw = dict(allow=MERGE_ALLOW, num_merges=200, step=50)
-    merger = VocabularyMerger(device=dev, **kw)
-    passes = []
-    count_pairs = merger._count_pairs
+    count_pairs = ed.count_pairs_arrays
+    passes, checked = [], []
 
     def timed(*args, **kwargs):
         t = time.perf_counter()
         walks = kernels["viterbi_walk"].calls
-        pairs = count_pairs(*args, **kwargs)  # ends in a readback
+        keys, counts = count_pairs(*args, **kwargs)  # ends in a readback
         passes.append({"seconds": time.perf_counter() - t,
                        "walks": kernels["viterbi_walk"].calls - walks,
-                       "pairs": len(pairs)})
-        return pairs
+                       "pairs": int(keys.size)})
+        return keys, counts
 
-    merger._count_pairs = timed
-    t0 = time.perf_counter()
-    merged = merger.merge(Model(vocab), samples)
-    secs = time.perf_counter() - t0
+    def split(model, samples_, task, table_hints, corpus):
+        timer = lat.PhaseTimer(dev)
+        t = time.perf_counter()
+        got = count_pairs(model, samples_, task, table_hints=table_hints,
+                          corpus=corpus, timer=timer)
+        secs = time.perf_counter() - t
+        check_pairs_equal(f"merge pass {len(checked)}", got, host_pairs(
+            ed, model, samples_, table_hints, corpus))
+        checked.append({"seconds": secs, "pairs": int(got[0].size),
+                        "split": {k: round(v, 6)
+                                  for k, v in timer.seconds.items()}})
+        return got
+
+    path = ("fused_forward_chunk", "viterbi_walk")
+    try:
+        ed.count_pairs_arrays = timed
+        merger = VocabularyMerger(device=dev, **kw)
+        torch.cuda.synchronize()
+        for name in path:
+            kernels[name].launches = 0
+        pc.PairTable.launches = 0
+        t0 = time.perf_counter()
+        merged = merger.merge(Model(vocab), samples)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {name: kernels[name].launches for name in path}
+        launches["pair_count"] = pc.PairTable.launches
+        ed.count_pairs_arrays = split
+        again = VocabularyMerger(device=dev, **kw).merge(Model(vocab),
+                                                         samples)
+    finally:
+        ed.count_pairs_arrays = count_pairs
     check(merged.vocab_size() == len(vocab) + 200,
           f"[merge] {merged.vocab_size()} tokens, not {len(vocab) + 200}")
     check(len(passes) == 4 and all(p["walks"] == groups for p in passes),
           f"[merge] passes {passes}: not 4 passes of {groups} walks")
+    check(launches["fused_forward_chunk"] == 4 * groups,
+          f"[merge] the fused Viterbi kernel ran "
+          f"{launches['fused_forward_chunk']} times for 4 x {groups} groups")
+    check(launches["pair_count"] >= 4 * (groups + 1),
+          f"[merge] pair_count launched {launches['pair_count']} times for "
+          f"4 passes of {groups} groups")
+    check(vocab_digest(again.vocab) == vocab_digest(merged.vocab),
+          "[merge] the split run merged another vocabulary")
+    check(len(checked) == 4, f"[merge] {len(checked)} passes checked")
     total = sum(map(len, samples))
-    for k, p in enumerate(passes):
+    for k, (p, c) in enumerate(zip(passes, checked)):
         log(f"[merge] pass {k}: {p['seconds']:.3f} s = "
             f"{total / p['seconds'] / 1e6:.2f} MB/s, {p['walks']} walks, "
-            f"{p['pairs']} distinct pairs")
+            f"{p['pairs']} distinct pairs (equal to the host route's); "
+            f"synchronised {c['seconds']:.3f} s: {c['split']}")
     log(f"[merge] {len(vocab)} -> {merged.vocab_size()} tokens in "
-        f"{secs:.3f} s on {torch.cuda.get_device_name(dev)}")
-    # One more pass over the merged vocabulary, split by phase.
-    from tokengeex_tpu_torch.ops import lattice as lat
-
+        f"{secs:.3f} s on {torch.cuda.get_device_name(dev)}; launches "
+        f"{launches} ({groups} groups a pass)")
+    # One more pass over the merged vocabulary, through the list.
     timer = lat.PhaseTimer(dev)
     t = time.perf_counter()
     ed.count_pairs_device(merged, samples, corpus=merger._corpus, timer=timer)
-    split = {k: round(v, 6) for k, v in timer.seconds.items()}
-    log(f"[merge] a pass over the merged vocabulary, synchronised: "
-        f"{time.perf_counter() - t:.3f} s; {split}")
+    pass_split = {k: round(v, 6) for k, v in timer.seconds.items()}
+    log(f"[merge] a count_pairs_device pass over the merged vocabulary, "
+        f"synchronised: {time.perf_counter() - t:.3f} s; {pass_split}")
     head = samples[:64]
     pairs = ed.count_pairs_device(Model(vocab), head, device=dev)
     check(pairs == ed.count_pairs_device(Model(vocab), head, device="cpu"),
@@ -2000,13 +2194,75 @@ def run_merge(vocab, samples, groups, kernels, dev):
           == [(t.value, t.score) for t in small_cpu.vocab],
           "[merge] the vocabulary merged over 64 samples differs from the "
           "CPU run's")
-    log(f"[merge] checks passed: 4 passes x {groups} walks; on 64 samples "
-        f"{len(pairs)} pair counts and the merged vocabulary "
-        f"({small.vocab_size()} tokens) equal to the CPU run's")
-    return {"seconds": secs, "passes": passes, "bytes": total,
-            "pass_split": split,
+    log(f"[merge] checks passed: 4 passes x {groups} walks, every pass's "
+        f"pairs equal to the host route's; on 64 samples {len(pairs)} pair "
+        f"counts and the merged vocabulary ({small.vocab_size()} tokens) "
+        "equal to the CPU run's")
+    return {"seconds": secs, "passes": passes, "checked_passes": checked,
+            "launches": launches, "bytes": total, "pass_split": pass_split,
             "initial_size": len(vocab), "final_size": merged.vocab_size(),
             "pairs_64": len(pairs)}
+
+
+def run_merge_pass(vocab, samples, groups, kernels, dev):
+    """A pair-count pass at the README recipe's merge shape: the 32,768-
+    token vocabulary (slab route: viterbi_scan) with the hints of
+    `--num-merges 2000`, over a DeviceCorpus packed once; the first pass
+    (its inputs uploaded) and a steady one timed, the kernels' counts set
+    to 0 just before the steady pass and read just after (viterbi_scan and
+    the walk once a group, pair_count at least once a group plus the
+    compaction), one more pass split by phase, and its pair list equal to
+    the host route's."""
+    from tokengeex_tpu_torch import Model
+    from tokengeex_tpu_torch.ops import lattice as lat
+    from tokengeex_tpu_torch.ops import pair_count as pc
+    from tokengeex_tpu_torch.train import estep_device as ed
+    from tokengeex_tpu_torch.train.merge import merge_table_hints
+
+    model = Model(vocab)
+    hints = merge_table_hints(len(vocab), 2000, 24)
+    corpus = ed.DeviceCorpus(samples, device=dev)
+    secs = []
+    for k in range(2):
+        torch.cuda.synchronize()
+        if k:
+            for name in ("viterbi_scan", "viterbi_walk"):
+                kernels[name].launches = 0
+            pc.PairTable.launches = 0
+            calls = kernels["viterbi_walk"].calls
+        t = time.perf_counter()
+        got = ed.count_pairs_arrays(model, samples, table_hints=hints,
+                                    corpus=corpus)
+        secs.append(time.perf_counter() - t)
+    launches = {"viterbi_scan": kernels["viterbi_scan"].launches,
+                "viterbi_walk calls": kernels["viterbi_walk"].calls - calls,
+                "pair_count": pc.PairTable.launches}
+    check(launches["viterbi_scan"] == groups
+          and launches["viterbi_walk calls"] == groups,
+          f"[merge (a)] launches {launches} for {groups} groups")
+    check(launches["pair_count"] >= groups + 1,
+          f"[merge (a)] pair_count launched {launches['pair_count']} times "
+          f"for {groups} groups")
+    timer = lat.PhaseTimer(dev)
+    t = time.perf_counter()
+    again = ed.count_pairs_arrays(model, samples, table_hints=hints,
+                                  corpus=corpus, timer=timer)
+    split_s = time.perf_counter() - t
+    split = {k: round(v, 6) for k, v in timer.seconds.items()}
+    for arrays in (got, again):
+        check_pairs_equal("merge (a)", arrays, host_pairs(
+            ed, model, samples, hints, corpus))
+    total = sum(map(len, samples))
+    log(f"[merge (a): {len(vocab)} tokens, slab route, hints {hints}] a "
+        f"pair-count pass: first {secs[0]:.3f} s, steady {secs[1]:.3f} s = "
+        f"{total / secs[1] / 1e6:.2f} MB/s, {got[0].size} distinct pairs "
+        f"(equal to the host route's); launches {launches}; synchronised "
+        f"{split_s:.3f} s: {split}")
+    return {"first_seconds": secs[0], "seconds": secs[1], "bytes": total,
+            "pairs": int(got[0].size), "launches": launches,
+            "split_seconds": split_s, "split": split, "hints": hints,
+            "digest": pairs_digest(*got)}
+
 
 # ---------------------------------------------------------------------------
 # The generate stage: the candidate mask, the feed, the CLI recipe
@@ -2560,8 +2816,9 @@ def rank_worker(mode: str, rank: str, world: str, data_path: str,
     """One rank of phase 3i on the card: mode "nccl" (world size 1 under
     NCCL: the session (a), encode (a), the corpus-sharded fused prune of
     the whole corpus) or "gloo" (two ranks sharing the card: the session
-    (a) and encode (a) over the replicated corpus, generate at p = 1 and
-    the corpus-sharded fused prune of the CLI slice on disjoint shards).
+    (a), encode (a) and merge's pair count (a) over the replicated corpus,
+    generate at p = 1 and the corpus-sharded fused prune of the CLI slice
+    on disjoint shards).
     Pickles its results to OUT/rank{RANK}.pkl."""
     import pickle
 
@@ -2662,6 +2919,39 @@ def rank_worker(mode: str, rank: str, world: str, data_path: str,
                      "launches": counts(),
                      "walk_calls": lat.viterbi_walk.calls - calls}
     del ids
+
+    if mode == "gloo":
+        # Merge's pair count at the README's shape (phase 3e's pass over
+        # vocabulary (a)): each rank counts its block of every group, the
+        # ranks' compacted tables are gathered and inserted into a fresh
+        # table on every rank (the weighted entry). Every launch of the
+        # table's three entries is counted by name.
+        from collections import Counter
+
+        from tokengeex_tpu_torch.ops import pair_count as pc
+        from tokengeex_tpu_torch.train import estep_device as ed
+        from tokengeex_tpu_torch.train.merge import merge_table_hints
+
+        entries = Counter()
+        launch = pc._launch
+
+        def counted(name, *args):
+            entries[name] += 1
+            return launch(name, *args)
+
+        pc._launch = counted
+        try:
+            t0 = time.perf_counter()
+            keys, pair_counts = ed.count_pairs_arrays(
+                model_a, samples, device=dev,
+                table_hints=merge_table_hints(len(data["vocab_a"]), 2000,
+                                              24))
+            secs = time.perf_counter() - t0
+        finally:
+            pc._launch = launch
+        res["pairs"] = {"digest": pairs_digest(keys, pair_counts),
+                        "pairs": int(keys.size), "seconds": secs,
+                        "entries": dict(entries)}
 
     # The (V,) count array's all_reduce alone, as a pass pays it.
     V = len(data["vocab_a"])
@@ -2798,6 +3088,18 @@ def run_multigpu(samples, vocab_a, vocab_f, prune_target, allow, expect,
               f"{res['encode']['launches']['viterbi_scan']} times")
         check(res["generate_digest"] == expect["generate_digest"],
               f"[3i gloo] rank {r}'s sharded generate differs from 3f's")
+        got_pairs = res["pairs"]
+        check(got_pairs["digest"] == expect["pairs_digest"],
+              f"[3i gloo] rank {r}'s gathered pair count "
+              f"({got_pairs['pairs']} pairs) differs from phase 3e's "
+              f"single-process pass ({expect['pairs_n']})")
+        entries = got_pairs["entries"]
+        check(entries.get("pair_insert_ids", 0) > 0
+              and entries.get("pair_insert_weighted", 0) > 0
+              and entries.get("pair_compact", 0) >= 2,
+              f"[3i gloo] rank {r}'s pair count launched {entries}: "
+              "the insert, the weighted insert of the gathered rows and "
+              "both compactions must each run")
         tokens = res["prune"]["tokens"]
         check(len(tokens) <= prune_target
               and set(tokens) <= {t.value for t in vocab_f},
@@ -2818,7 +3120,11 @@ def run_multigpu(samples, vocab_a, vocab_f, prune_target, allow, expect,
         f"devices: {MULTICHIP_R05['sum']} vs {MULTICHIP_R05['sum_one_device']}"
         f", max |diff| {MULTICHIP_R05['max_abs_diff']})")
     log(f"[3i gloo] checks passed: counts within rtol 1e-4 / atol 1e-4 "
-        f"(total 1e-5), both ranks' gathered ids equal phase 3's, sharded "
+        f"(total 1e-5), both ranks' gathered ids equal phase 3's, both "
+        f"ranks' gathered pair counts ({a['pairs']['pairs']} pairs) equal "
+        f"phase 3e's single-process pass (launches by entry: "
+        f"{[r['pairs']['entries'] for r in ranks]}; seconds "
+        f"{[round(r['pairs']['seconds'], 3) for r in ranks]}), sharded "
         f"generate at p = 1 equal to phase 3f's, both ranks pruned "
         f"{len(cli_part)} samples (~2 MB, shards of "
         f"{[r['prune']['samples'] for r in ranks]}) to the same "
@@ -2839,6 +3145,7 @@ def run_multigpu(samples, vocab_a, vocab_f, prune_target, allow, expect,
         "session": {k: v for k, v in r["session"].items()
                     if k not in ("first", "steady")},
         "encode": r["encode"], "all_reduce_ms": r["all_reduce_ms"],
+        "pairs": r["pairs"],
         "prune": {k: v for k, v in r["prune"].items() if k != "tokens"},
         "gloo_cuda": r["gloo_cuda"]} for r in ranks]
     out["gloo_2_ranks_session_max_abs_diff"] = gap
@@ -2860,9 +3167,11 @@ def main() -> None:
         from tokengeex_tpu_torch.ops import lattice_cuda as lc
         from tokengeex_tpu_torch.ops import lattice_cuda_fused as lcf
         from tokengeex_tpu_torch.ops import lattice_cuda_seg as lcs
+        from tokengeex_tpu_torch.ops import pair_count as pc
         from tokengeex_tpu_torch.ops.match_table import TokenTable
         from tokengeex_tpu_torch.train import device_session as ds
         from tokengeex_tpu_torch.train import estep_device as ed
+        from tokengeex_tpu_torch.train.merge import merge_table_hints
         from tokengeex_tpu_torch.utils.packing import pack_samples
     except ImportError as e:
         fail(f"the port is not next to this script ({e})")
@@ -2936,6 +3245,11 @@ def main() -> None:
                                       enc_groups[0][1].spans, dev, route)
             for route, tbl in (("slab", dt_a), ("fused", dt_b))}
     del batch
+    torch.cuda.empty_cache()
+    # The merge's first row group (phase 3e's: the 4k vocabulary at the
+    # merge's table hints).
+    pairs_k = check_pair_count(lat, pc, ed, vocab_b, enc_groups[0][1],
+                               merge_table_hints(len(vocab_b), 200, 24), dev)
     torch.cuda.empty_cache()
     # The cached prune's alternatives: its vocabulary's own bytes.
     alts_k = check_alternatives_kernels(lat, lc, ed, vocab_c, dev)
@@ -3058,6 +3372,9 @@ def main() -> None:
     phase_start("3e")
     merged = run_merge(vocab_b, samples, len(enc_groups), kernels, dev)
     torch.cuda.empty_cache()
+    merged["readme_pass"] = run_merge_pass(vocab_a, samples, len(enc_groups),
+                                           kernels, dev)
+    torch.cuda.empty_cache()
     phase_start("3f")
     generated = run_generate(dd, samples, allow, dfa_all, dev)
     torch.cuda.empty_cache()
@@ -3080,7 +3397,9 @@ def main() -> None:
         "session_steady_s": a_sess["steady_seconds"],
         "prune_digest": pruned_f["vocab_digest"],
         "prune_s": pruned_f["seconds"],
-        "generate_digest": generated["p1_64_digest"]}, dev)
+        "generate_digest": generated["p1_64_digest"],
+        "pairs_digest": merged["readme_pass"]["digest"],
+        "pairs_n": merged["readme_pass"]["pairs"]}, dev)
 
     # -- 4. kernels line --
     phase_start("4")
@@ -3091,7 +3410,7 @@ def main() -> None:
                 "max_abs_err": res["max_abs_err"] if err is None else err,
                 "ms": res["ms"], "plain_ms": res["plain_ms"],
                 "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
-                "library_ms": None}
+                "library_ms": res.get("library_ms")}
 
     pallas = "tokengeex_tpu/ops/lattice_pallas.py"
     fused_py = "tokengeex_tpu/ops/lattice_pallas_fused.py"
@@ -3160,6 +3479,9 @@ def main() -> None:
               alts_k["walk"]["ids"],
               max(alts_k["walk"][m]["max_abs_err"]
                   for m in ("count", "ids"))),
+        entry("pair_count", "pair_count.cu",
+              "native/tokengeex_native.cpp:542",
+              merged["launches"]["pair_count"], pairs_k),
     ]}
     record = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_seconds": build_s,
@@ -3176,7 +3498,8 @@ def main() -> None:
               "session": session, "session_over_budget": over_budget,
               "prune": pruned, "prune_fused": pruned_f,
               "alternatives_kernels": alts_k, "alternatives_500k": alts_big,
-              "dfa_mask": mask, "generate": generated,
+              "dfa_mask": mask, "pair_count": pairs_k,
+              "generate": generated,
               "cli_recipe": recipe, "f64_scans": scans64, "f64": conform,
               "multigpu": multigpu,
               "kernels": line["kernels"]}

@@ -714,15 +714,15 @@ def test_cuda_viterbi_walk_matches_twin(cuda_device, width, fused, layout,
         assert (lat.viterbi_walk.launches, lat.viterbi_walk.calls) == (
             before[0] + copy + 1, before[1] + 1)
         assert torch.equal(got, want) and int(got[-1]) == 0
-        wflat, wn = lat.viterbi_walk_plain(bl, *args, index, ok=use_ok,
-                                           ids=True, **kw)
+        wflat, wn, wincl = lat.viterbi_walk_plain(bl, *args, index,
+                                                  ok=use_ok, ids=True, **kw)
         before = (lat.viterbi_walk.launches, lat.viterbi_walk.calls)
-        gflat, gn = lat.viterbi_walk(bl, *args, index, ok=use_ok, ids=True,
-                                     **kw)
+        gflat, gn, gincl = lat.viterbi_walk(bl, *args, index, ok=use_ok,
+                                            ids=True, **kw)
         torch.cuda.synchronize()
         assert (lat.viterbi_walk.launches, lat.viterbi_walk.calls) == (
             before[0] + copy + 2, before[1] + 1)
-        assert torch.equal(gn, wn)
+        assert torch.equal(gn, wn) and torch.equal(gincl, wincl)
         total = int(wn.sum())
         assert gflat.shape == (index.cap,)
         assert torch.equal(gflat[:total], wflat[:total])

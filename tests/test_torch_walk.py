@@ -466,11 +466,12 @@ def test_walk_segmented_matches_jax_backpointers(route, dropout, S):
     best_l = torch.as_tensor(bl)
     ok = torch.isfinite(index.dp_ends(torch.as_tensor(dp)))
     args, kw = lat._walk_tables(tbl, pb)
-    flat, ntok = lat.viterbi_walk(best_l, *args, index, ok=ok, ids=True,
-                                  **kw)
+    flat, ntok, incl = lat.viterbi_walk(best_l, *args, index, ok=ok,
+                                        ids=True, **kw)
     pos, n = lat.walk_positions_segmented(best_l, index, ok, kw["max_len"],
                                           S)
     assert torch.equal(n, ntok) and flat.shape == (index.cap,)
+    assert torch.equal(incl, torch.cumsum(n, 0).to(torch.int32))
     ids = lat._walk_probe(best_l.long(), *args, pos, kw["bits"], kw["pad"],
                           kw["vocab_size"])
     assert torch.equal(ids.to(torch.int32), flat[: ids.numel()])

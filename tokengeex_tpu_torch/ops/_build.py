@@ -68,6 +68,12 @@ KERNELS: Dict[str, Tuple[str, str, tuple]] = {
                   (P, P, LL, LL, I, I, I, P)),
     "dfa_mask": ("dfa_mask.cu", "tgx_dfa_mask",
                  (P,) * 6 + (I,) * 8 + (U, I, LL, P)),
+    "pair_insert_ids": ("pair_count.cu", "tgx_pair_insert_ids",
+                        (P, P, I, U, P, P, LL, P, LL, P)),
+    "pair_insert_weighted": ("pair_count.cu", "tgx_pair_insert_weighted",
+                             (P, P, LL, P, P, LL, P, P)),
+    "pair_compact": ("pair_count.cu", "tgx_pair_compact",
+                     (P, P, LL, P, P, LL, P, P)),
 }
 
 _LOCK = threading.Lock()

@@ -35,7 +35,8 @@ every span's backpointers, a row's segments in parallel, over a span
 index each group makes once (`walk_index`), and resolves each token's id
 with the exact tables (`t1_exact`, `t2_exact`), counting the ids (the
 frequency pass, `walk_counts`) or writing them into one flat buffer,
-span after span (encode, `walk_ids`). The
+span after span (encode, `walk_ids`; merge's pair count keeps the buffer
+on the device, `walk_ids_device`). The
 host `backtrack` stays as the reference they are held against and walks
 the chained windows of samples longer than the encode width.
 
@@ -1903,7 +1904,7 @@ def viterbi_walk_plain(best_l, p1, p2, rinv1, rinv2, t1_exact, t2_exact,
         return torch.bincount(tid, minlength=vocab_size + 1).to(torch.int32)
     flat = torch.zeros(index.cap, dtype=torch.int32, device=best_l.device)
     flat[: tid.numel()] = tid.to(torch.int32)
-    return flat, ntok
+    return flat, ntok, torch.cumsum(ntok, 0, dtype=torch.int32)
 
 
 def viterbi_walk(best_l, p1, p2, rinv1, rinv2, t1_exact, t2_exact,
@@ -1922,7 +1923,9 @@ def viterbi_walk(best_l, p1, p2, rinv1, rinv2, t1_exact, t2_exact,
     (V + 1,) int32 token counts, bin V counting tokens no table row matches
     (a model/table mismatch). ids=True returns a (index.cap,) int32 buffer
     whose first ntok.sum() entries are the spans' ids, span after span in
-    the index's span order, each in position order, and ntok (n,) int32.
+    the index's span order, each in position order, ntok (n,) int32 and
+    incl (n,) int32, the inclusive cumsum of ntok (span k's ids at
+    [incl[k] - ntok[k], incl[k])).
 
     CUDA tensors launch csrc/viterbi_walk.cu on the current stream, with
     segments of WALK_SEGMENT positions: a tiled copy of best_l to (B, W)
@@ -2012,7 +2015,9 @@ def viterbi_walk(best_l, p1, p2, rinv1, rinv2, t1_exact, t2_exact,
         lc._launch("viterbi_walk", *args, None, ntok, incl, flat, tabs,
                    *shape, 2)
         viterbi_walk.launches += 2
-    return flat, ntok
+    else:
+        incl = torch.zeros(n, dtype=torch.int32, device=dev)
+    return flat, ntok, incl
 
 
 viterbi_walk.launches = 0
@@ -2047,18 +2052,33 @@ def walk_ids(tbl: DeviceTables, batch: DeviceBatch, dp: torch.Tensor,
     the flat id buffer the walk writes. Returns the flat int32 ids and the
     (n,) int64 tokens per span, -1 for an unreachable non-empty span (0
     for an empty one); the caller splits them (estep_device._place_ids)."""
-    n = index.n
-    if n == 0:
+    if index.n == 0:
         return np.zeros(0, np.int32), np.zeros(0, np.int64)
-    with phase(timer, "walk"):
-        dp_end = index.dp_ends(dp)
-        ok = torch.isfinite(dp_end) & index.nonempty
-        args, kw = _walk_tables(tbl, batch)
-        flat, ntok = viterbi_walk(best_l, *args, index, ok=ok, ids=True,
-                                  **kw)
+    flat, ntok, _, dead = walk_ids_device(tbl, batch, dp, best_l, index,
+                                          timer=timer)
     with phase(timer, "readback"):
-        dp_h = dp_end.cpu().numpy()
+        dead_h = dead.cpu().numpy()
         ntok_h = ntok.cpu().numpy().astype(np.int64)
         flat = flat[: int(ntok_h.sum())].cpu().numpy()
-    ntok_h[(index.lengths > 0) & ~np.isfinite(dp_h)] = -1
+    ntok_h[dead_h] = -1
     return flat, ntok_h
+
+
+def walk_ids_device(tbl: DeviceTables, batch: DeviceBatch, dp: torch.Tensor,
+                    best_l: torch.Tensor, index: WalkIndex,
+                    timer: Optional[PhaseTimer] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               torch.Tensor]:
+    """The walk of `walk_ids` with nothing read back (merge's pair count
+    keeps the ids on the device): (flat, ntok, incl, dead), flat the
+    (index.cap,) int32 ids, ntok the (n,) int32 tokens per span, incl
+    their inclusive cumsum (the ids launch's own offsets) and dead (n,)
+    bool, a non-empty span whose end dp is not finite (not walked: no
+    path)."""
+    with phase(timer, "walk"):
+        finite = torch.isfinite(index.dp_ends(dp))
+        args, kw = _walk_tables(tbl, batch)
+        flat, ntok, incl = viterbi_walk(
+            best_l, *args, index, ok=finite & index.nonempty, ids=True,
+            **kw)
+    return flat, ntok, incl, index.nonempty & ~finite

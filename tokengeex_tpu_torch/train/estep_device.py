@@ -13,9 +13,10 @@ probes each group once, runs the forward and the backward DP over the
 whole width in one scan each, and adds the token marginals into slot bins
 that the host folds to expected counts per token. The merge loop
 re-encodes one DeviceCorpus, packed and uploaded once, and counts
-adjacent id pairs (count_pairs_device). The pruner's alternatives are one
-Viterbi pass over the vocabulary's own bytes with each token's whole-token
-entry masked (prune_alternatives_device).
+adjacent id pairs on the device, the walk's ids never leaving it
+(count_pairs_arrays: a hash table, ops/pair_count.py). The pruner's
+alternatives are one Viterbi pass over the vocabulary's own bytes with
+each token's whole-token entry masked (prune_alternatives_device).
 
 Under a process group (parallel/mesh.py, one rank a GPU) the corpus is
 replicated: every rank packs every sample the same way and runs its block
@@ -215,6 +216,59 @@ def _drop_words(gen: torch.Generator, rows: int, cols: int, device):
                          dtype=torch.int32, device=device)
 
 
+def _encode_setup(model: Model, samples: Sequence[bytes],
+                  table_hints: Optional[Tuple[int, int]],
+                  probe: Optional[str], max_width: Optional[int],
+                  dtype: torch.dtype, dev: torch.device,
+                  timer: Optional[lat.PhaseTimer],
+                  table: Optional[TokenTable],
+                  corpus: Optional["DeviceCorpus"], local: bool):
+    """An encode pass's (DeviceTables, Viterbi route, DeviceCorpus): the
+    tables built from `table_hints` unless `table` is given, and `corpus`
+    unless it was packed from other samples, at another width or for other
+    rows (its spans would be misassigned), else one packed now."""
+    with lat.phase(timer, "tables"):
+        if table is None:
+            hb, hl = table_hints or (None, None)
+            table = TokenTable.build(model.vocab, min_bits=hb, min_len=hl)
+        dt = lat.DeviceTables.from_table(table, dev, dtype)
+    if corpus is not None and (corpus.samples is not samples
+                               or corpus.req_max_width != max_width
+                               or corpus.dev != dev
+                               or corpus.local != local):
+        corpus = None
+    with lat.phase(timer, "pack"):
+        if corpus is None:
+            corpus = DeviceCorpus(samples, max_width, dev, budget=0,
+                                  local=local)
+    return dt, _eff_backend(dt, probe, dtype), corpus
+
+
+def _viterbi_groups(dt: lat.DeviceTables, corpus: "DeviceCorpus",
+                    backend: str, gen: Optional[torch.Generator],
+                    dropout: float, probe: Optional[str],
+                    dtype: torch.dtype, timer: Optional[lat.PhaseTimer]):
+    """Each row group of `corpus` through the route's Viterbi kernel:
+    (sub, batch, index, dp, best_l), the group's packed rows, its
+    DeviceBatch, its walk index and the backpointers, on the device."""
+    dev = corpus.dev
+    for gi, sub in corpus.groups:
+        with lat.phase(timer, "prep"):
+            batch = corpus.batch(gi, sub, dt.max_len)
+            chains = corpus.chains(gi, batch)
+            index = corpus.walk_index(gi, sub)
+            drop_u = (block_drop_words(gen, *corpus.blocks[gi], sub,
+                                       batch.sid.shape[1], dev)
+                      if gen is not None else None)
+        dp, best_l = lat.viterbi(dt, batch, C=CHUNK, dtype=dtype,
+                                 backend=backend, drop_u=drop_u,
+                                 dropout=dropout, probe=probe, timer=timer,
+                                 chains=chains)
+        assert all(sp[4] == 0 for sp in sub.spans), \
+            "encode packing must not chop samples"
+        yield sub, batch, index, dp, best_l
+
+
 def encode_corpus_device(
     model: Model,
     samples: Sequence[bytes],
@@ -263,46 +317,18 @@ def encode_corpus_device(
     no collective (a corpus shard's, the JAX package's force_local)."""
     dtype = dtype or torch.float32
     dev = resolve_device(device)
-    with lat.phase(timer, "tables"):
-        if table is None:
-            hb, hl = table_hints or (None, None)
-            table = TokenTable.build(model.vocab, min_bits=hb, min_len=hl)
-        dt = lat.DeviceTables.from_table(table, dev, dtype)
-    L = dt.max_len
-    backend = _eff_backend(dt, probe, dtype)
-
-    if corpus is not None and (corpus.samples is not samples
-                               or corpus.req_max_width != max_width
-                               or corpus.dev != dev
-                               or corpus.local != local):
-        # Packed from other samples, at another width or for other rows:
-        # its spans would be misassigned.
-        corpus = None
-    with lat.phase(timer, "pack"):
-        if corpus is None:
-            corpus = DeviceCorpus(samples, max_width, dev, budget=0,
-                                  local=local)
+    dt, backend, corpus = _encode_setup(model, samples, table_hints, probe,
+                                        max_width, dtype, dev, timer, table,
+                                        corpus, local)
     gen = (torch.Generator(device=dev).manual_seed(seed)
            if dropout > 0.0 else None)
 
     sids, ntoks, flats = [], [], []
-    for gi, sub in corpus.groups:
-        with lat.phase(timer, "prep"):
-            batch = corpus.batch(gi, sub, L)
-            chains = corpus.chains(gi, batch)
-            index = corpus.walk_index(gi, sub)
-            drop_u = (block_drop_words(gen, *corpus.blocks[gi], sub,
-                                       batch.sid.shape[1], dev)
-                      if gen is not None else None)
-        dp, best_l = lat.viterbi(dt, batch, C=CHUNK, dtype=dtype,
-                                 backend=backend, drop_u=drop_u,
-                                 dropout=dropout, probe=probe, timer=timer,
-                                 chains=chains)
+    for sub, batch, index, dp, best_l in _viterbi_groups(
+            dt, corpus, backend, gen, dropout, probe, dtype, timer):
         # The backpointers stay on the device: the walk reads back the
         # span-end dp values, the per-span token counts and the ids.
         flat, ntok = lat.walk_ids(dt, batch, dp, best_l, index, timer=timer)
-        assert all(sp[4] == 0 for sp in sub.spans), \
-            "encode packing must not chop samples"
         sids.append(np.asarray([sp[3] for sp in sub.spans], np.int64))
         ntoks.append(ntok)
         flats.append(flat)
@@ -598,6 +624,133 @@ def count_frequencies_device(
     return freqs.astype(np.int64)
 
 
+def _chained_pair_keys(ids: Sequence[List[int]]) -> np.ndarray:
+    """The int64 keys (a << 32) | b of the adjacent ids of each list."""
+    keys = [(a[:-1] << 32) | a[1:]
+            for a in (np.asarray(r, np.int64) for r in ids) if a.size > 1]
+    return np.concatenate(keys) if keys else np.zeros(0, np.int64)
+
+
+# Failure codes of a pair count, by precedence (the largest is raised):
+# a model/table mismatch, a span with no path, a table overflow.
+_PAIRS_MISMATCH, _PAIRS_NOPATH, _PAIRS_OVERFLOW = 1, 2, 3
+
+
+def _raise_pairs_failure(code: int, length: float) -> None:
+    if code == _PAIRS_OVERFLOW:
+        raise RuntimeError("pair count: a table insert overflowed")
+    if code == _PAIRS_NOPATH:
+        raise NoPathError(int(length), int(length))
+    if code == _PAIRS_MISMATCH:
+        raise KeyError("walk: a matched span is not a vocabulary token "
+                       "(model/table mismatch)")
+
+
+def count_pairs_arrays(model: Model, samples: Sequence[bytes],
+                       task: Optional[Task] = None,
+                       table_hints: Optional[Tuple[int, int]] = None,
+                       corpus: Optional[DeviceCorpus] = None,
+                       device=None, timer: Optional[lat.PhaseTimer] = None
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """Adjacent id pair counts of the device encode (reference:
+    src/merge.rs:53-84) as arrays: (keys, counts), int64 (P,) each, key =
+    (a << 32) | b, by descending count, equal counts in ascending key
+    order. table_hints (min_bits, min_len) pins the table's shape across a
+    merge loop's growing vocabulary; `corpus` is the loop's DeviceCorpus
+    over `samples`.
+
+    Each row group's ids stay on the device: the walk writes them
+    (`lattice.walk_ids_device`) and one launch inserts the group's pairs
+    into a hash table on the card (ops/pair_count.py `PairTable`, the
+    kernels' plain twin on the CPU), sized from one scalar readback a
+    group (the group's pairs, its dead spans, the table's distinct keys
+    and flags). Samples past the pack cap take the chained encode and
+    their pairs are inserted as rows. The table is compacted and sorted
+    on the device; only the sorted arrays are read back. A span with no
+    path raises NoPathError (the first such sample's length), an id that
+    is no vocabulary token KeyError, as the encode does.
+
+    Under a process group each rank counts its block of every row group,
+    and the ranks' compacted tables are all_gathered and inserted into a
+    fresh table on every rank, after every rank has learnt of any rank's
+    failure; a local corpus counts its own samples with no collective.
+    `timer` collects the encode's phases and the count's (pairs: inserts,
+    compaction and sort; readback)."""
+    from ..ops.pair_count import PairTable
+
+    dev = resolve_device(corpus.dev if corpus is not None and device is None
+                         else device)
+    dt, backend, corpus = _encode_setup(
+        model, samples, table_hints, None,
+        corpus.req_max_width if corpus is not None else None,
+        torch.float32, dev, timer, None, corpus,
+        corpus.local if corpus is not None else False)
+    V = dt.vocab_size
+    table = PairTable(dev)
+    code, length = 0, 0
+    for sub, batch, index, dp, best_l in _viterbi_groups(
+            dt, corpus, backend, None, 0.0, None, torch.float32, timer):
+        if index.n == 0:
+            continue
+        flat, ntok, incl, dead = lat.walk_ids_device(dt, batch, dp, best_l,
+                                                     index, timer=timer)
+        with lat.phase(timer, "readback"):
+            pairs, any_dead, first, distinct, overflow, bad = table.read(
+                incl[-1] - (ntok > 0).sum(), dead.any(),
+                dead.to(torch.int32).argmax())
+        if overflow:
+            code = _PAIRS_OVERFLOW
+        elif any_dead and code < _PAIRS_NOPATH:
+            code, length = _PAIRS_NOPATH, len(samples[sub.spans[first][3]])
+        elif bad and code < _PAIRS_MISMATCH:
+            code = _PAIRS_MISMATCH
+        if code:
+            continue  # the pass raises: no more inserts
+        with lat.phase(timer, "pairs"):
+            table.reserve(pairs, distinct)
+            table.insert_ids(flat, incl, V)
+    with lat.phase(timer, "readback"):
+        _, overflow, bad = table.read()
+    code = max(code, _PAIRS_OVERFLOW if overflow else
+               _PAIRS_MISMATCH if bad else 0)
+    gather = pmesh.process_count() > 1 and not corpus.local
+    if gather:
+        code, length = pmesh.allgather_fail(code, length)
+    _raise_pairs_failure(code, length)
+
+    if gather:
+        with lat.phase(timer, "pairs"):
+            keys, counts = table.compact()
+        with lat.phase(timer, "readback"):
+            rows = torch.cat([keys, counts]).cpu().numpy().view(np.int32)
+        parts = [p.view(np.int64).reshape(2, -1)
+                 for p in pmesh.allgather_ragged(rows)]
+        with lat.phase(timer, "pairs"):
+            table = PairTable(dev)
+            table.reserve(sum(p.shape[1] for p in parts))
+            both = torch.from_numpy(np.concatenate(parts, axis=1)).to(dev)
+            table.insert_weighted(both[0].contiguous(), both[1].contiguous())
+    if corpus.long_idx:
+        chained = _encode_chained(
+            model, dt, [(si, samples[si]) for si in corpus.long_idx],
+            corpus.cap, backend=backend, dropout=0.0, seed=0x5151,
+            probe=None, device=dev, timer=timer)
+        with lat.phase(timer, "pairs"):
+            keys = torch.from_numpy(_chained_pair_keys(chained)).to(dev)
+            table.reserve(keys.numel())
+            table.insert_weighted(keys, torch.ones_like(keys))
+    if task is not None:
+        task.record(sum(len(s) for s in samples), len(samples))
+    with lat.phase(timer, "pairs"):
+        keys, counts = table.compact()
+        keys, order = torch.sort(keys)
+        counts, order2 = torch.sort(counts[order], descending=True,
+                                    stable=True)
+        keys = keys[order2]
+    with lat.phase(timer, "readback"):
+        return keys.cpu().numpy(), counts.cpu().numpy()
+
+
 def count_pairs_device(model: Model, samples: Sequence[bytes],
                        task: Optional[Task] = None,
                        table_hints: Optional[Tuple[int, int]] = None,
@@ -606,33 +759,13 @@ def count_pairs_device(model: Model, samples: Sequence[bytes],
                        ) -> List[Tuple[Tuple[int, int], int]]:
     """Adjacent id pair counts of the device encode (reference:
     src/merge.rs:53-84), [((a, b), count)] by descending count, equal
-    counts in ascending (a, b) order. table_hints (min_bits, min_len)
-    pins the table's shape across a merge loop's growing vocabulary;
-    `corpus` is the loop's DeviceCorpus over `samples`. `timer` collects
-    the encode's phases and the pair count's (pairs)."""
-    encoded = encode_corpus_device(
-        model, samples, table_hints=table_hints, corpus=corpus,
-        device=corpus.dev if corpus is not None and device is None
-        else device, timer=timer)
-    if task is not None:
-        task.record(sum(len(s) for s in samples), len(samples))
-    with lat.phase(timer, "pairs"):
-        # One vectorised count over every sample's ids: the pairs that
-        # straddle two samples are masked, the keys made unique once.
-        seqs = [np.asarray(ids, dtype=np.int64)
-                for ids in encoded if ids and len(ids) > 1]
-        if not seqs:
-            return []
-        big = np.concatenate(seqs)
-        ends = np.cumsum(np.fromiter((len(a) for a in seqs), np.int64,
-                                     len(seqs)))
-        keys = (big[:-1] << 32) | big[1:]
-        mask = np.ones(len(big) - 1, dtype=bool)
-        mask[ends[:-1] - 1] = False  # a sample's last id pairs with nothing
-        uniq, cnt = np.unique(keys[mask], return_counts=True)
-        order = np.argsort(-cnt, kind="stable")
-        return [((int(k) >> 32, int(k) & 0xFFFFFFFF), int(c))
-                for k, c in zip(uniq[order], cnt[order])]
+    counts in ascending (a, b) order: `count_pairs_arrays`, then the list
+    built once (`timer`: its phases and list)."""
+    keys, counts = count_pairs_arrays(model, samples, task, table_hints,
+                                      corpus, device, timer)
+    with lat.phase(timer, "list"):
+        return list(zip(zip((keys >> 32).tolist(),
+                            (keys & 0xFFFFFFFF).tolist()), counts.tolist()))
 
 
 # Chain length of the alternatives' Viterbi scan: every token of the

@@ -10,9 +10,11 @@ pass adds nothing.
 Pair counting backends:
   - device: the batched Viterbi encode on the GPU over a corpus packed and
     uploaded once per merge run (train/estep_device.py DeviceCorpus), the
-    ids walked on the device, then one vectorised pair count; under a
-    process group each rank encodes its block of every group's rows and
-    the ids are gathered, so every rank makes the same merges;
+    ids walked and their pairs counted in a hash table on the device
+    (count_pairs_arrays); only the sorted (keys, counts) arrays come back,
+    and the loop makes tuples of the pairs it visits alone. Under a
+    process group each rank counts its block of every group's rows and
+    the ranks' tables are gathered, so every rank makes the same merges;
   - oracle: the host f64 model, sample by sample (tests only).
 """
 
@@ -32,6 +34,16 @@ from ..utils.task import Task
 from .patterns import rust_to_python
 
 log = logging.getLogger(__name__)
+
+
+def merge_table_hints(vocab_size: int, num_merges: int,
+                      max_token_length: int) -> Tuple[int, int]:
+    """The token table's (min_bits, min_len) for the FINAL merge state,
+    computed once: recomputing them from the grown vocabulary each round
+    would let the table's bits change mid-loop."""
+    final_v = vocab_size + max(num_merges, 0)
+    return (max(8, int(np.ceil(np.log2(max(final_v, 2)))) + 1),
+            max_token_length)
 
 
 @dataclasses.dataclass
@@ -74,12 +86,8 @@ class VocabularyMerger:
             allow_ok = lambda text: bool(allow_re.search(text))  # noqa: E731
         ignore: Set[Tuple[int, int]] = set()
         start_vocab_size = model.vocab_size()
-        # Table-shape hints for the FINAL merge state, computed once:
-        # recomputing them from the grown vocabulary each round would let
-        # the table's bits change mid-loop.
-        final_v = start_vocab_size + max(self.num_merges, 0)
-        hints = (max(8, int(np.ceil(np.log2(max(final_v, 2)))) + 1),
-                 self.max_token_length)
+        hints = merge_table_hints(start_vocab_size, self.num_merges,
+                                  self.max_token_length)
 
         while model.vocab_size() < start_vocab_size + self.num_merges:
             done = model.vocab_size() - start_vocab_size
@@ -128,17 +136,19 @@ class VocabularyMerger:
         return model
 
     def _count_pairs(self, model: Model, samples, task, hints=None):
-        """Sorted [(pair, freq)] desc (reference: src/merge.rs:53-84)."""
+        """(pair, freq) by freq desc (reference: src/merge.rs:53-84): a
+        list on the oracle backend, an iterator over the device's arrays
+        on the device backend."""
         if self.backend == "device":
-            from .estep_device import DeviceCorpus, count_pairs_device
+            from . import estep_device as ed
 
             if self._corpus is None or self._corpus.samples is not samples:
                 # Pack + upload the corpus once for the whole merge loop;
                 # every batch re-encodes the same bytes.
-                self._corpus = DeviceCorpus(samples, device=self.device)
-            return count_pairs_device(model, samples, task,
-                                      table_hints=hints,
-                                      corpus=self._corpus)
+                self._corpus = ed.DeviceCorpus(samples, device=self.device)
+            return _pairs_in_order(*ed.count_pairs_arrays(
+                model, samples, task, table_hints=hints,
+                corpus=self._corpus))
         counts: Counter = Counter()
         for s in samples:
             ids = model.oracle.encode(s.decode("utf-8"))
@@ -146,3 +156,10 @@ class VocabularyMerger:
                 counts[(a, b)] += 1
             task.record(len(s), 1)
         return sorted(counts.items(), key=lambda kv: -kv[1])
+
+
+def _pairs_in_order(keys: np.ndarray, counts: np.ndarray):
+    """((a, b), freq) of each key (a << 32) | b, made as it is visited."""
+    for k, c in zip(keys, counts):
+        k = int(k)
+        yield (k >> 32, k & 0xFFFFFFFF), int(c)
