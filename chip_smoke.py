@@ -67,11 +67,19 @@ Phases (any failure exits non-zero):
      instantiation and viterbi_walk in both modes, bit for bit against
      their twins; and pair_count, merge's pair count, on the merge's
      first group (the 4k vocabulary at the merge's table hints, the
-     group's ids walked on the card): the kernel's compacted table sorted
-     by key equal to pair_count_plain (integers, max |err| 0), timed as
-     the merge runs it a group (unqueued) and its launches alone (queued),
-     beside torch.unique(return_counts=True) on the same keys; each timed
-     with CUDA events beside its plain version and its bound;
+     group's ids walked on the card), on a skewed group (one key over
+     half the pairs) and on a spill group (more distinct keys than a
+     block's shared table holds, a hint so small that the global table
+     grows): the kernel's compacted table sorted by key equal to
+     pair_count_plain (integers, max |err| 0); the merge group timed as
+     a merge pass runs it (a table sized from the hint a pass has, the
+     insert, a readback of the state, the compaction and its readback;
+     unqueued) and its launches
+     alone (queued), with the rows it sends to the global table, beside
+     the first design (experiments/torch_pair_first.cu, built and timed
+     in this process) and torch.unique(return_counts=True) on the same
+     keys; each timed with CUDA events beside its plain version and its
+     bound;
   3. encode end to end, Tokenizer.encode_batch(backend="device") on the
      card, for two configurations over a seeded ~8 MB code-like corpus
      at L = 16: (a) a 32,768-token vocabulary (slab route: bucket probe
@@ -243,6 +251,19 @@ DFA_FIRST_DESIGN_MS = {"shared": 0.3504, "global": 0.3595}
 
 
 START = time.perf_counter()
+
+
+def _experiment(name: str):
+    """experiments/<name>.py of this checkout, imported once."""
+    import importlib.util
+
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, HERE / "experiments" / f"{name}.py")
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[name] = module
+        spec.loader.exec_module(module)
+    return sys.modules[name]
 
 
 def log(msg: str) -> None:
@@ -1980,31 +2001,69 @@ def merge_group_ids(lat, ed, vocab, sub, hints, dev):
     return flat, incl, dead, dt.vocab_size
 
 
-def table_pair_count(pc, flat, incl, vocab_size):
+def table_pair_count(pc, flat, incl, vocab_size, hint):
     """One group's pair count through a PairTable on the card, as
     `pair_count_plain` gives it (keys ascending, counts, mismatch): a table
-    reserved for flat.numel() pairs, the insert, the compaction and its
-    readback, a sort by key."""
-    table = pc.PairTable(flat.device)
-    table.reserve(flat.numel())
+    sized from `hint`, the insert, the compaction (which drains any
+    spilled rows) and its readback, a sort by key; and the state just
+    after the insert."""
+    table = pc.PairTable(flat.device, hint)
     table.insert_ids(flat, incl, vocab_size)
+    state = table.read()
     keys, counts = table.compact()
     keys, order = torch.sort(keys)
-    return keys, counts[order], table.state[2] != 0
+    return (keys, counts[order], table.state[pc.MISMATCH] != 0), state, \
+        table.slots
 
 
-def check_pair_count(lat, pc, ed, vocab, sub, hints, dev):
+def check_pair_group(pc, tag, flat, incl, vocab_size, hint) -> dict:
+    """pair_count against pair_count_plain on one group (integers: equal,
+    max |err| 0); its pairs, distinct keys, the rows the insert sent to
+    the global table and spilled, and the table's slots before and after
+    the compaction's drain."""
+    want = pc.pair_count_plain(flat, incl, vocab_size)
+    before = pc.table_slots(0, hint)
+    got, state, slots = table_pair_count(pc, flat, incl, vocab_size, hint)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, want, ("keys", "counts", "mismatch")):
+        check(torch.equal(g, w), f"pair_count ({tag}): {name} differ from "
+              "the plain version's")
+    return {"pairs": int(want[1].sum()), "distinct": int(want[0].numel()),
+            "top_count": int(want[1].max()) if want[1].numel() else 0,
+            "sent": state[pc.SENT], "spilled": state[pc.SPILLED],
+            "slots": before, "slots_after": slots,
+            "max_abs_err": float((got[1] - want[1]).abs().max())
+            if want[1].numel() else 0.0}
+
+
+def check_pair_count(lat, pc, ed, vocab, samples, sub, hints, first, dev):
     """pair_count against its plain version on the merge's first row group
     (the 4k vocabulary, tables at the merge's hints): the group's walked
     ids and offsets on the card, the kernel's compacted table sorted by key
-    equal to `pair_count_plain` (integers: max |err| 0). Timed: one group's
-    count as the merge pass runs it (a fresh table reserved for the group's
-    pairs, the insert, the compaction and its readback), unqueued; the
-    launches alone queued (the table's fill, the insert, the compaction;
-    and the fill and insert alone); torch.unique(return_counts=True) on the
-    same keys; the plain version."""
+    equal to `pair_count_plain` (integers: max |err| 0); then on a skewed
+    group (one key over half the pairs) and a spill group (random 31-bit
+    ids, every pair its own key, more than a block's shared table holds a
+    block; a hint of 4,096 keys, so the table's slots fill, the rest
+    spill and the compaction grows the table). Timed: one group's count as
+    the merge pass runs it (a table sized from the hint a pass has, the
+    distinct pairs of a pass over the corpus at this vocabulary; the
+    insert; a readback of the state; the compaction and its readback),
+    unqueued; its launches alone
+    queued (the table's fill, the insert, the compaction; the fill and
+    the insert; the fill alone); the first design (`first`, the entry
+    points of experiments/torch_pair_first.cu, its table sized from
+    the pairs) the same ways; torch.unique(return_counts=True) on the same
+    keys; the plain version."""
+    from tokengeex_tpu_torch import Model
+
+    design = _experiment("torch_pair_design")
     flat, incl, dead, V = merge_group_ids(lat, ed, vocab, sub, hints, dev)
     check(not bool(dead.any()), "pair_count: a span of the group is dead")
+    corpus = ed.DeviceCorpus(samples, device=dev)
+    ed.count_pairs_arrays(Model(vocab), samples, table_hints=hints,
+                          corpus=corpus)
+    hint = corpus.pair_hint
+    del corpus
     keys, ids = pc.pair_keys(flat, incl)
     tokens, pairs, spans = ids.numel(), keys.numel(), incl.numel()
     want = []
@@ -2012,55 +2071,111 @@ def check_pair_count(lat, pc, ed, vocab, sub, hints, dev):
                                                                V)),
                        iters=1, warmup=0)
     want = want[0]
-    got = table_pair_count(pc, flat, incl, V)
-    torch.cuda.synchronize()
-    for g, w, name in zip(got, want, ("keys", "counts", "mismatch")):
-        check(torch.equal(g, w), f"pair_count: {name} differ from the plain "
-              "version's")
-    check(not bool(got[2]), "pair_count: a walked id is no vocabulary token")
-    err = float((got[1] - want[1]).abs().max()) if pairs else 0.0
+    merge = check_pair_group(pc, "merge group", flat, incl, V, hint)
+    check(merge["sent"] < pairs and merge["slots"] <= 1 << 20,
+          f"pair_count: the merge group sent {merge['sent']} rows of "
+          f"{pairs} pairs to a table of {merge['slots']} slots")
+    old = design.first_group(first, flat, incl, V, pairs)
+    order = torch.argsort(old[0])
+    check(torch.equal(old[0][order], want[0])
+          and torch.equal(old[1][order], want[1]),
+          "pair_count: the first design differs from the plain version")
+    del old
 
     def group(launch_only=False, insert_only=False):
-        table = pc.PairTable(dev)
-        table.reserve(pairs, 0)
+        table = pc.PairTable(dev, hint)
         table.insert_ids(flat, incl, V)
         if insert_only:
             return table
-        return table._compact_launch() if launch_only else table.compact()
+        return (table._compact_launch(merge["distinct"]) if launch_only
+                else table.compact())
 
-    slots = group(insert_only=True).slots
-    ms = cuda_ms(group, iters=20)
-    device_ms = cuda_ms(lambda: group(launch_only=True), iters=20,
-                        queued=True)
-    insert_ms = cuda_ms(lambda: group(insert_only=True), iters=20,
-                        queued=True)
+    def first_group(**kw):
+        return design.first_group(first, flat, incl, V, pairs, **kw)
+
+    # First design, package, package, first design: each way of timing.
+    t = {}
+    for name, fn, queued in (
+            ("first_ms", first_group, False), ("ms", group, False),
+            ("ms_2", group, False), ("first_ms_2", first_group, False),
+            ("first_device_ms", lambda: first_group(launch_only=True),
+             True),
+            ("device_ms", lambda: group(launch_only=True), True),
+            ("device_ms_2", lambda: group(launch_only=True), True),
+            ("first_device_ms_2", lambda: first_group(launch_only=True),
+             True),
+            ("insert_device_ms", lambda: group(insert_only=True), True),
+            ("fill_device_ms", lambda: pc.PairTable(dev, hint), True),
+            ("first_insert_device_ms",
+             lambda: first_group(insert_only=True), True)):
+        t[name] = cuda_ms(fn, iters=20, queued=queued)
     library_ms = cuda_ms(lambda: torch.unique(keys, return_counts=True),
                          iters=20)
+    # The skewed group: runs of one id (p = 0.8), so its pair takes ~64 %
+    # of the pairs; the spill group: random ids, a table of 4,096 slots.
+    rng = np.random.default_rng(SEED)
+    ntok = np.diff(incl.cpu().numpy(), prepend=0)
+    hot = np.where(rng.random(tokens) < 0.8, 7, rng.integers(0, V, tokens))
+    hot_flat = torch.from_numpy(hot.astype(np.int32)).to(dev)
+    skewed = check_pair_group(pc, "skewed group", hot_flat, incl, V, hint)
+    check(skewed["top_count"] * 2 > skewed["pairs"],
+          f"pair_count: the skewed group's top key holds "
+          f"{skewed['top_count']} of {skewed['pairs']} pairs")
+    del hot, hot_flat
+    spill_ntok = np.tile(ntok, 3)
+    rand = rng.integers(0, 2**31, int(spill_ntok.sum()))
+    spill = check_pair_group(
+        pc, "spill group", torch.from_numpy(rand.astype(np.int32)).to(dev),
+        torch.from_numpy(np.cumsum(spill_ntok).astype(np.int32)).to(dev),
+        2**31, pc.MIN_SLOTS // 2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    check(spill["spilled"] > 0 and spill["slots_after"] > spill["slots"]
+          and spill["distinct"] > 2 * sms * 8192,
+          f"pair_count: the spill group {spill} did not spill and regrow, "
+          "or holds too few keys")
+    del rand
     # Bytes the function needs: the ids and the offsets read once, each
-    # distinct (key, count) row written once. The table's own traffic
-    # (16 B a pair: a key's compare or claim, a count's add) is this
-    # design's, not the function's, and is logged beside it.
-    distinct = int(want[0].numel())
+    # distinct (key, count) row written once. This design's own traffic is
+    # logged beside it: the ids and offsets, 16 B a row sent to the table,
+    # the table's fill and the compaction's read (16 B a slot each), the
+    # rows written.
+    distinct = merge["distinct"]
     nbytes = 4 * tokens + 4 * spans + 16 * distinct
-    table_bytes = 4 * tokens + 4 * spans + 16 * pairs
+    table_bytes = (4 * tokens + 4 * spans + 16 * merge["sent"]
+                   + 32 * merge["slots"] + 16 * distinct)
     b_ms, b_by = bound(nbytes, 0)
     table_ms = bound(table_bytes, 0)[0]
+    err = max(g["max_abs_err"] for g in (merge, skewed, spill))
     log(f"pair_count (merge's first group: {spans} spans, {tokens} tokens, "
-        f"{pairs} pairs, {distinct} distinct, a table of {slots} "
-        f"slots): {ms:.4f} ms a group (fresh table, insert, compaction and "
-        f"its readback; queued: {device_ms:.4f} ms, the fill and the insert "
-        f"alone {insert_ms:.4f} ms), torch.unique on the same keys "
-        f"{library_ms:.4f} ms, plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms "
-        f"({b_by}, {nbytes} bytes: the ids and offsets read, the distinct "
-        f"rows written; with the table's 16 B a pair, this design's own "
-        f"traffic, {table_bytes} bytes, {table_ms:.4f} ms), max |err| {err} "
-        "(equal)")
-    return {"max_abs_err": err, "ms": ms, "device_ms": device_ms,
-            "insert_device_ms": insert_ms, "plain_ms": plain_ms,
+        f"{pairs} pairs, {distinct} distinct; hint {hint}, a table of "
+        f"{merge['slots']} slots, {merge['sent']} rows sent to it, "
+        f"{merge['spilled']} spilled): {t['ms']:.4f} / {t['ms_2']:.4f} ms a "
+        f"group (table, insert, state readback, compaction and its "
+        f"readback; queued: "
+        f"{t['device_ms']:.4f} / {t['device_ms_2']:.4f} ms, the fill and "
+        f"the insert alone {t['insert_device_ms']:.4f} ms, the fill "
+        f"{t['fill_device_ms']:.4f} ms); the first design in this process "
+        f"{t['first_ms']:.4f} / {t['first_ms_2']:.4f} ms (queued "
+        f"{t['first_device_ms']:.4f} / {t['first_device_ms_2']:.4f}, fill "
+        f"and insert {t['first_insert_device_ms']:.4f}); torch.unique on "
+        f"the same keys {library_ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}, {nbytes} bytes: the ids and offsets read, "
+        f"the distinct rows written; this design's own traffic "
+        f"{table_bytes} bytes, {table_ms:.4f} ms), max |err| {err} (equal)")
+    log(f"pair_count (skewed group: {skewed['pairs']} pairs, the top key "
+        f"{skewed['top_count']}, {skewed['distinct']} distinct, "
+        f"{skewed['sent']} rows sent); (spill group: {spill['pairs']} "
+        f"pairs, {spill['distinct']} distinct, {spill['sent']} rows sent, "
+        f"{spill['spilled']} spilled, {spill['slots']} -> "
+        f"{spill['slots_after']} slots): equal to the plain version")
+    return {"max_abs_err": err, "ms": t["ms"], "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+            **{k: v for k, v in t.items() if k != "ms"},
             "spans": spans, "tokens": tokens, "pairs": pairs,
-            "distinct": distinct, "slots": slots, "bytes": nbytes,
-            "table_bytes": table_bytes, "table_bound_ms": table_ms}
+            "distinct": distinct, "hint": hint, "slots": merge["slots"],
+            "sent": merge["sent"], "spilled": merge["spilled"],
+            "bytes": nbytes, "table_bytes": table_bytes,
+            "table_bound_ms": table_ms, "skewed": skewed, "spill": spill}
 
 
 def host_pairs(ed, model, samples, hints, corpus):
@@ -2087,6 +2202,50 @@ def check_pairs_equal(tag, got, want) -> None:
 
 # An anchored identifier / punctuation class the allow-DFA compiles.
 MERGE_ALLOW = r"^(?: ?[A-Za-z_][A-Za-z0-9_]*|[[:punct:]]+)$"
+
+
+# The caching allocator's counters a split merge pass logs the change of
+# (cudaMalloc / cudaFree calls, and frees of the cache after a failed
+# cudaMalloc), beside the bytes it holds after the pass.
+ALLOCATOR_EVENTS = ("num_device_alloc", "num_device_free",
+                    "num_alloc_retries")
+
+
+def pair_table_steps(pc):
+    """Patches PairTable so that each of its steps in a pass is timed alone
+    (the device synchronised before and after): its tables' allocation and
+    fill, the spill buffer's allocation, the ids inserts (the first apart
+    from the rest), the rehash and drain, the compaction launch. Returns
+    (seconds by step, a function that restores the class)."""
+    steps = {}
+    saved = {}
+
+    def timed(name, label):
+        fn = getattr(pc.PairTable, name)
+        saved[name] = fn
+
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            key = label(steps)
+            steps[key] = round(steps.get(key, 0.0)
+                               + time.perf_counter() - t, 6)
+            return out
+        setattr(pc.PairTable, name, run)
+
+    timed("_alloc", lambda _: "alloc")
+    timed("_spill_room", lambda _: "spill")
+    timed("_drain", lambda _: "drain")
+    timed("_compact_launch", lambda _: "compact")
+    timed("insert_ids", lambda st: ("ids_first" if "ids_first" not in st
+                                    else "ids_rest"))
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(pc.PairTable, name, fn)
+    return steps, restore
 
 
 def run_merge(vocab, samples, groups, kernels, dev):
@@ -2125,15 +2284,27 @@ def run_merge(vocab, samples, groups, kernels, dev):
 
     def split(model, samples_, task, table_hints, corpus):
         timer = lat.PhaseTimer(dev)
+        steps, restore = pair_table_steps(pc)
+        before = torch.cuda.memory_stats(dev)
         t = time.perf_counter()
-        got = count_pairs(model, samples_, task, table_hints=table_hints,
-                          corpus=corpus, timer=timer)
+        try:
+            got = count_pairs(model, samples_, task, table_hints=table_hints,
+                              corpus=corpus, timer=timer)
+        finally:
+            restore()
         secs = time.perf_counter() - t
+        after = torch.cuda.memory_stats(dev)
         check_pairs_equal(f"merge pass {len(checked)}", got, host_pairs(
             ed, model, samples_, table_hints, corpus))
         checked.append({"seconds": secs, "pairs": int(got[0].size),
                         "split": {k: round(v, 6)
-                                  for k, v in timer.seconds.items()}})
+                                  for k, v in timer.seconds.items()},
+                        "pair_steps": steps,
+                        "allocator": {
+                            **{k: after.get(k, 0) - before.get(k, 0)
+                               for k in ALLOCATOR_EVENTS},
+                            "reserved_bytes": after.get(
+                                "reserved_bytes.all.current", 0)}})
         return got
 
     path = ("fused_forward_chunk", "viterbi_walk")
@@ -2173,7 +2344,9 @@ def run_merge(vocab, samples, groups, kernels, dev):
         log(f"[merge] pass {k}: {p['seconds']:.3f} s = "
             f"{total / p['seconds'] / 1e6:.2f} MB/s, {p['walks']} walks, "
             f"{p['pairs']} distinct pairs (equal to the host route's); "
-            f"synchronised {c['seconds']:.3f} s: {c['split']}")
+            f"synchronised {c['seconds']:.3f} s: {c['split']}; the pair "
+            f"table's steps {c['pair_steps']} (ids_first, ids_rest include "
+            f"spill), allocator {c['allocator']}")
     log(f"[merge] {len(vocab)} -> {merged.vocab_size()} tokens in "
         f"{secs:.3f} s on {torch.cuda.get_device_name(dev)}; launches "
         f"{launches} ({groups} groups a pass)")
@@ -3188,6 +3361,9 @@ def main() -> None:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
+    # The pair count's first design, built beside the package's sources.
+    pair_design = _experiment("torch_pair_design")
+    pair_first = pair_design.start_first()
     build_logs = _build.build()
     build_s = time.perf_counter() - t0
     log(f"built {sorted(build_logs)} in {build_s:.2f} s")
@@ -3248,8 +3424,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     # The merge's first row group (phase 3e's: the 4k vocabulary at the
     # merge's table hints).
-    pairs_k = check_pair_count(lat, pc, ed, vocab_b, enc_groups[0][1],
-                               merge_table_hints(len(vocab_b), 200, 24), dev)
+    pairs_k = check_pair_count(lat, pc, ed, vocab_b, samples,
+                               enc_groups[0][1],
+                               merge_table_hints(len(vocab_b), 200, 24),
+                               pair_design.load_first(pair_first), dev)
     torch.cuda.empty_cache()
     # The cached prune's alternatives: its vocabulary's own bytes.
     alts_k = check_alternatives_kernels(lat, lc, ed, vocab_c, dev)

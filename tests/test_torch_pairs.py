@@ -70,9 +70,20 @@ def cuda_device():
 def _corpus(kind: str):
     """(vocab, samples): `code`, code-like samples over a small alphabet
     (tests/test_torch_merge.py's); `ties`, short strings of 16 letters, so
-    most counts are shared by many pairs."""
-    rng = random.Random(41 if kind == "code" else 5)
-    if kind == "code":
+    most counts are shared by many pairs; `zipf`, Zipf-weighted code words
+    (rank r drawn with weight r^-1.3), so a few pairs (runs of indent
+    spaces, ");" and newlines) take most of the counts, as in a code
+    corpus."""
+    rng = random.Random({"code": 41, "ties": 5, "zipf": 13}[kind])
+    if kind == "zipf":
+        words = [b"    ", b");", b"\n", b"x", b"(", b"ab", b"def", b"ca",
+                 b"fed", b"bead", b" = ", b"cab"]
+        weights = [(r + 1) ** -1.3 for r in range(len(words))]
+        samples = [b"".join(rng.choices(words, weights,
+                                        k=rng.randint(5, 60)))
+                   for _ in range(60)]
+        extra = [b"  ", b");", b"ab"]
+    elif kind == "code":
         words = [b"def", b"ab", b"cab", b"fed", b"bead", b"(a)", b"()", b"ca"]
         samples = [b" ".join(rng.choice(words)
                              for _ in range(rng.randint(1, 40)))
@@ -113,7 +124,7 @@ def _as_list(keys, counts):
             for k, c in zip(keys, counts)]
 
 
-@pytest.mark.parametrize("kind", ["code", "ties"])
+@pytest.mark.parametrize("kind", ["code", "ties", "zipf"])
 @pytest.mark.parametrize("hints", [None, (16, 24)])
 def test_count_pairs_match_jax(jax_pkg, kind, hints):
     vocab, samples = _corpus(kind)
@@ -125,6 +136,8 @@ def test_count_pairs_match_jax(jax_pkg, kind, hints):
     counts = [c for _, c in got]
     if kind == "ties":
         assert len(got) > 100 and len(set(counts)) < len(counts) // 10
+    elif kind == "zipf":
+        assert len(got) > 20 and counts[0] > sum(counts) // 5
     else:
         assert len(got) > 20 and counts[0] > 100
     keys, cnt = ed.count_pairs_arrays(_model(vocab), samples,
@@ -284,9 +297,42 @@ def test_cpu_table_sums_rows():
     want = _counter(flat, ntok)
     want.update({7: 3, (3 << 32) | 4: 5})
     assert dict(zip(keys.tolist(), counts.tolist())) == want
-    assert table.read()[1:] == [0, 0]  # no overflow, no mismatch
+    assert table.read()[1:3] == [0, 0]  # no overflow, no mismatch
     with pytest.raises(ValueError, match="int32"):
         table.insert_ids(flat.long(), incl, 1000)
+
+
+@pytest.mark.parametrize("held,hint,spilled", [
+    (0, 0, 0), (0, 1, 0), (5000, 0, 0), (0, 231_052, 0), (100, 231_052, 7),
+    (183_234, 48_000, 0), ((1 << 20) - 1, 1, 0)])
+def test_table_slots(held, hint, spilled):
+    """The sizing rule: the least power of two at least twice the distinct
+    keys held, the hint and the spilled rows, and at least MIN_SLOTS."""
+    slots = pc.table_slots(held, hint, spilled)
+    bound = held + hint + spilled
+    assert slots & (slots - 1) == 0
+    assert slots >= max(pc.MIN_SLOTS, 2 * bound)
+    assert slots == pc.MIN_SLOTS or slots < 4 * bound
+    if (held, spilled) == (0, 0) and hint == 231_052:
+        # A merge pass at chip_smoke.py's shape, hinted with the last
+        # pass's distinct pairs: 8 MB, not 2^22 slots sized from the pairs.
+        assert slots == 1 << 19
+
+
+def test_pass_hint_carried():
+    """count_pairs_arrays leaves the distinct keys it held on the corpus,
+    and the next pass sized from that hint counts the same pairs."""
+    vocab, samples = _corpus("zipf")
+    m = _model(vocab)
+    corpus = ed.DeviceCorpus(samples, device="cpu")
+    assert corpus.pair_hint is None
+    first = ed.count_pairs_arrays(m, samples, corpus=corpus)
+    hint = corpus.pair_hint
+    assert hint >= first[0].size > 0
+    again = ed.count_pairs_arrays(m, samples, corpus=corpus)
+    assert corpus.pair_hint == hint
+    for a, b in zip(first, again):
+        assert np.array_equal(a, b)
 
 
 def _pair_count(flat, incl, vocab_size):
@@ -318,21 +364,26 @@ def test_kernel_matches_plain(cuda_device, seed):
 
 @pytest.mark.cuda
 def test_table_grows_by_rehash(cuda_device, monkeypatch):
+    """A table grown before each insert (reserve, after a readback, for
+    the part's pairs) keeps every count through the rehash."""
     flat, incl, ntok = _spans(4, 600, 5000)
     monkeypatch.setattr(pc, "MIN_SLOTS", 16)
     table = pc.PairTable(cuda_device)
+    assert table.slots == 16
     cuts = [0, 100, 300, 600]
     for a, b in zip(cuts, cuts[1:]):
         lo = int(incl[a - 1]) if a else 0
         part = flat[lo : int(incl[b - 1])].contiguous().to(cuda_device)
         off = (incl[a:b] - lo).contiguous().to(cuda_device)
-        distinct = table.read()[0]
-        table.reserve(int(ntok[a:b].sum()), distinct)
+        state = table.read()
+        table.reserve(int(ntok[a:b].sum()), state[pc.DISTINCT],
+                      state[pc.SPILLED])
         table.insert_ids(part, off, 5000)
     assert table.slots > 1024
     keys, counts = table.compact()
     got = dict(zip(keys.tolist(), counts.tolist()))
     assert got == _counter(flat, ntok) and table.read()[0] == len(got)
+    assert table.read()[pc.SPILLED] == 0
 
 
 @pytest.mark.cuda
@@ -355,13 +406,116 @@ def test_weighted_entry(cuda_device):
 
 @pytest.mark.cuda
 def test_overflow_raises(cuda_device, monkeypatch):
-    flat, incl, _ = _spans(7, 200, 5000)
-    monkeypatch.setattr(pc, "MIN_SLOTS", 16)
-    table = pc.PairTable(cuda_device)  # not reserved
+    """A table that cannot grow (the sizing rule pinned at 16 slots) takes
+    the rows that found no slot into its spill buffer; draining them into
+    the full table overflows, and the compaction raises."""
+    flat, incl, ntok = _spans(7, 200, 5000)
+    assert len(_counter(flat, ntok)) > 16
+    monkeypatch.setattr(pc, "table_slots", lambda *a: 16)
+    table = pc.PairTable(cuda_device)
     table.insert_ids(flat.to(cuda_device), incl.to(cuda_device), 5000)
-    assert table.read()[1] == 1
+    assert table.read()[pc.SPILLED] > 0 and table.read()[pc.OVERFLOW] == 0
     with pytest.raises(RuntimeError, match="overflow"):
         table.compact()
+    assert table.slots == 16 and table.read()[pc.OVERFLOW] == 1
+
+
+def _hot_spans(seed: int, n: int, top: int):
+    """Seeded spans of 1-3,000 tokens whose ids are 7 with probability 0.8:
+    the key (7, 7) takes about 64 % of the pairs."""
+    rng = np.random.default_rng(seed)
+    ntok = rng.integers(1, 3001, n)
+    total = int(ntok.sum())
+    ids = np.where(rng.random(total) < 0.8, 7, rng.integers(0, top, total))
+    return (torch.from_numpy(ids.astype(np.int32)),
+            torch.from_numpy(np.cumsum(ntok).astype(np.int32)), ntok)
+
+
+def _random_spans(seed: int, n: int, lo: int, hi: int):
+    """Seeded spans of lo..hi tokens of random 31-bit ids: nearly every
+    pair its own key."""
+    rng = np.random.default_rng(seed)
+    ntok = rng.integers(lo, hi, n)
+    flat = rng.integers(0, 2**31, int(ntok.sum())).astype(np.int32)
+    return (torch.from_numpy(flat),
+            torch.from_numpy(np.cumsum(ntok).astype(np.int32)))
+
+
+def _on_card(table, flat, incl, top, cuda_device):
+    """Inserts the spans into `table` and returns (its rows sorted by key,
+    the state just after the insert, the plain twin's (keys, counts))."""
+    table.insert_ids(flat.to(cuda_device), incl.to(cuda_device), top)
+    state = table.read()
+    keys, counts = table.compact()
+    order = torch.argsort(keys)
+    want = pc.pair_count_plain(flat, incl, top)
+    return (keys[order].cpu(), counts[order].cpu()), state, want[:2]
+
+
+@pytest.mark.cuda
+def test_hot_key(cuda_device):
+    """One key takes over half of the pairs: the block's fold in shared
+    memory sends it once a flush, and its count is exact."""
+    flat, incl, _ = _hot_spans(8, 600, 5000)
+    table = pc.PairTable(cuda_device, flat.numel())
+    got, state, want = _on_card(table, flat, incl, 5000, cuda_device)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    pairs, hot = int(want[1].sum()), int(want[1].max())
+    assert hot * 2 > pairs
+    # Every other key is sent at most once an occurrence; the hot key once
+    # a block's flush, not once a pair.
+    assert state[pc.SENT] <= pairs - hot + 4096
+    assert state[pc.SPILLED] == 0
+
+
+@pytest.mark.cuda
+def test_shared_table_spill(cuda_device):
+    """More distinct keys than a block's shared table holds (random 31-bit
+    ids, every pair its own key, ~4 M tokens: over 8,192 a block): the
+    block flushes between tiles and sends the pairs that find its table
+    full straight to the global table; every key counted once."""
+    flat, incl = _random_spans(9, 1000, 2000, 6000)
+    table = pc.PairTable(cuda_device, flat.numel())
+    got, state, want = _on_card(table, flat, incl, 2**31, cuda_device)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert state[pc.DISTINCT] == want[0].numel() and state[pc.SPILLED] == 0
+    assert state[pc.SENT] >= want[0].numel()
+
+
+@pytest.mark.cuda
+def test_global_spill_regrows(cuda_device):
+    """A hint far too small: the table's 4,096 slots fill, the rest of the
+    rows spill, and the compaction grows the table, drains them and
+    counts each pair once."""
+    flat, incl = _random_spans(10, 300, 0, 1500)
+    table = pc.PairTable(cuda_device, 1)
+    assert table.slots == pc.MIN_SLOTS
+    got, state, want = _on_card(table, flat, incl, 2**31, cuda_device)
+    assert want[0].numel() > 4 * pc.MIN_SLOTS
+    assert state[pc.SPILLED] > 0
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    after = table.read()
+    assert after[pc.SPILLED] == 0 and after[pc.DISTINCT] == want[0].numel()
+    assert table.slots >= 2 * want[0].numel()
+
+
+@pytest.mark.cuda
+def test_table_reused(cuda_device):
+    """One table through two inserts, each followed by a compaction: the
+    second compaction holds both inserts' pairs."""
+    flat, incl, ntok = _spans(11, 800, 5000)
+    half = 400
+    lo = int(incl[half - 1])
+    parts = [(flat[:lo].contiguous(), incl[:half].contiguous()),
+             (flat[lo:].contiguous(), (incl[half:] - lo).contiguous())]
+    table = pc.PairTable(cuda_device, flat.numel())
+    want = Counter()
+    for k, (f, i) in enumerate(parts):
+        table.insert_ids(f.to(cuda_device), i.to(cuda_device), 5000)
+        want += _counter(f, ntok[: half] if k == 0 else ntok[half:])
+        keys, counts = table.compact()
+        assert dict(zip(keys.tolist(), counts.tolist())) == want
+    assert table.read()[pc.DISTINCT] == len(want)
 
 
 @pytest.mark.cuda

@@ -69,15 +69,16 @@ KERNELS: Dict[str, Tuple[str, str, tuple]] = {
     "dfa_mask": ("dfa_mask.cu", "tgx_dfa_mask",
                  (P,) * 6 + (I,) * 8 + (U, I, LL, P)),
     "pair_insert_ids": ("pair_count.cu", "tgx_pair_insert_ids",
-                        (P, P, I, U, P, P, LL, P, LL, P)),
+                        (P, P, I, U, P, LL, P, P, LL, LL, LL, P)),
     "pair_insert_weighted": ("pair_count.cu", "tgx_pair_insert_weighted",
-                             (P, P, LL, P, P, LL, P, P)),
+                             (P, P, LL, LL, LL, P, LL, P, P, LL, LL, P)),
     "pair_compact": ("pair_count.cu", "tgx_pair_compact",
-                     (P, P, LL, P, P, LL, P, P)),
+                     (P, LL, P, P, LL, P, P)),
 }
 
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}  # by source file
+_ENTRIES: Dict[str, object] = {}  # by kernel name, argtypes set
 
 
 def build_dir() -> Path:
@@ -148,6 +149,9 @@ def build(names: Iterable[str] = tuple(KERNELS)) -> Dict[str, str]:
 
 def load(name: str):
     """The C entry point of one kernel, building its source on first use."""
+    fn = _ENTRIES.get(name)
+    if fn is not None:
+        return fn
     source = KERNELS[name][0]
     with _LOCK:
         lib = _LOADED.get(source)
@@ -158,4 +162,5 @@ def load(name: str):
     fn = getattr(lib, KERNELS[name][1])
     fn.argtypes = list(KERNELS[name][2])
     fn.restype = ctypes.c_int
+    _ENTRIES[name] = fn
     return fn

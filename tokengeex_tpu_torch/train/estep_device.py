@@ -164,6 +164,10 @@ class DeviceCorpus:
             self.blocks[gi] = (rows, lo)
         self.budget = budget
         self.used = 0
+        # A bound of the distinct pairs the last pair count held
+        # (count_pairs_arrays):
+        # the next pass sizes its table from it.
+        self.pair_hint: Optional[int] = None
         self._inputs: dict = {}
         self._chains: dict = {}
         self._walks: dict = {}
@@ -662,11 +666,15 @@ def count_pairs_arrays(model: Model, samples: Sequence[bytes],
     Each row group's ids stay on the device: the walk writes them
     (`lattice.walk_ids_device`) and one launch inserts the group's pairs
     into a hash table on the card (ops/pair_count.py `PairTable`, the
-    kernels' plain twin on the CPU), sized from one scalar readback a
-    group (the group's pairs, its dead spans, the table's distinct keys
-    and flags). Samples past the pack cap take the chained encode and
-    their pairs are inserted as rows. The table is compacted and sorted
-    on the device; only the sorted arrays are read back. A span with no
+    kernels' plain twin on the CPU). The table is sized at twice a bound
+    of the distinct keys: the corpus's `pair_hint` (the last pass's
+    distinct count), else the keys the last group added, else (a run's
+    first group) its pairs; one scalar readback a group (the group's
+    pairs, its dead spans, the table's distinct keys, spilled rows and
+    flags) grows it and drains the rows that found no slot. Samples past
+    the pack cap take the chained encode and their pairs are inserted as
+    rows. The table is compacted and sorted on the device; only the
+    sorted arrays are read back. A span with no
     path raises NoPathError (the first such sample's length), an id that
     is no vocabulary token KeyError, as the encode does.
 
@@ -686,8 +694,9 @@ def count_pairs_arrays(model: Model, samples: Sequence[bytes],
         torch.float32, dev, timer, None, corpus,
         corpus.local if corpus is not None else False)
     V = dt.vocab_size
-    table = PairTable(dev)
-    code, length = 0, 0
+    hint = corpus.pair_hint
+    table = PairTable(dev, hint or 0)
+    code, length, held = 0, 0, None
     for sub, batch, index, dp, best_l in _viterbi_groups(
             dt, corpus, backend, None, 0.0, None, torch.float32, timer):
         if index.n == 0:
@@ -695,9 +704,9 @@ def count_pairs_arrays(model: Model, samples: Sequence[bytes],
         flat, ntok, incl, dead = lat.walk_ids_device(dt, batch, dp, best_l,
                                                      index, timer=timer)
         with lat.phase(timer, "readback"):
-            pairs, any_dead, first, distinct, overflow, bad = table.read(
-                incl[-1] - (ntok > 0).sum(), dead.any(),
-                dead.to(torch.int32).argmax())
+            (pairs, any_dead, first, distinct, overflow, bad, spilled, *_
+             ) = table.read(incl[-1] - (ntok > 0).sum(), dead.any(),
+                            dead.to(torch.int32).argmax())
         if overflow:
             code = _PAIRS_OVERFLOW
         elif any_dead and code < _PAIRS_NOPATH:
@@ -706,30 +715,35 @@ def count_pairs_arrays(model: Model, samples: Sequence[bytes],
             code = _PAIRS_MISMATCH
         if code:
             continue  # the pass raises: no more inserts
+        new = (max(hint - distinct, 0) if hint is not None
+               else pairs if held is None else distinct - held)
         with lat.phase(timer, "pairs"):
-            table.reserve(pairs, distinct)
+            table.reserve(min(new, pairs), distinct, spilled)
             table.insert_ids(flat, incl, V)
+        held = distinct
     with lat.phase(timer, "readback"):
-        _, overflow, bad = table.read()
+        distinct, overflow, bad, spilled, *_ = table.read()
     code = max(code, _PAIRS_OVERFLOW if overflow else
                _PAIRS_MISMATCH if bad else 0)
     gather = pmesh.process_count() > 1 and not corpus.local
     if gather:
         code, length = pmesh.allgather_fail(code, length)
     _raise_pairs_failure(code, length)
+    corpus.pair_hint = distinct + spilled
+    known = (distinct, spilled)  # the state the compaction finds, if read
 
     if gather:
         with lat.phase(timer, "pairs"):
-            keys, counts = table.compact()
+            keys, counts = table.compact(*known)
         with lat.phase(timer, "readback"):
             rows = torch.cat([keys, counts]).cpu().numpy().view(np.int32)
         parts = [p.view(np.int64).reshape(2, -1)
                  for p in pmesh.allgather_ragged(rows)]
         with lat.phase(timer, "pairs"):
-            table = PairTable(dev)
-            table.reserve(sum(p.shape[1] for p in parts))
+            table = PairTable(dev, sum(p.shape[1] for p in parts))
             both = torch.from_numpy(np.concatenate(parts, axis=1)).to(dev)
             table.insert_weighted(both[0].contiguous(), both[1].contiguous())
+        known = ()
     if corpus.long_idx:
         chained = _encode_chained(
             model, dt, [(si, samples[si]) for si in corpus.long_idx],
@@ -739,10 +753,11 @@ def count_pairs_arrays(model: Model, samples: Sequence[bytes],
             keys = torch.from_numpy(_chained_pair_keys(chained)).to(dev)
             table.reserve(keys.numel())
             table.insert_weighted(keys, torch.ones_like(keys))
+        known = ()
     if task is not None:
         task.record(sum(len(s) for s in samples), len(samples))
     with lat.phase(timer, "pairs"):
-        keys, counts = table.compact()
+        keys, counts = table.compact(*known)
         keys, order = torch.sort(keys)
         counts, order2 = torch.sort(counts[order], descending=True,
                                     stable=True)
