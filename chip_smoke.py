@@ -76,19 +76,27 @@ Phases (any failure exits non-zero):
      insert, a readback of the state, the compaction and its readback;
      unqueued) and its launches
      alone (queued), with the rows it sends to the global table, beside
-     the first design (experiments/torch_pair_first.cu, built and timed
-     in this process) and torch.unique(return_counts=True) on the same
-     keys; each timed with CUDA events beside its plain version and its
-     bound;
+     the first design's recorded times (PAIR_FIRST_DESIGN_MS, from
+     experiments/torch_pair_design.py) and
+     torch.unique(return_counts=True) on the same keys; and match_cache,
+     the slab route's vocabulary probe (csrc/match_probe.cu, one launch a
+     group), on encode (a)'s first group (W = 8192, L = 16, 512 rows, the
+     32k vocabulary) in bucket and fast mode, slots on and off, and in
+     exact mode at float32 and float64 on a chained window of the f64
+     phase's long samples (W = 32768, lead = L, 128 rows), score and slot
+     equal to match_cache_plain bit for bit; each timed with CUDA events
+     beside its plain version and its bound;
   3. encode end to end, Tokenizer.encode_batch(backend="device") on the
      card, for two configurations over a seeded ~8 MB code-like corpus
-     at L = 16: (a) a 32,768-token vocabulary (slab route: bucket probe
-     + viterbi_scan), (b) a 4,096-token vocabulary (fused probe
-     kernel). Each checks exact decode round trips, equality with the
-     CPU plain run on the first 64 samples, dropout=1.0 -> single bytes,
-     a > 2^15-byte sample through the chained path, and that its Viterbi
-     kernel was launched and viterbi_walk (ids mode: the walk writes the
-     flat ids; no backpointers leave the card) called once per row group;
+     at L = 16: (a) a 32,768-token vocabulary (slab route: the bucket
+     probe kernel, match_cache, + viterbi_scan), (b) a 4,096-token
+     vocabulary (fused probe kernel). Each checks exact decode round
+     trips, equality with the CPU plain run on the first 64 samples,
+     dropout=1.0 -> single bytes, a > 2^15-byte sample through the
+     chained path, and that its Viterbi kernel was launched, (a)'s probe
+     kernel launched (no twin called on the card) and viterbi_walk (ids
+     mode: the walk writes the flat ids; no backpointers leave the card)
+     called once per row group;
      prints bytes/s, the peak device memory and the time per phase;
   3b. the EM E-step, run_e_step_device on the card, for (a) and (b) at
      dropout 0 and 0.05 (the dropout-0.05 pass once, unsynchronised):
@@ -115,8 +123,9 @@ Phases (any failure exits non-zero):
      and expf ulps), and a session over the first 64 samples within 2e-3
      of the f64 oracle's total; then, for (a) and (b) at dropout 0 and
      0.05, a session with no cache budget (the over-budget branch: every
-     pass probes and counts through backward_marginal_scan, once per
-     group, and the scatter), two passes each within rtol 1e-3 / atol
+     pass probes, through the probe kernel, and counts through
+     backward_marginal_scan, once per group, and the scatter), two passes
+     each within rtol 1e-3 / atol
      1e-4 per token and 1e-4 on the total of the budgeted session's
      counts, its peak device memory and phase split printed;
   3c. the trainer: VocabularyPruner (the README recipe's settings)
@@ -126,7 +135,9 @@ Phases (any failure exits non-zero):
      8,192 on the fused route (bits 15: its E-steps launch the fused
      scans); every frequency pass launches the route's Viterbi kernel
      (viterbi_scan, fused_forward_chunk(viterbi)) and calls viterbi_walk
-     (count mode) once per group, and the first pass's counts equal a host
+     (count mode) once per group (the cached route's frequency groups also
+     the probe kernel, no twin on the card), and the first pass's counts
+     equal a host
      backtrack of the same groups; every round's alternatives (one
      masked f64 Viterbi pass over the vocabulary's bytes: viterbi_scan's
      double instantiation and viterbi_walk) equal the oracle route's
@@ -155,8 +166,9 @@ Phases (any failure exits non-zero):
      to a CPU run's; prints the seconds per merge pass; then one pass at
      the README recipe's merge shape (the 32,768-token vocabulary, slab
      route, hints of --num-merges 2000): first and steady pass timed, the
-     steady pass's launches counted, a split pass, its pairs equal to the
-     host route's;
+     steady pass's launches counted (viterbi_scan, the probe kernel and
+     the walk once a group), a split pass, its pairs equal to the host
+     route's;
   3f. generate on the card: VocabularyGenerator (L = 16, p = 0.01, the
      allow regex of all named patterns) feeds the corpus, dfa_mask
      launched once per group, then generate(500_000); prints MB/s, a
@@ -176,8 +188,8 @@ Phases (any failure exits non-zero):
      f64 E-step (81,920-byte snippets, forward_scan's and
      backward_marginal_scan's double instantiations, an f64 scatter into
      token-id bins), its total within rtol 1e-8 of the CPU f64 run's,
-     every count within rtol 1e-8 / atol 1e-9; each double kernel launched
-     on the path and no f32 scan; MB/s of both beside the f32 encode's
+     every count within rtol 1e-8 / atol 1e-9; each double kernel (the
+     probe's too) launched on the path and no f32 scan; MB/s of both beside the f32 encode's
      and E-step's on the same samples;
   3i. multi-GPU on the one card (parallel/mesh.py), each rank a process
      this script starts (`chip_smoke.py --rank-worker ...`; a rank that
@@ -202,11 +214,12 @@ Phases (any failure exits non-zero):
      tokens, its overlap with one process's prune printed; which
      collectives gloo takes on CUDA tensors; seconds per rank, labelled
      "2 ranks sharing one card" (not a scaling figure);
-  4. the kernels line (sixteen entries: the ten kernels, the three
+  4. the kernels line (eighteen entries: the ten kernels, the three
      double instantiations, viterbi_scan's double instantiation and
      viterbi_walk at the alternatives' shape, with the prunes' launches,
-     and pair_count with the merge run's launches), then the device line
-     as the last line.
+     pair_count with the merge run's launches, and match_cache and its
+     double instantiation with encode (a)'s and the f64 phase's
+     launches), then the device line as the last line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -248,22 +261,19 @@ WALK_FIRST_DESIGN_MS = {
 # prints them beside the kernel's own.
 DFA_FIRST_DESIGN_ON = "NVIDIA H100 80GB HBM3, 700.00 W"
 DFA_FIRST_DESIGN_MS = {"shared": 0.3504, "global": 0.3595}
+# Milliseconds of pair_count's first design (one global atomic a pair, a
+# table sized from the pairs, experiments/torch_pair_first.cu) on the
+# merge's first group, as experiments/torch_pair_design.py's A/B measured
+# it beside the package's kernel in one process: a group as a pass runs it
+# (table, insert, compaction and readback; two runs, unqueued) and its
+# launches alone (queued). chip_smoke.py prints them beside the kernel's
+# own.
+PAIR_FIRST_DESIGN_ON = "NVIDIA H100 80GB HBM3, 700.00 W"
+PAIR_FIRST_DESIGN_MS = {"group": 0.3239, "group_2": 0.3125,
+                        "device": 0.2548}
 
 
 START = time.perf_counter()
-
-
-def _experiment(name: str):
-    """experiments/<name>.py of this checkout, imported once."""
-    import importlib.util
-
-    if name not in sys.modules:
-        spec = importlib.util.spec_from_file_location(
-            name, HERE / "experiments" / f"{name}.py")
-        module = importlib.util.module_from_spec(spec)
-        sys.modules[name] = module
-        spec.loader.exec_module(module)
-    return sys.modules[name]
 
 
 def log(msg: str) -> None:
@@ -1100,6 +1110,116 @@ def check_viterbi_walk(lat, tbl, batch, spans, dev, route: str, scan=None):
     return res
 
 
+def probe_bytes_ops(tbl, batch, mode, lead, slots, dtype):
+    """(bytes, operations) the probe of `batch` needs: the score (and
+    slot) caches written once, the prefix hashes and sample ids over the
+    probed positions and the inverse powers read once, the mode's table
+    read once (every row: a group's ~10^7 valid probes touch them all);
+    ~14 integer operations a (position, length, row) point (the two
+    fingerprints, the slot hash, the checks)."""
+    B, W, L = batch.p1.shape[0], batch.width, tbl.max_len
+    Q = lead + W
+    points = Q * L * B
+    out = points * (torch.empty((), dtype=dtype).element_size()
+                     + (4 if slots else 0))
+    streams = 3 * 4 * B * (Q + L) + 2 * 4 * Q
+    if mode == "bucket":
+        table = tbl.t_bucket.numel() * 4
+    elif mode == "exact":
+        table = (tbl.t1_exact.numel() + tbl.t2_exact.numel()) * 4 \
+            + tbl.scores.numel() * tbl.scores.element_size()
+    else:
+        table = (tbl.t1_fast.numel() + tbl.t2_fast.numel()) * 4
+    return out + streams + table, 14 * points
+
+
+def chained_window(lat, ed, samples, L: int, dev):
+    """The second chained window (k = 1, every row's tail real) of
+    `samples` at the chained encode's width, as `_encode_chained` makes
+    it: rows [last L bytes of window 0 | body], padded to ROW_MULT."""
+    W = ed.MAX_ENCODE_WIDTH
+    Rp = -(-len(samples) // ed.ROW_MULT) * ed.ROW_MULT
+    rows = np.zeros((Rp, L + W), dtype=np.uint8)
+    n_valid = np.zeros(Rp, dtype=np.int32)
+    has_tail = np.zeros(Rp, dtype=bool)
+    for r, s in enumerate(samples):
+        check(len(s) > W, "chained window: a sample fits one window")
+        body = s[W : 2 * W]
+        rows[r, :L] = np.frombuffer(s[W - L : W], dtype=np.uint8)
+        rows[r, L : L + len(body)] = np.frombuffer(body, dtype=np.uint8)
+        n_valid[r] = len(body)
+        has_tail[r] = True
+    return lat.prepare_chained_batch(rows, n_valid, has_tail, L, W, dev)
+
+
+def check_match_cache(lat, ed, vocab, batch, long_samples, dev):
+    """match_cache (csrc/match_probe.cu, one launch a group) against
+    match_cache_plain on the card, score and slot bit for bit: on encode
+    (a)'s first group (`batch`, the 32k vocabulary) in bucket and fast
+    mode with slots on and off; in exact mode at float32 and float64
+    (the f64 route's tables) on the chained window of the f64 phase's
+    long samples, lead = L, slots on and off. Each case timed unqueued
+    (as the path calls it: the checks, the outputs' allocation, the
+    launch) and queued (device time), beside the twin and the bound."""
+    from tokengeex_tpu_torch.ops.match_table import TokenTable
+
+    table = TokenTable.build(vocab)
+    tables = {torch.float32: lat.DeviceTables.from_table(table, dev),
+              torch.float64: lat.DeviceTables.from_table(table, dev,
+                                                         torch.float64)}
+    L = tables[torch.float32].max_len
+    window = chained_window(lat, ed, long_samples, L, dev)
+    cases = [("bucket", torch.float32, batch, 0),
+             ("fast", torch.float32, batch, 0),
+             ("exact", torch.float32, window, L),
+             ("exact", torch.float64, window, L)]
+    res = {}
+    for mode, dtype, b, lead in cases:
+        tbl = tables[dtype]
+        for slots in (False, True):
+            tag = (f"{mode}{'[f64]' if dtype == torch.float64 else ''}"
+                   f"{', slots' if slots else ''}")
+            args = (tbl, b)
+            kw = {"probe": mode, "lead": lead, "slots": slots,
+                  "dtype": dtype}
+            want = []
+            plain_ms = cuda_ms(lambda: want.append(lat.match_cache_plain(
+                *args, C=ed.CHUNK, **kw)), iters=1, warmup=0)
+            want = want[0]
+            got = lat.match_cache(*args, C=ed.CHUNK, **kw)
+            torch.cuda.synchronize()
+            check(got[0].dtype == dtype and torch.equal(got[0], want[0]),
+                  f"match_cache ({tag}): scores differ from the twin's")
+            check(slots == (got[1] is not None)
+                  and (not slots or torch.equal(got[1], want[1])),
+                  f"match_cache ({tag}): slots differ from the twin's")
+            err = max_abs_err(got[0], want[0])
+            hits = int(torch.isfinite(want[0]).sum())
+            check(hits > 0, f"match_cache ({tag}): no token matched")
+            del got, want
+            ms = cuda_ms(lambda: lat.match_cache(*args, C=ed.CHUNK, **kw),
+                         iters=10)
+            dev_ms = cuda_ms(lambda: lat.match_cache(*args, C=ed.CHUNK,
+                                                     **kw),
+                             iters=10, queued=True)
+            nbytes, ops = probe_bytes_ops(tbl, b, mode, lead, slots, dtype)
+            b_ms, b_by = bound(nbytes, ops)
+            Q, B = lead + b.width, b.p1.shape[0]
+            res[tag] = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                        "plain_ms": plain_ms, "bound_ms": b_ms,
+                        "bound_by": b_by, "bytes": nbytes, "ops": ops,
+                        "hits": hits, "shape": [Q, L, B],
+                        "library_ms": None}
+            log(f"match_cache ({tag}; {Q} x {L} x {B}, lead {lead}, "
+                f"{hits} hits): {ms:.4f} ms (device {dev_ms:.4f}), plain "
+                f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} "
+                f"bytes, {ops} operations), x{ms / b_ms:.1f} the bound; "
+                f"equal to the twin (max |err| {err})")
+            torch.cuda.empty_cache()
+    del window
+    return res
+
+
 def check_alternatives_kernels(lat, lc, ed, vocab, dev):
     """The prune alternatives' two kernels on the first row group of the
     masked f64 pass over `vocab`'s own bytes (ed.alternative_groups: every
@@ -1158,6 +1278,32 @@ def check_alternatives_kernels(lat, lc, ed, vocab, dev):
 # ---------------------------------------------------------------------------
 
 
+def count_plain_probes(lat):
+    """Count the probe twin's calls on CUDA tensors: `lat.match_cache_plain`
+    wrapped, its count in `.launches` beside the kernels' (0 on the main
+    path: the card takes the kernel)."""
+    plain = lat.match_cache_plain
+
+    def counted(tbl, batch, *args, **kwargs):
+        if batch.p1.is_cuda:
+            counted.launches += 1
+        return plain(tbl, batch, *args, **kwargs)
+
+    counted.launches = 0
+    lat.match_cache_plain = counted
+    return counted
+
+
+def check_probes(tag, launches, want) -> None:
+    """The probe kernel launched `want` times (f32) and its twin never on
+    the card."""
+    check(launches["match_cache"] == want
+          and launches["match_cache_plain"] == 0,
+          f"{tag}: the probe kernel launched {launches['match_cache']} "
+          f"times (want {want}), its twin called "
+          f"{launches['match_cache_plain']} times on the card")
+
+
 def run_config(name, vocab, samples, long_sample, expect, groups, kernels,
                dev):
     """Phase 3: encode on the card; `expect` names the route's Viterbi
@@ -1194,6 +1340,8 @@ def run_config(name, vocab, samples, long_sample, expect, groups, kernels,
     check(launches["viterbi_walk"] >= 2 * groups,
           f"{name}: {launches['viterbi_walk']} walk launches for "
           f"{groups} groups")
+    # The slab route probes each group once, through the kernel.
+    check_probes(name, launches, groups if expect == "viterbi_scan" else 0)
     rate = total / secs
     log(f"[{name}] encode {total} bytes in {secs:.3f} s = "
         f"{rate / 1e6:.2f} MB/s; launches {launches} ({groups} groups); "
@@ -1291,6 +1439,7 @@ def run_estep(name, vocab, samples, kernels, dev):
           f"{name}: the E-step launched forward_scan "
           f"{launches['forward_scan']} and backward_marginal_scan "
           f"{launches['backward_marginal_scan']} times")
+    check_probes(name, launches, launches["forward_scan"])
     check(bool(np.isfinite(counts).all()) and counts.sum() > 0,
           f"{name}: E-step counts not finite")
     rate = total / secs
@@ -1541,6 +1690,9 @@ def run_session_over_budget(name, vocab, samples, want, kernels, dev):
             check(launches["seg_weights_gather"] == 0
                   and not sess.slot_cache and sess.cache_used == 0,
                   f"{tag}: the session cached a group")
+            # A probe a group (the fused route probes twice: once for its
+            # SegStruct, refused, then for the pass).
+            check_probes(tag, launches, groups * (2 if sess._fused() else 1))
             ref = want[dropout]
             tot_rel = abs(got.sum() - ref.sum()) / ref.sum()
             seen = ref >= 0.5
@@ -1627,6 +1779,7 @@ def run_prune(name, vocab, target: int, samples, expect, fused: bool,
     from tokengeex_tpu_torch import Model, NoPathError, Tokenizer
     from tokengeex_tpu_torch.ops import lattice as lat
     from tokengeex_tpu_torch.ops import lattice_cuda as lc
+    from tokengeex_tpu_torch.ops import lattice_cuda_probe as lcp
     from tokengeex_tpu_torch.ops.match_table import TokenTable
     from tokengeex_tpu_torch.train import prune as prune_mod
     from tokengeex_tpu_torch.train.prune import VocabularyPruner
@@ -1673,11 +1826,14 @@ def run_prune(name, vocab, target: int, samples, expect, fused: bool,
         return run
 
     freq_kernel = "fused_forward_chunk" if fused else "viterbi_scan"
-    freq = {"passes": 0, "launches": 0, "walks": 0, "host_checked": False}
+    freq = {"passes": 0, "launches": 0, "walks": 0, "probes": 0,
+            "plain_probes": 0, "host_checked": False}
     count_freq = pruner._count_frequencies
 
     def counted_freq(model, *args, **kwargs):
         before = kernels[freq_kernel].launches
+        probes = kernels["match_cache"].launches
+        plain_probes = kernels["match_cache_plain"].launches
         walks = kernels["viterbi_walk"].calls
         first = not freq["host_checked"]
         if first:
@@ -1692,6 +1848,9 @@ def run_prune(name, vocab, target: int, samples, expect, fused: bool,
         finally:
             freq["passes"] += 1
             freq["launches"] += kernels[freq_kernel].launches - before
+            freq["probes"] += kernels["match_cache"].launches - probes
+            freq["plain_probes"] += (kernels["match_cache_plain"].launches
+                                     - plain_probes)
             freq["walks"] += kernels["viterbi_walk"].calls - walks
             if first:
                 sess.count_frequencies = plain
@@ -1725,15 +1884,18 @@ def run_prune(name, vocab, target: int, samples, expect, fused: bool,
                 f"{freq['split']}")
         return got
 
-    alt = {"launches_f64": 0, "walk_launches": 0, "ties": []}
+    alt = {"launches_f64": 0, "walk_launches": 0, "probe_launches_f64": 0,
+           "ties": []}
     alternatives = pruner._alternatives
     oracle = VocabularyPruner(target, backend="oracle")
 
     def checked_alternatives(model):
         f64, walks = lc.viterbi_scan.launches_f64, lat.viterbi_walk.launches
+        probes = lcp.match_probe.launches_f64
         got = alternatives(model)
         alt["launches_f64"] += lc.viterbi_scan.launches_f64 - f64
         alt["walk_launches"] += lat.viterbi_walk.launches - walks
+        alt["probe_launches_f64"] += lcp.match_probe.launches_f64 - probes
         with span("checks"):
             # The oracle route on a model of its own: the pruner's model
             # keeps its trie unbuilt.
@@ -1820,6 +1982,19 @@ def run_prune(name, vocab, target: int, samples, expect, fused: bool,
               f"{tag}: {freq['passes']} frequency passes ran {k} "
               f"{n} times for {freq_groups} groups")
     check(freq["host_checked"], f"{tag}: no frequency pass was checked")
+    # The cached route's frequency groups (packed at the encode width,
+    # apart from the E-step's) probe once a group a pass, through the
+    # kernel; the fused route probes in its Viterbi kernel.
+    want_probes = (0 if fused or sessions[0]._freq_shared
+                   else freq["passes"] * freq_groups)
+    check(freq["probes"] == want_probes and freq["plain_probes"] == 0,
+          f"{tag}: {freq['passes']} frequency passes launched the probe "
+          f"kernel {freq['probes']} times (want {want_probes}) and called "
+          f"its twin {freq['plain_probes']} times on the card")
+    check(alt["probe_launches_f64"] == alt["launches_f64"],
+          f"{tag}: the alternatives launched the probe kernel "
+          f"{alt['probe_launches_f64']} times for "
+          f"{alt['launches_f64']} viterbi_scan[f64] launches")
     check(len(alt["ties"]) == freq["passes"]
           and alt["launches_f64"] >= freq["passes"]
           and lc.viterbi_scan.launches_f64 == alt["launches_f64"]
@@ -1855,6 +2030,7 @@ def run_prune(name, vocab, target: int, samples, expect, fused: bool,
             "alternatives": alt,
             "frequency_passes": freq["passes"],
             "frequency_launches": freq["launches"],
+            "frequency_probes": freq["probes"],
             "frequency_walks": freq["walks"],
             "frequency_split": freq["split"],
             "frequency_first_split": freq["first_split"],
@@ -1899,6 +2075,7 @@ def run_alternatives_big(dev):
     from tokengeex_tpu_torch.models.oracle import Lattice, OracleModel
     from tokengeex_tpu_torch.ops import lattice as lat
     from tokengeex_tpu_torch.ops import lattice_cuda as lc
+    from tokengeex_tpu_torch.ops import lattice_cuda_probe as lcp
     from tokengeex_tpu_torch.ops.match_table import TokenTable
     from tokengeex_tpu_torch.train import estep_device as ed
 
@@ -1911,6 +2088,7 @@ def run_alternatives_big(dev):
     table = TokenTable.build(vocab)
     table_s = time.perf_counter() - t
     f64, walks = lc.viterbi_scan.launches_f64, lat.viterbi_walk.launches
+    probes = lcp.match_probe.launches_f64
     seconds, got = [], None
     for _ in range(2):
         t = time.perf_counter()
@@ -1921,8 +2099,12 @@ def run_alternatives_big(dev):
               f"{tag}: a second call differs")
         got = res
     launches = {"viterbi_scan[f64]": (lc.viterbi_scan.launches_f64 - f64) // 2,
-                "viterbi_walk": (lat.viterbi_walk.launches - walks) // 2}
-    check(min(launches.values()) > 0, f"{tag}: launches {launches}")
+                "viterbi_walk": (lat.viterbi_walk.launches - walks) // 2,
+                "match_cache[f64]":
+                    (lcp.match_probe.launches_f64 - probes) // 2}
+    check(min(launches.values()) > 0
+          and launches["match_cache[f64]"] == launches["viterbi_scan[f64]"],
+          f"{tag}: launches {launches}")
     timer = lat.PhaseTimer(dev)
     ed.prune_alternatives_device(model, table=table, device=dev, timer=timer)
     split = {k: round(v, 6) for k, v in timer.seconds.items()}
@@ -2036,7 +2218,7 @@ def check_pair_group(pc, tag, flat, incl, vocab_size, hint) -> dict:
             if want[1].numel() else 0.0}
 
 
-def check_pair_count(lat, pc, ed, vocab, samples, sub, hints, first, dev):
+def check_pair_count(lat, pc, ed, vocab, samples, sub, hints, dev):
     """pair_count against its plain version on the merge's first row group
     (the 4k vocabulary, tables at the merge's hints): the group's walked
     ids and offsets on the card, the kernel's compacted table sorted by key
@@ -2050,13 +2232,12 @@ def check_pair_count(lat, pc, ed, vocab, samples, sub, hints, first, dev):
     insert; a readback of the state; the compaction and its readback),
     unqueued; its launches alone
     queued (the table's fill, the insert, the compaction; the fill and
-    the insert; the fill alone); the first design (`first`, the entry
-    points of experiments/torch_pair_first.cu, its table sized from
-    the pairs) the same ways; torch.unique(return_counts=True) on the same
-    keys; the plain version."""
+    the insert; the fill alone), printed beside the first design's
+    recorded times (`PAIR_FIRST_DESIGN_MS`);
+    torch.unique(return_counts=True) on the same keys; the plain
+    version."""
     from tokengeex_tpu_torch import Model
 
-    design = _experiment("torch_pair_design")
     flat, incl, dead, V = merge_group_ids(lat, ed, vocab, sub, hints, dev)
     check(not bool(dead.any()), "pair_count: a span of the group is dead")
     corpus = ed.DeviceCorpus(samples, device=dev)
@@ -2075,12 +2256,6 @@ def check_pair_count(lat, pc, ed, vocab, samples, sub, hints, first, dev):
     check(merge["sent"] < pairs and merge["slots"] <= 1 << 20,
           f"pair_count: the merge group sent {merge['sent']} rows of "
           f"{pairs} pairs to a table of {merge['slots']} slots")
-    old = design.first_group(first, flat, incl, V, pairs)
-    order = torch.argsort(old[0])
-    check(torch.equal(old[0][order], want[0])
-          and torch.equal(old[1][order], want[1]),
-          "pair_count: the first design differs from the plain version")
-    del old
 
     def group(launch_only=False, insert_only=False):
         table = pc.PairTable(dev, hint)
@@ -2090,24 +2265,13 @@ def check_pair_count(lat, pc, ed, vocab, samples, sub, hints, first, dev):
         return (table._compact_launch(merge["distinct"]) if launch_only
                 else table.compact())
 
-    def first_group(**kw):
-        return design.first_group(first, flat, incl, V, pairs, **kw)
-
-    # First design, package, package, first design: each way of timing.
     t = {}
     for name, fn, queued in (
-            ("first_ms", first_group, False), ("ms", group, False),
-            ("ms_2", group, False), ("first_ms_2", first_group, False),
-            ("first_device_ms", lambda: first_group(launch_only=True),
-             True),
+            ("ms", group, False), ("ms_2", group, False),
             ("device_ms", lambda: group(launch_only=True), True),
             ("device_ms_2", lambda: group(launch_only=True), True),
-            ("first_device_ms_2", lambda: first_group(launch_only=True),
-             True),
             ("insert_device_ms", lambda: group(insert_only=True), True),
-            ("fill_device_ms", lambda: pc.PairTable(dev, hint), True),
-            ("first_insert_device_ms",
-             lambda: first_group(insert_only=True), True)):
+            ("fill_device_ms", lambda: pc.PairTable(dev, hint), True)):
         t[name] = cuda_ms(fn, iters=20, queued=queued)
     library_ms = cuda_ms(lambda: torch.unique(keys, return_counts=True),
                          iters=20)
@@ -2154,10 +2318,9 @@ def check_pair_count(lat, pc, ed, vocab, samples, sub, hints, first, dev):
         f"readback; queued: "
         f"{t['device_ms']:.4f} / {t['device_ms_2']:.4f} ms, the fill and "
         f"the insert alone {t['insert_device_ms']:.4f} ms, the fill "
-        f"{t['fill_device_ms']:.4f} ms); the first design in this process "
-        f"{t['first_ms']:.4f} / {t['first_ms_2']:.4f} ms (queued "
-        f"{t['first_device_ms']:.4f} / {t['first_device_ms_2']:.4f}, fill "
-        f"and insert {t['first_insert_device_ms']:.4f}); torch.unique on "
+        f"{t['fill_device_ms']:.4f} ms); the first design "
+        f"{PAIR_FIRST_DESIGN_MS} (recorded on {PAIR_FIRST_DESIGN_ON}); "
+        f"torch.unique on "
         f"the same keys {library_ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
         f"{b_ms:.4f} ms ({b_by}, {nbytes} bytes: the ids and offsets read, "
         f"the distinct rows written; this design's own traffic "
@@ -2171,6 +2334,8 @@ def check_pair_count(lat, pc, ed, vocab, samples, sub, hints, first, dev):
     return {"max_abs_err": err, "ms": t["ms"], "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
             **{k: v for k, v in t.items() if k != "ms"},
+            "first_design_ms": PAIR_FIRST_DESIGN_MS,
+            "first_design_on": PAIR_FIRST_DESIGN_ON,
             "spans": spans, "tokens": tokens, "pairs": pairs,
             "distinct": distinct, "hint": hint, "slots": merge["slots"],
             "sent": merge["sent"], "spilled": merge["spilled"],
@@ -2399,7 +2564,8 @@ def run_merge_pass(vocab, samples, groups, kernels, dev):
     for k in range(2):
         torch.cuda.synchronize()
         if k:
-            for name in ("viterbi_scan", "viterbi_walk"):
+            for name in ("viterbi_scan", "viterbi_walk", "match_cache",
+                         "match_cache_plain"):
                 kernels[name].launches = 0
             pc.PairTable.launches = 0
             calls = kernels["viterbi_walk"].calls
@@ -2409,7 +2575,10 @@ def run_merge_pass(vocab, samples, groups, kernels, dev):
         secs.append(time.perf_counter() - t)
     launches = {"viterbi_scan": kernels["viterbi_scan"].launches,
                 "viterbi_walk calls": kernels["viterbi_walk"].calls - calls,
-                "pair_count": pc.PairTable.launches}
+                "pair_count": pc.PairTable.launches,
+                "match_cache": kernels["match_cache"].launches,
+                "match_cache_plain": kernels["match_cache_plain"].launches}
+    check_probes("[merge (a)]", launches, groups)
     check(launches["viterbi_scan"] == groups
           and launches["viterbi_walk calls"] == groups,
           f"[merge (a)] launches {launches} for {groups} groups")
@@ -2745,6 +2914,7 @@ def run_f64(vocab, samples, dev):
     from tokengeex_tpu_torch import Model
     from tokengeex_tpu_torch.ops import lattice as lat
     from tokengeex_tpu_torch.ops import lattice_cuda as lc
+    from tokengeex_tpu_torch.ops import lattice_cuda_probe as lcp
     from tokengeex_tpu_torch.train import estep_device as ed
     from tokengeex_tpu_torch.train.prune import MAX_SAMPLE_LENGTH
 
@@ -2752,7 +2922,8 @@ def run_f64(vocab, samples, dev):
     model = Model(vocab)
     batch = f64_samples(samples)
     total = sum(map(len, batch))
-    scans = (lc.viterbi_scan, lc.forward_scan, lc.backward_marginal_scan)
+    scans = (lc.viterbi_scan, lc.forward_scan, lc.backward_marginal_scan,
+             lcp.match_probe)
     ed.encode_corpus_device(model, batch[:4], dtype=f64, device=dev)  # warm
     torch.cuda.synchronize()
     for fn in scans:
@@ -2764,6 +2935,11 @@ def run_f64(vocab, samples, dev):
     check(enc_launches > 0 and lc.viterbi_scan.launches == 0,
           f"[f64] encode launched viterbi_scan[f64] {enc_launches} and "
           f"viterbi_scan {lc.viterbi_scan.launches} times")
+    # The exact probe's double instantiation once a group or window.
+    enc_probes = lcp.match_probe.launches_f64
+    check(enc_probes == enc_launches and lcp.match_probe.launches == 0,
+          f"[f64] encode launched match_cache[f64] {enc_probes} and "
+          f"match_cache {lcp.match_probe.launches} times")
     t0 = time.perf_counter()
     want = [model.oracle.encode(s) for s in batch]
     oracle_s = time.perf_counter() - t0
@@ -2793,6 +2969,11 @@ def run_f64(vocab, samples, dev):
           and lc.backward_marginal_scan.launches == 0,
           f"[f64] E-step launches {est_launches}, f32 "
           f"{lc.forward_scan.launches} / {lc.backward_marginal_scan.launches}")
+    est_probes = lcp.match_probe.launches_f64
+    check(est_probes == est_launches["forward_scan"]
+          and lcp.match_probe.launches == 0,
+          f"[f64] E-step launched match_cache[f64] {est_probes} and "
+          f"match_cache {lcp.match_probe.launches} times")
     t0 = time.perf_counter()
     estep(dtype=None)
     est32_s = time.perf_counter() - t0
@@ -2812,6 +2993,8 @@ def run_f64(vocab, samples, dev):
            "encode_f32_seconds": enc32_s,
            "encode_f32_mb_per_s": total / enc32_s / 1e6,
            "encode_launches_f64": enc_launches, "oracle_seconds": oracle_s,
+           "probe_launches_f64": {"encode": enc_probes,
+                                  "estep": est_probes},
            "estep_seconds": est_s, "estep_mb_per_s": total / est_s / 1e6,
            "estep_f32_seconds": est32_s,
            "estep_f32_mb_per_s": total / est32_s / 1e6,
@@ -3000,6 +3183,7 @@ def rank_worker(mode: str, rank: str, world: str, data_path: str,
     from tokengeex_tpu_torch.ops import lattice as lat
     from tokengeex_tpu_torch.ops import lattice_cuda as lc
     from tokengeex_tpu_torch.ops import lattice_cuda_fused as lcf
+    from tokengeex_tpu_torch.ops import lattice_cuda_probe as lcp
     from tokengeex_tpu_torch.ops import lattice_cuda_seg as lcs
     from tokengeex_tpu_torch.parallel import mesh
     from tokengeex_tpu_torch.train.device_session import DeviceTrainSession
@@ -3024,7 +3208,8 @@ def rank_worker(mode: str, rank: str, world: str, data_path: str,
                "viterbi_scan": lc.viterbi_scan,
                "fused_forward_chunk": lcf.fused_forward_chunk,
                "fused_backward_chunk": lcf.fused_backward_chunk,
-               "viterbi_walk": lat.viterbi_walk}
+               "viterbi_walk": lat.viterbi_walk,
+               "match_cache": lcp.match_probe}
     reduce_s = []
     plain_reduce = mesh.all_reduce_counts
 
@@ -3205,9 +3390,11 @@ def run_multigpu(samples, vocab_a, vocab_f, prune_target, allow, expect,
               f"[3i nccl] a steady pass launched {k} "
               f"{se['steady_launches'][k]} times for {sess_groups} groups")
     check(en["launches"]["viterbi_scan"] == groups
+          and en["launches"]["match_cache"] == groups
           and en["walk_calls"] == groups,
           f"[3i nccl] encode launched viterbi_scan "
-          f"{en['launches']['viterbi_scan']} times, the walk "
+          f"{en['launches']['viterbi_scan']} times, the probe kernel "
+          f"{en['launches']['match_cache']}, the walk "
           f"{en['walk_calls']}, for {groups} groups")
     for k in ("fused_forward_chunk", "fused_backward_chunk",
               "seg_weights_gather", "viterbi_walk"):
@@ -3256,9 +3443,11 @@ def run_multigpu(samples, vocab_a, vocab_f, prune_target, allow, expect,
               f"[3i gloo] rank {r}'s blocks {se['block_rows']}")
         check(res["encode"]["digest"] == expect["encode_digest"],
               f"[3i gloo] rank {r}'s gathered ids differ from phase 3's")
-        check(res["encode"]["launches"]["viterbi_scan"] == groups,
+        check(res["encode"]["launches"]["viterbi_scan"] == groups
+              and res["encode"]["launches"]["match_cache"] == groups,
               f"[3i gloo] rank {r} launched viterbi_scan "
-              f"{res['encode']['launches']['viterbi_scan']} times")
+              f"{res['encode']['launches']['viterbi_scan']} and the probe "
+              f"kernel {res['encode']['launches']['match_cache']} times")
         check(res["generate_digest"] == expect["generate_digest"],
               f"[3i gloo] rank {r}'s sharded generate differs from 3f's")
         got_pairs = res["pairs"]
@@ -3339,6 +3528,7 @@ def main() -> None:
         from tokengeex_tpu_torch.ops import lattice as lat
         from tokengeex_tpu_torch.ops import lattice_cuda as lc
         from tokengeex_tpu_torch.ops import lattice_cuda_fused as lcf
+        from tokengeex_tpu_torch.ops import lattice_cuda_probe as lcp
         from tokengeex_tpu_torch.ops import lattice_cuda_seg as lcs
         from tokengeex_tpu_torch.ops import pair_count as pc
         from tokengeex_tpu_torch.ops.match_table import TokenTable
@@ -3361,9 +3551,6 @@ def main() -> None:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    # The pair count's first design, built beside the package's sources.
-    pair_design = _experiment("torch_pair_design")
-    pair_first = pair_design.start_first()
     build_logs = _build.build()
     build_s = time.perf_counter() - t0
     log(f"built {sorted(build_logs)} in {build_s:.2f} s")
@@ -3417,6 +3604,8 @@ def main() -> None:
              for d in (0.0, 0.1)]
     dt_a = lat.DeviceTables.from_table(TokenTable.build(vocab_a), dev)
     vit_scan = check_viterbi_scan(lat, lc, dt_a, batch, dev)
+    probe_k = check_match_cache(lat, ed, vocab_a, batch,
+                                f64_samples(samples)[F64_SHORT:], dev)
     walk = {route: check_viterbi_walk(lat, tbl, batch,
                                       enc_groups[0][1].spans, dev, route)
             for route, tbl in (("slab", dt_a), ("fused", dt_b))}
@@ -3427,7 +3616,7 @@ def main() -> None:
     pairs_k = check_pair_count(lat, pc, ed, vocab_b, samples,
                                enc_groups[0][1],
                                merge_table_hints(len(vocab_b), 200, 24),
-                               pair_design.load_first(pair_first), dev)
+                               dev)
     torch.cuda.empty_cache()
     # The cached prune's alternatives: its vocabulary's own bytes.
     alts_k = check_alternatives_kernels(lat, lc, ed, vocab_c, dev)
@@ -3495,7 +3684,9 @@ def main() -> None:
                "fused_backward_chunk": lcf.fused_backward_chunk,
                "seg_weights": lcs.seg_weights,
                "seg_weights_gather": lcs.seg_weights_gather,
-               "viterbi_walk": lat.viterbi_walk}
+               "viterbi_walk": lat.viterbi_walk,
+               "match_cache": lcp.match_probe,
+               "match_cache_plain": count_plain_probes(lat)}
     e2e = {
         "a_32k_slab": run_config("a: 32768 tokens, slab route", vocab_a,
                                  samples, long_sample, "viterbi_scan",
@@ -3660,6 +3851,19 @@ def main() -> None:
         entry("pair_count", "pair_count.cu",
               "native/tokengeex_native.cpp:542",
               merged["launches"]["pair_count"], pairs_k),
+        entry("match_cache", "match_probe.cu",
+              "tokengeex_tpu/ops/lattice_jax.py:448 (_match_slab, driven "
+              "by :665 _match_cache_impl)",
+              e2e["a_32k_slab"]["launches"]["match_cache"], probe_k["bucket"],
+              max(r["max_abs_err"] for t, r in probe_k.items()
+                  if "[f64]" not in t)),
+        entry("match_cache[f64]", "match_probe.cu",
+              "tokengeex_tpu/ops/lattice_jax.py:448 (_match_slab, driven "
+              "by :665 _match_cache_impl)",
+              sum(conform["probe_launches_f64"].values()),
+              probe_k["exact[f64], slots"],
+              max(r["max_abs_err"] for t, r in probe_k.items()
+                  if "[f64]" in t)),
     ]}
     record = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_seconds": build_s,
@@ -3677,6 +3881,7 @@ def main() -> None:
               "prune": pruned, "prune_fused": pruned_f,
               "alternatives_kernels": alts_k, "alternatives_500k": alts_big,
               "dfa_mask": mask, "pair_count": pairs_k,
+              "match_cache": probe_k,
               "generate": generated,
               "cli_recipe": recipe, "f64_scans": scans64, "f64": conform,
               "multigpu": multigpu,

@@ -131,6 +131,13 @@ def main() -> None:
                "fused_backward_chunk": lcf.fused_backward_chunk,
                "seg_weights_gather": lcs.seg_weights_gather,
                "viterbi_walk": lat.viterbi_walk}
+    if hasattr(cs, "check_probes"):
+        # ROOT's phases count the slab probe kernel's launches and its
+        # twin's calls on the card.
+        from tokengeex_tpu_torch.ops import lattice_cuda_probe as lcp
+
+        kernels["match_cache"] = lcp.match_probe
+        kernels["match_cache_plain"] = cs.count_plain_probes(lat)
     fused = ("fused_forward_chunk", "fused_backward_chunk",
              "seg_weights_gather")
     res = {"root": str(ROOT), "device": smi, "host_s": [host_yardstick()],

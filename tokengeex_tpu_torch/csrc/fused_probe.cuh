@@ -1,6 +1,6 @@
-// Shared by the fused kernels (fused_forward.cu, fused_backward.cu): the
-// vocabulary probe of one (fingerprint, length) point against the two
-// cuckoo tables.
+// Shared by the fused kernels (fused_forward.cu, fused_backward.cu) and
+// the slab route's probe (match_probe.cu): the vocabulary probe of one
+// (fingerprint, length) point against the two cuckoo tables.
 //
 // A table row is [check, f32 score bits], check = fp2 ^ rotl(fp1, 16)
 // (ops/hashing.py `host_check`: T2's slot fixes the high bits of fp2, so

@@ -20,10 +20,12 @@ Two routes, picked by table size (`has_vscan`):
 
   - "fused" (bits <= VSCAN_MAX_BITS): the probe runs inside the DP
     kernel (ops/lattice_cuda_fused.py);
-  - "slab": `match_cache` probes the group once, start-indexed, with
-    plain tensor ops ("bucket" mode when the table has the single-probe
-    buckets), and ops/lattice_cuda.py `viterbi_scan` runs the DP over it
-    in one whole-width launch.
+  - "slab": `match_cache` probes the group once, start-indexed, in one
+    launch of csrc/match_probe.cu (ops/lattice_cuda_probe.py; "bucket"
+    mode when the table has the single-probe buckets; its twin
+    `match_cache_plain` runs `_match_slab` chunk by chunk), and
+    ops/lattice_cuda.py `viterbi_scan` runs the DP over it in one
+    whole-width launch.
 
 Both Viterbi kernels cut each row into independent chains at sample
 starts and padding (`chain_bounds`) and draw the dropout coins in the
@@ -77,6 +79,7 @@ from ..utils.packing import PackedBatch
 from . import hashing as H
 from . import lattice_cuda as lc
 from . import lattice_cuda_fused as lcf
+from . import lattice_cuda_probe as lcp
 from .lattice_cuda_seg import SEG_BLK, seg_weights_gather
 from .match_table import TokenTable, _entry_arrays
 
@@ -652,7 +655,33 @@ def match_cache(
     miss index where nothing matches. slots=False keeps the scores only
     (slot None). The cache holds no dropout: its readers draw the coins.
     Scores are at `dtype` (float32 by default); float64 resolves the
-    exact probe, whose slots are token ids (-1 for a miss)."""
+    exact probe, whose slots are token ids (-1 for a miss).
+
+    CUDA tensors launch csrc/match_probe.cu once on the current stream
+    (ops/lattice_cuda_probe.py `match_probe`); CPU tensors run
+    `match_cache_plain`, its twin, in chunks of C positions."""
+    if batch.width % C:
+        raise ValueError(f"chunk {C} does not divide width {batch.width}")
+    dtype = dtype or torch.float32
+    mode = probe or _probe_mode(tbl, dtype)
+    if not lcp.check_probe(tbl, batch, mode, lead, dtype):
+        return match_cache_plain(tbl, batch, C, mode, lead, slots, dtype)
+    return lcp.match_probe(tbl, batch, mode, lead, slots, dtype)
+
+
+def match_cache_plain(
+    tbl: DeviceTables,
+    batch: DeviceBatch,
+    C: int = 512,
+    probe: Optional[str] = None,
+    lead: int = 0,
+    slots: bool = True,
+    dtype: Optional[torch.dtype] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """`match_cache` in plain torch ops on any device: `_match_slab` over
+    chunks of C positions (the first `lead` positions one chunk), each
+    permuted into the (lead + W, L, B) caches. The twin the kernel is
+    held against bit for bit."""
     B = batch.p1.shape[0]
     W = batch.width
     L = tbl.max_len
