@@ -85,7 +85,16 @@ Phases (any failure exits non-zero):
      exact mode at float32 and float64 on a chained window of the f64
      phase's long samples (W = 32768, lead = L, 128 rows), score and slot
      equal to match_cache_plain bit for bit; each timed with CUDA events
-     beside its plain version and its bound;
+     beside its plain version, its bound and the first design's recorded
+     times (PROBE_FIRST_DESIGN_MS, from experiments/torch_probe_design.py),
+     with the kernel's branch (the bucket filter in shared memory, or
+     every valid point gathering) and, in bucket mode, the filter's rule
+     counted on the group in torch ops (`filter_counts`: the valid points
+     it keeps from gathering, the gathers in rows that place an entry
+     past 3); bucket mode also on the cached prune's 49,152-token table
+     (buckets at bits 17, the 128 KB filter: the kernel's one-block-an-SM
+     launch, as the prune and the README-shape merge run it) over the same
+     group, slots on and off;
   3. encode end to end, Tokenizer.encode_batch(backend="device") on the
      card, for two configurations over a seeded ~8 MB code-like corpus
      at L = 16: (a) a 32,768-token vocabulary (slab route: the bucket
@@ -271,6 +280,25 @@ DFA_FIRST_DESIGN_MS = {"shared": 0.3504, "global": 0.3595}
 PAIR_FIRST_DESIGN_ON = "NVIDIA H100 80GB HBM3, 700.00 W"
 PAIR_FIRST_DESIGN_MS = {"group": 0.3239, "group_2": 0.3125,
                         "device": 0.2548}
+# Milliseconds of match_probe's first design (a block a 32 x 32 tile, one
+# launch over every tile, each valid point gathering its whole row:
+# experiments/torch_probe_first.cu) per phase 2 case, unqueued (through the
+# package's wrapper) and queued (device), as
+# experiments/torch_probe_design.py measured them beside the package's
+# kernel in one process; chip_smoke.py prints them beside the kernel's own.
+PROBE_FIRST_DESIGN_ON = "NVIDIA H100 80GB HBM3, 700.00 W"
+PROBE_FIRST_DESIGN_MS = {
+    "bucket": {"ms": 1.055, "device_ms": 1.0479},
+    "bucket, slots": {"ms": 1.1074, "device_ms": 1.0999},
+    "fast": {"ms": 0.9838, "device_ms": 0.9759},
+    "fast, slots": {"ms": 1.0132, "device_ms": 1.0076},
+    "exact": {"ms": 0.1699, "device_ms": 0.161},
+    "exact, slots": {"ms": 0.2563, "device_ms": 0.2518},
+    "exact[f64]": {"ms": 0.2559, "device_ms": 0.2493},
+    "exact[f64], slots": {"ms": 0.3563, "device_ms": 0.3484},
+    "bucket[bits 17]": {"ms": 1.0811, "device_ms": 1.0728},
+    "bucket[bits 17], slots": {"ms": 1.1193, "device_ms": 1.114},
+}
 
 
 START = time.perf_counter()
@@ -1152,32 +1180,81 @@ def chained_window(lat, ed, samples, L: int, dev):
     return lat.prepare_chained_batch(rows, n_valid, has_tail, L, W, dev)
 
 
-def check_match_cache(lat, ed, vocab, batch, long_samples, dev):
+def filter_counts(tbl, batch, lead, C=256):
+    """The bucket filter's rule counted on a probe of `batch` at `lead`,
+    in torch ops (not inside the kernel): the valid points, the points
+    whose tag bit is set in their row's filter byte (the ones that
+    gather) and the gathers in rows with bit 7 set (a row placing an
+    entry past 3: at most these read a second sector)."""
+    from tokengeex_tpu_torch.ops import hashing as H
+    from tokengeex_tpu_torch.ops import lattice_cuda_probe as lcp
+
+    L, dev = tbl.max_len, batch.p1.device
+    tags = tbl.bk_filter.tags.to(torch.int64)
+    lens = torch.arange(1, L + 1, device=dev)
+    mix = H.wrap_i32(lens * int(H.IDX_A1)) ^ H.i32(tbl.bk_salt)
+    n = {"valid": 0, "gathered": 0, "overflow_rows": 0}
+    for q0 in range(0, lead + batch.width, C):
+        g, m = batch.pad - lead + q0, min(C, lead + batch.width - q0)
+        ends = torch.arange(m, device=dev)[:, None] + lens  # (m, L)
+
+        def fp(p, rinv):  # (B, m, L)
+            s = p[:, g : g + m + L]
+            return H.mul_i32(H.sub_i32(s[:, ends], s[:, :m, None]),
+                             rinv[g : g + m][None, :, None])
+
+        sid = batch.sid[:, g : g + m + L - 1]
+        valid = (sid[:, :m, None] >= 0) & (sid[:, ends - 1]
+                                           == sid[:, :m, None])
+        row = H.srl_i32(H.mul_i32(fp(batch.p1, batch.rinv1) ^ mix,
+                                  H.i32(int(H.IDX_M1))), 32 - tbl.bk_bits)
+        f = tags[row.long()]
+        live = valid & (((f >> lcp.filter_tag(fp(batch.p2, batch.rinv2)))
+                         & 1) == 1)
+        n["valid"] += int(valid.sum())
+        n["gathered"] += int(live.sum())
+        n["overflow_rows"] += int((live & (f >= 128)).sum())
+    return n
+
+
+def check_match_cache(lat, ed, vocab, vocab_prune, batch, long_samples,
+                      dev):
     """match_cache (csrc/match_probe.cu, one launch a group) against
     match_cache_plain on the card, score and slot bit for bit: on encode
     (a)'s first group (`batch`, the 32k vocabulary) in bucket and fast
-    mode with slots on and off; in exact mode at float32 and float64
-    (the f64 route's tables) on the chained window of the f64 phase's
-    long samples, lead = L, slots on and off. Each case timed unqueued
-    (as the path calls it: the checks, the outputs' allocation, the
-    launch) and queued (device time), beside the twin and the bound."""
+    mode, and in bucket mode with the cached prune's table (`vocab_prune`,
+    buckets at bits 17), slots on and off; in exact mode at float32 and
+    float64 (the f64 route's tables) on the chained window of the f64
+    phase's long samples, lead = L, slots on and off. Each case timed
+    unqueued (as the path calls it: the checks, the outputs' allocation,
+    the launch) and queued (device time), beside the twin, the bound and
+    the first design's recorded times, with the kernel's branch; in
+    bucket mode with the filter's counts (`filter_counts`)."""
+    from tokengeex_tpu_torch.ops import lattice_cuda_probe as lcp
     from tokengeex_tpu_torch.ops.match_table import TokenTable
 
     table = TokenTable.build(vocab)
     tables = {torch.float32: lat.DeviceTables.from_table(table, dev),
               torch.float64: lat.DeviceTables.from_table(table, dev,
                                                          torch.float64)}
+    prune_table = TokenTable.build(vocab_prune)
+    check(prune_table.bk_bits == 17,
+          f"the prune's table at bits {prune_table.bk_bits}, not 17")
+    tables["bits 17"] = lat.DeviceTables.from_table(prune_table, dev)
     L = tables[torch.float32].max_len
     window = chained_window(lat, ed, long_samples, L, dev)
     cases = [("bucket", torch.float32, batch, 0),
+             ("bucket", "bits 17", batch, 0),
              ("fast", torch.float32, batch, 0),
              ("exact", torch.float32, window, L),
              ("exact", torch.float64, window, L)]
     res = {}
-    for mode, dtype, b, lead in cases:
-        tbl = tables[dtype]
+    for mode, key, b, lead in cases:
+        tbl = tables[key]
+        dtype = torch.float64 if key == torch.float64 else torch.float32
         for slots in (False, True):
             tag = (f"{mode}{'[f64]' if dtype == torch.float64 else ''}"
+                   f"{'[bits 17]' if key == 'bits 17' else ''}"
                    f"{', slots' if slots else ''}")
             args = (tbl, b)
             kw = {"probe": mode, "lead": lead, "slots": slots,
@@ -1197,6 +1274,16 @@ def check_match_cache(lat, ed, vocab, batch, long_samples, dev):
             hits = int(torch.isfinite(want[0]).sum())
             check(hits > 0, f"match_cache ({tag}): no token matched")
             del got, want
+            branch = lcp.probe_branch(tbl, mode)
+            check(branch == ("filtered" if mode == "bucket" else "gather"),
+                  f"match_cache ({tag}): the {branch} branch")
+            shares = {}
+            if branch == "filtered":
+                n = filter_counts(tbl, b, lead)
+                shares = {**n, "filtered_share": 1 - n["gathered"]
+                          / max(n["valid"], 1),
+                          "overflow_share": n["overflow_rows"]
+                          / max(n["gathered"], 1)}
             ms = cuda_ms(lambda: lat.match_cache(*args, C=ed.CHUNK, **kw),
                          iters=10)
             dev_ms = cuda_ms(lambda: lat.match_cache(*args, C=ed.CHUNK,
@@ -1205,16 +1292,32 @@ def check_match_cache(lat, ed, vocab, batch, long_samples, dev):
             nbytes, ops = probe_bytes_ops(tbl, b, mode, lead, slots, dtype)
             b_ms, b_by = bound(nbytes, ops)
             Q, B = lead + b.width, b.p1.shape[0]
+            first = PROBE_FIRST_DESIGN_MS.get(tag)
             res[tag] = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
                         "plain_ms": plain_ms, "bound_ms": b_ms,
                         "bound_by": b_by, "bytes": nbytes, "ops": ops,
                         "hits": hits, "shape": [Q, L, B],
+                        "branch": branch, **shares,
+                        "first_design_ms": first,
                         "library_ms": None}
             log(f"match_cache ({tag}; {Q} x {L} x {B}, lead {lead}, "
-                f"{hits} hits): {ms:.4f} ms (device {dev_ms:.4f}), plain "
-                f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} "
-                f"bytes, {ops} operations), x{ms / b_ms:.1f} the bound; "
-                f"equal to the twin (max |err| {err})")
+                f"{hits} hits, {branch} branch): {ms:.4f} ms (device "
+                f"{dev_ms:.4f}), plain {plain_ms:.2f} ms, bound {b_ms:.4f} "
+                f"ms ({b_by}: {nbytes} bytes, {ops} operations), "
+                f"x{ms / b_ms:.1f} the bound; equal to the twin (max |err| "
+                f"{err})")
+            if shares:
+                log(f"match_cache ({tag}): the filter's rule on the group "
+                    f"(counted in torch ops): {shares['valid']} valid "
+                    f"points, {shares['gathered']} gather "
+                    f"({shares['filtered_share']:.4f} kept from the L2); "
+                    f"{shares['overflow_rows']} gathers in rows placing an "
+                    f"entry past 3 ({shares['overflow_share']:.6f}; at most "
+                    "these read a second sector)")
+            if first:
+                log(f"match_cache ({tag}): the first design "
+                    f"{first['ms']:.4f} ms (device {first['device_ms']:.4f}"
+                    f"; recorded on {PROBE_FIRST_DESIGN_ON})")
             torch.cuda.empty_cache()
     del window
     return res
@@ -3604,7 +3707,7 @@ def main() -> None:
              for d in (0.0, 0.1)]
     dt_a = lat.DeviceTables.from_table(TokenTable.build(vocab_a), dev)
     vit_scan = check_viterbi_scan(lat, lc, dt_a, batch, dev)
-    probe_k = check_match_cache(lat, ed, vocab_a, batch,
+    probe_k = check_match_cache(lat, ed, vocab_a, vocab_c, batch,
                                 f64_samples(samples)[F64_SHORT:], dev)
     walk = {route: check_viterbi_walk(lat, tbl, batch,
                                       enc_groups[0][1].spans, dev, route)

@@ -16,6 +16,12 @@ the port's (W, L, B)):
   - the dispatch takes the twin on the CPU and counts no launch; the
     checks refuse a bad lead, an unknown mode and missing tables.
 
+The bucket mode's miss filter and one-sector gathers are held on the CPU
+in tests/test_torch_probe_filter.py; the `cuda` cases here run the kernel
+on both of its branches (bits 13 and 17 filtered, 18 the gather branch),
+on that file's overflow table (rows of 5-8 entries, some dead), and
+refuse a filter made for another table.
+
 The fast rows carry the port's check word (tests/test_torch_prep.py
 `_port_fast`). The tests marked `cuda` hold the kernel against its twin
 on a GPU (the kernel has no CPU mode); the file imports the JAX package
@@ -28,6 +34,7 @@ runs them.
 """
 
 import dataclasses
+import functools
 import importlib
 import random
 from types import SimpleNamespace
@@ -42,6 +49,8 @@ from tokengeex_tpu_torch.ops import lattice as lat
 from tokengeex_tpu_torch.ops import lattice_cuda_probe as lcp
 from tokengeex_tpu_torch.ops.match_table import TokenTable
 from tokengeex_tpu_torch.utils.packing import pack_samples
+
+from test_torch_probe_filter import overflow_table
 
 torch.set_num_threads(1)
 
@@ -272,23 +281,37 @@ def cuda_device():
 @pytest.mark.parametrize("mode,dtype", MODES + [("fast", torch.float64)],
                          ids=["bucket", "fast", "exact", "exact64",
                               "fast64"])
-@pytest.mark.parametrize("bits", [13, 17])
+@pytest.mark.parametrize("bits", [13, 17, 18, "overflow"])
 def test_cuda_match_probe_matches_twin(cuda_device, bits, mode, dtype, lead,
                                        slots):
-    vocab = _vocab(bits, 300, max_len=12)
-    pt = TokenTable.build([ScoredToken(v, s) for v, s in vocab],
-                          min_bits=bits)
-    L = pt.max_token_len
+    """Bits 13 and 17 take the kernel's filtered branch, 18 the gather
+    branch; "overflow" is tests/test_torch_probe_filter.py's table of rows
+    holding 5-8 entries (bk_bits 5, filtered, the second sector read)."""
+    seed = 19 if bits == "overflow" else bits
+    if bits == "overflow":
+        tables = functools.partial(overflow_table, cuda_device)
+        L = tables()[0].max_len
+    else:
+        vocab = _vocab(bits, 300, max_len=12)
+        pt = TokenTable.build([ScoredToken(v, s) for v, s in vocab],
+                              min_bits=bits)
+        tables = functools.partial(lat.DeviceTables.from_table, pt,
+                                   cuda_device)
+        L = pt.max_token_len
     if lead == 0:
-        batch = lat.prepare_batch(pack_samples(_samples(bits) * 8, width=W),
+        batch = lat.prepare_batch(pack_samples(_samples(seed) * 8, width=W),
                                   L, cuda_device)
     else:
-        rows, n_valid, has_tail = _chained_rows(bits, L, B=40)
+        rows, n_valid, has_tail = _chained_rows(seed, L, B=40)
         batch = lat.prepare_chained_batch(rows, n_valid, has_tail, L, W,
                                           cuda_device)
         lead = L if lead == "L" else lead
     for scores_dtype in {dtype, torch.float64 if mode == "exact" else dtype}:
-        dt = lat.DeviceTables.from_table(pt, cuda_device, scores_dtype)
+        dt = tables(scores_dtype)
+        if bits == "overflow":
+            dt = dt[0]
+        assert lcp.probe_branch(dt, mode) == (
+            "filtered" if mode == "bucket" and bits != 18 else "gather")
         want = lat.match_cache_plain(dt, batch, C, mode, lead, slots, dtype)
         counter = "launches_f64" if dtype == torch.float64 else "launches"
         before = getattr(lcp.match_probe, counter)
@@ -303,6 +326,28 @@ def test_cuda_match_probe_matches_twin(cuda_device, bits, mode, dtype, lead,
         else:
             assert got[1] is None
         assert bool(torch.isfinite(want[0]).any())
+
+
+@pytest.mark.cuda
+def test_cuda_probe_refuses_a_filter_of_another_table(cuda_device):
+    """A table holding the filter of another t_bucket (same rows, another
+    tensor), or whose t_bucket changed in place after its filter was made,
+    launches nothing."""
+    pt, _ = _small()
+    batch = lat.prepare_batch(pack_samples(_samples(3), width=W),
+                              pt.max_token_len, cuda_device)
+    dt = lat.DeviceTables.from_table(pt, cuda_device)
+    other = lat.DeviceTables.from_table(pt, cuda_device)
+    changed = lat.DeviceTables.from_table(pt, cuda_device)
+    changed.t_bucket[0, 1] = 0
+    before = lcp.match_probe.launches
+    for bad in (dataclasses.replace(dt, bk_filter=other.bk_filter), changed):
+        with pytest.raises(ValueError, match="filter"):
+            lat.match_cache(bad, batch, C=C, probe="bucket")
+    assert lcp.match_probe.launches == before
+    lat.match_cache(dt, batch, C=C, probe="bucket")
+    torch.cuda.synchronize()
+    assert lcp.match_probe.launches == before + 1
 
 
 @pytest.mark.cuda

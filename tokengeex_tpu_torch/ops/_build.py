@@ -75,9 +75,9 @@ KERNELS: Dict[str, Tuple[str, str, tuple]] = {
     "pair_compact": ("pair_count.cu", "tgx_pair_compact",
                      (P, LL, P, P, LL, P, P)),
     "match_probe": ("match_probe.cu", "tgx_match_probe",
-                    (P,) * 10 + (I,) * 9 + (U, I, I, I, P)),
+                    (P,) * 11 + (I,) * 9 + (U, I, I, I, P)),
     "match_probe_f64": ("match_probe.cu", "tgx_match_probe_f64",
-                        (P,) * 10 + (I,) * 9 + (U, I, I, I, P)),
+                        (P,) * 11 + (I,) * 9 + (U, I, I, I, P)),
 }
 
 _LOCK = threading.Lock()

@@ -158,6 +158,10 @@ class DeviceTables:
                         them
       t_bucket          (Hb, 16) int32 single-probe buckets of 8
                         interleaved [check, score] entries, or None
+      bk_filter         the buckets' miss filter (ops/lattice_cuda_probe.py
+                        `BucketFilter`: one byte a row, derived from
+                        t_bucket itself, refused for any other), or None
+                        where the probe takes its gather branch
       scores            (V,) per-id scores at the tables' float type:
                         float64 for the f64 / exact route (the exact
                         probe gathers them by id), float32 otherwise
@@ -183,6 +187,7 @@ class DeviceTables:
     bk_slot_len: Optional[np.ndarray] = None
     t1_exact: Optional[torch.Tensor] = None
     t2_exact: Optional[torch.Tensor] = None
+    bk_filter: Optional[lcp.BucketFilter] = None
 
     @staticmethod
     def from_table(tbl: TokenTable, device,
@@ -242,7 +247,10 @@ class DeviceTables:
         t_bucket (or None / empty) and scores, and optionally the exact
         tables t1_exact and t2_exact and the host slot maps slot_to_id,
         slot_len, bk_slot_to_id and bk_slot_len; float64 scores stay
-        float64 (the exact route's), any other become float32;
+        float64 (the exact route's), any other become float32; the
+        buckets' miss filter is derived from t_bucket on `device` where
+        the kernel's filtered branch reads it (lattice_cuda_probe
+        `has_filter`);
         `meta` is (bits, max_len, vocab_size, bk_bits, bk_salt). With the
         JAX DeviceTables fields turned into numpy, both packages run on the
         very same tables and fold counts through the same slot maps."""
@@ -257,6 +265,8 @@ class DeviceTables:
             return None if a is None else np.asarray(a, dtype=np.int64)
 
         tb = arrays.get("t_bucket")
+        t_bucket = (dev(tb, torch.int32)
+                    if tb is not None and np.size(tb) else None)
 
         def opt(name):
             a = arrays.get(name)
@@ -271,13 +281,15 @@ class DeviceTables:
                              torch.float32)),
             bits=int(bits), max_len=int(max_len),
             vocab_size=int(vocab_size),
-            t_bucket=(dev(tb, torch.int32)
-                      if tb is not None and np.size(tb) else None),
+            t_bucket=t_bucket,
             bk_bits=int(bk_bits), bk_salt=int(bk_salt),
             slot_to_id=host("slot_to_id"), slot_len=host("slot_len"),
             bk_slot_to_id=host("bk_slot_to_id"),
             bk_slot_len=host("bk_slot_len"),
             t1_exact=opt("t1_exact"), t2_exact=opt("t2_exact"),
+            bk_filter=(lcp.BucketFilter.of(t_bucket)
+                       if t_bucket is not None
+                       and lcp.has_filter(int(bk_bits)) else None),
         )
 
     @property
