@@ -43,10 +43,12 @@ Phases (any failure exits non-zero):
      backward_betas_scan on the same inputs, with one chain alone;
      seg_weights on seeded inputs at H = 2^22 with n_hit inside the last
      block (the single-length entry), cf within rtol 1e-5 with equal
-     finite masks; and seg_weights_gather, the session's segsum in one
-     launch per group, on the session group's real SegStruct (the 32k
-     vocabulary's rank space) at dropout 0 and 0.1, cf and t equal to its
-     twin bit for bit, with the whole segsum_expected call timed; and
+     finite masks; and the session's segsum in two launches per group,
+     seg_weights_gather and seg_sums, on the session group's real
+     SegStruct (the 32k vocabulary's rank space) at dropout 0 and 0.1,
+     every output equal to its twin bit for bit, with the whole
+     segsum_expected call timed (with the twins' tail too), its launches
+     counted and its device kernels listed (two); and
      viterbi_walk, the backpointer walk with the exact-probe ids, on
      encode's first group of both routes (the 32k vocabulary's
      viterbi_scan backpointers and the 4k vocabulary's fused ones), in
@@ -120,10 +122,10 @@ Phases (any failure exits non-zero):
      bytes/s and the time per phase, at both dropouts;
   3d. the probe-once training session, DeviceTrainSession on the card,
      for (a) (cached route: forward_scan, backward_betas_scan,
-     seg_weights_gather) and (b) (fused route:
+     seg_weights_gather, seg_sums) and (b) (fused route:
      fused_forward_chunk(logsumexp), fused_backward_chunk,
-     seg_weights_gather) at dropout 0 and 0.05: the first pass (probe,
-     remap, SegStruct build) and a steady-state pass timed apart, with
+     seg_weights_gather, seg_sums) at dropout 0 and 0.05: the first pass
+     (probe, remap, SegStruct build) and a steady-state pass timed apart, with
      bytes/s and a synchronised phase split of each; the route's kernels
      launched, each once per group in a steady pass;
      at dropout 0 the second pass equal to the
@@ -971,13 +973,33 @@ def check_marginal_scan(lat, lc, tbl, batch, dev, tag: str):
     return res
 
 
+def segsum_profile(fn) -> list:
+    """(name, launches) of every device kernel and copy one call of `fn`
+    runs, from a torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.key[:60], e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def check_segsum(lat, lcs, table, tbl, batch, dev):
-    """seg_weights_gather against its twin on one session group's real
-    SegStruct (the 32k vocabulary's rank space, as the session builds
-    it), with the forward values and betas of the group's cache, at
-    dropout 0 and 0.1: cf and t equal bit for bit. Timed beside its twin
-    and its bound at the group's real hit counts, and the whole
-    segsum_expected call."""
+    """The session's segsum on one session group's real SegStruct (the
+    32k vocabulary's rank space, as the session builds it), with the
+    forward values and betas of the group's cache, at dropout 0 and 0.1:
+    seg_weights_gather (alpha - Z, the score differences, the in-block
+    scans and the whole-block sums in one cooperative launch) and seg_sums
+    (the slots' counts) each equal to its twin bit for bit, and the counts
+    never below 0. Each timed unqueued and queued (device time) beside its
+    twin and its bound at the group's real hit counts; the whole
+    segsum_expected call timed with the kernels and with the twins' tail
+    on the card (seg_sums_plain after the gather kernel: the torch ops
+    the parent's route ran), its launches counted (one of each kernel)
+    and its device kernels listed by a profiler (two, nothing else)."""
     rank = lat.build_rank_space(table)
     _, raw = lat.match_cache(tbl, batch)
     slots = lat.remap_slots(torch.as_tensor(rank.lut, device=dev), raw)
@@ -987,47 +1009,121 @@ def check_segsum(lat, lcs, table, tbl, batch, dev):
     seg = lat.build_seg_struct(slots, rank.n_pad)
     H = int(seg.perm_flat.shape[0])
     B, W = batch.p1.shape[0], batch.width
+    L, OC = seg.occ_slot.shape
+    caps = torch.tensor([p.shape[0] for p in seg.perm], device=dev)
+    n_real = int((seg.end_pos != caps[:, None]).sum())
+    nbins = lat.rows_nbins(rows)
     res = {"hits": list(seg.n_hit), "capacity": H,
-           "shape": {"W": W, "B": B, "L": len(seg.perm), "H": H,
-                     "occurring": int(seg.occ_slot.shape[1])}}
+           "shape": {"W": W, "B": B, "L": L, "H": H, "occurring": OC,
+                     "entries": n_real, "nbins": nbins,
+                     "chains": int((seg.nxt >= 0).sum())}}
     for dropout in (0.0, 0.1):
         du = drop_words(batch, dropout, dev)
         A = lat.forward(tbl, batch, cache, drop_u=du, dropout=dropout)
         Bt = lat.backward_betas(tbl, batch, cache, drop_u=du,
                                 dropout=dropout)
-        args = lat.seg_weight_inputs(batch, A, Bt, seg, rows)
+        args = (seg, A, batch.end_index, batch.is_start, Bt, rows, du)
         kw = {"dropout": dropout, "pad": batch.pad}
         want = []
         plain_ms = cuda_ms(lambda: want.append(
-            lcs.seg_weights_gather_plain(*args, du, **kw)), iters=1,
-            warmup=0)
+            lcs.seg_weights_gather_plain(*args, **kw)), iters=1, warmup=0)
         want = want[0]
-        got = lcs.seg_weights_gather(*args, du, **kw)
+        got = lcs.seg_weights_gather(*args, **kw)
         torch.cuda.synchronize()
-        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        for i, what in enumerate(("cf", "t")):
+        err = max(float((g.double() - w.double()).abs().max())
+                  for g, w in zip(got, want))
+        for i, what in enumerate(("cf", "t", "whole-block sums",
+                                  "zeroed accumulator")):
             check(torch.equal(got[i], want[i]),
                   f"seg_weights_gather (dropout {dropout}): {what} differs "
                   f"from the twin (max |err| {err})")
-        ms = cuda_ms(lambda: lcs.seg_weights_gather(*args, du, **kw),
-                     iters=20)
-        segsum_ms = cuda_ms(lambda: lat.segsum_expected(
-            tbl, batch, A, Bt, seg, rows, du, dropout), iters=10)
-        # Bytes: per hit its position and difference in and cf out, the
-        # anchors and block totals, the (B, W) alpha - Z and (B, W + 1)
-        # betas planes and the dropout words read once. Operations: per
-        # hit 14 scan adds, two adds, an exp, the mask, and ~5 for the
-        # gathers' index arithmetic.
-        nbytes = (12 * H + 8 * (H // lcs.SEG_BLK) + 4 * B * (2 * W + 1)
-                  + (du.numel() * 4 if du is not None else 0))
-        b_ms, b_by = bound(nbytes, 23 * H)
+        acc_want = []
+        sums_plain_ms = cuda_ms(lambda: acc_want.append(lcs.seg_sums_plain(
+            seg, *want[:3], want[3].clone())), iters=1, warmup=0)
+        acc_want = acc_want[0]
+        acc = lcs.seg_sums(seg, *got[:3], got[3].clone())
+        torch.cuda.synchronize()
+        sums_err = float((acc.double() - acc_want.double()).abs().max())
+        check(torch.equal(acc, acc_want),
+              f"seg_sums (dropout {dropout}): the counts differ from the "
+              f"twin (max |err| {sums_err})")
+        check(bool((acc >= 0).all()) and float(acc.sum()) > 0,
+              f"seg_sums (dropout {dropout}): a count below 0, or none")
+        del want, acc_want
+        ms = cuda_ms(lambda: lcs.seg_weights_gather(*args, **kw), iters=20)
+        dev_ms = cuda_ms(lambda: lcs.seg_weights_gather(*args, **kw),
+                         iters=20, queued=True)
+        sums_ms = cuda_ms(lambda: lcs.seg_sums(seg, *got[:3], got[3]),
+                          iters=20)
+        sums_dev_ms = cuda_ms(lambda: lcs.seg_sums(seg, *got[:3], got[3]),
+                              iters=20, queued=True)
+
+        def call():
+            return lat.segsum_expected(tbl, batch, A, Bt, seg, rows, du,
+                                       dropout)
+
+        def twin_tail():
+            out = lcs.seg_weights_gather(*args, **kw)
+            return lcs.seg_sums_plain(seg, *out)[:nbins]
+
+        before = (lcs.seg_weights_gather.launches, lcs.seg_sums.launches)
+        counts = call()
+        torch.cuda.synchronize()
+        launched = (lcs.seg_weights_gather.launches - before[0],
+                    lcs.seg_sums.launches - before[1])
+        check(launched == (1, 1), f"segsum_expected launched "
+              f"seg_weights_gather / seg_sums {launched} times, not once")
+        check(torch.equal(counts, acc[:nbins]),
+              "segsum_expected differs from the kernels called alone")
+        profile = segsum_profile(call)
+        names = " ".join(n for n, _ in profile)
+        check(sum(c for _, c in profile) == 2 and "seg_gather_kernel" in names
+              and "seg_sums_kernel" in names,
+              f"segsum_expected ran other device work than its two "
+              f"kernels: {profile}")
+        segsum_ms = cuda_ms(call, iters=10)
+        segsum_dev_ms = cuda_ms(call, iters=10, queued=True)
+        tail_ms = cuda_ms(twin_tail, iters=5)
+        check(torch.equal(twin_tail(), counts),
+              "the twins' tail differs from seg_sums")
+        # seg_weights_gather. Bytes: per hit its position in and cf out;
+        # per block its slot and entry in and its total out; the entries'
+        # slots, bounds; the (B, W + 1) forward values, betas and start
+        # flags, the (B, W) sample ends, the score column and the dropout
+        # words read once; the whole-block sums and the accumulator
+        # written once. Operations: per hit 14 scan adds, two adds, an exp,
+        # the mask and ~5 for the gathers' index arithmetic; ~6 per
+        # position for alpha - Z.
+        nbytes = (8 * H + 12 * (H // lcs.SEG_BLK) + 12 * L * OC
+                  + 9 * B * (W + 1) + 4 * B * W + 4 * (nbins + 1)
+                  + (du.numel() * 4 if du is not None else 0)
+                  + 8 * L * OC + 4 * (nbins + 1))
+        b_ms, b_by = bound(nbytes, 23 * H + 6 * B * W)
+        # seg_sums. Bytes: the entries' slots, bounds and chain links and
+        # the whole-block sums read once; per real entry two cf and one
+        # block total read, its count written. Operations: ~10 per real
+        # entry.
+        s_bytes = 24 * L * OC + 16 * n_real
+        s_ms, s_by = bound(s_bytes, 10 * n_real)
         res[f"dropout_{dropout}"] = {
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "segsum_ms": segsum_ms}
-        log(f"seg_weights_gather (W={W}, B={B}, {len(seg.perm)} lengths, "
-            f"H={H}, dropout {dropout}): {ms:.4f} ms in one launch, plain "
-            f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by}), max |err| "
-            f"{err} (cf, t equal); segsum_expected {segsum_ms:.4f} ms")
+            "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "segsum_ms": segsum_ms, "segsum_device_ms": segsum_dev_ms,
+            "segsum_twin_tail_ms": tail_ms, "profile": profile,
+            "sums": {"max_abs_err": sums_err, "ms": sums_ms,
+                     "device_ms": sums_dev_ms, "plain_ms": sums_plain_ms,
+                     "bound_ms": s_ms, "bound_by": s_by}}
+        log(f"seg_weights_gather (W={W}, B={B}, {L} lengths, H={H}, dropout "
+            f"{dropout}): {ms:.4f} ms in one launch (device {dev_ms:.4f}), "
+            f"plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by}), max "
+            f"|err| {err} (cf, t, sums, accumulator equal)")
+        log(f"seg_sums ({L} x {OC} entries, {n_real} real, "
+            f"{res['shape']['chains']} chained): {sums_ms:.4f} ms (device "
+            f"{sums_dev_ms:.4f}), plain {sums_plain_ms:.2f} ms, bound "
+            f"{s_ms:.4f} ms ({s_by}), max |err| {sums_err} (equal)")
+        log(f"segsum_expected (dropout {dropout}): {segsum_ms:.4f} ms "
+            f"(device {segsum_dev_ms:.4f}); with the twins' tail "
+            f"{tail_ms:.4f} ms; device work of one call {profile}")
     log(f"seg_weights_gather: hits per length {res['hits']}, capacity {H}")
     return res
 
@@ -1791,6 +1887,7 @@ def run_session_over_budget(name, vocab, samples, want, kernels, dev):
                       f"{tag}: a pass launched {k} {launches[k]} times for "
                       f"{groups} groups")
             check(launches["seg_weights_gather"] == 0
+                  and launches["seg_sums"] == 0
                   and not sess.slot_cache and sess.cache_used == 0,
                   f"{tag}: the session cached a group")
             # A probe a group (the fused route probes twice: once for its
@@ -3308,6 +3405,7 @@ def rank_worker(mode: str, rank: str, world: str, data_path: str,
     kernels = {"forward_scan": lc.forward_scan,
                "backward_betas_scan": lc.backward_betas_scan,
                "seg_weights_gather": lcs.seg_weights_gather,
+               "seg_sums": lcs.seg_sums,
                "viterbi_scan": lc.viterbi_scan,
                "fused_forward_chunk": lcf.fused_forward_chunk,
                "fused_backward_chunk": lcf.fused_backward_chunk,
@@ -3488,7 +3586,8 @@ def run_multigpu(samples, vocab_a, vocab_f, prune_target, allow, expect,
           "[3i nccl] encode's ids differ from phase 3's")
     check(pr["digest"] == expect["prune_digest"],
           "[3i nccl] the corpus-sharded prune differs from phase 3c's")
-    for k in ("forward_scan", "backward_betas_scan", "seg_weights_gather"):
+    for k in ("forward_scan", "backward_betas_scan", "seg_weights_gather",
+              "seg_sums"):
         check(se["steady_launches"][k] == sess_groups,
               f"[3i nccl] a steady pass launched {k} "
               f"{se['steady_launches'][k]} times for {sess_groups} groups")
@@ -3500,7 +3599,7 @@ def run_multigpu(samples, vocab_a, vocab_f, prune_target, allow, expect,
           f"{en['launches']['match_cache']}, the walk "
           f"{en['walk_calls']}, for {groups} groups")
     for k in ("fused_forward_chunk", "fused_backward_chunk",
-              "seg_weights_gather", "viterbi_walk"):
+              "seg_weights_gather", "seg_sums", "viterbi_walk"):
         check(pr["launches"][k] > 0, f"[3i nccl] the prune launched {k} "
               "no time")
     log(f"[3i nccl, world 1] bit-equal to phases 3d, 3 and 3c; seconds "
@@ -3787,6 +3886,7 @@ def main() -> None:
                "fused_backward_chunk": lcf.fused_backward_chunk,
                "seg_weights": lcs.seg_weights,
                "seg_weights_gather": lcs.seg_weights_gather,
+               "seg_sums": lcs.seg_sums,
                "viterbi_walk": lat.viterbi_walk,
                "match_cache": lcp.match_probe,
                "match_cache_plain": count_plain_probes(lat)}
@@ -3811,11 +3911,11 @@ def main() -> None:
     session = {
         "a_32k": run_session("a: 32768 tokens", vocab_a, samples,
                              ("forward_scan", "backward_betas_scan",
-                              "seg_weights_gather"), kernels,
+                              "seg_weights_gather", "seg_sums"), kernels,
                              estep["a_32k"]["oracle_total"], dev, counts_a),
         "b_4k": run_session("b: 4096 tokens", vocab_b, samples,
                             ("fused_forward_chunk", "fused_backward_chunk",
-                             "seg_weights_gather"), kernels,
+                             "seg_weights_gather", "seg_sums"), kernels,
                             estep["b_4k"]["oracle_total"], dev, counts_b),
     }
     torch.cuda.empty_cache()
@@ -3829,14 +3929,15 @@ def main() -> None:
     phase_start("3c")
     pruned = run_prune("cached", vocab_c,
                        32768, samples, ("forward_scan", "backward_betas_scan",
-                                        "seg_weights_gather",
+                                        "seg_weights_gather", "seg_sums",
                                         "viterbi_scan"),
                        False, kernels, dev)
     # A table of 16,384 tokens has 15 bits: the fused route's E-steps.
     vocab_f = build_vocab(samples, 16384, prefixes=False)
     pruned_f = run_prune("fused", vocab_f, 8192, samples,
                          ("fused_forward_chunk", "fused_backward_chunk",
-                          "seg_weights_gather"), True, kernels, dev)
+                          "seg_weights_gather", "seg_sums"), True, kernels,
+                         dev)
     torch.cuda.empty_cache()
     alts_big = run_alternatives_big(dev)
 
@@ -3923,6 +4024,12 @@ def main() -> None:
               pruned["launches"]["seg_weights_gather"],
               segsum["dropout_0.0"],
               max(segsum[f"dropout_{d}"]["max_abs_err"] for d in (0.0, 0.1))),
+        entry("seg_sums", "seg_weights.cu",
+              "tokengeex_tpu/ops/lattice_jax.py:2206 (_segsum_expected_impl:"
+              " the interval sums and the accumulate)",
+              pruned["launches"]["seg_sums"], segsum["dropout_0.0"]["sums"],
+              max(segsum[f"dropout_{d}"]["sums"]["max_abs_err"]
+                  for d in (0.0, 0.1))),
         entry("viterbi_walk", "viterbi_walk.cu",
               "tokengeex_tpu/ops/lattice_jax.py:2374",
               e2e["a_32k_slab"]["launches"]["viterbi_walk"],

@@ -166,9 +166,9 @@ def time_segsum(table, tbl, batch, dev):
         du = cs.drop_words(batch, dropout, dev)
         A = lat.forward(tbl, batch, cache, drop_u=du, dropout=dropout)
         Bt = lat.backward_betas(tbl, batch, cache, drop_u=du, dropout=dropout)
-        args = lat.seg_weight_inputs(batch, A, Bt, seg, rows)
+        args = (seg, A, batch.end_index, batch.is_start, Bt, rows, du)
         res[f"gather_dropout_{dropout}_ms"] = cs.cuda_ms(
-            lambda: lcs.seg_weights_gather(*args, du, dropout=dropout,
+            lambda: lcs.seg_weights_gather(*args, dropout=dropout,
                                            pad=batch.pad), iters=20)
     g = torch.Generator(device=dev).manual_seed(1)
     r0, r1, d2 = (torch.rand(H, generator=g, device=dev) - 1.0

@@ -9,8 +9,8 @@ naming the checkout to measure (this one by default):
 
     python3 experiments/torch_session_ab.py [ROOT [PART ...]]
 
-PART names what to run (encode, session, prune_cached, prune_fused,
-merge); all of them by default.
+PART names what to run (encode, session, session_a, segsum,
+prune_cached, prune_fused, merge); all of them by default.
 
 To compare two commits, unpack the other one into a git-ignored
 directory (`git archive <commit> | tar -x -C build/parent`) and run this
@@ -27,7 +27,12 @@ With chip_smoke.py's seeded ~8 MB corpus at L = 16 it runs:
   - `run_session` over the 4,096-token vocabulary (bits 13, the fused
     route) at dropout 0 and 0.05: first and steady pass, their phase
     splits, the device busy and idle share of a steady pass at dropout 0,
-    and the session's checks;
+    and the session's checks; `session_a` the same over the
+    32,768-token vocabulary (the cached route);
+  - `check_segsum` on the first row group of session (a) (W = 8192, 512
+    rows, the 32k vocabulary's rank space) at dropout 0 and 0.1: the
+    whole `segsum_expected` call per group (`segsum_ms`) and its kernels
+    against their twins;
   - `run_prune` from 49,152 to 32,768 tokens (cached route) and from
     16,384 to 8,192 tokens (fused route) with the README recipe's
     settings through one session each: seconds and split per round;
@@ -58,7 +63,8 @@ import torch
 
 HERE = Path(__file__).resolve().parents[1]
 ROOT = Path(sys.argv[1]).resolve() if len(sys.argv) > 1 else HERE
-PARTS = ("encode", "session", "prune_cached", "prune_fused", "merge")
+PARTS = ("encode", "session", "session_a", "segsum", "prune_cached",
+         "prune_fused", "merge")
 RUN = sys.argv[2:] or list(PARTS)
 sys.path.insert(0, str(ROOT))  # the package and chip_smoke.py: ROOT's
 
@@ -104,6 +110,8 @@ def main() -> None:
     from tokengeex_tpu_torch.ops import lattice_cuda as lc
     from tokengeex_tpu_torch.ops import lattice_cuda_fused as lcf
     from tokengeex_tpu_torch.ops import lattice_cuda_seg as lcs
+    from tokengeex_tpu_torch.ops.match_table import TokenTable
+    from tokengeex_tpu_torch.train import device_session as ds
     from tokengeex_tpu_torch.train import estep_device as ed
     from tokengeex_tpu_torch.train.merge import VocabularyMerger
     from tokengeex_tpu_torch.utils.packing import pack_samples
@@ -138,8 +146,12 @@ def main() -> None:
 
         kernels["match_cache"] = lcp.match_probe
         kernels["match_cache_plain"] = cs.count_plain_probes(lat)
-    fused = ("fused_forward_chunk", "fused_backward_chunk",
-             "seg_weights_gather")
+    segsum = ("seg_weights_gather",)
+    if hasattr(lcs, "seg_sums"):
+        # ROOT's segsum launches its sums kernel too.
+        kernels["seg_sums"] = lcs.seg_sums
+        segsum += ("seg_sums",)
+    fused = ("fused_forward_chunk", "fused_backward_chunk") + segsum
     res = {"root": str(ROOT), "device": smi, "host_s": [host_yardstick()],
            "gc": {}, "merge_pass_gc": []}
     clock = GcClock()
@@ -170,12 +182,29 @@ def main() -> None:
                                             samples, fused, kernels, oracle,
                                             dev)}
 
+    def session_a():
+        oracle = cs.oracle_total(Model(vocab_a), samples[:64],
+                                 ed.DEVICE_EM_SNIPPET)
+        return {"session_a": cs.run_session(
+            "a: 32768 tokens", vocab_a, samples,
+            ("forward_scan", "backward_betas_scan") + segsum, kernels,
+            oracle, dev)}
+
+    def segsum_call():
+        sub = next(g for _, g in ed._padded_groups(
+            pack_samples(samples, width=ds.PACK_WIDTH,
+                         max_snippet=ed.DEVICE_EM_SNIPPET),
+            ds.PACK_WIDTH, ed.ROW_MULT))
+        table = TokenTable.build(vocab_a)
+        return {"segsum": cs.check_segsum(
+            lat, lcs, table, lat.DeviceTables.from_table(table, dev),
+            lat.prepare_batch(sub, cs.L_MAX, dev), dev)}
+
     def prune_cached():
         return {"prune_cached": cs.run_prune(
             "cached", cs.build_vocab(samples, 49152, prefixes=False), 32768,
-            samples, ("forward_scan", "backward_betas_scan",
-                      "seg_weights_gather", "viterbi_scan"), False, kernels,
-            dev)}
+            samples, ("forward_scan", "backward_betas_scan", "viterbi_scan")
+            + segsum, False, kernels, dev)}
 
     def prune_fused():
         return {"prune_fused": cs.run_prune(
@@ -186,9 +215,9 @@ def main() -> None:
         return {"merge": cs.run_merge(vocab_b, samples, groups, kernels,
                                       dev)}
 
-    runs = {"encode": encode, "session": session,
-            "prune_cached": prune_cached, "prune_fused": prune_fused,
-            "merge": merge}
+    runs = {"encode": encode, "session": session, "session_a": session_a,
+            "segsum": segsum_call, "prune_cached": prune_cached,
+            "prune_fused": prune_fused, "merge": merge}
     for name in PARTS:
         if name in RUN:
             torch.cuda.empty_cache()

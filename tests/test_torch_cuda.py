@@ -370,10 +370,12 @@ def test_cuda_backward_marginal_scan_matches_twin(cuda_device, L, dropout,
         assert torch.equal(g_, w)
 
 
-def _seg_case(dev, n_vocab=600):
+def _seg_case(dev, n_vocab=600, plant=False):
     """One packed group of the `_corpus` vocabulary in the session's
     rank space: its batch, tables, rank score rows, SegStruct and the
-    forward values and betas over its cache (the scans on the card)."""
+    forward values and betas over its cache (the scans on the card).
+    `plant` puts two ranks at a second length too (as a hash false
+    positive of the probe would), so that their SegStruct entries chain."""
     model, samples = _corpus(n_vocab, seed=3)
     table = TokenTable.build(model.vocab, min_bits=16)
     tbl = lat.DeviceTables.from_table(table, dev)
@@ -382,6 +384,14 @@ def _seg_case(dev, n_vocab=600):
     rank = lat.build_rank_space(table)
     _, raw = lat.match_cache(tbl, batch, C=512)
     slots = lat.remap_slots(torch.as_tensor(rank.lut, device=dev), raw)
+    if plant:
+        g = torch.Generator(device=dev).manual_seed(11)
+        for l_from, l_to in ((1, 4), (2, 6), (2, 9)):
+            r = int(slots[:, l_from][slots[:, l_from] < rank.n_pad][0])
+            miss = slots[:, l_to] == rank.n_pad
+            pick = miss & (torch.rand(miss.shape, generator=g, device=dev)
+                           < 0.02)
+            slots[:, l_to][pick] = r
     rows = lat.rank_score_rows(rank, table, dev)
     cache = (lat.score_from_slots(rows, slots), slots)
     A = lat.forward(tbl, batch, cache)
@@ -389,28 +399,118 @@ def _seg_case(dev, n_vocab=600):
     return batch, tbl, rows, lat.build_seg_struct(slots, rank.n_pad), A, Bt
 
 
+def _seg_du(batch, dropout, dev):
+    if not dropout:
+        return None
+    gen = torch.Generator(device=dev).manual_seed(5)
+    return torch.randint(-(2**31), 2**31 - 1, tuple(batch.sid.shape),
+                         generator=gen, dtype=torch.int32, device=dev)
+
+
+def _assert_seg_kernels_match_twins(batch, rows, seg, A, Bt, du, dropout):
+    """Both segsum kernels against their twins on the same inputs: every
+    output equal bit for bit (NaN where the twin has NaN)."""
+    args = (seg, A, batch.end_index, batch.is_start, Bt, rows, du)
+    kw = {"dropout": dropout, "pad": batch.pad}
+    want = lcs.seg_weights_gather_plain(*args, **kw)
+    before = lcs.seg_weights_gather.launches, lcs.seg_sums.launches
+    got = lcs.seg_weights_gather(*args, **kw)
+    torch.cuda.synchronize()
+    for g_, w in zip(got, want):
+        torch.testing.assert_close(g_, w, rtol=0, atol=0, equal_nan=True)
+    want_acc = lcs.seg_sums_plain(seg, *want[:3], want[3].clone())
+    got_acc = lcs.seg_sums(seg, *got[:3], got[3])
+    torch.cuda.synchronize()
+    assert (lcs.seg_weights_gather.launches, lcs.seg_sums.launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got_acc, want_acc, rtol=0, atol=0,
+                               equal_nan=True)
+    return got, got_acc
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dropout", [0.0, 0.1])
 def test_cuda_seg_weights_gather_matches_twin(cuda_device, dropout):
-    """Every length of a group in one launch, its streams gathered in the
-    kernel, equals the twin bit for bit (cf and t)."""
+    """Every length of a group in one launch, its streams made and gathered
+    in the kernel, equals the twin bit for bit (cf, t, the whole-block
+    sums, the zeroed accumulator); so do the sums of `seg_sums`."""
     batch, tbl, rows, seg, A, Bt = _seg_case(cuda_device)
-    args = lat.seg_weight_inputs(batch, A, Bt, seg, rows)
-    du = None
-    if dropout:
-        gen = torch.Generator(device=cuda_device).manual_seed(5)
-        du = torch.randint(-(2**31), 2**31 - 1, tuple(batch.sid.shape),
-                           generator=gen, dtype=torch.int32,
-                           device=cuda_device)
-    kw = {"dropout": dropout, "pad": batch.pad}
-    want = lcs.seg_weights_gather_plain(*args, du, **kw)
-    before = lcs.seg_weights_gather.launches
-    got = lcs.seg_weights_gather(*args, du, **kw)
+    du = _seg_du(batch, dropout, cuda_device)
+    got, acc = _assert_seg_kernels_match_twins(batch, rows, seg, A, Bt, du,
+                                               dropout)
+    assert len(seg.perm) == tbl.max_len and float(got[1].max()) > 1.0
+    assert int((got[2] > 0).sum()) > 0 and float(acc.sum()) > 100
+    assert bool((acc >= 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_cuda_seg_sums_chain_and_poison(cuda_device, dropout):
+    """Ranks planted at a second length (their SegStruct entries chained)
+    sum in ascending length as the twin sums them; betas raised by 5
+    (marginals up to e^5: whole blocks over the fixed point's limit)
+    poison their segments' sums to NaN in both."""
+    batch, tbl, rows, seg, A, Bt = _seg_case(cuda_device, plant=True)
+    assert int((seg.nxt >= 0).sum()) == 2 and int((seg.nxt <= -3).sum()) == 1
+    du = _seg_du(batch, dropout, cuda_device)
+    _assert_seg_kernels_match_twins(batch, rows, seg, A, Bt, du, dropout)
+    got, acc = _assert_seg_kernels_match_twins(
+        batch, rows, seg, A, Bt + 5.0, du, dropout)
+    assert bool((got[2] < 0).any()) and bool(acc.isnan().any())
+
+
+@pytest.mark.cuda
+def test_cuda_segsum_two_calls_bit_equal(cuda_device):
+    """No float atomics: two calls of segsum_expected give the same bits,
+    two launches each."""
+    batch, tbl, rows, seg, A, Bt = _seg_case(cuda_device)
+    du = _seg_du(batch, 0.1, cuda_device)
+    before = lcs.seg_weights_gather.launches, lcs.seg_sums.launches
+    got = [lat.segsum_expected(tbl, batch, A, Bt, seg, rows, du, 0.1)
+           for _ in range(2)]
     torch.cuda.synchronize()
-    assert lcs.seg_weights_gather.launches == before + 1
-    assert len(seg.perm) == tbl.max_len and float(want[1].max()) > 1.0
-    for g_, w in zip(got, want):
-        assert torch.equal(g_, w)
+    assert (lcs.seg_weights_gather.launches, lcs.seg_sums.launches) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(got[0], got[1]) and float(got[0].sum()) > 100
+
+
+@pytest.mark.cuda
+def test_cuda_seg_kernels_reject_bad_input(cuda_device):
+    """On the card the wrappers refuse what the kernels do not take, and
+    never fall back to the twins."""
+    import dataclasses
+
+    batch, tbl, rows, seg, A, Bt = _seg_case(cuda_device)
+    args = (seg, A, batch.end_index, batch.is_start, Bt, rows)
+    cf, t, mid, acc = lcs.seg_weights_gather(*args)
+    rep = dataclasses.replace
+    for bad in ((rep(seg, nxt=seg.nxt.cpu()), *args[1:]),
+                (seg, A.cpu(), *args[2:]),
+                (seg, A, batch.end_index.long(), *args[3:]),
+                (seg, *args[1:5], rows[:, None])):
+        with pytest.raises(ValueError):
+            lcs.seg_weights_gather(*bad)
+    with pytest.raises(ValueError):
+        lcs.seg_weights_gather(*args, dropout=0.1)  # no dropout words
+    for bad in ((seg, cf.cpu(), t, mid, acc), (seg, cf, t, mid.int(), acc),
+                (rep(seg, occ_slot=seg.occ_slot[:, :-1].contiguous()), cf, t,
+                 mid, acc)):
+        with pytest.raises(ValueError):
+            lcs.seg_sums(*bad)
+    before = lcs.seg_weights_gather.launches, lcs.seg_sums.launches
+    plain = (lcs.seg_weights_gather_plain, lcs.seg_sums_plain)
+
+    def refuse(*a, **k):
+        raise AssertionError("a twin ran on the card")
+
+    lcs.seg_weights_gather_plain = lcs.seg_sums_plain = refuse
+    try:
+        lat.segsum_expected(tbl, batch, A, Bt, seg, rows)
+        torch.cuda.synchronize()
+    finally:
+        lcs.seg_weights_gather_plain, lcs.seg_sums_plain = plain
+    assert (lcs.seg_weights_gather.launches, lcs.seg_sums.launches) == (
+        before[0] + 1, before[1] + 1)
 
 
 @pytest.mark.cuda
@@ -425,13 +525,14 @@ def test_cuda_session_over_budget_matches_budgeted(cuda_device, dropout):
     want = DeviceTrainSession(model, samples, 1024, kernel="slab",
                               device=cuda_device).e_step(model, dropout, 3)
     before = (lc.backward_marginal_scan.launches,
-              lcs.seg_weights_gather.launches)
+              lcs.seg_weights_gather.launches, lcs.seg_sums.launches)
     sess = DeviceTrainSession(model, samples, 1024, kernel="slab",
                               cache_budget=0, device=cuda_device)
     got = [sess.e_step(model, dropout, 3) for _ in range(2)]
     groups = len(sess._groups())
     assert lc.backward_marginal_scan.launches - before[0] == 2 * groups
     assert lcs.seg_weights_gather.launches == before[1]
+    assert lcs.seg_sums.launches == before[2]
     assert not sess.slot_cache
     for counts in got:
         np.testing.assert_allclose(counts, want, rtol=1e-3, atol=1e-4)
@@ -645,7 +746,7 @@ def test_cuda_session_matches_cpu(cuda_device, kernel):
     kernels = ((lcf.fused_forward_chunk, lcf.fused_backward_chunk)
                if kernel is None else
                (lc.forward_scan, lc.backward_betas_scan))
-    kernels += (lcs.seg_weights_gather,)
+    kernels += (lcs.seg_weights_gather, lcs.seg_sums)
     before = [k.launches for k in kernels]
     sess = DeviceTrainSession(model, samples, 1024, kernel=kernel,
                               device=cuda_device)

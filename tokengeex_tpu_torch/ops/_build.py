@@ -61,7 +61,8 @@ KERNELS: Dict[str, Tuple[str, str, tuple]] = {
     "seg_weights": ("seg_weights.cu", "tgx_seg_weights",
                     (P, P, P, P, P, I, I, P)),
     "seg_weights_gather": ("seg_weights.cu", "tgx_seg_weights_gather",
-                           (P,) * 9 + (I,) * 6 + (U, I, P)),
+                           (P,) * 18 + (I,) * 9 + (U, I, P)),
+    "seg_sums": ("seg_weights.cu", "tgx_seg_sums", (P,) * 9 + (I,) * 3 + (P,)),
     "viterbi_walk": ("viterbi_walk.cu", "tgx_viterbi_walk",
                      (P,) * 17 + (LL, LL) + (I,) * 10 + (P,)),
     "walk_rows": ("viterbi_walk.cu", "tgx_walk_rows",

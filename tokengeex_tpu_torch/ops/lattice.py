@@ -80,7 +80,7 @@ from . import hashing as H
 from . import lattice_cuda as lc
 from . import lattice_cuda_fused as lcf
 from . import lattice_cuda_probe as lcp
-from .lattice_cuda_seg import SEG_BLK, seg_weights_gather
+from .lattice_cuda_seg import SEG_BLK, seg_sums, seg_weights_gather
 from .match_table import TokenTable, _entry_arrays
 
 NEG_INF = float("-inf")
@@ -1234,7 +1234,19 @@ class SegStruct:
     blk_flat (the tuples are views of them), so that one launch reads
     every length; meta (2L+1,) int32, on the device, holds each length's
     first block (L+1 entries, the last the block count) and then its hit
-    count (`lattice_cuda_seg.seg_weights_gather`).
+    count (`lattice_cuda_seg.seg_weights_gather`). Two more arrays, which
+    the JAX package's SegStruct has not, serve the port's kernels:
+
+      blk_occ:  (H / SEG_BLK,) int32, per block of blk_flat the entry o of
+                its length whose segment holds the block's first hit (the
+                first o with end_pos >= the block's start; OC past them)
+      nxt:      (L, OC) int32, the entries of one slot across lengths: >= 0
+                the slot's first entry (its shortest length), which occurs
+                again at flat entry l0 * OC + o = nxt; -1 its first and
+                only entry; -2 a pad, or a later entry that is the slot's
+                last; <= -3 a later entry, the slot occurring again at
+                -3 - nxt. One token has one length, so a slot occurs at a
+                second only through a hash false positive of the probe.
     """
 
     perm: tuple
@@ -1246,12 +1258,15 @@ class SegStruct:
     perm_flat: torch.Tensor
     blk_flat: torch.Tensor
     meta: torch.Tensor
+    blk_occ: torch.Tensor
+    nxt: torch.Tensor
 
     def nbytes(self) -> int:
         return 4 * (sum(int(p.numel()) for p in self.perm)
                     + int(self.pre_pos.numel()) + int(self.end_pos.numel())
                     + int(self.occ_slot.numel())
-                    + sum(int(b.numel()) for b in self.blk_slot))
+                    + sum(int(b.numel()) for b in self.blk_slot)
+                    + int(self.blk_occ.numel()) + int(self.nxt.numel()))
 
     @staticmethod
     def est_bytes(B: int, L: int, W: int) -> int:
@@ -1302,102 +1317,40 @@ def build_seg_struct(slots: torch.Tensor, nbins: int) -> SegStruct:
                           for l0, cap in enumerate(caps)]).to(torch.int32)
     nblk = [cap // SEG_BLK for cap in caps]
     boff = np.concatenate([[0], np.cumsum(nblk)]).tolist()
+    occ_slot, end_pos = torch.stack(occ2), torch.stack(end2)
+    # Ends ascend with o (pads, at the cap, last).
+    blk_occ = torch.cat([torch.searchsorted(
+        end_pos[l0], torch.arange(0, cap, SEG_BLK, dtype=torch.int32,
+                                  device=dev)) for l0, cap in enumerate(caps)])
     return SegStruct(perm=torch.split(perm_flat, caps),
-                     pre_pos=torch.stack(pre2), end_pos=torch.stack(end2),
-                     n_hit=tuple(n_hit), occ_slot=torch.stack(occ2),
+                     pre_pos=torch.stack(pre2), end_pos=end_pos,
+                     n_hit=tuple(n_hit), occ_slot=occ_slot,
                      blk_slot=torch.split(blk_flat, nblk),
                      perm_flat=perm_flat, blk_flat=blk_flat,
                      meta=torch.tensor(boff + list(n_hit), dtype=torch.int32,
-                                       device=dev))
+                                       device=dev),
+                     blk_occ=blk_occ.to(torch.int32),
+                     nxt=_slot_chains(occ_slot, end_pos, caps))
 
 
-def _interval_from_blocks(cf: torch.Tensor, t: torch.Tensor,
-                          seg: SegStruct) -> torch.Tensor:
-    """(L, OC) per-interval sums w[pre+1 ... end] of every length of
-    `seg` at once, from the in-block inclusive cumsums `cf` (H,) and block
-    totals `t` (H / SEG_BLK,) of the lengths laid end to end; pre_pos and
-    end_pos index within their length, whose cap (the sentinel) reads 0.
-    The block prefix restarts at each length: an f64 cumsum along the rows
-    of an (L, blocks) array, split into f32 hi + lo (at least as accurate
-    as the JAX package's TwoSum scan), and the block-prefix difference
-    stays compensated: a plain f32 difference rounds at ulp of the length's
-    prefix, enough to push small counts negative."""
-    L = len(seg.perm)
-    M = max(p.shape[0] for p in seg.perm) // SEG_BLK
-    nb = t.shape[0]
-    dev = cf.device
-    boff = seg.meta[: L + 1].long()  # each length's first block
-    blocks = torch.arange(nb, device=dev)
-    row = torch.searchsorted(boff[1:].contiguous(), blocks, right=True)
-    t2 = torch.zeros(L * M, dtype=torch.float64, device=dev)
-    t2[row * M + blocks - boff[row]] = t.double()
-    p = torch.cumsum(t2.view(L, M), dim=1)
-    hi = p.float()
-    lo = (p - hi.double()).float()
-    # Block k's exclusive prefix; the cap's block reads 0.
-    nblk = (boff[1:] - boff[:-1])[:, None]
-    zero = cf.new_zeros((L, 1))
-    hip = torch.cat([zero, hi], dim=1).scatter_(1, nblk, 0.0)
-    lop = torch.cat([zero, lo], dim=1).scatter_(1, nblk, 0.0)
-    cap = nblk * SEG_BLK
-    first = boff[:-1, None] * SEG_BLK
-    end = seg.end_pos.long()
-    pre = seg.pre_pos.long()
-    H = cf.shape[0]
-    cfp = torch.cat([cf, cf.new_zeros(1)])
-    ce = torch.where(end == cap, H, first + end)
-    cp = torch.where(pre == cap, H, first + pre)
-    be = end // SEG_BLK
-    bb = pre // SEG_BLK
-    a = hip.gather(1, be)
-    b = -hip.gather(1, bb)
-    s = a + b
-    a1 = s - b
-    b1 = s - a1
-    err = (a - a1) + (b - b1)
-    small = (err + (lop.gather(1, be) - lop.gather(1, bb))
-             + (cfp[ce] - cfp[cp]))
-    return s + small
-
-
-def _seg_differences(seg: SegStruct, sc_pad: torch.Tensor) -> torch.Tensor:
-    """(H,) telescoping score differences over the sorted hits of every
-    length: between consecutive occurring slots, at each slot's segment
-    start (pad entries land in a dropped cell)."""
-    L = len(seg.perm)
-    H = seg.perm_flat.shape[0]
-    boff = seg.meta[: L + 1].long()[:, None] * SEG_BLK
-    cap = boff[1:] - boff[:-1]
-    pre = seg.pre_pos.long()
-    start = torch.where(seg.end_pos.long() != cap,
-                        torch.where(pre == cap, 0, pre + 1) + boff[:-1], H)
-    sc_occ = sc_pad[seg.occ_slot.long()]
-    dvals = sc_occ - torch.cat([sc_occ[:, :1], sc_occ[:, :-1]], dim=1)
-    d = torch.zeros(H + 1, dtype=torch.float32, device=sc_pad.device)
-    d.index_add_(0, start.reshape(-1), dvals.reshape(-1))
-    return d[:H]
-
-
-def seg_weight_inputs(batch: DeviceBatch, A: torch.Tensor, Bt: torch.Tensor,
-                      seg: SegStruct, score_rows: torch.Tensor) -> tuple:
-    """Positional arguments of `lattice_cuda_seg.seg_weights_gather`
-    (before du) for one group: the sorted hits, alpha - Z (B, W), the
-    betas (B, W+1), the telescoping score differences, the block anchors
-    and the lengths' layout."""
-    W = batch.width
-    Z = torch.gather(A, 1, batch.end_index.long())
-    Z = torch.where(torch.isfinite(Z) & (Z > -1e37), Z, 0.0)
-    # A[p] at a boundary holds the PREVIOUS sample's total; tokens
-    # starting at p belong to the next sample (forward value 0).
-    a = torch.where(batch.is_start[:, :W], 0.0, A[:, :W])
-    # Removed and empty slots carry the -3e38 sentinel, which would wreck
-    # the telescoping sums; their weights are exp(x - 200) = 0.
-    sc = torch.clamp(score_rows[: rows_nbins(score_rows)].view(torch.float32),
-                     min=-200.0)
-    sc_pad = torch.cat([sc, sc.new_zeros(1)])
-    return (seg.perm_flat, (a - Z).contiguous(), Bt.contiguous(),
-            _seg_differences(seg, sc_pad), sc_pad[seg.blk_flat.long()],
-            seg.meta)
+def _slot_chains(occ_slot: torch.Tensor, end_pos: torch.Tensor,
+                 caps) -> torch.Tensor:
+    """SegStruct.nxt: each slot's real entries in ascending length."""
+    L, OC = occ_slot.shape
+    cap = torch.tensor(caps, dtype=end_pos.dtype, device=end_pos.device)
+    ent = torch.nonzero((end_pos != cap[:, None]).reshape(-1)).reshape(-1)
+    # A stable sort by slot keeps each slot's entries in ascending length.
+    order = torch.sort(occ_slot.reshape(-1)[ent], stable=True)
+    ent = ent[order.indices]
+    again = order.values[1:] == order.values[:-1]
+    has_next = torch.cat([again, again.new_zeros(1)])
+    first = torch.cat([again.new_ones(1), ~again])
+    after = torch.cat([ent[1:], ent.new_zeros(1)])
+    val = torch.where(first, torch.where(has_next, after, -1),
+                      torch.where(has_next, -3 - after, -2))
+    nxt = torch.full((L * OC,), -2, dtype=torch.int64, device=end_pos.device)
+    nxt[ent] = val
+    return nxt.view(L, OC).to(torch.int32)
 
 
 def segsum_expected(tbl: DeviceTables, batch: DeviceBatch, A: torch.Tensor,
@@ -1410,26 +1363,23 @@ def segsum_expected(tbl: DeviceTables, batch: DeviceBatch, A: torch.Tensor,
     (nbins,) accumulator as `backward_expected` (reference:
     src/lattice.rs:245-312), nbins = rows_nbins(score_rows).
 
-    Every length's hits are taken in one `seg_weights_gather` launch,
-    which gathers each hit's alpha - Z and beta in sorted order; the score
-    term is expanded over the sorted hits from the (nbins,) score vector
-    by telescoping differences between consecutive occurring slots plus
-    one anchor per block; the kernel takes the in-block scans of the TRUE
-    marginal exp(A + score + beta - Z) in [0, 1], and each slot's sum is
-    an interval of those scans (one token has one length, so the lengths'
-    slots never share a bin). Factoring exp(score) out of the sum let a
-    rare token sharing a block with e^40-scale neighbours lose its whole
-    count to rounding."""
+    Two launches a group (csrc/seg_weights.cu): `seg_weights_gather` takes
+    every length's hits at once, gathers each hit's alpha - Z and beta in
+    sorted order, expands the score term over the sorted hits from the
+    (nbins,) score vector by telescoping differences between consecutive
+    occurring slots plus one anchor per block, and takes the in-block scans
+    of the TRUE marginal exp(A + score + beta - Z) in [0, 1]; `seg_sums`
+    makes each slot's count from the scans of its segment. Factoring
+    exp(score) out of the sum let a rare token sharing a block with
+    e^40-scale neighbours lose its whole count to rounding."""
     nbins = rows_nbins(score_rows)
     use_drop = drop_u is not None and dropout > 0.0
     with phase(timer, "segsum"):
-        cf, t = seg_weights_gather(
-            *seg_weight_inputs(batch, A, Bt, seg, score_rows),
+        cf, t, mid, acc = seg_weights_gather(
+            seg, A, batch.end_index, batch.is_start, Bt, score_rows,
             drop_u if use_drop else None,
             dropout=dropout if use_drop else 0.0, pad=batch.pad)
-        acc = torch.zeros(nbins + 1, dtype=torch.float32, device=A.device)
-        acc.index_add_(0, seg.occ_slot.reshape(-1).long(),
-                       _interval_from_blocks(cf, t, seg).reshape(-1))
+        acc = seg_sums(seg, cf, t, mid, acc)
     return acc[:nbins]
 
 
