@@ -13,6 +13,7 @@ version "2.0": {version, special_tokens, processors, vocab}
 
 from __future__ import annotations
 
+import contextlib
 import json
 import random
 from typing import Dict, List, Optional, Sequence
@@ -143,21 +144,29 @@ class Tokenizer:
     def _encode_batch_any(self, texts: Sequence[str], ordinary: bool,
                           dropout: float, backend: str, seed: int,
                           timer) -> List[List[int]]:
-        layout, spans = self._layout_spans(texts, ordinary)
+        root = contextlib.nullcontext()
         if backend == "device":
-            from ..train.estep_device import encode_corpus_device
+            # The device pass's root span (the host paths import no torch).
+            from ..utils import trace
 
-            encoded = encode_corpus_device(
-                self.model, [s.encode("utf-8") for s in spans],
-                dropout=dropout, seed=seed, device=self.device, timer=timer)
-        elif backend == "oracle":
-            encoded = self.model.encode_batch(spans, dropout)
-        else:
-            raise NotImplementedError(
-                f"backend={backend!r}: the port has the 'device' and "
-                "'oracle' backends; the native runtime and the 'auto' "
-                "crossover are not part of the port (ROADMAP.md)")
-        return self._stitch(layout, encoded)
+            root = trace.span("encode")
+        with root:
+            layout, spans = self._layout_spans(texts, ordinary)
+            if backend == "device":
+                from ..train.estep_device import encode_corpus_device
+
+                encoded = encode_corpus_device(
+                    self.model, [s.encode("utf-8") for s in spans],
+                    dropout=dropout, seed=seed, device=self.device,
+                    timer=timer)
+            elif backend == "oracle":
+                encoded = self.model.encode_batch(spans, dropout)
+            else:
+                raise NotImplementedError(
+                    f"backend={backend!r}: the port has the 'device' and "
+                    "'oracle' backends; the native runtime and the 'auto' "
+                    "crossover are not part of the port (ROADMAP.md)")
+            return self._stitch(layout, encoded)
 
     # -- Decode ------------------------------------------------------------
 

@@ -64,18 +64,17 @@ one launch per group over every token length's hits).
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import functools
-import time
-from collections import defaultdict
-from typing import Dict, List, Mapping, Optional, Tuple, Union
+from typing import List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..core.types import NoPathError
+from ..utils.device import upload
 from ..utils.packing import PackedBatch
+from ..utils.trace import PhaseTimer, phase
 from . import hashing as H
 from . import lattice_cuda as lc
 from . import lattice_cuda_fused as lcf
@@ -92,34 +91,6 @@ NEG = lc.NEG
 # routing rule (its vscan layout).
 VSCAN_MAX_BITS = 15
 
-
-
-class PhaseTimer:
-    """Host seconds per phase of a pass. Synchronises the device at each
-    phase boundary so device work is charged to the phase that queued
-    it; pass one only when the split is wanted."""
-
-    def __init__(self, device: torch.device):
-        self.device = torch.device(device)
-        self.seconds: Dict[str, float] = defaultdict(float)
-
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    @contextlib.contextmanager
-    def __call__(self, name: str):
-        self._sync()
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self._sync()
-            self.seconds[name] += time.perf_counter() - t0
-
-
-def phase(timer: Optional[PhaseTimer], name: str):
-    return timer(name) if timer is not None else contextlib.nullcontext()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -257,8 +228,8 @@ class DeviceTables:
         bits, max_len, vocab_size, bk_bits, bk_salt = meta
 
         def dev(a, dtype):
-            return torch.as_tensor(np.array(a, copy=True),
-                                   device=device).to(dtype).contiguous()
+            return upload(np.array(a, copy=True),
+                          device).to(dtype).contiguous()
 
         def host(name):
             a = arrays.get(name)
@@ -315,7 +286,7 @@ _CHAIN_CONSTS: dict = {}
 
 
 def _consts_on(device, arrays) -> tuple:
-    return tuple(torch.as_tensor(a, device=device) for a in arrays)
+    return tuple(upload(a, device) for a in arrays)
 
 
 def _prep_consts(W: int, L: int, device):
@@ -393,8 +364,7 @@ def prepare_batch_inputs(packed: PackedBatch, device):
     """Compact device inputs (~2 bytes per corpus byte): raw bytes and
     boundary flags, which a session caches across passes."""
     bytes_arr, flags = host_batch_inputs(packed)
-    return (torch.as_tensor(bytes_arr, device=device),
-            torch.as_tensor(flags, device=device))
+    return upload(bytes_arr, device), upload(flags, device)
 
 
 def prepare_batch(packed: PackedBatch, L: int, device) -> DeviceBatch:
@@ -467,9 +437,8 @@ def prepare_chained_batch(rows: np.ndarray, n_valid: np.ndarray,
     first window of a sample — its pad bytes are zeros and invalid).
     """
     p1, p2, sid, is_start, is_end, end_index, rinv1, rinv2 = _chained_prep(
-        torch.as_tensor(rows, device=device),
-        torch.as_tensor(n_valid.astype(np.int32), device=device),
-        torch.as_tensor(has_tail, device=device),
+        upload(rows, device), upload(n_valid.astype(np.int32), device),
+        upload(has_tail, device),
         _chain_consts(W, L, device), L, W)
     return DeviceBatch(
         p1=p1, p2=p2, sid=sid, is_start=is_start, is_end=is_end,
@@ -1150,15 +1119,14 @@ def rank_score_rows(rank: RankSpace, tbl: TokenTable, device) -> torch.Tensor:
     layout for the TPU's gather engine; the per-rank values are these."""
     col = np.full(rank.n_pad + 1, _NEG_INF_BITS, dtype=np.int32)
     col[: rank.occ.size] = tbl.bk[:, 1::2].reshape(-1)[rank.occ]
-    return torch.as_tensor(col, device=device)
+    return upload(col, device)
 
 
 def slot_score_rows(tbl: DeviceTables) -> torch.Tensor:
     """(num_slots + 1,) int32 f32-score bits per probe slot of the default
     probe (bucket when the table has it, else the two cuckoo tables), the
     -inf miss sentinel last."""
-    neg = torch.tensor([_NEG_INF_BITS], dtype=torch.int32,
-                       device=tbl.t1_fast.device)
+    neg = upload([_NEG_INF_BITS], tbl.t1_fast.device, torch.int32)
     if tbl.t_bucket is not None:
         return torch.cat([tbl.t_bucket[:, 1::2].reshape(-1), neg])
     return torch.cat([tbl.t1_fast[:, 1], tbl.t2_fast[:, 1], neg])
@@ -1327,8 +1295,7 @@ def build_seg_struct(slots: torch.Tensor, nbins: int) -> SegStruct:
                      n_hit=tuple(n_hit), occ_slot=occ_slot,
                      blk_slot=torch.split(blk_flat, nblk),
                      perm_flat=perm_flat, blk_flat=blk_flat,
-                     meta=torch.tensor(boff + list(n_hit), dtype=torch.int32,
-                                       device=dev),
+                     meta=upload(boff + list(n_hit), dev, torch.int32),
                      blk_occ=blk_occ.to(torch.int32),
                      nxt=_slot_chains(occ_slot, end_pos, caps))
 
@@ -1337,7 +1304,7 @@ def _slot_chains(occ_slot: torch.Tensor, end_pos: torch.Tensor,
                  caps) -> torch.Tensor:
     """SegStruct.nxt: each slot's real entries in ascending length."""
     L, OC = occ_slot.shape
-    cap = torch.tensor(caps, dtype=end_pos.dtype, device=end_pos.device)
+    cap = upload(caps, end_pos.device, end_pos.dtype)
     ent = torch.nonzero((end_pos != cap[:, None]).reshape(-1)).reshape(-1)
     # A stable sort by slot keeps each slot's entries in ascending length.
     order = torch.sort(occ_slot.reshape(-1)[ent], stable=True)
@@ -1446,8 +1413,8 @@ def viterbi_cached(tbl: DeviceTables, batch: DeviceBatch,
 def pick_span_values_device(A: torch.Tensor, rows_idx,
                             ends_idx) -> torch.Tensor:
     """A[rows_idx[k], ends_idx[k]] per span, left on A's device."""
-    r = torch.as_tensor(np.asarray(rows_idx, np.int64), device=A.device)
-    e = torch.as_tensor(np.asarray(ends_idx, np.int64), device=A.device)
+    r = upload(np.asarray(rows_idx, np.int64), A.device)
+    e = upload(np.asarray(ends_idx, np.int64), A.device)
     return A[r, e]
 
 
@@ -1696,11 +1663,10 @@ def walk_index(spans, B: int, W: int, device) -> WalkIndex:
     row_ptr = np.searchsorted(r[order], np.arange(B + 1))
     ce = np.clip(e, 0, W)
     cs = np.clip(s, 0, None)
-    t = torch.as_tensor(sp.astype(np.int32), device=device)
+    t = upload(sp.astype(np.int32), device)
 
     def dev(a, dtype):
-        return torch.as_tensor(np.ascontiguousarray(a).astype(dtype),
-                               device=device)
+        return upload(np.ascontiguousarray(a).astype(dtype), device)
 
     return WalkIndex(
         rows=t[:, 0].contiguous(), starts=t[:, 1].contiguous(),

@@ -51,7 +51,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, upload
 from ..utils.packing import PackedBatch
 
 # Seconds a collective may wait for the other ranks before it fails.
@@ -178,7 +178,7 @@ def all_reduce_counts(counts: np.ndarray) -> np.ndarray:
     array's own dtype: int64 counts stay exact. One rank: `counts`."""
     if not initialized():
         return counts
-    t = torch.tensor(counts, device=_comm_device())  # a copy: `counts` stays
+    t = upload(np.array(counts, copy=True), _comm_device())  # `counts` stays
     dist.all_reduce(t)
     return t.cpu().numpy()
 
@@ -188,7 +188,7 @@ def allgather_ints(values) -> np.ndarray:
     row = np.asarray(values, np.int64).reshape(1, -1)
     if not initialized():
         return row
-    t = torch.from_numpy(row).to(_comm_device())
+    t = upload(row, _comm_device())
     out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
     dist.all_gather(out, t)
     return torch.cat(out).cpu().numpy()
@@ -201,7 +201,7 @@ def allgather_fail(fail: int, value: float) -> Tuple[int, float]:
     row = np.asarray([float(fail), float(value)], np.float64)
     if not initialized():
         return int(fail), float(value)
-    t = torch.from_numpy(row).to(_comm_device())
+    t = upload(row, _comm_device())
     out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
     dist.all_gather(out, t)
     arr = torch.stack(out).cpu().numpy()
@@ -231,7 +231,7 @@ def allgather_ragged(x: np.ndarray) -> List[np.ndarray]:
     top = int(lens.max())
     dev = _comm_device()
     buf = torch.zeros(top, dtype=torch.int32, device=dev)
-    buf[: x.size] = torch.from_numpy(x).to(dev)
+    buf[: x.size] = upload(x, dev)
     out = [torch.empty_like(buf) for _ in range(len(lens))]
     dist.all_gather(out, buf)
     return [o[: int(n)].cpu().numpy() for o, n in zip(out, lens)]

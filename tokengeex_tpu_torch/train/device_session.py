@@ -53,7 +53,8 @@ from ..models.unigram import Model
 from ..ops import lattice as lat
 from ..ops.match_table import TokenTable
 from ..parallel import mesh as pmesh
-from ..utils.device import resolve_device
+from ..utils import trace
+from ..utils.device import resolve_device, upload
 from ..utils.packing import PackedBatch, pack_samples
 from . import estep_device as ed
 
@@ -134,8 +135,9 @@ class DeviceTrainSession:
             if PACK_WIDTH > self.width and \
                     sum(len(s) for s in samples) >= PACK_WIDTH * 128:
                 self.width = PACK_WIDTH
-            self.packed = pack_samples(samples, width=self.width,
-                                       max_snippet=self.max_snippet)
+            self.packed = ed.count_packing(
+                pack_samples(samples, width=self.width,
+                             max_snippet=self.max_snippet), samples)
             self._long_set = {si for si, s in enumerate(samples)
                               if self.max_snippet is not None
                               and len(s) > self.max_snippet}
@@ -215,7 +217,7 @@ class DeviceTrainSession:
     def _remap(self, slots: torch.Tensor) -> torch.Tensor:
         """Probe slots -> dense ranks, once per cached group."""
         if self._lut_dev is None:
-            self._lut_dev = torch.as_tensor(self.rank.lut, device=self.dev)
+            self._lut_dev = upload(self.rank.lut, self.dev)
         return lat.remap_slots(self._lut_dev, slots)
 
     def _fold(self, acc: Optional[torch.Tensor]) -> np.ndarray:
@@ -279,7 +281,8 @@ class DeviceTrainSession:
                 return self._freq_group_list
             cap = ed.MAX_ENCODE_WIDTH
             width = ed._pick_width(self.samples, cap)
-            packed = pack_samples(self.samples, width=width, max_snippet=cap)
+            packed = ed.count_packing(pack_samples(
+                self.samples, width=width, max_snippet=cap), self.samples)
             self._freq_group_list = [
                 (gi, block) for gi, _, _, block in
                 ed.rank_groups(packed, width, self.local_shard)]
@@ -405,13 +408,18 @@ class DeviceTrainSession:
         float64, reusing the cached slots across calls. dropout > 0 draws
         each group's coins from a torch.Generator seeded with (seed,
         group), so a seed gives the same counts on every call. `timer`
-        collects the seconds per phase (tables: the rebind, prep, probe,
-        remap, seg_build, regather, forward, backward, segsum, fold)."""
-        with lat.phase(timer, "tables"):
+        collects the seconds per phase (rebind, prep, probe, remap,
+        seg_build, regather, forward, backward, segsum, fold). Counts
+        `groups.cached` (a group served from the slot or seg cache) and
+        `groups.probed` (probed afresh) once a pass."""
+        with lat.phase(timer, "rebind"):
             self._rebind(model)
         acc = None
         z_parts, z_spans = [], []
+        cached = 0
         for gi, sub in self._groups():
+            cached += not self.exact and (
+                gi in self.slot_cache or self.seg_cache.get(gi) is not None)
             batch = self._batch_for(gi, sub, timer)
             drop_u = None
             if dropout > 0.0:
@@ -475,6 +483,8 @@ class DeviceTrainSession:
                 z_spans.extend(info["spans"])
             if task is not None:
                 task.record(info["nbytes"], info["nsamples"])
+        trace.count("groups.cached", cached)
+        trace.count("groups.probed", len(self._groups()) - cached)
         with lat.phase(timer, "fold"):
             expected = (lat.fold_expected(self.dt, acc, "exact")
                         if self.exact and acc is not None
@@ -506,10 +516,13 @@ class DeviceTrainSession:
         the device (`lattice.walk_counts`), and only the (V,) counts and
         the span-end dp values are read back, once per pass. Samples longer
         than the frequency packing's cap take the chained encode over the
-        session's table. `timer` collects the seconds per phase (tables:
-        the rebind, pack: the frequency packing, made on the first pass,
-        prep, probe, regather, kernel, walk, readback)."""
-        with lat.phase(timer, "tables"):
+        session's table. `timer` collects the seconds per phase (rebind,
+        pack: the frequency packing, made on the first pass, prep, probe,
+        regather, kernel, walk, readback, and the chained encode's).
+        Counts `groups.cached` (a group walked over its cached ranks) and
+        `groups.probed` once a pass; the chained encode runs in the span
+        `chained`."""
+        with lat.phase(timer, "rebind"):
             self._rebind(model)
         V = model.vocab_size()
         freqs = np.zeros(V, dtype=np.int64)
@@ -517,6 +530,7 @@ class DeviceTrainSession:
         dp_ends, spans_checked = [], []
         with lat.phase(timer, "pack"):
             groups = self._freq_groups()
+        cached = 0
         for gi, sub in groups:
             batch = self._freq_batch(gi, sub, timer)
             key = self._freq_key(gi)
@@ -527,6 +541,7 @@ class DeviceTrainSession:
                     probe="exact", timer=timer, chains=chains)
             elif self._freq_shared and not self._fused() \
                     and gi in self.slot_cache:
+                cached += 1
                 dp, best_l = lat.viterbi_cached(
                     self.dt, batch, self.slot_cache[gi], self.slot_rows,
                     timer=timer, chains=chains)
@@ -551,6 +566,8 @@ class DeviceTrainSession:
             if task is not None:
                 task.record(sum(e - s for (_, s, e, _, _) in info["whole"]),
                             len({sp[3] for sp in info["whole"]}))
+        trace.count("groups.cached", cached)
+        trace.count("groups.probed", len(groups) - cached)
         fail, value = -1, 0.0
         if counts is not None:
             with lat.phase(timer, "readback"):
@@ -570,19 +587,19 @@ class DeviceTrainSession:
         long_freqs = np.zeros(V, dtype=np.int64)
         if long_idx:
             try:
-                encoded = ed.encode_corpus_device(
-                    model, [self.samples[si] for si in long_idx],
-                    table=self.tbl, device=self.dev, timer=timer,
-                    dtype=self.dtype, probe="exact" if self.exact else None,
-                    local=True)
+                with trace.span("chained"):
+                    encoded = ed.encode_corpus_device(
+                        model, [self.samples[si] for si in long_idx],
+                        table=self.tbl, device=self.dev, timer=timer,
+                        dtype=self.dtype,
+                        probe="exact" if self.exact else None, local=True)
+                    ids = [np.asarray(r, np.int64) for r in encoded if r]
+                    if ids:
+                        long_freqs += np.bincount(np.concatenate(ids),
+                                                  minlength=V)
             except NoPathError as err:
                 if fail < 0:
                     fail, value = 0, err.length
-            else:
-                ids = [np.asarray(r, np.int64) for r in encoded if r]
-                if ids:
-                    long_freqs += np.bincount(np.concatenate(ids),
-                                              minlength=V)
             if task is not None:
                 task.record(sum(len(self.samples[si]) for si in long_idx),
                             len(long_idx))

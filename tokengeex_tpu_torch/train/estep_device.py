@@ -37,7 +37,8 @@ from ..models.unigram import Model
 from ..ops import lattice as lat
 from ..ops.match_table import TokenTable
 from ..parallel import mesh as pmesh
-from ..utils.device import resolve_device
+from ..utils import trace
+from ..utils.device import resolve_device, upload
 from ..utils.packing import PackedBatch, pack_samples
 from ..utils.task import Task
 
@@ -66,6 +67,15 @@ def _em_snippet_cap(max_snippet: Optional[int],
     if max_snippet is None or dtype == torch.float64:
         return max_snippet
     return min(max_snippet, DEVICE_EM_SNIPPET)
+
+
+def count_packing(packed: PackedBatch, samples) -> PackedBatch:
+    """`packed`, the packing of `samples`, counted while a trace records:
+    `pack.positions` its rows x width, `pack.bytes` the samples' bytes."""
+    if trace.on():
+        trace.count("pack.positions", packed.bytes_arr.size)
+        trace.count("pack.bytes", sum(map(len, samples)))
+    return packed
 
 
 def _pick_width(samples: Sequence[bytes], max_snippet: Optional[int]) -> int:
@@ -155,7 +165,8 @@ class DeviceCorpus:
                          if len(s) > self.cap]
         short = [s if len(s) <= self.cap else b"" for s in samples]
         self.width = _pick_width(short, None)
-        self.packed = pack_samples(short, width=self.width, max_snippet=None)
+        self.packed = count_packing(
+            pack_samples(short, width=self.width, max_snippet=None), short)
         self.groups = []
         self.blocks = {}
         for gi, rows, lo, block in rank_groups(self.packed, self.width,
@@ -473,10 +484,9 @@ def _encode_chained(
                 best_l_store[r][k] = best_l_host[r].copy()
                 end_info[r] = (k, n, float(dp_last[i]))
                 cont[r] = (k + 1) * W < len(long_samples[r][1])
-            mask = torch.as_tensor(cont, device=device)
+            mask = upload(cont, device)
             carry_hist = torch.where(mask[:, None], tail,
-                                     torch.tensor(lat.NEG_INF,
-                                                  device=device))
+                                     upload(lat.NEG_INF, device))
 
     # Chained backtrack: positions <= 0 jump into the previous window.
     token_to_id = model.token_to_ids
@@ -554,7 +564,8 @@ def run_e_step_device(
     with lat.phase(timer, "pack"):
         max_snippet = _em_snippet_cap(max_snippet, dtype)
         width = _pick_width(samples, max_snippet)
-        packed = pack_samples(samples, width=width, max_snippet=max_snippet)
+        packed = count_packing(pack_samples(
+            samples, width=width, max_snippet=max_snippet), samples)
     gen = (torch.Generator(device=dev).manual_seed(seed)
            if dropout > 0.0 else None)
 
@@ -650,6 +661,7 @@ def _raise_pairs_failure(code: int, length: float) -> None:
                        "(model/table mismatch)")
 
 
+@trace.traced("merge")
 def count_pairs_arrays(model: Model, samples: Sequence[bytes],
                        task: Optional[Task] = None,
                        table_hints: Optional[Tuple[int, int]] = None,
@@ -827,7 +839,8 @@ def _pack_tokens(values: Sequence[bytes]) -> PackedBatch:
     is_start[row, start] = True
     spans = list(zip(row.tolist(), start.tolist(), (start + n).tolist(),
                      order.tolist(), [0] * order.size))
-    return PackedBatch(bytes_arr, sample_id, is_start, end_index, spans)
+    return count_packing(PackedBatch(bytes_arr, sample_id, is_start,
+                                     end_index, spans), values)
 
 
 def alternative_groups(model: Model, dt: lat.DeviceTables,
@@ -857,8 +870,7 @@ def alternative_groups(model: Model, dt: lat.DeviceTables,
                      (index.ends - index.starts - 1).long(),
                      index.rows.long())
             whole = cache[entry]
-            cache.index_put_(entry, torch.tensor(
-                lat.NEG_INF, dtype=cache.dtype, device=dev))
+            cache.index_put_(entry, upload(lat.NEG_INF, dev, cache.dtype))
         yield sub, batch, cache, chains, index, whole
 
 

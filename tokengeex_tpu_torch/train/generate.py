@@ -30,6 +30,7 @@ import numpy as np
 from ..core.redfa import ByteDFA, compile_dfa
 from ..core.types import ScoredToken
 from ..parallel import mesh as pmesh
+from ..utils import trace
 from ..utils.device import resolve_device
 from ..utils.task import Task
 from .patterns import rust_to_python
@@ -83,6 +84,7 @@ class VocabularyGenerator:
 
     # -- Feeding -----------------------------------------------------------
 
+    @trace.traced("generate")
     def feed(self, samples: Sequence[str], timer=None) -> None:
         """Count allowed substrings per sample (document frequency)
         (reference: src/generate.rs:54-139). Without a split regex the

@@ -33,6 +33,7 @@ import torch
 
 from ..core.types import ScoredToken
 from ..models.unigram import Model
+from ..utils import trace
 from ..utils.task import Task
 from ..parallel import mesh as pmesh
 from .device_session import DeviceTrainSession
@@ -129,6 +130,7 @@ class VocabularyPruner:
         if self.device_dtype not in (None, torch.float32, torch.float64):
             raise ValueError(f"unsupported device_dtype {self.device_dtype}")
 
+    @trace.traced("prune")
     def prune(self, model: Model, samples: Sequence[bytes],
               checkpoint_cb=None) -> Model:
         """reference: src/prune.rs:23-57."""
@@ -140,8 +142,9 @@ class VocabularyPruner:
         # The device backend probes the corpus once per prune run and
         # reuses the session's caches across EM sub-iterations, frequency
         # passes and rounds (the vocabulary only shrinks while pruning).
-        self._session = (self._new_session(model, samples)
-                         if self.backend == "device" else None)
+        with trace.span("session"):
+            self._session = (self._new_session(model, samples)
+                             if self.backend == "device" else None)
         try:
             return self._prune_loop(model, samples, checkpoint_cb)
         finally:
@@ -179,7 +182,8 @@ class VocabularyPruner:
                     "E-step completed subiter=%d vocab_size=%d",
                     subiter, model.vocab_size(),
                 )
-                vocab = self.run_m_step(model, expected)
+                with trace.span("m_step"):
+                    vocab = self.run_m_step(model, expected)
                 log.info(
                     "M-step completed subiter=%d vocab_size=%d "
                     "alternative_vocab_size=%d",
@@ -209,6 +213,7 @@ class VocabularyPruner:
 
     # -- E-step ------------------------------------------------------------
 
+    @trace.traced("e_step")
     def run_e_step(self, model: Model, samples: Sequence[bytes]) -> np.ndarray:
         """Expected token counts over all segmentations
         (reference: src/prune.rs:64-120)."""
@@ -294,8 +299,6 @@ class VocabularyPruner:
         """Loss-ranked removal (reference: src/prune.rs:173-319)."""
         pruned_size = int(model.vocab_size() * self.shrink_factor)
         pruned_size = max(pruned_size, self.vocab_size)
-        vocab = model.vocab
-        V = model.vocab_size()
 
         always_keep, alternatives = self._alternatives(model)
 
@@ -305,7 +308,20 @@ class VocabularyPruner:
             token_frequencies = self._count_frequencies(model, samples, task)
         finally:
             task.finish()
+        return self._remove_by_loss(model, samples, token_frequencies,
+                                    always_keep, alternatives, pruned_size)
 
+    @trace.traced("loss")
+    def _remove_by_loss(self, model: Model, samples: Sequence[bytes],
+                        token_frequencies: np.ndarray, always_keep,
+                        alternatives, pruned_size: int
+                        ) -> List[ScoredToken]:
+        """prune_vocab's ranking: each token's loss from the Viterbi
+        frequencies and its alternatives, then the tokens kept up to
+        `pruned_size` (reference: src/prune.rs:173-319, after the
+        frequencies)."""
+        vocab = model.vocab
+        V = model.vocab_size()
         sum_freq = float(token_frequencies.sum())
         logsum_freq = math.log(sum_freq)
 
@@ -363,6 +379,7 @@ class VocabularyPruner:
         pruned_vocab.sort(key=lambda t: -t.score)
         return pruned_vocab
 
+    @trace.traced("alternatives")
     def _alternatives(self, model: Model):
         """nbest(2) per token (reference: src/prune.rs:179-203): on the
         device backend one masked f64 Viterbi pass over the vocabulary's
@@ -389,6 +406,7 @@ class VocabularyPruner:
                 alternatives[tid] = [n.token_id for n in nbests[1]]
         return always_keep, alternatives
 
+    @trace.traced("frequencies")
     def _count_frequencies(self, model: Model, samples, task) -> np.ndarray:
         if self.backend == "device":
             return self._with_session(
