@@ -1004,7 +1004,7 @@ def check_segsum(lat, lcs, table, tbl, batch, dev):
     _, raw = lat.match_cache(tbl, batch)
     slots = lat.remap_slots(torch.as_tensor(rank.lut, device=dev), raw)
     del raw
-    rows = lat.rank_score_rows(rank, table, dev)
+    rows = lat.rank_score_rows(rank, tbl)
     cache = (lat.score_from_slots(rows, slots), slots)
     seg = lat.build_seg_struct(slots, rank.n_pad)
     H = int(seg.perm_flat.shape[0])
@@ -2128,11 +2128,11 @@ def run_prune(name, vocab, target: int, samples, expect, fused: bool,
         routes.append(sess._fused())
         orig_rebind = sess._rebind
 
-        def timed_rebind(model):
+        def timed_rebind(model, *args):
             t = time.perf_counter()
             before = sess._model
             with span("rebind"):
-                orig_rebind(model)
+                orig_rebind(model, *args)
             if sess._model is not before:
                 rebind["seconds"] += time.perf_counter() - t
                 rebind["calls"] += 1
@@ -2286,13 +2286,14 @@ def run_alternatives_big(dev):
     model = Model(vocab)
     t = time.perf_counter()
     table = TokenTable.build(vocab)
+    dt = lat.DeviceTables.from_table(table, dev, torch.float64)
     table_s = time.perf_counter() - t
     f64, walks = lc.viterbi_scan.launches_f64, lat.viterbi_walk.launches
     probes = lcp.match_probe.launches_f64
     seconds, got = [], None
     for _ in range(2):
         t = time.perf_counter()
-        res = ed.prune_alternatives_device(model, table=table, device=dev)
+        res = ed.prune_alternatives_device(model, table=dt, device=dev)
         seconds.append(time.perf_counter() - t)
         check(got is None or (np.array_equal(res[0], got[0])
                               and res[1] == got[1]),
@@ -2306,7 +2307,7 @@ def run_alternatives_big(dev):
           and launches["match_cache[f64]"] == launches["viterbi_scan[f64]"],
           f"{tag}: launches {launches}")
     timer = lat.PhaseTimer(dev)
-    ed.prune_alternatives_device(model, table=table, device=dev, timer=timer)
+    ed.prune_alternatives_device(model, table=dt, device=dev, timer=timer)
     split = {k: round(v, 6) for k, v in timer.seconds.items()}
     t = time.perf_counter()
     om = OracleModel(vocab)

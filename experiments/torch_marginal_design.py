@@ -157,7 +157,7 @@ def time_segsum(table, tbl, batch, dev):
     _, raw = lat.match_cache(tbl, batch)
     slots = lat.remap_slots(torch.as_tensor(rank.lut, device=dev), raw)
     del raw
-    rows = lat.rank_score_rows(rank, table, dev)
+    rows = lat.rank_score_rows(rank, tbl)
     cache = (lat.score_from_slots(rows, slots), slots)
     seg = lat.build_seg_struct(slots, rank.n_pad)
     H = int(seg.perm_flat.shape[0])

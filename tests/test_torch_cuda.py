@@ -392,7 +392,7 @@ def _seg_case(dev, n_vocab=600, plant=False):
             pick = miss & (torch.rand(miss.shape, generator=g, device=dev)
                            < 0.02)
             slots[:, l_to][pick] = r
-    rows = lat.rank_score_rows(rank, table, dev)
+    rows = lat.rank_score_rows(rank, tbl)
     cache = (lat.score_from_slots(rows, slots), slots)
     A = lat.forward(tbl, batch, cache)
     Bt = lat.backward_betas(tbl, batch, cache)
@@ -1030,8 +1030,9 @@ def test_cuda_fused_probe_rejects_a_t2_slot_collision(cuda_device):
     model = Model(vocab)
     samples = [b"x" + other + b"x", token, b"x" + token + other]
     before = lcf.fused_forward_chunk.launches
-    got = ed.encode_corpus_device(model, samples, table=pt,
-                                  device=cuda_device)
+    got = ed.encode_corpus_device(
+        model, samples, table=lat.DeviceTables.from_table(pt, cuda_device),
+        device=cuda_device)
     assert lcf.fused_forward_chunk.launches == before + 1
     assert got == [model.oracle.encode(s.decode()) for s in samples]
 

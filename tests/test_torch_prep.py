@@ -259,7 +259,7 @@ def test_fast_probe_rejects_a_t2_slot_collision():
         assert int(torch.isfinite(score[:, len(token) - 1]).sum()) == 2
     # The fused route's probe (the table is small): the Viterbi paths.
     model = Model(vocab)
-    assert ed.encode_corpus_device(model, samples, table=pt, device="cpu") \
+    assert ed.encode_corpus_device(model, samples, table=tbl, device="cpu") \
         == [model.oracle.encode(s.decode()) for s in samples]
 
 

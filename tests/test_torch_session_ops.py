@@ -77,7 +77,7 @@ def _case(min_bits, seed):
             "jslots": lj.remap_slots(jnp.asarray(jrank.lut), jraw),
             "slots": lat.remap_slots(torch.as_tensor(rank.lut), raw),
             "jrows": jnp.asarray(lj.rank_score_rows(jrank, jt)),
-            "rows": lat.rank_score_rows(rank, pt, "cpu")}
+            "rows": lat.rank_score_rows(rank, tbl)}
 
 
 @pytest.fixture(scope="module")

@@ -283,6 +283,8 @@ READS = {
     "slot_hit_pct.train": ([], ["groups.cached", "groups.probed"]),
     "pad_pct.train": ([], ["pack.positions", "pack.bytes"]),
     "h2d_MB.train": ([], ["h2d.copies", "h2d.bytes"]),
+    "rebind_s.train": (["prune.e_step.rebind", "prune.alternatives.rebind"],
+                       ["tables.bound", "tables.uploaded"]),
 }
 
 
@@ -349,3 +351,36 @@ def test_off_path_is_one_gate():
     assert trace.traced("x")(lambda a, b=1: a + b)(2, b=3) == 5
     trace.count("n", 1)
     assert trace.record().spans == {} and not trace.record().counters
+
+
+def test_binding_counters_equal_hand_counts(monkeypatch):
+    """tables.uploaded counts the whole uploads and tables.bound the
+    bindings on the resident layout. A two-round prune, two E-steps a
+    round, uploads one table, the session's, and binds five models: each
+    round's second E-step after an M-step, each round's alternatives
+    after the second (the frequency pass shares that binding), and round
+    two's first E-step, on the pruned vocabulary. The alternatives bind
+    under their own span."""
+    made = {"uploaded": 0, "bound": 0}
+
+    def tally(key, fn):
+        def wrapped(*args, **kwargs):
+            made[key] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(lat.DeviceTables, "from_table", staticmethod(
+        tally("uploaded", lat.DeviceTables.from_table)))
+    monkeypatch.setattr(lat.ResidentLayout, "bind",
+                        tally("bound", lat.ResidentLayout.bind))
+    with trace.recording() as rec:
+        _prune(monkeypatch, rounds_target=60, em_subiters=2)
+    assert rec.calls("prune.loss") == 2
+    assert made == {"uploaded": 1, "bound": 5}
+    assert rec.counter("tables.uploaded") == 1
+    assert rec.counter("tables.uploaded", "prune.session.tables") == 1
+    assert rec.counter("tables.bound") == 5
+    assert rec.counter("tables.bound", "prune.e_step.rebind") == 3
+    assert rec.counter("tables.bound", "prune.alternatives.rebind") == 2
+    assert rec.calls("prune.alternatives.rebind") == 2
+    assert rec.counter("tables.bound", "prune.frequencies") is None

@@ -66,7 +66,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import List, Mapping, Optional, Tuple, Union
+import itertools
+from typing import List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -74,13 +75,13 @@ import torch
 from ..core.types import NoPathError
 from ..utils.device import upload
 from ..utils.packing import PackedBatch
-from ..utils.trace import PhaseTimer, phase
+from ..utils.trace import PhaseTimer, count, phase
 from . import hashing as H
 from . import lattice_cuda as lc
 from . import lattice_cuda_fused as lcf
 from . import lattice_cuda_probe as lcp
 from .lattice_cuda_seg import SEG_BLK, seg_sums, seg_weights_gather
-from .match_table import TokenTable, _entry_arrays
+from .match_table import _NEG_SCORE_BITS, TokenTable, _entry_arrays
 
 NEG_INF = float("-inf")
 NEG = lc.NEG
@@ -140,7 +141,8 @@ class DeviceTables:
                                   length of each cuckoo slot (T1 then T2)
       bk_slot_to_id, bk_slot_len  host (8 Hb,) int64, the same per bucket
                                   slot, or None
-    The slot maps fold slot-indexed E-step counts to token ids.
+    The slot maps fold slot-indexed E-step counts to token ids; the
+    tables a session binds on its resident layout carry none.
     """
 
     t1_fast: torch.Tensor
@@ -164,7 +166,9 @@ class DeviceTables:
     def from_table(tbl: TokenTable, device,
                    dtype: torch.dtype = torch.float32) -> "DeviceTables":
         """The tables of `tbl` on `device`, the per-id scores at `dtype`
-        (float64 keeps the reference's f64 scores for the exact probe)."""
+        (float64 keeps the reference's f64 scores for the exact probe).
+        Counts `tables.uploaded`: a whole table crosses to the device."""
+        count("tables.uploaded", 1)
         scores64 = tbl.scores_f64
 
         def fast(t: np.ndarray) -> np.ndarray:
@@ -270,6 +274,138 @@ class DeviceTables:
     @property
     def bk_num_slots(self) -> int:
         return 8 * (1 << self.bk_bits)
+
+
+# The id word's length byte (len << 24) as int32, and an empty row's word.
+_LEN_BITS = -(1 << 24)
+_EMPTY_WORD = -1
+
+
+@dataclasses.dataclass(frozen=True)
+class ResidentLayout:
+    """A TokenTable's slot layout kept on the device, from which a
+    vocabulary that `TokenTable.rebind` accepts is bound without uploading
+    the tables again. Slots never move, so a binding changes only each
+    table token's id (or removes it) and its score: `id_map` maps the new
+    vocabulary's tokens to the table's ids on the host, and `bind` takes
+    that map and the new scores and gathers every table word from the
+    base's on the device. It writes fresh tensors, so a DeviceTables
+    already handed out never changes under its holder. The words equal
+    `DeviceTables.from_table(tbl.rebind(vocab))`'s bit for bit; the host
+    slot maps, which no session route reads, are left out."""
+
+    base: DeviceTables  # the table's own binding (`from_table`)
+    # (2H,) int32 base id of each cuckoo slot (T1 then T2), n_ids where
+    # empty; bk_ids the same per bucket slot, (8 Hb,)
+    slot_ids: torch.Tensor
+    bk_ids: Optional[torch.Tensor]
+    n_ids: int  # the base vocabulary's size: the id map's empty entry
+    # bytes -> base id of each token the table holds: the last of a
+    # duplicated byte string, none empty or longer than max_len (`build`)
+    ids: dict
+
+    @staticmethod
+    def of(tbl: TokenTable, device,
+           dtype: torch.dtype = torch.float32) -> "ResidentLayout":
+        base = DeviceTables.from_table(tbl, device, dtype)
+        n = len(tbl.token_bytes)
+
+        def ids(slot_to_id):
+            # Only the occupied slots cross, and scatter on the device.
+            occ = np.nonzero(slot_to_id >= 0)[0]
+            out = torch.full(slot_to_id.shape, n, dtype=torch.int32,
+                             device=device)
+            out[upload(occ, device)] = upload(
+                slot_to_id[occ].astype(np.int32), device)
+            return out
+
+        return ResidentLayout(
+            base=base, slot_ids=ids(base.slot_to_id),
+            bk_ids=(ids(base.bk_slot_to_id) if base.t_bucket is not None
+                    else None),
+            n_ids=n,
+            ids={b: i for i, b in enumerate(tbl.token_bytes)
+                 if 0 < len(b) <= tbl.max_token_len})
+
+    def id_map(self, values: Sequence[bytes]) -> np.ndarray:
+        """(n_ids + 1,) int64: the id that the tokens `values` give each
+        base id, -1 where none of them has its bytes (and at n_ids, the
+        empty slot's entry). As in `TokenTable.rebind`, a duplicated byte
+        string takes its last id, a token the table would not hold (empty,
+        or longer than max_len) maps nothing, and one it would hold but
+        does not raises ValueError."""
+        n = len(values)
+        old = np.fromiter(map(self.ids.get, values, itertools.repeat(-1)),
+                          dtype=np.int64, count=n)
+        found = np.nonzero(old >= 0)[0]
+        if found.size < n:
+            # Every token the table holds is found, so only the others are
+            # measured: one of 1 to max_len bytes among them is unknown.
+            L = self.base.max_len
+            missing = [values[i] for i in np.nonzero(old < 0)[0].tolist()
+                       if 0 < len(values[i]) <= L]
+            if missing:
+                raise ValueError(
+                    f"rebind: {len(set(missing))} tokens not in the "
+                    f"original table (e.g. {missing[0]!r}); rebuild instead")
+        lut = np.full(self.n_ids + 1, -1, dtype=np.int64)
+        # The largest new id per base id: the last duplicate, whatever
+        # order numpy writes repeated indices in.
+        np.maximum.at(lut, old[found], found)
+        return lut
+
+    def bind(self, lut: np.ndarray, scores64: np.ndarray,
+             dtype: torch.dtype) -> DeviceTables:
+        """The tables of the vocabulary whose id map is `lut` (`id_map`)
+        and whose per-id scores are `scores64` (f64), those at `dtype`."""
+        base = self.base
+        dev = base.t1_fast.device
+        V = int(scores64.shape[0])
+        assert V < (1 << 24), "id packing needs vocab < 16M"
+        assert lut.shape == (self.n_ids + 1,) and lut[self.n_ids] == -1
+        new_of = upload(lut.astype(np.int32), dev)
+        s32 = upload(scores64.astype(np.float32), dev)
+        # Score words by id, the empty sentinel at index V.
+        words = torch.cat([s32.view(torch.int32),
+                           upload([_NEG_SCORE_BITS], dev, torch.int32)])
+
+        def slots(ids):
+            """New ids of base slots (-1: removed or empty) and each one's
+            score word."""
+            nid = new_of[ids]
+            alive = nid >= 0
+            return nid, alive, words[torch.where(alive, nid, V)]
+
+        H = 1 << base.bits
+        nid, alive, score = slots(self.slot_ids)
+        base_fast = torch.cat([base.t1_fast, base.t2_fast])
+        fast = torch.stack([torch.where(alive, base_fast[:, 0], 0), score],
+                           dim=1)
+        exact = None
+        if base.t1_exact is not None:
+            base_exact = torch.cat([base.t1_exact, base.t2_exact])
+            fps = torch.where(alive[:, None], base_exact[:, :2], 0)
+            idlen = torch.where(alive, (base_exact[:, 2] & _LEN_BITS) | nid,
+                                _EMPTY_WORD)
+            exact = torch.cat([fps, idlen[:, None],
+                               torch.zeros_like(idlen)[:, None]], dim=1)
+        t_bucket = None
+        if base.t_bucket is not None:
+            _, _, bk_score = slots(self.bk_ids)
+            t_bucket = torch.stack(
+                [base.t_bucket[:, 0::2], bk_score.view(-1, 8)],
+                dim=2).reshape(base.t_bucket.shape)
+        scores = (upload(scores64, dev) if dtype == torch.float64
+                  else s32)
+        return DeviceTables(
+            t1_fast=fast[:H], t2_fast=fast[H:], scores=scores,
+            bits=base.bits, max_len=base.max_len, vocab_size=V,
+            t_bucket=t_bucket, bk_bits=base.bk_bits, bk_salt=base.bk_salt,
+            t1_exact=None if exact is None else exact[:H],
+            t2_exact=None if exact is None else exact[H:],
+            bk_filter=(lcp.BucketFilter.of(t_bucket)
+                       if t_bucket is not None
+                       and lcp.has_filter(base.bk_bits) else None))
 
 
 def has_vscan(tbl: DeviceTables) -> bool:
@@ -1111,15 +1247,20 @@ def build_rank_space(tbl: TokenTable) -> RankSpace:
 _NEG_INF_BITS = int(np.array([NEG_INF], np.float32).view(np.int32)[0])
 
 
-def rank_score_rows(rank: RankSpace, tbl: TokenTable, device) -> torch.Tensor:
-    """(n_pad + 1,) int32 f32-score bits per rank for the CURRENT binding,
-    the -inf miss sentinel last (and on unused ranks). Removed tokens'
-    slots carry the empty sentinel (<= -1e38), which `score_from_slots`
-    maps to -inf. The JAX package packs this x16 above 2^17 ranks, a
-    layout for the TPU's gather engine; the per-rank values are these."""
-    col = np.full(rank.n_pad + 1, _NEG_INF_BITS, dtype=np.int32)
-    col[: rank.occ.size] = tbl.bk[:, 1::2].reshape(-1)[rank.occ]
-    return upload(col, device)
+def rank_score_rows(rank: RankSpace, tbl: DeviceTables) -> torch.Tensor:
+    """(n_pad + 1,) int32 f32-score bits per rank of `tbl`'s binding, read
+    from its device buckets (bucket slot s holds its score at word
+    2 s + 1), the -inf miss sentinel last (and on unused ranks). Removed
+    tokens' slots carry the empty sentinel (<= -1e38), which
+    `score_from_slots` maps to -inf. The JAX package packs this x16 above
+    2^17 ranks, a layout for the TPU's gather engine; the per-rank values
+    are these."""
+    dev = tbl.t_bucket.device
+    col = torch.full((rank.n_pad + 1,), _NEG_INF_BITS, dtype=torch.int32,
+                     device=dev)
+    col[: rank.occ.size] = tbl.t_bucket.view(-1)[
+        upload(2 * rank.occ + 1, dev)]
+    return col
 
 
 def slot_score_rows(tbl: DeviceTables) -> torch.Tensor:

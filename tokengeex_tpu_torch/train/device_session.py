@@ -7,8 +7,10 @@ vocabulary only shrinks and gets rescored
 corpus never changes across EM sub-iterations, frequency passes and prune
 rounds. The session therefore:
 
-  - builds the token table once from the initial vocabulary and rebinds
-    ids and scores per model (slots never move);
+  - builds the token table once from the initial vocabulary and keeps
+    its layout on the device; a later model binds to it by an id map made
+    on the host, every table word gathered on the device (slots never
+    move; ops/lattice.py ResidentLayout);
   - packs the corpus once and keeps each group's compact inputs on the
     device under a budget;
   - probes each row group once (dropout-free), remaps the probe slots to
@@ -36,13 +38,14 @@ The f64 / exact conformance mode (dtype=torch.float64, or probe="exact")
 follows the JAX session's f64 branches: no rank space and no slot
 cache (exact probes yield token ids, which change on every rebind), so
 every pass probes each group afresh with the exact probe, runs the
-double scans (at f64) and scatters the marginals into token-id bins; the
-tables are rebuilt per model. Its frequency pass walks on the card too,
-over the exact probe's double Viterbi scan.
+double scans (at f64) and scatters the marginals into token-id bins; its
+tables bind per model as the default mode's do. Its frequency pass walks
+on the card too, over the exact probe's double Viterbi scan.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -117,8 +120,15 @@ class DeviceTrainSession:
             self.rank = (None if self.exact
                          else lat.build_rank_space(self.base_tbl))
             self._lut_dev = None
-            self._model: Optional[Model] = None
-            self._rebind(model)
+            # The table's layout stays on the device for the session; its
+            # own binding is `model`'s, and later models bind from it.
+            self.layout = lat.ResidentLayout.of(self.base_tbl, self.dev,
+                                                self.dtype)
+            if not self.exact:
+                self._rank_base_ids = lat.rank_to_ids(self.rank,
+                                                      self.base_tbl)
+            self._set_binding(model, self.layout.base,
+                              self.base_tbl.scores_f64, None)
         # The count structures are sized for the probe the table resolves
         # by default; another slot space would misattribute counts.
         default_mode = lat._probe_mode(self.dt, self.dtype)
@@ -181,8 +191,9 @@ class DeviceTrainSession:
         self.chain_cache.clear()
         self.walk_spans.clear()
         self.dt = None
-        self.tbl = None
+        self.layout = None
         self.slot_rows = None
+        self._scores64 = None
         self._lut_dev = None
         self._model = None
         self.cache_used = 0
@@ -190,25 +201,50 @@ class DeviceTrainSession:
 
     # -- Model binding ------------------------------------------------------
 
-    def _rebind(self, model: Model) -> None:
-        if model is self._model:
-            return
-        tbl = self.base_tbl.rebind(model.vocab)
-        self.tbl = tbl
-        self.dt = lat.DeviceTables.from_table(tbl, self.dev, self.dtype)
+    def _set_binding(self, model: Model, dt: lat.DeviceTables,
+                     scores64: np.ndarray, lut: Optional[np.ndarray]) -> None:
+        """Make `dt` the session's tables, bound to `model` by the id map
+        `lut` (None: the base table's own binding)."""
+        self.dt = dt
         if not self.exact:
             # Rank-indexed scores and the rank -> id map of this binding;
             # the rank space itself is fixed for the session.
-            self.slot_rows = lat.rank_score_rows(self.rank, tbl, self.dev)
-            self.rank_ids = lat.rank_to_ids(self.rank, tbl)
+            self.slot_rows = lat.rank_score_rows(self.rank, dt)
+            self.rank_ids = (self._rank_base_ids if lut is None
+                             else lut[self._rank_base_ids])
+        self._scores64 = scores64
         self._model = model
 
-    def table_for(self, model: Model) -> TokenTable:
-        """The session's table bound to `model`, rebound once a model: the
-        pruner's alternatives and the frequency pass after them share
-        it."""
+    def _rebind(self, model: Model,
+                timer: Optional[lat.PhaseTimer] = None) -> None:
+        """Bind `model` (a subset of the session's first vocabulary,
+        rescored) to the resident layout: its id map on the host, every
+        table word gathered on the device (`ResidentLayout.bind`). Counts
+        `tables.bound`."""
+        with lat.phase(timer, "rebind"):
+            if model is self._model:
+                return
+            vocab = model.vocab
+            lut = self.layout.id_map([t.value for t in vocab])
+            scores64 = np.array([t.score for t in vocab], dtype=np.float64)
+            # The previous binding's tensors go before the new ones are
+            # made (a caller still holding them keeps them).
+            self.dt = self.slot_rows = None
+            self._set_binding(model, self.layout.bind(lut, scores64,
+                                                      self.dtype),
+                              scores64, lut)
+            trace.count("tables.bound", 1)
+
+    def tables_f64(self, model: Model) -> lat.DeviceTables:
+        """The session's tables bound to `model` with float64 per-id
+        scores, as the pruner's alternatives take them: bound once a model
+        (the frequency pass after them shares the binding); the exact
+        mode's binding is itself float64."""
         self._rebind(model)
-        return self.tbl
+        if self.dt.scores.dtype == torch.float64:
+            return self.dt
+        return dataclasses.replace(
+            self.dt, scores=upload(self._scores64, self.dev, torch.float64))
 
     def _nbins(self) -> int:
         """Count-bin space of the cached slot arrays: the dense ranks."""
@@ -412,8 +448,7 @@ class DeviceTrainSession:
         seg_build, regather, forward, backward, segsum, fold). Counts
         `groups.cached` (a group served from the slot or seg cache) and
         `groups.probed` (probed afresh) once a pass."""
-        with lat.phase(timer, "rebind"):
-            self._rebind(model)
+        self._rebind(model, timer)
         acc = None
         z_parts, z_spans = [], []
         cached = 0
@@ -522,8 +557,7 @@ class DeviceTrainSession:
         Counts `groups.cached` (a group walked over its cached ranks) and
         `groups.probed` once a pass; the chained encode runs in the span
         `chained`."""
-        with lat.phase(timer, "rebind"):
-            self._rebind(model)
+        self._rebind(model, timer)
         V = model.vocab_size()
         freqs = np.zeros(V, dtype=np.int64)
         counts = None
@@ -590,7 +624,7 @@ class DeviceTrainSession:
                 with trace.span("chained"):
                     encoded = ed.encode_corpus_device(
                         model, [self.samples[si] for si in long_idx],
-                        table=self.tbl, device=self.dev, timer=timer,
+                        table=self.dt, device=self.dev, timer=timer,
                         dtype=self.dtype,
                         probe="exact" if self.exact else None, local=True)
                     ids = [np.asarray(r, np.int64) for r in encoded if r]

@@ -231,22 +231,40 @@ def _drop_words(gen: torch.Generator, rows: int, cols: int, device):
                          dtype=torch.int32, device=device)
 
 
+def _tables_on(model: Model, table: Optional[lat.DeviceTables],
+               dev: torch.device, dtype: torch.dtype,
+               table_hints: Optional[Tuple[int, int]] = None
+               ) -> lat.DeviceTables:
+    """`table` (a training session's binding of `model`), which must hold
+    its per-id scores at `dtype` on `dev`, or else the tables of one built
+    from `model` (with `table_hints`) and uploaded."""
+    if table is None:
+        hb, hl = table_hints or (None, None)
+        return lat.DeviceTables.from_table(
+            TokenTable.build(model.vocab, min_bits=hb, min_len=hl), dev,
+            dtype)
+    # A bare "cuda" names the current card, which a tensor names by index.
+    want = torch.empty(0, device=dev).device
+    if table.scores.dtype != dtype or table.scores.device != want:
+        raise ValueError(
+            f"tables with {table.scores.dtype} scores on "
+            f"{table.scores.device}, wanted {dtype} on {want}")
+    return table
+
+
 def _encode_setup(model: Model, samples: Sequence[bytes],
                   table_hints: Optional[Tuple[int, int]],
                   probe: Optional[str], max_width: Optional[int],
                   dtype: torch.dtype, dev: torch.device,
                   timer: Optional[lat.PhaseTimer],
-                  table: Optional[TokenTable],
+                  table: Optional[lat.DeviceTables],
                   corpus: Optional["DeviceCorpus"], local: bool):
     """An encode pass's (DeviceTables, Viterbi route, DeviceCorpus): the
-    tables built from `table_hints` unless `table` is given, and `corpus`
-    unless it was packed from other samples, at another width or for other
-    rows (its spans would be misassigned), else one packed now."""
+    tables of `table` (`_tables_on`), and `corpus` unless it was packed
+    from other samples, at another width or for other rows (its spans
+    would be misassigned), else one packed now."""
     with lat.phase(timer, "tables"):
-        if table is None:
-            hb, hl = table_hints or (None, None)
-            table = TokenTable.build(model.vocab, min_bits=hb, min_len=hl)
-        dt = lat.DeviceTables.from_table(table, dev, dtype)
+        dt = _tables_on(model, table, dev, dtype, table_hints)
     if corpus is not None and (corpus.samples is not samples
                                or corpus.req_max_width != max_width
                                or corpus.dev != dev
@@ -295,7 +313,7 @@ def encode_corpus_device(
     dtype=None,
     device=None,
     timer: Optional[lat.PhaseTimer] = None,
-    table: Optional[TokenTable] = None,
+    table: Optional[lat.DeviceTables] = None,
     corpus: Optional["DeviceCorpus"] = None,
     local: bool = False,
 ) -> List[List[int]]:
@@ -317,9 +335,9 @@ def encode_corpus_device(
     tail carried in f64.
     `timer` collects the seconds per phase (tables, pack, prep, probe,
     kernel, walk, readback, split (with the ids' gather); backtrack for
-    chained samples). `table`
-    is a TokenTable bound to `model` to use instead of building one (a
-    training session's). `corpus` is a DeviceCorpus packed from these very
+    chained samples). `table` is the DeviceTables of `model` on `device`
+    with scores at `dtype` (a training session's binding), used instead of
+    building one. `corpus` is a DeviceCorpus packed from these very
     samples (same `max_width`), whose groups' inputs stay on the device.
 
     Under a process group (parallel/mesh.py) the corpus is replicated:
@@ -875,7 +893,7 @@ def alternative_groups(model: Model, dt: lat.DeviceTables,
 
 
 def prune_alternatives_device(model: Model,
-                              table: Optional[TokenTable] = None,
+                              table: Optional[lat.DeviceTables] = None,
                               device=None,
                               timer: Optional[lat.PhaseTimer] = None
                               ) -> Tuple[np.ndarray, List[List[int]]]:
@@ -895,16 +913,14 @@ def prune_alternatives_device(model: Model,
     token, W. Where two multi-token paths tie for M, the A* and the scan
     may pick either (the reference breaks such ties arbitrarily).
 
-    `table` is a TokenTable bound to `model` (the pruner's session's), or
-    one is built. device: a CUDA device by default, "cpu" for the
-    kernels' plain versions. Under a process group every rank computes
+    `table` is the DeviceTables of `model` with float64 scores (the
+    pruner's session's binding), or one is built. device: a CUDA device
+    by default, "cpu" for the kernels' plain versions. Under a process group every rank computes
     the whole answer. `timer` collects the seconds per phase (tables,
     pack, prep, probe, kernel, walk, readback, decide)."""
     dev = resolve_device(device)
     with lat.phase(timer, "tables"):
-        if table is None:
-            table = TokenTable.build(model.vocab)
-        dt = lat.DeviceTables.from_table(table, dev, torch.float64)
+        dt = _tables_on(model, table, dev, torch.float64)
     sids, ntoks, flats, s_m, s_w = [], [], [], [], []
     for sub, batch, cache, chains, index, whole in alternative_groups(
             model, dt, timer):

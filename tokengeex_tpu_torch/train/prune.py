@@ -390,7 +390,8 @@ class VocabularyPruner:
             if session is None:
                 return prune_alternatives_device(model, device=self.device)
             return prune_alternatives_device(
-                model, table=session.table_for(model), device=session.dev)
+                model, table=session.tables_f64(model),
+                device=session.dev)
         from ..models.oracle import Lattice
 
         V = model.vocab_size()
