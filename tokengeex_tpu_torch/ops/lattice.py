@@ -2020,8 +2020,9 @@ def viterbi_walk(best_l, p1, p2, rinv1, rinv2, t1_exact, t2_exact,
     False for spans not to walk (unreachable ends). Count mode returns
     (V + 1,) int32 token counts, bin V counting tokens no table row matches
     (a model/table mismatch). ids=True returns a (index.cap,) int32 buffer
-    whose first ntok.sum() entries are the spans' ids, span after span in
-    the index's span order, each in position order, ntok (n,) int32 and
+    whose first ntok.sum() entries are the spans' ids (V for a token no
+    table row matches), span after span in the index's span order, each
+    in position order, the rest 0, ntok (n,) int32 and
     incl (n,) int32, the inclusive cumsum of ntok (span k's ids at
     [incl[k] - ntok[k], incl[k])).
 
@@ -2102,7 +2103,7 @@ def viterbi_walk(best_l, p1, p2, rinv1, rinv2, t1_exact, t2_exact,
             viterbi_walk.launches += 1
         return counts
     ntok = torch.zeros(n, dtype=torch.int32, device=dev)
-    flat = torch.empty(index.cap, dtype=torch.int32, device=dev)
+    flat = torch.zeros(index.cap, dtype=torch.int32, device=dev)
     if live:
         # The first launch leaves each row's exit tables for the second.
         tabs = torch.empty(B * 4 * -(-W // WALK_SEGMENT) * max_len,

@@ -539,6 +539,63 @@ class DeviceTrainSession:
                              f"(z={zk}, {where}={si})")
         return pmesh.all_reduce_counts(expected)
 
+    def _freq_viterbi(self, gi: int, sub: PackedBatch, timer=None):
+        """A frequency group's Viterbi pass on the session's route: (batch,
+        key, dp, best_l, whether its cached ranks served it)."""
+        batch = self._freq_batch(gi, sub, timer)
+        key = self._freq_key(gi)
+        chains = self._chains_for(key, batch, timer)
+        hit = False
+        if self.exact:
+            dp, best_l = lat.viterbi(
+                self.dt, batch, C=self.chunk, dtype=self.dtype,
+                probe="exact", timer=timer, chains=chains)
+        elif self._freq_shared and not self._fused() \
+                and gi in self.slot_cache:
+            hit = True
+            dp, best_l = lat.viterbi_cached(
+                self.dt, batch, self.slot_cache[gi], self.slot_rows,
+                timer=timer, chains=chains)
+        else:
+            dp, best_l = lat.viterbi(
+                self.dt, batch, C=self.chunk,
+                backend="fused" if self._fused() else "slab",
+                timer=timer, chains=chains)
+        return batch, key, dp, best_l, hit
+
+    def _redo_false(self, model: Model, walked: list, bins: list,
+                    counts_h: np.ndarray, timer=None) -> np.ndarray:
+        """`counts_h`, a pass's (V + 1,) walked counts with tokens in bin
+        V (spans that are no token: the probe's false matches), without
+        the samples whose paths took them, which are encoded again with
+        the exact probe (`estep_device._redo_exact`) and counted. Only the
+        groups whose bin is not 0 are walked again, in ids mode, to find
+        those samples. Raises KeyError if the exact route also meets a
+        span that is no token."""
+        V = counts_h.size - 1
+        per = torch.cat(bins).cpu().numpy()
+        per[0] -= per[1:].sum()
+        counts_h = counts_h.copy()
+        redo = []
+        for g in np.nonzero(per)[0].tolist():
+            gi, sub = walked[g]
+            batch, key, dp, best_l, _ = self._freq_viterbi(gi, sub, timer)
+            info = self._freq_info(gi, sub)
+            index = self._walk_spans_for(key, info, sub, best_l.shape[1])
+            flat, ntok, _, _ = lat.walk_ids_device(self.dt, batch, dp,
+                                                   best_l, index)
+            ids, _, span_of, false = ed.false_spans(flat, ntok, V)
+            counts_h -= np.bincount(ids[false[span_of]], minlength=V + 1)
+            redo += [info["countable"][k][3]
+                     for k in np.nonzero(false)[0].tolist()]
+        for ids in ed._redo_exact(model, self.dt, self.samples, redo,
+                                  self.dev, timer):
+            counts_h[:V] += np.bincount(np.asarray(ids, np.int64),
+                                        minlength=V)
+        if counts_h[V]:
+            ed._raise_mismatch()
+        return counts_h
+
     def count_frequencies(self, model: Model, task=None,
                           timer: Optional[lat.PhaseTimer] = None
                           ) -> np.ndarray:
@@ -554,7 +611,11 @@ class DeviceTrainSession:
         session's table. `timer` collects the seconds per phase (rebind,
         pack: the frequency packing, made on the first pass, prep, probe,
         regather, kernel, walk, readback, and the chained encode's).
-        Counts `groups.cached` (a group walked over its cached ranks) and
+        A pass whose counts hold tokens that are no vocabulary token (the
+        bucket or fast probe's false match: bin V) redoes the samples
+        whose paths took them with the exact probe (`_redo_false`); it
+        raises only where the exact route meets one too. Counts
+        `groups.cached` (a group walked over its cached ranks) and
         `groups.probed` once a pass; the chained encode runs in the span
         `chained`."""
         self._rebind(model, timer)
@@ -562,28 +623,15 @@ class DeviceTrainSession:
         freqs = np.zeros(V, dtype=np.int64)
         counts = None
         dp_ends, spans_checked = [], []
+        # Each walked group and its bin V (a view: the first group's counts
+        # are the running sum, so its bin is the pass's).
+        walked, bins = [], []
         with lat.phase(timer, "pack"):
             groups = self._freq_groups()
         cached = 0
         for gi, sub in groups:
-            batch = self._freq_batch(gi, sub, timer)
-            key = self._freq_key(gi)
-            chains = self._chains_for(key, batch, timer)
-            if self.exact:
-                dp, best_l = lat.viterbi(
-                    self.dt, batch, C=self.chunk, dtype=self.dtype,
-                    probe="exact", timer=timer, chains=chains)
-            elif self._freq_shared and not self._fused() \
-                    and gi in self.slot_cache:
-                cached += 1
-                dp, best_l = lat.viterbi_cached(
-                    self.dt, batch, self.slot_cache[gi], self.slot_rows,
-                    timer=timer, chains=chains)
-            else:
-                dp, best_l = lat.viterbi(
-                    self.dt, batch, C=self.chunk,
-                    backend="fused" if self._fused() else "slab",
-                    timer=timer, chains=chains)
+            batch, key, dp, best_l, hit = self._freq_viterbi(gi, sub, timer)
+            cached += hit
             info = self._freq_info(gi, sub)
             if info["countable"]:
                 with lat.phase(timer, "walk"):
@@ -597,6 +645,8 @@ class DeviceTrainSession:
                     counts = cnt if counts is None else counts.add_(cnt)
                 dp_ends.append(dpe)
                 spans_checked.extend(info["countable"])
+                walked.append((gi, sub))
+                bins.append(cnt[V:])
             if task is not None:
                 task.record(sum(e - s for (_, s, e, _, _) in info["whole"]),
                             len({sp[3] for sp in info["whole"]}))
@@ -611,8 +661,14 @@ class DeviceTrainSession:
             if bad.size:
                 _, s, e, _, _ = spans_checked[int(bad[0])]
                 fail, value = 0, e - s
-            elif counts_h[V]:
+            elif counts_h[V] and self.exact:
                 fail, value = 1, int(counts_h[V])
+            elif counts_h[V]:
+                try:
+                    counts_h = self._redo_false(model, walked, bins,
+                                                counts_h, timer)
+                except KeyError:
+                    fail, value = 1, int(counts_h[V])
             freqs += counts_h[:V]
 
         # Samples past the frequency packing's cap: this rank's own chained
@@ -634,6 +690,9 @@ class DeviceTrainSession:
             except NoPathError as err:
                 if fail < 0:
                     fail, value = 0, err.length
+            except KeyError:
+                if fail < 0:
+                    fail, value = 1, 1
             if task is not None:
                 task.record(sum(len(self.samples[si]) for si in long_idx),
                             len(long_idx))

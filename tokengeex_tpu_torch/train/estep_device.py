@@ -367,8 +367,8 @@ def encode_corpus_device(
         flats.append(flat)
     with lat.phase(timer, "split"):
         out: List[Optional[List[int]]] = [None] * len(samples)
-        _place_ids(out, samples, sids, ntoks, flats, dt.vocab_size,
-                   gather=not corpus.local)
+        false = _place_ids(out, samples, sids, ntoks, flats, dt.vocab_size,
+                           gather=not corpus.local)
 
     if corpus.long_idx:
         long_idx = corpus.long_idx
@@ -378,9 +378,48 @@ def encode_corpus_device(
             probe=probe, device=dev, timer=timer, dtype=dtype)
         for si, ids in zip(long_idx, chained):
             out[si] = ids
+            if ids is None:
+                false.append(si)
+    if false:
+        if probe == "exact" or dtype == torch.float64:
+            _raise_mismatch()
+        for si, ids in zip(false, _redo_exact(model, dt, samples, false, dev,
+                                              timer, dropout, seed)):
+            out[si] = ids
 
     # Zero-length samples produce no packed span; they encode to [].
     return [ids if ids is not None else [] for ids in out]
+
+
+def _raise_mismatch() -> None:
+    raise KeyError("walk: a matched span is not a vocabulary token "
+                   "(model/table mismatch)")
+
+
+def _redo_exact(model: Model, dt: lat.DeviceTables, samples, idx: List[int],
+                dev, timer: Optional[lat.PhaseTimer] = None,
+                dropout: float = 0.0, seed: int = 0) -> List[List[int]]:
+    """The ids of samples[i] for i in idx, encoded again with the exact
+    probe over `dt` (on this rank alone, through the short or the chained
+    route as each sample's length takes it): the fallback for a sample
+    whose best path took a span that is no token. The bucket and fast
+    probes match a span on a 32-bit check word within its row, so a span
+    that is no token can collide with an entry and score as it; the walk,
+    which resolves ids with the exact tables, then finds no token there
+    (id V). A path that takes no such span is the exact probe's path too,
+    so only these samples are redone. Raises KeyError if the exact route
+    also finds a span that is no token (a model/table mismatch). Runs in
+    the span `redo` and counts `probe.redone` (samples) and
+    `probe.redone_bytes`. At dropout > 0 a redone sample draws its coins
+    anew."""
+    with trace.span("redo"):
+        if trace.on():
+            trace.count("probe.redone", len(idx))
+            trace.count("probe.redone_bytes",
+                        sum(len(samples[i]) for i in idx))
+        return encode_corpus_device(
+            model, [samples[i] for i in idx], dropout=dropout, seed=seed,
+            probe="exact", device=dev, timer=timer, table=dt, local=True)
 
 
 def _cat(parts, dtype) -> np.ndarray:
@@ -389,11 +428,13 @@ def _cat(parts, dtype) -> np.ndarray:
 
 
 def _place_ids(out: list, samples, sids, ntoks, flats, V: int,
-               gather: bool) -> None:
+               gather: bool) -> List[int]:
     """Split the walked ids into `out[sample]` once: this rank's groups'
     (sample ids, tokens per span (-1: no path), flat ids), and with
     `gather` every rank's, all_gathered as one int32 tensor a rank. Every
-    rank then raises the same NoPath or mismatch."""
+    rank then raises the same NoPath. Returns the samples whose path took
+    a span that is no token (an id >= V), whose `out` stays None, the
+    same on every rank."""
     si, nt, ids = _cat(sids, np.int64), _cat(ntoks, np.int64), \
         _cat(flats, np.int32)
     if gather:
@@ -407,12 +448,15 @@ def _place_ids(out: list, samples, sids, ntoks, flats, V: int,
     if dead.size:
         n = len(samples[int(si[dead[0]])])
         raise NoPathError(n, n)
-    if (ids >= V).any():
-        raise KeyError("walk: a matched span is not a vocabulary token "
-                       "(model/table mismatch)")
-    parts = np.split(ids.astype(np.int64), np.cumsum(nt)[:-1])
-    for k, part in zip(si.tolist(), parts):
-        out[k] = part.tolist()
+    ends = np.cumsum(nt)
+    false_at = np.nonzero(ids >= V)[0]
+    false_span = np.zeros(nt.size, bool)
+    false_span[np.searchsorted(ends, false_at, side="right")] = True
+    parts = np.split(ids.astype(np.int64), ends[:-1])
+    for k, part, bad in zip(si.tolist(), parts, false_span.tolist()):
+        if not bad:
+            out[k] = part.tolist()
+    return si[false_span].tolist()
 
 
 def _encode_chained(
@@ -427,7 +471,7 @@ def _encode_chained(
     device,
     timer: Optional[lat.PhaseTimer] = None,
     dtype: torch.dtype = torch.float32,
-) -> List[List[int]]:
+) -> List[Optional[List[int]]]:
     """Encode samples longer than the pack width by chaining fixed-width
     windows. Window k covers bytes [k*W, (k+1)*W); its device row is
     [last L bytes of window k-1 | body] with an origin-shifted hash
@@ -437,7 +481,8 @@ def _encode_chained(
     backtrack walks windows in reverse, jumping from non-positive
     positions into the previous window. Byte-exact against the
     reference's unchunked encode (src/model.rs:59-129): the dp depends
-    only on the last L positions."""
+    only on the last L positions. A sample whose path took a span that is
+    no token gets None (the caller redoes it, `_redo_exact`)."""
     L = dt.max_len
     W = width
     R = len(long_samples)
@@ -445,7 +490,7 @@ def _encode_chained(
     # memory for its hash streams and scores.
     max_rows = max(ROW_MULT, ((4 * GROUP_BYTES) // W // ROW_MULT) * ROW_MULT)
     if R > max_rows:
-        out_parts: List[List[int]] = []
+        out_parts: List[Optional[List[int]]] = []
         for g0 in range(0, R, max_rows):
             out_parts.extend(_encode_chained(
                 model, dt, long_samples[g0 : g0 + max_rows], width,
@@ -508,7 +553,7 @@ def _encode_chained(
 
     # Chained backtrack: positions <= 0 jump into the previous window.
     token_to_id = model.token_to_ids
-    out: List[List[int]] = []
+    out: List[Optional[List[int]]] = []
     with lat.phase(timer, "backtrack"):
         for r, (si, s) in enumerate(long_samples):
             k, n, dp_e = end_info[r]
@@ -522,14 +567,15 @@ def _encode_chained(
                 while pos > 0:
                     length = int(bl[pos - 1])
                     a = base + pos
-                    ids_rev.append(token_to_id[s[a - length : a]])
+                    ids_rev.append(token_to_id.get(s[a - length : a], -1))
                     pos -= length
                 if k == 0:
                     break
                 pos += W
                 k -= 1
             ids_rev.reverse()
-            out.append(ids_rev)
+            # A span that is no token (a probe's false match): None.
+            out.append(None if -1 in ids_rev else ids_rev)
     return out
 
 
@@ -675,11 +721,36 @@ def _raise_pairs_failure(code: int, length: float) -> None:
     if code == _PAIRS_NOPATH:
         raise NoPathError(int(length), int(length))
     if code == _PAIRS_MISMATCH:
-        raise KeyError("walk: a matched span is not a vocabulary token "
-                       "(model/table mismatch)")
+        _raise_mismatch()
 
 
-@trace.traced("merge")
+def false_spans(flat: torch.Tensor, ntok: torch.Tensor, V: int):
+    """A group's walked ids (`lattice.walk_ids_device`), read back: (ids,
+    tokens per span, each id's span, the spans that hold an id >= V: a
+    probe's false match). Only a pass that met a false match reads them."""
+    nt = ntok.cpu().numpy().astype(np.int64)
+    ids = flat[: int(nt.sum())].cpu().numpy()
+    span_of = np.repeat(np.arange(nt.size), nt)
+    false = np.zeros(nt.size, bool)
+    false[span_of[ids >= V]] = True
+    return ids, nt, span_of, false
+
+
+def _drop_false_spans(flat: torch.Tensor, ntok: torch.Tensor, V: int,
+                      spans) -> Tuple[torch.Tensor, torch.Tensor, List[int]]:
+    """A group's walked ids without the spans that hold a false match:
+    (flat, incl) in the layout `PairTable.insert_ids` takes, those spans
+    left empty, and the samples they belong to (`spans`, the group's
+    packed spans in the walk index's order)."""
+    ids, nt, span_of, false = false_spans(flat, ntok, V)
+    nt[false] = 0
+    dev = flat.device
+    return (upload(np.ascontiguousarray(ids[~false[span_of]]), dev),
+            upload(np.cumsum(nt).astype(np.int32), dev),
+            [spans[k][3] for k in np.nonzero(false)[0].tolist()])
+
+
+@trace.traced("count")
 def count_pairs_arrays(model: Model, samples: Sequence[bytes],
                        task: Optional[Task] = None,
                        table_hints: Optional[Tuple[int, int]] = None,
@@ -700,20 +771,27 @@ def count_pairs_arrays(model: Model, samples: Sequence[bytes],
     of the distinct keys: the corpus's `pair_hint` (the last pass's
     distinct count), else the keys the last group added, else (a run's
     first group) its pairs; one scalar readback a group (the group's
-    pairs, its dead spans, the table's distinct keys, spilled rows and
-    flags) grows it and drains the rows that found no slot. Samples past
-    the pack cap take the chained encode and their pairs are inserted as
-    rows. The table is compacted and sorted on the device; only the
-    sorted arrays are read back. A span with no
-    path raises NoPathError (the first such sample's length), an id that
-    is no vocabulary token KeyError, as the encode does.
+    pairs, its dead spans, its largest id, the table's distinct keys,
+    spilled rows and flags) grows it and drains the rows that found no
+    slot. Samples past the pack cap take the chained encode (span
+    `chained`) and their pairs are inserted as rows. A sample whose path
+    took a span that is no token (an id >= V: the probe's false match)
+    is left out of its group's insert and encoded again with the exact
+    probe (`_redo_exact`, span `redo`), its pairs inserted as rows, so
+    the counts are those of an all-exact pass; a pass with no false match
+    does nothing more. The table is compacted and sorted on the device;
+    only the sorted arrays are read back. A span with no path raises
+    NoPathError (the first such sample's length), an id that is no
+    vocabulary token on the exact route too KeyError. Counts
+    `pairs.distinct`.
 
     Under a process group each rank counts its block of every row group,
     and the ranks' compacted tables are all_gathered and inserted into a
     fresh table on every rank, after every rank has learnt of any rank's
-    failure; a local corpus counts its own samples with no collective.
-    `timer` collects the encode's phases and the count's (pairs: inserts,
-    compaction and sort; readback)."""
+    failure; each rank redoes its own blocks' samples first; a local
+    corpus counts its own samples with no collective. `timer` collects
+    the encode's phases and the count's (pairs: inserts, compaction and
+    sort; readback)."""
     from ..ops.pair_count import PairTable
 
     dev = resolve_device(corpus.dev if corpus is not None and device is None
@@ -727,6 +805,7 @@ def count_pairs_arrays(model: Model, samples: Sequence[bytes],
     hint = corpus.pair_hint
     table = PairTable(dev, hint or 0)
     code, length, held = 0, 0, None
+    false: List[int] = []
     for sub, batch, index, dp, best_l in _viterbi_groups(
             dt, corpus, backend, None, 0.0, None, torch.float32, timer):
         if index.n == 0:
@@ -734,9 +813,10 @@ def count_pairs_arrays(model: Model, samples: Sequence[bytes],
         flat, ntok, incl, dead = lat.walk_ids_device(dt, batch, dp, best_l,
                                                      index, timer=timer)
         with lat.phase(timer, "readback"):
-            (pairs, any_dead, first, distinct, overflow, bad, spilled, *_
-             ) = table.read(incl[-1] - (ntok > 0).sum(), dead.any(),
-                            dead.to(torch.int32).argmax())
+            (pairs, any_dead, first, top, distinct, overflow, bad, spilled,
+             *_) = table.read(incl[-1] - (ntok > 0).sum(), dead.any(),
+                              dead.to(torch.int32).argmax(),
+                              flat.amax() if flat.numel() else ntok.sum())
         if overflow:
             code = _PAIRS_OVERFLOW
         elif any_dead and code < _PAIRS_NOPATH:
@@ -745,12 +825,23 @@ def count_pairs_arrays(model: Model, samples: Sequence[bytes],
             code = _PAIRS_MISMATCH
         if code:
             continue  # the pass raises: no more inserts
+        if top >= V:
+            with lat.phase(timer, "readback"):
+                flat, incl, more = _drop_false_spans(flat, ntok, V,
+                                                     sub.spans)
+            false.extend(more)
         new = (max(hint - distinct, 0) if hint is not None
                else pairs if held is None else distinct - held)
         with lat.phase(timer, "pairs"):
             table.reserve(min(new, pairs), distinct, spilled)
             table.insert_ids(flat, incl, V)
         held = distinct
+    if false and not code:
+        try:
+            _insert_pairs(table, _redo_exact(model, dt, samples, false, dev,
+                                             timer), dev, timer)
+        except KeyError:
+            code = _PAIRS_MISMATCH
     with lat.phase(timer, "readback"):
         distinct, overflow, bad, spilled, *_ = table.read()
     code = max(code, _PAIRS_OVERFLOW if overflow else
@@ -775,14 +866,17 @@ def count_pairs_arrays(model: Model, samples: Sequence[bytes],
             table.insert_weighted(both[0].contiguous(), both[1].contiguous())
         known = ()
     if corpus.long_idx:
-        chained = _encode_chained(
-            model, dt, [(si, samples[si]) for si in corpus.long_idx],
-            corpus.cap, backend=backend, dropout=0.0, seed=0x5151,
-            probe=None, device=dev, timer=timer)
-        with lat.phase(timer, "pairs"):
-            keys = torch.from_numpy(_chained_pair_keys(chained)).to(dev)
-            table.reserve(keys.numel())
-            table.insert_weighted(keys, torch.ones_like(keys))
+        long_idx = corpus.long_idx
+        with trace.span("chained"):
+            chained = _encode_chained(
+                model, dt, [(si, samples[si]) for si in long_idx],
+                corpus.cap, backend=backend, dropout=0.0, seed=0x5151,
+                probe=None, device=dev, timer=timer)
+        redo = [si for si, ids in zip(long_idx, chained) if ids is None]
+        if redo:
+            chained = [ids for ids in chained if ids is not None]
+            chained += _redo_exact(model, dt, samples, redo, dev, timer)
+        _insert_pairs(table, chained, dev, timer)
         known = ()
     if task is not None:
         task.record(sum(len(s) for s in samples), len(samples))
@@ -793,7 +887,18 @@ def count_pairs_arrays(model: Model, samples: Sequence[bytes],
                                     stable=True)
         keys = keys[order2]
     with lat.phase(timer, "readback"):
-        return keys.cpu().numpy(), counts.cpu().numpy()
+        keys, counts = keys.cpu().numpy(), counts.cpu().numpy()
+    trace.count("pairs.distinct", keys.size)
+    return keys, counts
+
+
+def _insert_pairs(table, ids: Sequence[List[int]], dev,
+                  timer: Optional[lat.PhaseTimer]) -> None:
+    """Inserts the adjacent pairs of each id list into `table` as rows."""
+    with lat.phase(timer, "pairs"):
+        keys = torch.from_numpy(_chained_pair_keys(ids)).to(dev)
+        table.reserve(keys.numel())
+        table.insert_weighted(keys, torch.ones_like(keys))
 
 
 def count_pairs_device(model: Model, samples: Sequence[bytes],

@@ -30,6 +30,7 @@ import numpy as np
 
 from ..core.types import ScoredToken
 from ..models.unigram import Model
+from ..utils import trace
 from ..utils.task import Task
 from .patterns import rust_to_python
 
@@ -70,8 +71,13 @@ class VocabularyMerger:
             raise ValueError(f"unknown backend {self.backend!r}")
         self._corpus = None  # device-resident corpus, one per samples
 
+    @trace.traced("merge")
     def merge(self, model: Model, samples: Sequence[bytes]) -> Model:
-        """reference: src/merge.rs:33-136."""
+        """reference: src/merge.rs:33-136. Runs in the span `merge`: each
+        pass's pair count in `merge.count` (the device backend), the
+        selection over the ordered pairs in `merge.select`, which counts
+        `merge.merged` and `merge.refused` (pairs refused by length or
+        allow)."""
         # Allow checks go through the same byte-DFA as the generate
         # stage (search semantics = Regex::is_match); patterns outside
         # the DFA subset fall back to a host regex search.
@@ -99,32 +105,39 @@ class VocabularyMerger:
                 task.finish()
 
             merges = min(self.step, self.num_merges - done)
-            made = 0
-            for (a, b), freq in pairs:
-                if merges == 0:
-                    break
-                ta = model.vocab[a]
-                tb = model.vocab[b]
-                value = ta.value + tb.value
-                score = (ta.score + tb.score) * self.scale_factor
-                token = ScoredToken(value, score, False)
-                text = value.decode("utf-8", errors="replace")
-                # Unanchored substring search: the reference's
-                # Regex::is_match (src/merge.rs:105-106). CLI-generated
-                # patterns are ^...$-anchored so behave identically, but
-                # a user-supplied unanchored allow must match anywhere.
-                if len(value) > self.max_token_length or not allow_ok(text):
-                    if (a, b) not in ignore:
-                        log.debug(
-                            "Ignoring merge of a=%s b=%s freq=%d into=%s",
-                            ta, tb, freq, token,
-                        )
-                        ignore.add((a, b))
-                    continue
-                model.add_tokens([token])
-                merges -= 1
-                made += 1
-                log.info("Merged a=%s b=%s freq=%d into=%s", ta, tb, freq, token)
+            made = refused = 0
+            with trace.span("select"):
+                for (a, b), freq in pairs:
+                    if merges == 0:
+                        break
+                    ta = model.vocab[a]
+                    tb = model.vocab[b]
+                    value = ta.value + tb.value
+                    score = (ta.score + tb.score) * self.scale_factor
+                    token = ScoredToken(value, score, False)
+                    text = value.decode("utf-8", errors="replace")
+                    # Unanchored substring search: the reference's
+                    # Regex::is_match (src/merge.rs:105-106). CLI-generated
+                    # patterns are ^...$-anchored so behave identically,
+                    # but a user-supplied unanchored allow must match
+                    # anywhere.
+                    if len(value) > self.max_token_length or \
+                            not allow_ok(text):
+                        refused += 1
+                        if (a, b) not in ignore:
+                            log.debug(
+                                "Ignoring merge of a=%s b=%s freq=%d "
+                                "into=%s", ta, tb, freq, token,
+                            )
+                            ignore.add((a, b))
+                        continue
+                    model.add_tokens([token])
+                    merges -= 1
+                    made += 1
+                    log.info("Merged a=%s b=%s freq=%d into=%s", ta, tb,
+                             freq, token)
+                trace.count("merge.merged", made)
+                trace.count("merge.refused", refused)
 
             if made == 0:
                 log.warning(
