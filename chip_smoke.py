@@ -237,6 +237,7 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 import math
@@ -1234,6 +1235,86 @@ def check_viterbi_walk(lat, tbl, batch, spans, dev, route: str, scan=None):
     return res
 
 
+def check_chained_walk(lat, ed, samples, vocabs, dev):
+    """chained_walk against its twin at the merge cell's shape: 54 samples
+    of 32 KiB + 1 to 94 KiB (the cell's files past the pack cap: 2-3
+    windows of 32 KiB each, a row batch of 128), cut from the corpus and
+    encoded through `_encode_chained` over each vocabulary's table
+    (`vocabs`: L = 16 and L = 20). The walk's own inputs run through the
+    kernel and the twin on the card: ids, tokens a window and flags equal;
+    the kernel timed beside the twin (host work included) and queued
+    (device time alone). Bytes: a position's backpointer and byte, two
+    exact-table rows of 16 B and an id of 4 B a token."""
+    from tokengeex_tpu_torch.ops.match_table import TokenTable
+
+    W = ed.chained_width()
+    rng = np.random.default_rng(SEED + 24)
+    lens = [94 * 1024] + rng.integers(W + 1, 94 * 1024, 53).tolist()
+    big = b"\n".join(samples)
+    check(len(big) >= sum(lens), "chained walk: corpus too short")
+    offs = np.cumsum([0] + lens)
+    long = [(i, big[offs[i] : offs[i + 1]]) for i in range(len(lens))]
+    res = {}
+    for name, vocab in vocabs.items():
+        dt = lat.DeviceTables.from_table(TokenTable.build(vocab), dev)
+        L = dt.max_len
+        seen = {}
+        walk = lat.chained_walk
+
+        # Wrapped, so that the launches the module counts on the name
+        # `chained_walk` land on the spy while it stands there.
+        @functools.wraps(walk)
+        def spy(*a, **k):
+            seen["args"], seen["kw"] = a, k
+            return walk(*a, **k)
+
+        lat.chained_walk = spy
+        try:
+            ed._encode_chained(dt, long, W, backend=ed._eff_backend(
+                dt, None, torch.float32), dropout=0.0, seed=0x5151,
+                probe=None, device=dev)
+        finally:
+            lat.chained_walk = walk
+        a, kw = seen["args"], seen["kw"]
+        bl, nwin = a[0], a[2]
+        K, NW = int(nwin.max()), bl.shape[0]
+        check(K == 3 and NW == int(nwin.sum()) and NW >= 3 * len(long) // 2,
+              f"chained walk ({name}): {NW} windows, {K} at most")
+        want = []
+        plain_ms = cuda_ms(lambda: want.append(lat.chained_walk_plain(
+            *a, **kw)), iters=1, warmup=0)
+        got = walk(*a, **kw)
+        torch.cuda.synchronize()
+        flat, ntok, bad = want[0]
+        total = int(ntok.sum())
+        check(torch.equal(got[1], ntok) and torch.equal(got[2], bad),
+              f"chained walk ({name}): tokens a window or flags differ")
+        check(torch.equal(got[0][:total], flat[:total])
+              and not bool(got[0][total:].any()),
+              f"chained walk ({name}): ids differ")
+        check(total > 0 and int(flat[:total].max()) <= dt.vocab_size,
+              f"chained walk ({name}): ids out of range")
+        ms = cuda_ms(lambda: walk(*a, **kw), iters=20)
+        device_ms = cuda_ms(lambda: walk(*a, **kw), iters=20, queued=True)
+        positions = sum(lens)
+        nbytes = 2 * positions + 36 * total
+        b_ms, b_by = bound(nbytes, 0)
+        res[name] = {"max_abs_err": 0.0, "ms": ms, "device_ms": device_ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "L": L, "bits": dt.bits,
+                     "samples": len(long), "windows": NW, "max_windows": K,
+                     "scan_rows": -(-len(long) // ed.ROW_MULT) * ed.ROW_MULT,
+                     "positions": positions, "tokens": total,
+                     "false": int(bad.sum()), "bytes": nbytes}
+        log(f"chained_walk ({name}, L={L}, {len(long)} samples, {NW} "
+            f"windows of {W}, {K} at most, {total} tokens, {nbytes} bytes): "
+            f"{ms:.4f} ms ({device_ms:.4f} ms queued: two launches and a "
+            f"cumsum), plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}), {ms / b_ms:.1f} x bound, equal")
+        del dt
+    return res
+
+
 def probe_bytes_ops(tbl, batch, mode, lead, slots, dtype):
     """(bytes, operations) the probe of `batch` needs: the score (and
     slot) caches written once, the prefix hashes and sample ids over the
@@ -1580,18 +1661,29 @@ def run_config(name, vocab, samples, long_sample, expect, groups, kernels,
     ed._encode_chained = counted
     try:
         long_text = long_sample.decode()
+        lat.chained_walk.launches = 0
         long_ids = tok.encode_batch([long_text])[0]
+        torch.cuda.synchronize()
+        chained_launches = lat.chained_walk.launches
         long_cpu = Tokenizer(model, device="cpu").encode_batch([long_text])[0]
     finally:
         ed._encode_chained = orig
     check(chained["calls"] == 2, f"{name}: the long sample was not chained")
+    # A byte copy of each window's backpointers, then the walk's two
+    # launches.
+    windows = -(-len(long_sample) // ed.chained_width())
+    check(chained_launches == windows + 2,
+          f"{name}: {chained_launches} chained walk launches for "
+          f"{windows} windows")
     check(tok.decode(long_ids) == long_text,
           f"{name}: the chained sample does not decode back")
     check(long_ids == long_cpu, f"{name}: chained ids differ from CPU")
     log(f"[{name}] checks passed: decode, CPU plain run (64 samples), "
-        f"dropout, chained {len(long_sample)}-byte sample")
+        f"dropout, chained {len(long_sample)}-byte sample "
+        f"({chained_launches} chained walk launches)")
     return {"bytes": total, "seconds": secs, "bytes_per_s": rate,
             "launches": launches, "groups": groups, "peak_bytes": peak,
+            "chained_launches": chained_launches,
             "phases": phases, "phases_run_seconds": secs_t, "profiled": busy,
             "tokens": sum(map(len, ids)), "ids_digest": ids_digest(ids)}
 
@@ -3812,6 +3904,8 @@ def main() -> None:
     walk = {route: check_viterbi_walk(lat, tbl, batch,
                                       enc_groups[0][1].spans, dev, route)
             for route, tbl in (("slab", dt_a), ("fused", dt_b))}
+    chained_k = check_chained_walk(lat, ed, samples, {
+        "L16": vocab_a, "L20": build_vocab(samples, 32768, max_len=20)}, dev)
     del batch
     torch.cuda.empty_cache()
     # The merge's first row group (phase 3e's: the 4k vocabulary at the
@@ -4037,6 +4131,10 @@ def main() -> None:
               walk["slab"]["ids"],
               max(w[m]["max_abs_err"] for w in walk.values()
                   for m in ("count", "ids"))),
+        entry("chained_walk", "viterbi_walk.cu",
+              "tokengeex_tpu/train/estep_device.py:613 (the chained "
+              "windows' host backtrack)",
+              e2e["a_32k_slab"]["chained_launches"], chained_k["L20"]),
         entry("dfa_mask", "dfa_mask.cu",
               "tokengeex_tpu/ops/dfa_device.py:75", generated["launches"],
               mask),
@@ -4087,6 +4185,7 @@ def main() -> None:
               "seg_weights_gather": segsum,
               "fused_forward_logsumexp": fused_lse,
               "fused_backward": fused_bwd, "viterbi_walk": walk,
+              "chained_walk": chained_k,
               "encode": e2e, "estep": estep, "merge": merged,
               "session": session, "session_over_budget": over_budget,
               "prune": pruned, "prune_fused": pruned_f,

@@ -16,7 +16,8 @@ tables; its plain twin, `viterbi_walk_plain`, is held here:
     tokens, and NoPath from the split);
   - the port's encode against the JAX package's with shared dropout words,
     empty samples, back-to-back samples in one row, NoPath, and a sample
-    over 32 KiB (the chained path, walked on the host);
+    over 32 KiB (the chained path, walked across its windows on the
+    device: tests/test_torch_chained_walk.py);
   - the session's frequency pass walks on the device, not on the host;
   - and the wrapper's argument checks.
 
@@ -318,8 +319,8 @@ def test_encode_matches_jax_with_shared_words(enc_corpus, one_jax_device,
 
 def test_encode_no_path_and_long_sample(enc_corpus, one_jax_device):
     """A byte missing from the vocabulary raises NoPath on both packages;
-    a sample over 32 KiB takes the chained path (its host walk) and
-    equals the JAX package's ids."""
+    a sample over 32 KiB takes the chained path (its walk across the
+    windows) and equals the JAX package's ids."""
     vocab, samples = enc_corpus
     jm, m = _models(vocab)
     bad = samples[:5] + [samples[5] + b"z"]

@@ -63,6 +63,10 @@
 // bytes through shared-memory tiles, so every block stages its row with
 // 16-byte loads.
 //
+// The chained walk (`tgx_chained_walk`, at the end of this file) walks the
+// samples longer than the encode width across their windows with the same
+// exit tables, and resolves their ids from the windows' bytes.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (tokengeex_tpu_torch/ops/_build.py).
 
@@ -155,6 +159,115 @@ __device__ __forceinline__ int walk_step(const uint8_t* sbl, int q) {
   return q - (l > 0 ? l : 1);
 }
 
+// (b) The composition of one span (s, e], from q = e: whole segments by
+// their exit tables, the rest step by step (also where an exit lies beyond
+// the table's reach). With EMIT, a whole segment crossed is recorded
+// (seg_q: its real entry, seg_c: the cell of its first token) and a token
+// walked step by step goes to cell e - 1 - k, the k-th from e. Returns the
+// span's tokens; q is left on its first node <= s.
+template <bool EMIT>
+__device__ __forceinline__ int compose(const uint8_t* sbl, const uint16_t* tn,
+                                       const uint8_t* tx, uint16_t* seg_q,
+                                       uint16_t* seg_c, uint16_t* tok, int& q,
+                                       int s, int e, int L, int S) {
+  int n = 0;
+  while (q > s) {
+    const int g = (q - 1) / S, lo = g * S, t = lo + S - q;
+    if (lo >= s && t < L) {
+      if (EMIT) {
+        seg_q[g] = (uint16_t)q;
+        seg_c[g] = (uint16_t)(e - 1 - n);
+      }
+      n += tn[g * L + t];
+      q = lo - tx[g * L + t];
+    } else {
+      const int stop = max(lo, s);
+      while (q > stop) {
+        if (EMIT) tok[e - 1 - n] = (uint16_t)(q - 1);
+        q = walk_step(sbl, q);
+        ++n;
+      }
+    }
+  }
+  return n;
+}
+
+// (c) The recorded whole segments, walked from their real entries, a
+// thread a segment; their records cleared.
+__device__ __forceinline__ void walk_segments(const uint8_t* sbl,
+                                              uint16_t* seg_q,
+                                              const uint16_t* seg_c,
+                                              uint16_t* tok, int NS, int S) {
+  for (int g = threadIdx.x; g < NS; g += blockDim.x) {
+    int q = seg_q[g];
+    if (q == 0) continue;
+    seg_q[g] = 0;
+    int c = seg_c[g];
+    const int lo = g * S;
+    while (q > lo) {
+      tok[c--] = (uint16_t)(q - 1);
+      q = walk_step(sbl, q);
+    }
+  }
+}
+
+// (a) The exit tables of a row whose backpointers `sbl` holds: every entry
+// t of every segment g walks, speculatively, down to its first node <= the
+// segment's bottom lo = g * S, two entries a thread at once so their chains
+// overlap; tn[g L + t] gets its tokens, tx[g L + t] its exit offset (lo -
+// node, in [0, L)). Entries above W are never entered. Where g_tn is not
+// null, the tables go to global memory too.
+__device__ __forceinline__ void exit_tables(const uint8_t* sbl, uint16_t* tn,
+                                            uint8_t* tx, uint16_t* g_tn,
+                                            uint8_t* g_tx, int W, int L,
+                                            int S) {
+  const int NE = (W + S - 1) / S * L;
+  for (int j0 = threadIdx.x; j0 < NE; j0 += 2 * TGX_WALK_THREADS) {
+    const int j1 = min(j0 + TGX_WALK_THREADS, NE - 1);
+    const int g0 = j0 / L, g1 = j1 / L, lo0 = g0 * S, lo1 = g1 * S;
+    int q0 = lo0 + S - (j0 - g0 * L), q1 = lo1 + S - (j1 - g1 * L);
+    if (q0 > W) q0 = lo0;
+    if (q1 > W) q1 = lo1;
+    int n0 = 0, n1 = 0;
+    while (q0 > lo0 || q1 > lo1) {
+      const bool go0 = q0 > lo0, go1 = q1 > lo1;
+      const int l0 = sbl[max(q0, 1) - 1], l1 = sbl[max(q1, 1) - 1];
+      q0 -= go0 ? (l0 > 0 ? l0 : 1) : 0;
+      q1 -= go1 ? (l1 > 0 ? l1 : 1) : 0;
+      n0 += go0;
+      n1 += go1;
+    }
+    tn[j0] = (uint16_t)n0;
+    tx[j0] = (uint8_t)(lo0 - q0);
+    const bool two = j1 == j0 + TGX_WALK_THREADS;
+    if (two) {
+      tn[j1] = (uint16_t)n1;
+      tx[j1] = (uint8_t)(lo1 - q1);
+    }
+    if (g_tn != nullptr) {
+      g_tn[j0] = (uint16_t)n0;
+      g_tx[j0] = (uint8_t)(lo0 - q0);
+      if (two) {
+        g_tn[j1] = (uint16_t)n1;
+        g_tx[j1] = (uint8_t)(lo1 - q1);
+      }
+    }
+  }
+}
+
+// A token's id from its two exact-table rows: T1's when its fp1, fp2 and
+// length match, else T2's, else V (no token).
+__device__ __forceinline__ int exact_id(int4 r1, int4 r2, uint32_t fp1,
+                                        uint32_t fp2, unsigned l, int V) {
+  if ((uint32_t)r1.x == fp1 && (uint32_t)r1.y == fp2 &&
+      ((uint32_t)r1.z >> 24) == l)
+    return r1.z & 0xFFFFFF;
+  if ((uint32_t)r2.x == fp1 && (uint32_t)r2.y == fp2 &&
+      ((uint32_t)r2.z >> 24) == l)
+    return r2.z & 0xFFFFFF;
+  return V;
+}
+
 template <typename BL, int MODE>
 __global__ void __launch_bounds__(TGX_WALK_THREADS)
 viterbi_walk_kernel(const WalkArgs a) {
@@ -219,9 +332,7 @@ viterbi_walk_kernel(const WalkArgs a) {
   }
   __syncthreads();
 
-  // (a) The speculative walks: every entry t of every segment g, down to
-  // the segment's bottom lo = g * S, two entries a thread at once so their
-  // chains overlap. Entries above W are never entered.
+  // (a) The speculative walks (`exit_tables`), or the ntok launch's.
   const int NE = NS * L;
   uint16_t* g_tn = a.tabs ? (uint16_t*)(a.tabs + 4LL * NE * b) : nullptr;
   uint8_t* g_tx = a.tabs ? a.tabs + 4LL * NE * b + 2 * NE : nullptr;
@@ -232,36 +343,9 @@ viterbi_walk_kernel(const WalkArgs a) {
       tx[j] = g_tx[j];
     }
   } else {
-    for (int j0 = threadIdx.x; j0 < NE; j0 += 2 * TGX_WALK_THREADS) {
-      const int j1 = min(j0 + TGX_WALK_THREADS, NE - 1);
-      const int g0 = j0 / L, g1 = j1 / L, lo0 = g0 * S, lo1 = g1 * S;
-      int q0 = lo0 + S - (j0 - g0 * L), q1 = lo1 + S - (j1 - g1 * L);
-      if (q0 > W) q0 = lo0;
-      if (q1 > W) q1 = lo1;
-      int n0 = 0, n1 = 0;
-      while (q0 > lo0 || q1 > lo1) {
-        const bool go0 = q0 > lo0, go1 = q1 > lo1;
-        const int l0 = sbl[max(q0, 1) - 1], l1 = sbl[max(q1, 1) - 1];
-        q0 -= go0 ? (l0 > 0 ? l0 : 1) : 0;
-        q1 -= go1 ? (l1 > 0 ? l1 : 1) : 0;
-        n0 += go0;
-        n1 += go1;
-      }
-      tn[j0] = (uint16_t)n0;
-      tx[j0] = (uint8_t)(lo0 - q0);
-      if (j1 == j0 + TGX_WALK_THREADS) {
-        tn[j1] = (uint16_t)n1;
-        tx[j1] = (uint8_t)(lo1 - q1);
-      }
-      if (MODE == TGX_WALK_NTOK && a.tabs != nullptr) {
-        g_tn[j0] = (uint16_t)n0;
-        g_tx[j0] = (uint8_t)(lo0 - q0);
-        if (j1 == j0 + TGX_WALK_THREADS) {
-          g_tn[j1] = (uint16_t)n1;
-          g_tx[j1] = (uint8_t)(lo1 - q1);
-        }
-      }
-    }
+    const bool keep = MODE == TGX_WALK_NTOK;
+    exit_tables(sbl, tn, tx, keep ? g_tn : nullptr, keep ? g_tx : nullptr, W,
+                L, S);
   }
   __syncthreads();
 
@@ -279,27 +363,10 @@ viterbi_walk_kernel(const WalkArgs a) {
       const int s = min(max(a.sp_start[k], 0), e);
       if (i == t0) tile_lo = s;
       if (i == last) tile_hi = e;
-      // (b) The composition: whole segments by their tables, the rest
-      // step by step (also where an exit lies beyond the table's reach).
+      // (b) The composition (`compose`).
       int q = a.ok[k] ? e : s;
-      while (q > s) {
-        const int g = (q - 1) / S, lo = g * S, t = lo + S - q;
-        if (lo >= s && t < L) {
-          if (emit) {
-            seg_q[g] = (uint16_t)q;
-            seg_c[g] = (uint16_t)(e - 1 - n);
-          }
-          n += tn[g * L + t];
-          q = lo - tx[g * L + t];
-        } else {
-          const int stop = max(lo, s);
-          while (q > stop) {
-            if (emit) tok[e - 1 - n] = (uint16_t)(q - 1);
-            q = walk_step(sbl, q);
-            ++n;
-          }
-        }
-      }
+      n = compose<MODE != TGX_WALK_NTOK>(sbl, tn, tx, seg_q, seg_c, tok, q, s,
+                                         e, L, S);
       if (MODE == TGX_WALK_NTOK) a.ntok[k] = n;
     }
     if (MODE == TGX_WALK_NTOK) continue;
@@ -309,18 +376,8 @@ viterbi_walk_kernel(const WalkArgs a) {
     }
     __syncthreads();
 
-    // (c) The recorded whole segments, walked from their real entries.
-    for (int g = threadIdx.x; g < NS; g += blockDim.x) {
-      int q = seg_q[g];
-      if (q == 0) continue;
-      seg_q[g] = 0;
-      int c = seg_c[g];
-      const int lo = g * S;
-      while (q > lo) {
-        tok[c--] = (uint16_t)(q - 1);
-        q = walk_step(sbl, q);
-      }
-    }
+    // (c) The recorded whole segments (`walk_segments`).
+    walk_segments(sbl, seg_q, seg_c, tok, NS, S);
     __syncthreads();
 
     // The tile's recorded cells into a dense list, in cell order: each
@@ -411,18 +468,9 @@ viterbi_walk_kernel(const WalkArgs a) {
       }
 #pragma unroll
       for (int u = 0; u < TGX_WALK_ILP; ++u) {
-        int id = -1;
-        if (c[u] >= 0) {
-          id = a.V;
-          if ((uint32_t)r1[u].x == fp1[u] && (uint32_t)r1[u].y == fp2[u] &&
-              ((uint32_t)r1[u].z >> 24) == l[u]) {
-            id = r1[u].z & 0xFFFFFF;
-          } else if ((uint32_t)r2[u].x == fp1[u] &&
-                     (uint32_t)r2[u].y == fp2[u] &&
-                     ((uint32_t)r2[u].z >> 24) == l[u]) {
-            id = r2[u].z & 0xFFFFFF;
-          }
-        }
+        const int id =
+            c[u] >= 0 ? exact_id(r1[u], r2[u], fp1[u], fp2[u], l[u], a.V)
+                      : -1;
         if (MODE == TGX_WALK_COUNT) {
           // One atomic per distinct id of the warp (the loop is uniform
           // over the block, so every lane is here).
@@ -587,3 +635,283 @@ extern "C" int tgx_walk_rows(const void* bl, uint8_t* out, long long bl_sr,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// The chained walk: samples longer than the encode width, scanned in
+// windows of W positions whose rows are [the previous window's last L
+// bytes | body] (ops/lattice.py `prepare_chained_batch`), the dp tail
+// carried from window to window. Every window keeps its backpointers as W
+// bytes and its row's L + W bytes, in one flat list of NW windows, the
+// windows of sample after sample: sample r's window k is window win0[r] +
+// k, so a sample pays for its own windows alone.
+//
+// A sample's walk starts at the end of its last window's body; in window k
+// it steps right to left while q > 0, as the packed walk does within a
+// span from s = 0. Its first node <= 0, -x with x in [0, L), is where it
+// enters window k - 1: at W - x. A token ending in window k lies wholly in
+// that window's row (it reaches at most L - 1 bytes into the tail), so the
+// window's own bytes resolve its id. Two launches:
+//   - entries: a block a sample, its windows from the last to the first:
+//     stage the window's backpointers, build its exit tables (`exit_tables`,
+//     kept in `tabs` for the ids launch), and one thread crosses the window
+//     by them, whole segments a lookup, giving the tokens ending in the
+//     window and the next window's entry: a serial chain over the sample's
+//     windows, each crossed in about S / 3.5 + W / S steps;
+//   - ids (after one cumsum of the tokens, window after window): a block a
+//     window walks it again from its entry, records the whole segments it
+//     crosses, walks those from their real entries in parallel (the packed
+//     walk's (b) and (c)), and
+//     resolves every token's id TGX_WALK_ILP a thread at once: the
+//     fingerprints straight from the window's bytes (fp = sum b[i] R^i, by
+//     Horner from the token's last byte; equal to the prefix-hash formula
+//     mod 2^32), then the exact tables. A token no table row holds gets V
+//     and marks its sample in `bad`.
+// A sample whose `ok` flag is 0 (no path to its end) is not walked.
+// ---------------------------------------------------------------------------
+
+#define TGX_R1 0x9E3779B1u  // the hash family's multipliers (ops/hashing.py)
+#define TGX_R2 0x85EBCA77u
+
+enum { TGX_CHAIN_ENTRIES = 0, TGX_CHAIN_IDS = 1 };
+
+struct ChainArgs {
+  const uint8_t* bl;       // (NW, W) backpointers, window after window
+  const uint8_t* rows;     // (NW, L + W) the windows' rows [tail | body]
+  const int32_t* nwin;     // (R,) windows of each sample
+  const int32_t* win0;     // (R,) its first window
+  const int32_t* wsample;  // (NW,) each window's sample
+  const int32_t* last_n;   // (R,) body bytes of its last window
+  const uint8_t* ok;       // (R,) 0: do not walk
+  const int4* t1;          // (H, 4) exact rows [fp1, fp2, len << 24 | id, 0]
+  const int4* t2;
+  int32_t* entry;          // (NW,) the walk's entry into each window
+  int32_t* ntok;           // (NW,) the tokens ending in each window
+  const int32_t* incl;     // (NW,) inclusive cumsum of ntok, ids launch
+  int32_t* flat;           // (>= incl[NW - 1],) ids launch
+  uint8_t* bad;            // (R,) ids launch: 1 where a token is no token
+  uint8_t* tabs;           // (NW, 4 NS L) exit tables
+  int NW, R, W, L, bits, V, S;
+};
+
+// Shared memory of a chained block: the backpointers (W bytes), then
+// (ids launch) the token ends by cell (uint16) and the segment records,
+// then the exit tables.
+struct ChainSmem {
+  size_t tok, seg_q, seg_c, tn, tx, total;
+};
+
+__host__ __device__ inline ChainSmem chain_smem(int W, int L, int S,
+                                                int mode) {
+  const size_t ns = (size_t)((W + S - 1) / S);
+  const bool ids = mode == TGX_CHAIN_IDS;
+  ChainSmem m;
+  m.tok = ((size_t)W + 15) & ~(size_t)15;
+  m.seg_q = m.tok + (ids ? 2 * (size_t)W : 0);
+  m.seg_c = m.seg_q + (ids ? 2 * ns : 0);
+  m.tn = m.seg_c + (ids ? 2 * ns : 0);
+  m.tx = m.tn + 2 * ns * L;
+  m.total = m.tx + ns * L;
+  return m;
+}
+
+// A window's backpointers into shared memory, 16 bytes a load where the
+// row allows.
+__device__ __forceinline__ void stage_row(uint8_t* sbl, const uint8_t* bl,
+                                          int W) {
+  if ((W & 15) == 0 && ((uintptr_t)bl & 15) == 0) {
+    for (int p = 16 * threadIdx.x; p < W; p += 16 * TGX_WALK_THREADS)
+      *(uint4*)(sbl + p) = __ldg((const uint4*)(bl + p));
+  } else {
+    for (int p = threadIdx.x; p < W; p += TGX_WALK_THREADS)
+      sbl[p] = __ldg(bl + p);
+  }
+}
+
+__global__ void __launch_bounds__(TGX_WALK_THREADS)
+chain_entries_kernel(const ChainArgs a) {
+  const int r = blockIdx.x;
+  const int nw = a.nwin[r];
+  if (nw == 0 || !a.ok[r]) return;  // ntok stays 0
+  const int W = a.W, L = a.L, S = a.S;
+  const int NE = (W + S - 1) / S * L;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const ChainSmem m = chain_smem(W, L, S, TGX_CHAIN_ENTRIES);
+  uint8_t* sbl = smem;
+  uint16_t* tn = (uint16_t*)(smem + m.tn);
+  uint8_t* tx = smem + m.tx;
+  int entry = a.last_n[r];  // thread 0's walk enters window k here
+  for (int k = nw - 1; k >= 0; --k) {
+    const size_t win = (size_t)a.win0[r] + k;
+    stage_row(sbl, a.bl + win * W, W);
+    __syncthreads();
+    uint8_t* g = a.tabs + 4 * (size_t)NE * win;
+    exit_tables(sbl, tn, tx, (uint16_t*)g, g + 2 * NE, W, L, S);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      // Across the window, the span (0, entry].
+      int q = entry;
+      const int n = compose<false>(sbl, tn, tx, nullptr, nullptr, nullptr, q,
+                                   0, entry, L, S);
+      a.entry[win] = entry;
+      a.ntok[win] = n;
+      entry = W + q;
+    }
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(TGX_WALK_THREADS)
+chain_ids_kernel(const ChainArgs a) {
+  const size_t win = blockIdx.x;
+  const int r = a.wsample[win];
+  if (!a.ok[r]) return;
+  const int W = a.W, L = a.L, S = a.S;
+  const int NS = (W + S - 1) / S, NE = NS * L;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const ChainSmem m = chain_smem(W, L, S, TGX_CHAIN_IDS);
+  uint8_t* sbl = smem;                            // (W,) backpointers
+  uint16_t* tok = (uint16_t*)(smem + m.tok);      // (W,) token ends by cell
+  uint16_t* seg_q = (uint16_t*)(smem + m.seg_q);  // (NS,) real entry, 0: none
+  uint16_t* seg_c = (uint16_t*)(smem + m.seg_c);  // (NS,) its first cell
+  uint16_t* tn = (uint16_t*)(smem + m.tn);        // (NS, L) tokens
+  uint8_t* tx = smem + m.tx;                      // (NS, L) exit offsets
+  __shared__ int n_all;
+  stage_row(sbl, a.bl + win * W, W);
+  const uint8_t* g = a.tabs + 4 * (size_t)NE * win;
+  for (int j = threadIdx.x; j < NE; j += TGX_WALK_THREADS) {
+    tn[j] = ((const uint16_t*)g)[j];
+    tx[j] = g[2 * NE + j];
+  }
+  for (int sg = threadIdx.x; sg < NS; sg += TGX_WALK_THREADS) seg_q[sg] = 0;
+  __syncthreads();
+
+  // The window from its entry e: the k-th token from e ends at cell e - 1 -
+  // k, so the window's n tokens fill cells [e - n, e) in position order.
+  const int e = a.entry[win];
+  if (threadIdx.x == 0) {
+    int q = e;
+    n_all = compose<true>(sbl, tn, tx, seg_q, seg_c, tok, q, 0, e, L, S);
+  }
+  __syncthreads();
+  walk_segments(sbl, seg_q, seg_c, tok, NS, S);
+  __syncthreads();
+
+  const int n = n_all, c0 = e - n;
+  int32_t* out = a.flat + a.incl[win] - n;
+  const uint8_t* row = a.rows + win * (size_t)(L + W) + L;  // dp index 0
+  const unsigned shift = 32u - (unsigned)a.bits;
+  for (int j0 = 0; j0 < n; j0 += TGX_WALK_ILP * TGX_WALK_THREADS) {
+    uint32_t fp1[TGX_WALK_ILP], fp2[TGX_WALK_ILP];
+    unsigned l[TGX_WALK_ILP];
+#pragma unroll
+    for (int u = 0; u < TGX_WALK_ILP; ++u) {
+      const int j = j0 + u * TGX_WALK_THREADS + (int)threadIdx.x;
+      const int pos = j < n ? tok[c0 + j] : 0;
+      const unsigned lb = sbl[pos];
+      l[u] = lb > 0 ? lb : 1u;
+      // The token's bytes [pos + 1 - l, pos + 1), the first of them up to
+      // L - 1 bytes into the tail.
+      const uint8_t* p = row + pos + 1 - (int)l[u];
+      uint32_t h1 = 0, h2 = 0;
+      for (int i = j < n ? (int)l[u] - 1 : -1; i >= 0; --i) {
+        const uint32_t b = __ldg(p + i);
+        h1 = h1 * TGX_R1 + b;
+        h2 = h2 * TGX_R2 + b;
+      }
+      fp1[u] = h1;
+      fp2[u] = h2;
+    }
+    int4 r1[TGX_WALK_ILP], r2[TGX_WALK_ILP];
+#pragma unroll
+    for (int u = 0; u < TGX_WALK_ILP; ++u) {
+      r1[u] = __ldg(a.t1 + (((fp1[u] ^ (l[u] * TGX_IDX_A1)) * TGX_IDX_M1) >>
+                            shift));
+      r2[u] = __ldg(a.t2 + (((fp2[u] ^ (l[u] * TGX_IDX_A2)) * TGX_IDX_M2) >>
+                            shift));
+    }
+#pragma unroll
+    for (int u = 0; u < TGX_WALK_ILP; ++u) {
+      const int j = j0 + u * TGX_WALK_THREADS + (int)threadIdx.x;
+      if (j >= n) continue;
+      const int id = exact_id(r1[u], r2[u], fp1[u], fp2[u], l[u], a.V);
+      out[j] = id;
+      if (id == a.V) a.bad[r] = 1;
+    }
+  }
+}
+
+template <typename K>
+static int chain_launch(K kernel, const ChainArgs& a, dim3 grid, int mode,
+                        cudaStream_t stream) {
+  const size_t smem = chain_smem(a.W, a.L, a.S, mode).total;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  if (smem + attr.sharedSizeBytes > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<grid, TGX_WALK_THREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// NW windows, sample r's nwin[r] of them from win0[r] on (win0 the
+// exclusive cumsum of nwin, wsample[w] the sample of window w). mode 0
+// (entries): entry (NW,) and ntok (NW,) written (ntok zeroed by the
+// caller: a sample not walked keeps 0), tabs (NW, 4 NS L) bytes left for
+// mode 1, NS the segments of a window. mode 1 (ids): incl, the inclusive
+// cumsum of ntok; each window's ids written to flat at [incl - ntok,
+// incl), bad[r] set to 1 where a token is no vocabulary token (zeroed by
+// the caller). bl (NW, W) and rows (NW, L + W) contiguous bytes; W < 65535
+// (cells are kept as uint16); L the longest token and the rows' tail, L <=
+// S, the segment length. Returns cudaGetLastError() after the launch (0 on
+// success).
+extern "C" int tgx_chained_walk(
+    const uint8_t* bl, const uint8_t* rows, const int32_t* nwin,
+    const int32_t* win0, const int32_t* wsample, const int32_t* last_n,
+    const uint8_t* ok, const int32_t* t1, const int32_t* t2, int32_t* entry,
+    int32_t* ntok, const int32_t* incl, int32_t* flat, uint8_t* bad,
+    uint8_t* tabs, int NW, int R, int W, int L, int bits, int V, int S,
+    int mode, void* stream) {
+  if (NW < 1 || R < 1 || W < 1 || W >= (int)TGX_NO_TOKEN || L < 1 ||
+      L > 255 || S < L || S > 65535 || bits < 1 || bits > 31 ||
+      bl == nullptr || ok == nullptr || entry == nullptr ||
+      ntok == nullptr || tabs == nullptr || mode < 0 || mode > 1 ||
+      (mode == TGX_CHAIN_ENTRIES &&
+       (nwin == nullptr || win0 == nullptr || last_n == nullptr)) ||
+      (mode == TGX_CHAIN_IDS &&
+       (rows == nullptr || wsample == nullptr || t1 == nullptr ||
+        t2 == nullptr || incl == nullptr || flat == nullptr ||
+        bad == nullptr)) ||
+      chain_smem(W, L, S, mode).total > 232448 - 9 * 1024)
+    return (int)cudaErrorInvalidValue;
+  ChainArgs a = {};
+  a.bl = bl;
+  a.rows = rows;
+  a.nwin = nwin;
+  a.win0 = win0;
+  a.wsample = wsample;
+  a.last_n = last_n;
+  a.ok = ok;
+  a.t1 = (const int4*)t1;
+  a.t2 = (const int4*)t2;
+  a.entry = entry;
+  a.ntok = ntok;
+  a.incl = incl;
+  a.flat = flat;
+  a.bad = bad;
+  a.tabs = tabs;
+  a.NW = NW;
+  a.R = R;
+  a.W = W;
+  a.L = L;
+  a.bits = bits;
+  a.V = V;
+  a.S = S;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (mode == TGX_CHAIN_ENTRIES)
+    return chain_launch(chain_entries_kernel, a, dim3(R), mode, s);
+  return chain_launch(chain_ids_kernel, a, dim3(NW), mode, s);
+}

@@ -67,6 +67,8 @@ KERNELS: Dict[str, Tuple[str, str, tuple]] = {
                      (P,) * 17 + (LL, LL) + (I,) * 10 + (P,)),
     "walk_rows": ("viterbi_walk.cu", "tgx_walk_rows",
                   (P, P, LL, LL, I, I, I, P)),
+    "chained_walk": ("viterbi_walk.cu", "tgx_chained_walk",
+                     (P,) * 15 + (I,) * 8 + (P,)),
     "dfa_mask": ("dfa_mask.cu", "tgx_dfa_mask",
                  (P,) * 6 + (I,) * 8 + (U, I, LL, P)),
     "pair_insert_ids": ("pair_count.cu", "tgx_pair_insert_ids",

@@ -38,9 +38,11 @@ index each group makes once (`walk_index`), and resolves each token's id
 with the exact tables (`t1_exact`, `t2_exact`), counting the ids (the
 frequency pass, `walk_counts`) or writing them into one flat buffer,
 span after span (encode, `walk_ids`; merge's pair count keeps the buffer
-on the device, `walk_ids_device`). The
-host `backtrack` stays as the reference they are held against and walks
-the chained windows of samples longer than the encode width.
+on the device, `walk_ids_device`). Samples longer than the encode width,
+scanned in chained windows, are walked across their windows on the device
+too (`chained_walk`, csrc/viterbi_walk.cu's chained entry), their ids
+resolved from the windows' own bytes. The host `backtrack` stays as the
+reference they are held against.
 
 The E-step probes each row group once (`match_cache`, start-indexed,
 without dropout), runs the forward log-sum-exp DP over that cache in one
@@ -572,10 +574,18 @@ def prepare_chained_batch(rows: np.ndarray, n_valid: np.ndarray,
     has_tail: whether the left L bytes are real context (False for the
     first window of a sample — its pad bytes are zeros and invalid).
     """
-    p1, p2, sid, is_start, is_end, end_index, rinv1, rinv2 = _chained_prep(
+    return prepare_chained_batch_from(
         upload(rows, device), upload(n_valid.astype(np.int32), device),
-        upload(has_tail, device),
-        _chain_consts(W, L, device), L, W)
+        upload(has_tail, device), L, W)
+
+
+def prepare_chained_batch_from(rows: torch.Tensor, n_valid: torch.Tensor,
+                               has_tail: torch.Tensor, L: int,
+                               W: int) -> DeviceBatch:
+    """`prepare_chained_batch` from its inputs already on the device:
+    rows (B, L+W) uint8, n_valid (B,) int32, has_tail (B,) bool."""
+    p1, p2, sid, is_start, is_end, end_index, rinv1, rinv2 = _chained_prep(
+        rows, n_valid, has_tail, _chain_consts(W, L, rows.device), L, W)
     return DeviceBatch(
         p1=p1, p2=p2, sid=sid, is_start=is_start, is_end=is_end,
         end_index=end_index, rinv1=rinv1, rinv2=rinv2, width=W, pad=L,
@@ -1559,13 +1569,6 @@ def pick_span_values_device(A: torch.Tensor, rows_idx,
     return A[r, e]
 
 
-def pick_span_values(A: torch.Tensor, rows_idx, ends_idx) -> np.ndarray:
-    """A[rows_idx[k], ends_idx[k]] per span, on the host."""
-    if len(rows_idx) == 0:
-        return np.zeros(0, dtype=np.float32)
-    return pick_span_values_device(A, rows_idx, ends_idx).cpu().numpy()
-
-
 def fold_expected(tbl: DeviceTables, acc: torch.Tensor,
                   mode: Optional[str] = None) -> np.ndarray:
     """Fold a `backward_expected` accumulator to per-token counts (V,)
@@ -2123,12 +2126,17 @@ viterbi_walk.launches = 0
 viterbi_walk.calls = 0
 
 
-def _walk_tables(tbl: DeviceTables, batch: DeviceBatch) -> tuple:
+def exact_tables(tbl: DeviceTables) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(t1_exact, t2_exact), the rows the walks resolve ids with."""
     if tbl.t1_exact is None or tbl.t2_exact is None:
         raise ValueError("the tables carry no exact rows (t1_exact, "
                          "t2_exact): build them with DeviceTables.from_table")
-    return ((batch.p1, batch.p2, batch.rinv1, batch.rinv2, tbl.t1_exact,
-             tbl.t2_exact),
+    return tbl.t1_exact, tbl.t2_exact
+
+
+def _walk_tables(tbl: DeviceTables, batch: DeviceBatch) -> tuple:
+    return ((batch.p1, batch.p2, batch.rinv1, batch.rinv2,
+             *exact_tables(tbl)),
             {"bits": tbl.bits, "pad": batch.pad,
              "vocab_size": tbl.vocab_size, "max_len": tbl.max_len})
 
@@ -2181,3 +2189,177 @@ def walk_ids_device(tbl: DeviceTables, batch: DeviceBatch, dp: torch.Tensor,
             best_l, *args, index, ok=finite & index.nonempty, ids=True,
             **kw)
     return flat, ntok, incl, index.nonempty & ~finite
+
+
+# ---------------------------------------------------------------------------
+# The chained windows' walk on the device
+# ---------------------------------------------------------------------------
+
+
+def backpointer_bytes(best_l: torch.Tensor, out: torch.Tensor) -> None:
+    """A window's backpointers best_l (B, W), uint8 / int8 / int32 with any
+    strides (the Viterbi kernels' (W, B) layout), into `out`, a contiguous
+    (B, W) uint8 tensor on its device: on the card one launch of
+    csrc/viterbi_walk.cu's tiled copy (counted in `chained_walk.launches`),
+    on the CPU a copy."""
+    lc._check(best_l.dim() == 2 and tuple(out.shape) == tuple(best_l.shape)
+              and out.dtype == torch.uint8 and out.is_contiguous()
+              and out.device == best_l.device,
+              "out must be a contiguous uint8 tensor of best_l's shape "
+              "and device")
+    lc._check(best_l.dtype in (torch.uint8, torch.int8, torch.int32),
+              f"best_l must be uint8, int8 or int32, got {best_l.dtype}")
+    if best_l.device.type != "cuda":
+        out.copy_(best_l)
+        return
+    B, W = best_l.shape
+    if B and W:
+        lc._launch("walk_rows", best_l, out, best_l.stride(0),
+                   best_l.stride(1), best_l.element_size(), B, W)
+        chained_walk.launches += 1
+
+
+def _window_index(nwin: torch.Tensor, NW: int):
+    """(win0, wsample) int32 of a flat window list: each sample's first
+    window (the exclusive cumsum of nwin) and each window's sample."""
+    nw = nwin.long()
+    win0 = torch.cumsum(nw, 0) - nw
+    wsample = torch.repeat_interleave(
+        torch.arange(nw.numel(), device=nw.device), nw, output_size=NW)
+    return win0.to(torch.int32), wsample.to(torch.int32)
+
+
+def chained_walk_plain(bl, rows, nwin, last_n, ok, t1_exact, t2_exact, *,
+                       bits: int, vocab_size: int, cap: int):
+    """The twin of `chained_walk`: the windows k of every sample from the
+    last, the spans (0, entry] of the samples walked there, by the segment
+    decomposition's plain emulation (`walk_positions_segmented`); a
+    window's leftmost token gives the next window's entry, and every
+    token's id comes from the window's hash streams, made from its bytes
+    (`_walk_probe`)."""
+    NW, W = bl.shape
+    L = rows.shape[1] - W
+    dev = bl.device
+    nw = nwin.long()
+    win0 = _window_index(nwin, NW)[0].long()
+    live = ok.bool() & (nw > 0)
+    ntok = torch.zeros(NW, dtype=torch.int32, device=dev)
+    bad = torch.zeros(nw.numel(), dtype=torch.bool, device=dev)
+    entry = last_n.long().clone()
+    pow1, pow2, rinv1, rinv2 = _chain_consts(W, L, dev)
+    parts = []
+    K = int(nw.max()) if nw.numel() else 0
+    for k in range(K - 1, -1, -1):
+        rs = torch.nonzero(live & (nw > k)).flatten()
+        if not rs.numel():
+            continue
+        win = win0[rs] + k
+        n = rs.numel()
+        blk = bl[win].to(torch.int64)
+        spans = np.stack([np.arange(n), np.zeros(n, np.int64),
+                          entry[rs].cpu().numpy()], 1)
+        index = walk_index(spans, n, W, dev)
+        pos, nt = walk_positions_segmented(
+            blk, index, torch.ones(n, dtype=torch.bool, device=dev), L)
+        # The leftmost token [q - l, q) of each span: the walk enters the
+        # window before at W + q - l.
+        first = pos[torch.cumsum(nt.long(), 0) - nt.long()]
+        q = first % W + 1
+        entry[rs] = W + q - blk.reshape(-1)[first].clamp(min=1)
+        ntok[win] = nt
+        b32 = rows[win].to(torch.int32)
+        ids = _walk_probe(blk, _prefix_hashes(b32, pow1),
+                          _prefix_hashes(b32, pow2), rinv1, rinv2, t1_exact,
+                          t2_exact, pos, bits, L, vocab_size)
+        span_of = torch.repeat_interleave(torch.arange(n, device=dev),
+                                          nt.long())
+        bad[rs[span_of[ids >= vocab_size]]] = True
+        parts.append((win, nt.long(), ids))
+    incl = torch.cumsum(ntok.long(), 0)
+    flat = torch.zeros(cap, dtype=torch.int32, device=dev)
+    for win, nt, ids in parts:
+        # Window w's ids go to [incl[w] - ntok[w], incl[w]).
+        shift = incl[win] - torch.cumsum(nt, 0)
+        flat[torch.repeat_interleave(shift, nt)
+             + torch.arange(ids.numel(), device=dev)] = ids.to(torch.int32)
+    return flat, ntok, bad
+
+
+def chained_walk(bl, rows, nwin, last_n, ok, t1_exact, t2_exact, *,
+                 bits: int, vocab_size: int, cap: int):
+    """Token ids of the samples scanned in chained windows, walked across
+    their windows on the device (csrc/viterbi_walk.cu `tgx_chained_walk`).
+
+    The windows form one flat list, the windows of sample after sample:
+    sample r's window k is window win0[r] + k, win0 the exclusive cumsum of
+    nwin, so a sample pays for its own windows alone. bl (NW, W) uint8,
+    each window's backpointers (`backpointer_bytes`), values at most L;
+    rows (NW, L + W) uint8, the windows' rows [the previous window's last
+    L bytes | body] (`prepare_chained_batch`); nwin (R,) int32 the windows
+    of each sample, summing to NW (not checked on the card, where the sum
+    would wait for the queue); last_n (R,) int32 the body bytes of its last
+    window; ok (R,) bool, False for a sample not to walk (an unreachable
+    end); t1_exact, t2_exact (H, 4) int32, H = 2^bits (DeviceTables); cap
+    at least the tokens (the samples' bytes). Returns flat (cap,) int32,
+    every sample's ids in order, sample after sample, each in position
+    order (V for a token no table row holds), the rest 0; ntok (NW,) int32,
+    the tokens ending in each window (so sample r's ids are the sum of its
+    windows' after those of the samples before it); bad (R,) bool, True
+    where a sample's ids hold V.
+
+    CUDA tensors launch csrc/viterbi_walk.cu on the current stream: the
+    entries (a block a sample crosses its windows from the last by their
+    exit tables), one cumsum, and the ids (a block a window), counted in
+    `chained_walk.launches`; nothing is read back. CPU tensors run
+    `chained_walk_plain`."""
+    lc._check(bl.dim() == 2 and bl.dtype == torch.uint8,
+              "bl must be (NW, W) uint8")
+    NW, W = bl.shape
+    L = rows.shape[1] - W if rows.dim() == 2 else 0
+    lc._check(rows.dtype == torch.uint8 and rows.shape[0] == NW
+              and 1 <= L <= lc.MAX_LEN,
+              f"rows must be ({NW}, L + {W}) uint8, L in 1..{lc.MAX_LEN}")
+    named = {"nwin": nwin, "last_n": last_n, "t1_exact": t1_exact,
+             "t2_exact": t2_exact}
+    for name, t in named.items():
+        lc._check(t.dtype == torch.int32, f"{name} must be int32")
+    for name, t in dict(named, rows=rows, ok=ok).items():
+        lc._check(t.device == bl.device, f"{name} is on {t.device}")
+    R = nwin.shape[0] if nwin.dim() == 1 else -1
+    lc._check(R >= 0 and tuple(last_n.shape) == (R,)
+              and tuple(ok.shape) == (R,), "nwin, last_n, ok must be (R,)")
+    lc._check(t1_exact.dim() == 2 and t1_exact.shape[1] == 4 and
+              t2_exact.shape == t1_exact.shape and
+              t1_exact.shape[0] == 1 << bits,
+              f"exact tables must be ({1 << bits}, 4)")
+    kw = dict(bits=bits, vocab_size=vocab_size, cap=cap)
+    if bl.device.type == "cpu":
+        lc._check(int(nwin.sum()) == NW, f"nwin must sum to {NW} windows")
+        return chained_walk_plain(bl, rows, nwin, last_n, ok, t1_exact,
+                                  t2_exact, **kw)
+    lc._check(bl.device.type == "cuda", f"unsupported device {bl.device}")
+    lc._check(W < 0xFFFF, f"width {W} beyond the walk's 65,534")
+    for name, t in dict(named, bl=bl, rows=rows).items():
+        lc._check(t.is_contiguous(), f"{name} must be contiguous")
+    dev = bl.device
+    ok8 = ok.to(torch.uint8).contiguous()
+    ntok = torch.zeros(NW, dtype=torch.int32, device=dev)
+    flat = torch.zeros(cap, dtype=torch.int32, device=dev)
+    bad = torch.zeros(R, dtype=torch.uint8, device=dev)
+    if NW and R:
+        win0, wsample = _window_index(nwin, NW)
+        entry = torch.empty(NW, dtype=torch.int32, device=dev)
+        tabs = torch.empty(NW * 4 * -(-W // WALK_SEGMENT) * L,
+                           dtype=torch.uint8, device=dev)
+        shape = (NW, R, W, L, bits, vocab_size, WALK_SEGMENT)
+        lc._launch("chained_walk", bl, rows, nwin, win0, None, last_n, ok8,
+                   None, None, entry, ntok, None, None, None, tabs, *shape, 0)
+        incl = torch.cumsum(ntok, 0, dtype=torch.int32)
+        lc._launch("chained_walk", bl, rows, None, None, wsample, None, ok8,
+                   t1_exact, t2_exact, entry, ntok, incl, flat, bad, tabs,
+                   *shape, 1)
+        chained_walk.launches += 2
+    return flat, ntok, bad.bool()
+
+
+chained_walk.launches = 0

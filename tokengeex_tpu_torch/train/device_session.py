@@ -608,9 +608,13 @@ class DeviceTrainSession:
         the device (`lattice.walk_counts`), and only the (V,) counts and
         the span-end dp values are read back, once per pass. Samples longer
         than the frequency packing's cap take the chained encode over the
-        session's table. `timer` collects the seconds per phase (rebind,
-        pack: the frequency packing, made on the first pass, prep, probe,
-        regather, kernel, walk, readback, and the chained encode's).
+        session's table (`estep_device._encode_chained`): walked across
+        their windows on the device, their ids counted there and read back
+        with the groups' counts; a chained sample whose walk met a false
+        match is redone (`estep_device._redo_false`). `timer` collects the
+        seconds per phase (rebind, pack: the frequency packing, made on the
+        first pass, prep, probe, regather, kernel, walk, readback, and the
+        chained encode's).
         A pass whose counts hold tokens that are no vocabulary token (the
         bucket or fast probe's false match: bin V) redoes the samples
         whose paths took them with the exact probe (`_redo_false`); it
@@ -652,11 +656,45 @@ class DeviceTrainSession:
                             len({sp[3] for sp in info["whole"]}))
         trace.count("groups.cached", cached)
         trace.count("groups.probed", len(groups) - cached)
+        # Samples past the frequency packing's cap: this rank's own chained
+        # encode (every rank encodes all of them under a replicated
+        # corpus), counted on the device and read back with the groups'.
+        long_idx = sorted(self._freq_long)
+        long_counts, long_freqs, long_fail = None, np.zeros(V, np.int64), None
+        if long_idx:
+            long = [self.samples[si] for si in long_idx]
+            probe = "exact" if self.exact else None
+            try:
+                with trace.span("chained"):
+                    chained = ed._encode_chained(
+                        self.dt, list(enumerate(long)), ed.chained_width(),
+                        backend=ed._eff_backend(self.dt, probe, self.dtype),
+                        dropout=0.0, seed=0x5151, probe=probe,
+                        device=self.dev, timer=timer, dtype=self.dtype)
+                    long_counts = chained.counts(V)
+                    for ids in ed._redo_false(model, self.dt, long,
+                                              chained.false, probe,
+                                              self.dtype, self.dev, timer):
+                        long_freqs += np.bincount(np.asarray(ids, np.int64),
+                                                  minlength=V)
+            except NoPathError as err:
+                long_fail = (0, err.length)
+            except KeyError:
+                long_fail = (1, 1)
+            if task is not None:
+                task.record(sum(len(self.samples[si]) for si in long_idx),
+                            len(long_idx))
         fail, value = -1, 0.0
-        if counts is not None:
+        if counts is not None or long_counts is not None:
             with lat.phase(timer, "readback"):
-                dpe_h = torch.cat(dp_ends).cpu().numpy()
-                counts_h = counts.cpu().numpy()
+                both = torch.cat([c for c in (counts, long_counts)
+                                  if c is not None]).cpu().numpy()
+                dpe_h = (torch.cat(dp_ends).cpu().numpy() if dp_ends
+                         else None)
+            if long_counts is not None:
+                long_freqs += both[-V:]
+        if counts is not None:
+            counts_h = both[: V + 1].astype(np.int64)
             bad = np.nonzero(~np.isfinite(dpe_h))[0]
             if bad.size:
                 _, s, e, _, _ = spans_checked[int(bad[0])]
@@ -670,32 +708,8 @@ class DeviceTrainSession:
                 except KeyError:
                     fail, value = 1, int(counts_h[V])
             freqs += counts_h[:V]
-
-        # Samples past the frequency packing's cap: this rank's own chained
-        # encode (every rank encodes all of them under a replicated corpus).
-        long_idx = sorted(self._freq_long)
-        long_freqs = np.zeros(V, dtype=np.int64)
-        if long_idx:
-            try:
-                with trace.span("chained"):
-                    encoded = ed.encode_corpus_device(
-                        model, [self.samples[si] for si in long_idx],
-                        table=self.dt, device=self.dev, timer=timer,
-                        dtype=self.dtype,
-                        probe="exact" if self.exact else None, local=True)
-                    ids = [np.asarray(r, np.int64) for r in encoded if r]
-                    if ids:
-                        long_freqs += np.bincount(np.concatenate(ids),
-                                                  minlength=V)
-            except NoPathError as err:
-                if fail < 0:
-                    fail, value = 0, err.length
-            except KeyError:
-                if fail < 0:
-                    fail, value = 1, 1
-            if task is not None:
-                task.record(sum(len(self.samples[si]) for si in long_idx),
-                            len(long_idx))
+        if fail < 0 and long_fail is not None:
+            fail, value = long_fail
         # A failure on any rank raises on every rank, before the sum.
         fail, value = pmesh.allgather_fail(fail, value)
         if fail == 0:

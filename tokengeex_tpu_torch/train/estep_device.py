@@ -8,7 +8,9 @@ into fixed-shape (rows x width) byte batches
 (ops/lattice.py). Encode walks the backpointers and resolves the token
 ids on the device (`lattice.walk_ids`) and reads back one flat id buffer
 per group; samples longer than MAX_ENCODE_WIDTH chain fixed-width windows
-with a carried dp tail and walk on the host (_encode_chained). The E-step
+with a carried dp tail, their backpointers kept on the device, and are
+walked across their windows there once the last is scanned
+(_encode_chained, `lattice.chained_walk`). The E-step
 probes each group once, runs the forward and the backward DP over the
 whole width in one scan each, and adds the token marginals into slot bins
 that the host folds to expected counts per token. The merge loop
@@ -27,6 +29,7 @@ returns the whole corpus's result.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -84,6 +87,14 @@ def _pick_width(samples: Sequence[bytes], max_snippet: Optional[int]) -> int:
         longest = min(longest, max_snippet)
     width = max(CHUNK, -(-longest // CHUNK) * CHUNK)
     return width
+
+
+def chained_width(max_width: Optional[int] = None) -> int:
+    """The pack cap of an encode pass (`max_width`, default
+    MAX_ENCODE_WIDTH, rounded up to CHUNK): longer samples take the
+    chained encode in windows of this width."""
+    cap = max_width or MAX_ENCODE_WIDTH
+    return max(CHUNK, -(-cap // CHUNK) * CHUNK)
 
 
 def _row_groups(packed: PackedBatch, width: int):
@@ -159,8 +170,7 @@ class DeviceCorpus:
         self.samples = samples
         self.req_max_width = max_width
         self.local = local
-        cap = max_width or MAX_ENCODE_WIDTH
-        self.cap = max(CHUNK, -(-cap // CHUNK) * CHUNK)
+        self.cap = chained_width(max_width)
         self.long_idx = [si for si, s in enumerate(samples)
                          if len(s) > self.cap]
         short = [s if len(s) <= self.cap else b"" for s in samples]
@@ -334,8 +344,9 @@ def encode_corpus_device(
     f64 scores and the double `viterbi_scan`, the chained windows' dp
     tail carried in f64.
     `timer` collects the seconds per phase (tables, pack, prep, probe,
-    kernel, walk, readback, split (with the ids' gather); backtrack for
-    chained samples). `table` is the DeviceTables of `model` on `device`
+    kernel, walk, readback, split (with the ids' gather and the chained
+    samples' ids); the chained samples' walk runs on the device too).
+    `table` is the DeviceTables of `model` on `device`
     with scores at `dtype` (a training session's binding), used instead of
     building one. `corpus` is a DeviceCorpus packed from these very
     samples (same `max_width`), whose groups' inputs stay on the device.
@@ -373,19 +384,18 @@ def encode_corpus_device(
     if corpus.long_idx:
         long_idx = corpus.long_idx
         chained = _encode_chained(
-            model, dt, [(si, samples[si]) for si in long_idx], corpus.cap,
+            dt, [(si, samples[si]) for si in long_idx], corpus.cap,
             backend=backend, dropout=dropout, seed=seed + 0x5151,
             probe=probe, device=dev, timer=timer, dtype=dtype)
+        with lat.phase(timer, "split"):
+            chained = chained.lists()
         for si, ids in zip(long_idx, chained):
             out[si] = ids
             if ids is None:
                 false.append(si)
-    if false:
-        if probe == "exact" or dtype == torch.float64:
-            _raise_mismatch()
-        for si, ids in zip(false, _redo_exact(model, dt, samples, false, dev,
-                                              timer, dropout, seed)):
-            out[si] = ids
+    for si, ids in zip(false, _redo_false(model, dt, samples, false, probe,
+                                          dtype, dev, timer, dropout, seed)):
+        out[si] = ids
 
     # Zero-length samples produce no packed span; they encode to [].
     return [ids if ids is not None else [] for ids in out]
@@ -394,6 +404,22 @@ def encode_corpus_device(
 def _raise_mismatch() -> None:
     raise KeyError("walk: a matched span is not a vocabulary token "
                    "(model/table mismatch)")
+
+
+def _redo_false(model: Model, dt: lat.DeviceTables, samples, idx: List[int],
+                probe: Optional[str], dtype: torch.dtype, dev,
+                timer: Optional[lat.PhaseTimer] = None, dropout: float = 0.0,
+                seed: int = 0) -> List[List[int]]:
+    """The ids of samples[i] for i in idx, the samples whose walk met a
+    span that is no token, packed or chained, redone with the exact probe
+    (`_redo_exact`). On the exact route (probe "exact" or float64) no
+    probe matches falsely, so such a span is a model/table mismatch:
+    KeyError."""
+    if not idx:
+        return []
+    if probe == "exact" or dtype == torch.float64:
+        _raise_mismatch()
+    return _redo_exact(model, dt, samples, idx, dev, timer, dropout, seed)
 
 
 def _redo_exact(model: Model, dt: lat.DeviceTables, samples, idx: List[int],
@@ -459,8 +485,84 @@ def _place_ids(out: list, samples, sids, ntoks, flats, V: int,
     return si[false_span].tolist()
 
 
+@dataclasses.dataclass(frozen=True)
+class ChainedIds:
+    """The ids of the samples of one chained encode (`_encode_chained`),
+    walked on the device: `flat` (>= ntok.sum(),) int32 on the device,
+    sample after sample in the call's order, each in position order;
+    `ntok_d` (R,) int64 and `bad_d` (R,) bool, on the device, each
+    sample's tokens and whether its path took a span that is no token (the
+    probe's false match: an id V); `ntok` and `false`, the same read back,
+    the latter as the samples' indices in the call's order."""
+
+    flat: torch.Tensor
+    ntok_d: torch.Tensor
+    bad_d: torch.Tensor
+    ntok: np.ndarray
+    false: List[int]
+
+    @property
+    def total(self) -> int:
+        return int(self.ntok.sum())
+
+    @staticmethod
+    def cat(parts: List["ChainedIds"]) -> "ChainedIds":
+        if len(parts) == 1:
+            return parts[0]
+        offsets = np.cumsum([0] + [p.ntok.size for p in parts])
+        return ChainedIds(
+            torch.cat([p.flat[: p.total] for p in parts]),
+            torch.cat([p.ntok_d for p in parts]),
+            torch.cat([p.bad_d for p in parts]),
+            np.concatenate([p.ntok for p in parts]),
+            [i + int(o) for p, o in zip(parts, offsets) for i in p.false])
+
+    def lists(self) -> List[Optional[List[int]]]:
+        """Each sample's ids, read back at once; None for a sample in
+        `false`."""
+        ids = self.flat[: self.total].cpu().numpy().astype(np.int64)
+        out = [part.tolist()
+               for part in np.split(ids, np.cumsum(self.ntok)[:-1])]
+        for i in self.false:
+            out[i] = None
+        return out
+
+    def _ids(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(ids, sample): the int64 ids and each one's sample."""
+        total = self.total
+        sample = torch.repeat_interleave(
+            torch.arange(self.ntok.size, device=self.flat.device),
+            self.ntok_d, output_size=total)
+        return self.flat[:total].to(torch.int64), sample
+
+    def pair_rows(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(keys, counts), int64 on the device, for
+        `PairTable.insert_weighted`: the key (a << 32) | b of every two
+        adjacent ids of a sample not in `false`, EMPTY (skipped) at the
+        samples' boundaries and in `false`, each counted once."""
+        from ..ops.pair_count import EMPTY
+        ids, sample = self._ids()
+        same = (sample[:-1] == sample[1:]) & ~self.bad_d[sample[:-1]]
+        keys = torch.where(same, (ids[:-1] << 32) | ids[1:], EMPTY)
+        return keys, torch.ones_like(keys)
+
+    def pairs(self) -> int:
+        """The pairs `pair_rows` holds that are not EMPTY."""
+        nt = self.ntok.copy()
+        nt[self.false] = 0
+        return int(np.maximum(nt - 1, 0).sum())
+
+    def counts(self, V: int) -> torch.Tensor:
+        """(V,) int32 counts of the ids of the samples not in `false`, on
+        the device."""
+        ids, sample = self._ids()
+        ids = torch.where(self.bad_d[sample], V, ids)
+        return torch.zeros(V + 1, dtype=torch.int32,
+                           device=ids.device).index_add_(
+            0, ids, torch.ones_like(ids, dtype=torch.int32))[:V]
+
+
 def _encode_chained(
-    model: Model,
     dt: lat.DeviceTables,
     long_samples: List[Tuple[int, bytes]],
     width: int,
@@ -471,112 +573,147 @@ def _encode_chained(
     device,
     timer: Optional[lat.PhaseTimer] = None,
     dtype: torch.dtype = torch.float32,
-) -> List[Optional[List[int]]]:
+) -> ChainedIds:
     """Encode samples longer than the pack width by chaining fixed-width
     windows. Window k covers bytes [k*W, (k+1)*W); its device row is
     [last L bytes of window k-1 | body] with an origin-shifted hash
     stream (lat.prepare_chained_batch) so boundary-crossing tokens
     match, and the scan starts from the previous window's last L dp
-    values passed through bit-exactly as the initial history. The host
-    backtrack walks windows in reverse, jumping from non-positive
-    positions into the previous window. Byte-exact against the
-    reference's unchunked encode (src/model.rs:59-129): the dp depends
-    only on the last L positions. A sample whose path took a span that is
-    no token gets None (the caller redoes it, `_redo_exact`)."""
-    L = dt.max_len
+    values passed through bit-exactly as the initial history. Every
+    window's backpointers (one byte a position) and row stay on the
+    device; once the last window is scanned, `lattice.chained_walk` walks
+    each sample across its windows and resolves its ids there (phase
+    `walk`), and one readback (phase `readback`) gives each sample's
+    tokens and flags. Byte-exact against the reference's unchunked encode
+    (src/model.rs:59-129): the dp depends only on the last L positions.
+    Raises NoPathError (the first such sample's length) where a sample's
+    end is unreachable; a sample whose path took a span that is no token
+    is listed in `false` (the caller redoes it, `_redo_false`). Counts
+    `chained.samples`, `chained.windows` and `chained.false` once a
+    call."""
     W = width
     R = len(long_samples)
     # Bound the row batch: every chained row costs transient device
-    # memory for its hash streams and scores.
+    # memory for its hash streams and scores, and every window kept for
+    # the walk about 2 W + 10 KB (its backpointers, row and exit tables)
+    # on the device and 2 W on the host: at most 16 groups' bytes of
+    # windows a batch, a sample longer than that alone in its own.
     max_rows = max(ROW_MULT, ((4 * GROUP_BYTES) // W // ROW_MULT) * ROW_MULT)
-    if R > max_rows:
-        out_parts: List[Optional[List[int]]] = []
-        for g0 in range(0, R, max_rows):
-            out_parts.extend(_encode_chained(
-                model, dt, long_samples[g0 : g0 + max_rows], width,
-                backend=backend, dropout=dropout, seed=seed + g0,
-                probe=probe, device=device, timer=timer, dtype=dtype))
-        return out_parts
+    max_windows = max(1, 16 * GROUP_BYTES // W)
+    cuts, start, held = [], 0, 0
+    for i, (_, s) in enumerate(long_samples):
+        n = -(-len(s) // W)
+        if i > start and (i - start == max_rows or held + n > max_windows):
+            cuts.append((start, i))
+            start, held = i, 0
+        held += n
+    cuts.append((start, R))
+    out = ChainedIds.cat([
+        _chained_batch(dt, long_samples[g0:g1], W, backend, dropout,
+                       seed + g0, probe, device, timer, dtype)
+        for g0, g1 in cuts])
+    trace.count("chained.samples", R)
+    trace.count("chained.windows",
+                sum(-(-len(s) // W) for _, s in long_samples))
+    trace.count("chained.false", len(out.false))
+    return out
+
+
+def _chained_batch(dt: lat.DeviceTables,
+                   long_samples: List[Tuple[int, bytes]], W: int,
+                   backend: str, dropout: float, seed: int,
+                   probe: Optional[str], device,
+                   timer: Optional[lat.PhaseTimer],
+                   dtype: torch.dtype) -> ChainedIds:
+    """One batch of `_encode_chained`. Its samples' windows are kept as
+    one flat list, the windows of sample after sample
+    (`lattice.chained_walk`'s layout), and one zero window after them;
+    step k scans a row a sample (padded to ROW_MULT): the sample's window
+    k, gathered from the list (the zero window where it has none), whose
+    backpointers go back to the window's place."""
+    t1, t2 = lat.exact_tables(dt)
+    L = dt.max_len
+    R = len(long_samples)
     Rp = -(-R // ROW_MULT) * ROW_MULT
-    nchunks = max(-(-len(s) // W) for _, s in long_samples)
+    lens = np.array([len(s) for _, s in long_samples], np.int64)
+    nwin = -(-lens // W)
+    K, NW = int(nwin.max()), int(nwin.sum())
+    win0 = np.cumsum(nwin) - nwin
+    last_n = (lens - (nwin - 1) * W).astype(np.int32)
     gen = (torch.Generator(device=device).manual_seed(seed)
            if dropout > 0.0 else None)
 
-    # Per sample, per window: host backpointers + end info.
-    best_l_store: List[dict] = [dict() for _ in range(R)]
-    end_info: List[Tuple[int, int, float]] = [(0, 0, 0.0)] * R  # (k, n, dp)
+    def rows_of(a: np.ndarray, fill) -> torch.Tensor:
+        """A value a sample, padded to the Rp scan rows, on the device."""
+        return upload(np.concatenate([a, np.full(Rp - R, fill, a.dtype)]),
+                      device)
+
+    with lat.phase(timer, "prep"):
+        body = np.zeros((NW + 1, W), np.uint8)
+        flat_body = body.reshape(-1)
+        for r, (_, s) in enumerate(long_samples):
+            flat_body[win0[r] * W : win0[r] * W + len(s)] = np.frombuffer(
+                s, np.uint8)
+        rows = np.zeros((NW + 1, L + W), np.uint8)
+        rows[:, L:] = body
+        rows[1:, :L] = body[:-1, W - L :]
+        rows[win0, :L] = 0  # a sample's first window has no tail
+        rows[NW, :L] = 0
+        rows_d = upload(rows, device)
+        lens_d = rows_of(lens, 0)
+        nwin_d = rows_of(nwin.astype(np.int32), 0)
+        win0_d = rows_of(win0, NW)
+        end_col = rows_of(last_n.astype(np.int64) - 1, 0)[:, None]
+        bl = torch.empty((NW + 1, W), dtype=torch.uint8, device=device)
+        step = torch.empty((Rp, W), dtype=torch.uint8, device=device)
+        end_dp = torch.full((Rp,), lat.NEG_INF, dtype=dtype, device=device)
     carry_hist = torch.full((Rp, L), lat.NEG_INF, dtype=dtype,
                             device=device)
     mask = torch.zeros(Rp, dtype=torch.bool, device=device)
 
-    for k in range(nchunks):
+    for k in range(K):
         with lat.phase(timer, "prep"):
-            rows = np.zeros((Rp, L + W), dtype=np.uint8)
-            n_valid = np.zeros(Rp, dtype=np.int32)
-            has_tail = np.zeros(Rp, dtype=bool)
-            active = []
-            for r, (si, s) in enumerate(long_samples):
-                a = k * W
-                if a >= len(s):
-                    continue
-                b = min(a + W, len(s))
-                if k > 0:
-                    rows[r, :L] = np.frombuffer(s[a - L : a], dtype=np.uint8)
-                    has_tail[r] = True
-                rows[r, L : L + (b - a)] = np.frombuffer(s[a:b],
-                                                         dtype=np.uint8)
-                n_valid[r] = b - a
-                active.append((r, b - a))
-            batch = lat.prepare_chained_batch(rows, n_valid, has_tail, L, W,
-                                              device)
+            live = nwin_d > k
+            win = torch.where(live, win0_d + k, NW)
+            batch = lat.prepare_chained_batch_from(
+                rows_d[win], (lens_d - k * W).clamp(0, W).to(torch.int32),
+                live & (k > 0), L, W)
             drop_u = (_drop_words(gen, Rp, batch.sid.shape[1], device)
                       if gen is not None else None)
         dp, best_l = lat.viterbi(dt, batch, C=CHUNK, dtype=dtype,
                                  backend=backend, drop_u=drop_u,
                                  dropout=dropout, probe=probe,
                                  carry=(mask, carry_hist), timer=timer)
-        with lat.phase(timer, "readback"):
-            best_l_host = best_l.to(torch.int8).cpu().numpy()
-            dp_last = lat.pick_span_values(
-                dp, [r for r, _ in active], [n - 1 for _, n in active])
+        with lat.phase(timer, "prep"):
+            # The rows past their sample's windows land on the zero
+            # window, which nothing reads.
+            lat.backpointer_bytes(best_l, step)
+            bl[win] = step
+            end_dp = torch.where(nwin_d == k + 1, dp.gather(1, end_col)[:, 0],
+                                 end_dp)
             # Next carry: hist0[:, j] = dp[W - j] — the reversed dp tail,
             # bit-exact (dp[:, p-1] holds dp index p).
-            tail = dp[:, W - L : W].flip(1)
-            cont = np.zeros(Rp, dtype=bool)
-            for i, (r, n) in enumerate(active):
-                best_l_store[r][k] = best_l_host[r].copy()
-                end_info[r] = (k, n, float(dp_last[i]))
-                cont[r] = (k + 1) * W < len(long_samples[r][1])
-            mask = upload(cont, device)
-            carry_hist = torch.where(mask[:, None], tail,
-                                     upload(lat.NEG_INF, device))
+            mask = lens_d > (k + 1) * W
+            carry_hist = torch.where(mask[:, None], dp[:, W - L : W].flip(1),
+                                     lat.NEG_INF)
 
-    # Chained backtrack: positions <= 0 jump into the previous window.
-    token_to_id = model.token_to_ids
-    out: List[Optional[List[int]]] = []
-    with lat.phase(timer, "backtrack"):
-        for r, (si, s) in enumerate(long_samples):
-            k, n, dp_e = end_info[r]
-            if not np.isfinite(dp_e):
-                raise NoPathError(len(s), len(s))
-            ids_rev: List[int] = []
-            pos = n
-            while True:
-                bl = best_l_store[r][k]
-                base = k * W
-                while pos > 0:
-                    length = int(bl[pos - 1])
-                    a = base + pos
-                    ids_rev.append(token_to_id.get(s[a - length : a], -1))
-                    pos -= length
-                if k == 0:
-                    break
-                pos += W
-                k -= 1
-            ids_rev.reverse()
-            # A span that is no token (a probe's false match): None.
-            out.append(None if -1 in ids_rev else ids_rev)
-    return out
+    with lat.phase(timer, "walk"):
+        ok = torch.isfinite(end_dp[:R])
+        flat, ntok, bad = lat.chained_walk(
+            bl[:NW], rows_d[:NW], nwin_d[:R], upload(last_n, device), ok, t1,
+            t2, bits=dt.bits, vocab_size=dt.vocab_size, cap=int(lens.sum()))
+        # A sample's tokens: its windows', read off the windows' cumsum.
+        ends = torch.cumsum(ntok, 0, dtype=torch.int64)[
+            upload(win0 + nwin - 1, device)]
+        ntok = torch.diff(ends, prepend=ends.new_zeros(1))
+    with lat.phase(timer, "readback"):
+        dead_h, bad_h, ntok_h = torch.stack(
+            [(~ok).long(), bad.long(), ntok]).cpu().numpy()
+    dead = np.nonzero(dead_h)[0]
+    if dead.size:
+        n = int(lens[dead[0]])
+        raise NoPathError(n, n)
+    return ChainedIds(flat, ntok, bad, ntok_h, np.nonzero(bad_h)[0].tolist())
 
 
 def run_e_step_device(
@@ -774,7 +911,8 @@ def count_pairs_arrays(model: Model, samples: Sequence[bytes],
     pairs, its dead spans, its largest id, the table's distinct keys,
     spilled rows and flags) grows it and drains the rows that found no
     slot. Samples past the pack cap take the chained encode (span
-    `chained`) and their pairs are inserted as rows. A sample whose path
+    `chained`), whose ids stay on the device too, and their pairs are
+    inserted as rows (`ChainedIds.pair_rows`). A sample whose path
     took a span that is no token (an id >= V: the probe's false match)
     is left out of its group's insert and encoded again with the exact
     probe (`_redo_exact`, span `redo`), its pairs inserted as rows, so
@@ -869,14 +1007,17 @@ def count_pairs_arrays(model: Model, samples: Sequence[bytes],
         long_idx = corpus.long_idx
         with trace.span("chained"):
             chained = _encode_chained(
-                model, dt, [(si, samples[si]) for si in long_idx],
-                corpus.cap, backend=backend, dropout=0.0, seed=0x5151,
-                probe=None, device=dev, timer=timer)
-        redo = [si for si, ids in zip(long_idx, chained) if ids is None]
-        if redo:
-            chained = [ids for ids in chained if ids is not None]
-            chained += _redo_exact(model, dt, samples, redo, dev, timer)
-        _insert_pairs(table, chained, dev, timer)
+                dt, [(si, samples[si]) for si in long_idx], corpus.cap,
+                backend=backend, dropout=0.0, seed=0x5151, probe=None,
+                device=dev, timer=timer)
+        # The walk's ids stay on the device: their pairs go in as rows.
+        with lat.phase(timer, "pairs"):
+            table.reserve(chained.pairs())
+            table.insert_weighted(*chained.pair_rows())
+        if chained.false:
+            _insert_pairs(table, _redo_false(
+                model, dt, samples, [long_idx[i] for i in chained.false],
+                None, torch.float32, dev, timer), dev, timer)
         known = ()
     if task is not None:
         task.record(sum(len(s) for s in samples), len(samples))
