@@ -35,9 +35,9 @@ Phases (any failure exits non-zero):
      forward's history is rebuilt from a in PyTorch, not by the kernel),
      with one chain alone for the step latency and the table gathers
      counted beside the bound; the marginal scan backward_marginal_scan
-     (the per-pass E-step's backward, and backward_chunk's kernel) on the
-     same session group and on the per-pass E-step's first group (W =
-     1024, 4096 rows), over the group's cache, its backward chains and
+     (the over-budget session's backward, and backward_chunk's kernel) on
+     the same session group and on a group packed at the 1 KiB snippet
+     width (W = 1024, 4096 rows), over the group's cache, its backward chains and
      the forward values of the same cache, at dropout 0 and 0.1, equal to
      its twin bit for bit (marginals and betas), timed beside
      backward_betas_scan on the same inputs, with one chain alone;
@@ -109,10 +109,12 @@ Phases (any failure exits non-zero):
      mode: the walk writes the flat ids; no backpointers leave the card)
      called once per row group;
      prints bytes/s, the peak device memory and the time per phase;
-  3b. the EM E-step, run_e_step_device on the card, for (a) and (b) at
-     dropout 0 and 0.05 (the dropout-0.05 pass once, unsynchronised):
-     forward_scan and backward_marginal_scan each launched once per row
-     group, counts on the first 64 samples equal to the CPU
+  3b. the EM E-step on its per-pass route, a fresh DeviceTrainSession
+     with no cache budget on the card (every pass probes, scans and
+     scatters), for (a) and (b) at dropout 0 and 0.05 (the dropout-0.05
+     pass once, unsynchronised): forward_scan and backward_marginal_scan
+     each launched once per row group (the probe kernel once, on (b)'s
+     fused table twice: once for the SegStruct the budget refuses), counts on the first 64 samples equal to the CPU
      plain run (rtol 1e-3 / atol 1e-4 per
      token, 1e-5 on the total: the CPU's exp/log differ from the card's
      in the last ulp, and one ulp of a forward value near 4e3 moves the
@@ -130,8 +132,8 @@ Phases (any failure exits non-zero):
      launched, each once per group in a steady pass;
      at dropout 0 the second pass equal to the
      first, the counts within rtol 1e-3 / atol 1e-4 per token and 1e-4 on
-     the total of run_e_step_device on the card (segsum against scatter,
-     and expf ulps), and a session over the first 64 samples within 2e-3
+     the total of phase 3b's per-pass route on the card (segsum against
+     scatter, and expf ulps), and a session over the first 64 samples within 2e-3
      of the f64 oracle's total; then, for (a) and (b) at dropout 0 and
      0.05, a session with no cache budget (the over-budget branch: every
      pass probes, through the probe kernel, and counts through
@@ -196,7 +198,7 @@ Phases (any failure exits non-zero):
      (the exact probe, viterbi_scan's double instantiation, the walk) of
      the corpus's first 64 samples and 8 samples of 40-80 KB (the chained
      route, its dp tail carried in f64), ids equal to the oracle's; the
-     f64 E-step (81,920-byte snippets, forward_scan's and
+     f64 session's E-step (81,920-byte snippets, forward_scan's and
      backward_marginal_scan's double instantiations, an f64 scatter into
      token-id bins), its total within rtol 1e-8 of the CPU f64 run's,
      every count within rtol 1e-8 / atol 1e-9; each double kernel (the
@@ -1703,18 +1705,39 @@ def oracle_total(model, samples, snippet: int) -> float:
     return float(sum(expected))
 
 
+def session_e_step(model, samples, dropout=0.0, seed=0, device=None,
+                   timer=None, **kw):
+    """(counts, fused): one E-step of a fresh DeviceTrainSession (the
+    port's E-step) over `samples`, the session closed after; `timer` takes
+    the construction's phases and the pass's; `fused`, whether its table
+    took the fused kernels."""
+    from tokengeex_tpu_torch.train.device_session import DeviceTrainSession
+    from tokengeex_tpu_torch.train.prune import MAX_SAMPLE_LENGTH
+
+    sess = DeviceTrainSession(model, samples, MAX_SAMPLE_LENGTH,
+                              device=device, timer=timer, **kw)
+    try:
+        return sess.e_step(model, dropout, seed, timer=timer), sess._fused()
+    finally:
+        sess.close()
+
+
 def run_estep(name, vocab, samples, kernels, dev):
+    """Phase 3b: the E-step's per-pass route, a session with no cache
+    budget (see the module docstring)."""
     from tokengeex_tpu_torch import Model
     from tokengeex_tpu_torch.ops import lattice as lat
     from tokengeex_tpu_torch.train import estep_device as ed
-    from tokengeex_tpu_torch.train.prune import MAX_SAMPLE_LENGTH
 
     model = Model(vocab)
     total = sum(map(len, samples))
+    fused = []
 
     def estep(batch, dropout=0.0, seed=0, device=dev, timer=None):
-        return ed.run_e_step_device(model, batch, dropout, MAX_SAMPLE_LENGTH,
-                                    seed=seed, device=device, timer=timer)
+        counts, on_fused = session_e_step(model, batch, dropout, seed,
+                                          device, timer, cache_budget=0)
+        fused.append(on_fused)
+        return counts
 
     estep(samples[:64])  # warm-up: allocator, constants
     torch.cuda.synchronize()
@@ -1730,7 +1753,10 @@ def run_estep(name, vocab, samples, kernels, dev):
           f"{name}: the E-step launched forward_scan "
           f"{launches['forward_scan']} and backward_marginal_scan "
           f"{launches['backward_marginal_scan']} times")
-    check_probes(name, launches, launches["forward_scan"])
+    # The fused table probes twice a group: once for its SegStruct, which
+    # the budget refuses, then for the pass.
+    check_probes(name, launches,
+                 launches["forward_scan"] * (2 if fused[-1] else 1))
     check(bool(np.isfinite(counts).all()) and counts.sum() > 0,
           f"{name}: E-step counts not finite")
     rate = total / secs
@@ -1806,7 +1832,6 @@ def run_session(name, vocab, samples, expect, kernels, oracle, dev,
     `counts`, when given, keeps each dropout's first-pass counts."""
     from tokengeex_tpu_torch import Model
     from tokengeex_tpu_torch.ops import lattice as lat
-    from tokengeex_tpu_torch.train import estep_device as ed
     from tokengeex_tpu_torch.train.device_session import DeviceTrainSession
     from tokengeex_tpu_torch.train.prune import MAX_SAMPLE_LENGTH
 
@@ -1906,18 +1931,18 @@ def run_session(name, vocab, samples, expect, kernels, oracle, dev,
         if dropout == 0.0:
             check(res["second_equals_first"],
                   f"{tag}: the steady pass gave other counts than the first")
-            ref = ed.run_e_step_device(model, samples, 0.0, MAX_SAMPLE_LENGTH,
-                                       device=dev)
+            ref = session_e_step(model, samples, device=dev,
+                                 cache_budget=0)[0]
             # The same lattices: the session sums marginals by segsum, the
-            # per-pass E-step by scatter, and the two routes' kernels round
-            # expf/logf apart; per token rtol 1e-3 (as against the CPU in
-            # phase 3b), 1e-4 on the total.
+            # per-pass route (phase 3b's) by scatter, and the two routes'
+            # kernels round expf/logf apart; per token rtol 1e-3 (as
+            # against the CPU in phase 3b), 1e-4 on the total.
             tot_rel = abs(first.sum() - ref.sum()) / ref.sum()
             seen = ref >= 0.5
             cnt_rel = float((np.abs(first - ref)[seen] / ref[seen]).max())
             check(bool(np.allclose(first, ref, rtol=1e-3, atol=1e-4))
                   and tot_rel <= 1e-4,
-                  f"{tag}: counts differ from run_e_step_device (max rel "
+                  f"{tag}: counts differ from the per-pass route (max rel "
                   f"{cnt_rel:.2e}, total rel {tot_rel:.2e})")
             head = samples[:64]
             sess = session(head)
@@ -1927,7 +1952,7 @@ def run_session(name, vocab, samples, expect, kernels, oracle, dev,
             rel = abs(got.sum() - want) / want
             check(rel <= 2e-3, f"{tag}: total count {got.sum()} is "
                   f"{rel:.2e} from the f64 oracle's {want}")
-            log(f"{tag} checks passed: second pass equal, run_e_step_device "
+            log(f"{tag} checks passed: second pass equal, per-pass route "
                 f"(max rel on counts >= 0.5 {cnt_rel:.3e}, total rel "
                 f"{tot_rel:.3e}), f64 oracle total {want:.3f} vs "
                 f"{got.sum():.3f} (rel {rel:.2e})")
@@ -2724,7 +2749,8 @@ def run_merge(vocab, samples, groups, kernels, dev):
     from tokengeex_tpu_torch.ops import lattice as lat
     from tokengeex_tpu_torch.ops import pair_count as pc
     from tokengeex_tpu_torch.train import estep_device as ed
-    from tokengeex_tpu_torch.train.merge import VocabularyMerger
+    from tokengeex_tpu_torch.train.merge import (VocabularyMerger,
+                                                 _pairs_in_order)
 
     compile_is_match_dfa(MERGE_ALLOW)  # the DFA takes it, no host regex
     kw = dict(allow=MERGE_ALLOW, num_merges=200, step=50)
@@ -2808,16 +2834,22 @@ def run_merge(vocab, samples, groups, kernels, dev):
     log(f"[merge] {len(vocab)} -> {merged.vocab_size()} tokens in "
         f"{secs:.3f} s on {torch.cuda.get_device_name(dev)}; launches "
         f"{launches} ({groups} groups a pass)")
+    def pair_list(model, samples_, timer=None, **kw):
+        """The pair count in order, as the merger reads it (phase list)."""
+        arrays = ed.count_pairs_arrays(model, samples_, timer=timer, **kw)
+        with lat.phase(timer, "list"):
+            return list(_pairs_in_order(*arrays))
+
     # One more pass over the merged vocabulary, through the list.
     timer = lat.PhaseTimer(dev)
     t = time.perf_counter()
-    ed.count_pairs_device(merged, samples, corpus=merger._corpus, timer=timer)
+    pair_list(merged, samples, timer, corpus=merger._corpus)
     pass_split = {k: round(v, 6) for k, v in timer.seconds.items()}
-    log(f"[merge] a count_pairs_device pass over the merged vocabulary, "
+    log(f"[merge] a pair count pass over the merged vocabulary, in order, "
         f"synchronised: {time.perf_counter() - t:.3f} s; {pass_split}")
     head = samples[:64]
-    pairs = ed.count_pairs_device(Model(vocab), head, device=dev)
-    check(pairs == ed.count_pairs_device(Model(vocab), head, device="cpu"),
+    pairs = pair_list(Model(vocab), head, device=dev)
+    check(pairs == pair_list(Model(vocab), head, device="cpu"),
           "[merge] pair counts on 64 samples differ from the CPU run")
     small = VocabularyMerger(device=dev, **kw).merge(Model(vocab), head)
     small_cpu = VocabularyMerger(device="cpu", **kw).merge(Model(vocab), head)
@@ -3209,7 +3241,6 @@ def run_f64(vocab, samples, dev):
     from tokengeex_tpu_torch.ops import lattice_cuda as lc
     from tokengeex_tpu_torch.ops import lattice_cuda_probe as lcp
     from tokengeex_tpu_torch.train import estep_device as ed
-    from tokengeex_tpu_torch.train.prune import MAX_SAMPLE_LENGTH
 
     f64 = torch.float64
     model = Model(vocab)
@@ -3242,8 +3273,10 @@ def run_f64(vocab, samples, dev):
     enc32_s = time.perf_counter() - t0
 
     def estep(device=dev, dtype=f64):
-        return ed.run_e_step_device(model, batch, 0.0, MAX_SAMPLE_LENGTH,
-                                    dtype=dtype, device=device)
+        # The f64 session probes afresh every pass; at f32 the per-pass
+        # route (no cache budget) compares with it.
+        return session_e_step(model, batch, device=device, dtype=dtype,
+                              cache_budget=0)[0]
 
     estep()  # warm
     torch.cuda.synchronize()
@@ -3944,8 +3977,7 @@ def main() -> None:
                           dev)
     del batch_s
     torch.cuda.empty_cache()
-    # The per-pass E-step's first row group of (a): 1 KiB snippets packed
-    # at the snippet width, 4096 rows.
+    # A row group of (a) packed at the 1 KiB snippet width: 4096 rows.
     packed_e = pack_samples(samples, width=em_width,
                             max_snippet=ed.DEVICE_EM_SNIPPET)
     sub_e = next(g for _, g in ed._padded_groups(packed_e, em_width,

@@ -173,20 +173,32 @@ def test_cuda_backward_chunk_matches_twin(cuda_device, L):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hints,probe", [(None, None), ((16, None), "fast")])
-def test_cuda_e_step_matches_cpu(cuda_device, hints, probe):
+@pytest.mark.parametrize("route", ["fused", "slab"])
+def test_cuda_e_step_matches_cpu(cuda_device, route, monkeypatch):
+    """The session's over-budget pass (the probe, the forward scan and the
+    marginal scan, each once per row group, and the scatter) on the card
+    against the CPU, on the fused table and, with the has_vscan threshold
+    lowered, on the slab route's bucket probe."""
     model, samples = _corpus(600, seed=2)
+    if route == "slab":
+        monkeypatch.setattr(lat, "VSCAN_MAX_BITS", -1)
+
+    def e_step(device):
+        sess = DeviceTrainSession(model, samples, 1024, cache_budget=0,
+                                  device=device)
+        assert sess._fused() == (route == "fused")
+        try:
+            return sess.e_step(model, 0.0, 0), len(sess._groups())
+        finally:
+            sess.close()
+
     counts = (lc.forward_scan.launches, lc.backward_marginal_scan.launches)
-    got = ed.run_e_step_device(model, samples, dropout=0.0, max_snippet=1024,
-                               probe=probe, table_hints=hints,
-                               device=cuda_device)
+    got, groups = e_step(cuda_device)
     # Each scan once per row group.
     fwd = lc.forward_scan.launches - counts[0]
-    assert fwd > 0 and lc.backward_marginal_scan.launches - counts[1] == fwd
-    want = ed.run_e_step_device(model, samples, dropout=0.0,
-                                max_snippet=1024, probe=probe,
-                                table_hints=hints, device="cpu")
-    _assert_counts_close(got, want, model, samples)
+    assert fwd == groups and \
+        lc.backward_marginal_scan.launches - counts[1] == fwd
+    _assert_counts_close(got, e_step("cpu")[0], model, samples)
 
 
 def _assert_counts_close(got, want, model, samples):
@@ -515,19 +527,22 @@ def test_cuda_seg_kernels_reject_bad_input(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dropout", [0.0, 0.05])
-def test_cuda_session_over_budget_matches_budgeted(cuda_device, dropout):
+def test_cuda_session_over_budget_matches_budgeted(cuda_device, dropout,
+                                                   monkeypatch):
     """A session with no cache budget takes the per-pass branch on every
     pass (the marginal scan once per group) and counts what the budgeted
     session counts (segsum against scatter: rtol 1e-3 per token, 1e-4 on
     the total). The scatter's atomic adds land in no fixed order, so two
     passes agree to rounding, not bit for bit."""
     model, samples = _corpus(600, seed=2)
-    want = DeviceTrainSession(model, samples, 1024, kernel="slab",
+    # The slab route on this small table: the has_vscan threshold lowered.
+    monkeypatch.setattr(lat, "VSCAN_MAX_BITS", -1)
+    want = DeviceTrainSession(model, samples, 1024,
                               device=cuda_device).e_step(model, dropout, 3)
     before = (lc.backward_marginal_scan.launches,
               lcs.seg_weights_gather.launches, lcs.seg_sums.launches)
-    sess = DeviceTrainSession(model, samples, 1024, kernel="slab",
-                              cache_budget=0, device=cuda_device)
+    sess = DeviceTrainSession(model, samples, 1024, cache_budget=0,
+                              device=cuda_device)
     got = [sess.e_step(model, dropout, 3) for _ in range(2)]
     groups = len(sess._groups())
     assert lc.backward_marginal_scan.launches - before[0] == 2 * groups
@@ -740,21 +755,24 @@ def test_cuda_seg_weights_matches_twin(cuda_device, H, n_tail):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", [None, "slab"])
-def test_cuda_session_matches_cpu(cuda_device, kernel):
+@pytest.mark.parametrize("route", ["fused", "slab"])
+def test_cuda_session_matches_cpu(cuda_device, route, monkeypatch):
     model, samples = _corpus(600, seed=2)
     kernels = ((lcf.fused_forward_chunk, lcf.fused_backward_chunk)
-               if kernel is None else
+               if route == "fused" else
                (lc.forward_scan, lc.backward_betas_scan))
     kernels += (lcs.seg_weights_gather, lcs.seg_sums)
     before = [k.launches for k in kernels]
-    sess = DeviceTrainSession(model, samples, 1024, kernel=kernel,
-                              device=cuda_device)
+    if route == "slab":
+        # The slab route on this small table: the has_vscan threshold
+        # lowered.
+        monkeypatch.setattr(lat, "VSCAN_MAX_BITS", -1)
+    sess = DeviceTrainSession(model, samples, 1024, device=cuda_device)
+    assert sess._fused() == (route == "fused")
     got = [sess.e_step(model, 0.0, 0) for _ in range(2)]
     assert all(k.launches > b for k, b in zip(kernels, before))
     assert np.array_equal(got[0], got[1])  # the steady state repeats
-    cpu = DeviceTrainSession(model, samples, 1024, kernel=kernel,
-                             device="cpu")
+    cpu = DeviceTrainSession(model, samples, 1024, device="cpu")
     _assert_counts_close(got[0], cpu.e_step(model, 0.0, 0), model, samples)
     np.testing.assert_array_equal(sess.count_frequencies(model),
                                   cpu.count_frequencies(model))
@@ -848,8 +866,13 @@ def test_cuda_encode_walks_on_the_card(cuda_device, fused, monkeypatch):
                                   device=cuda_device)
     assert got == want
     assert lat.viterbi_walk.calls == before + 1
-    counts = ed.count_frequencies_device(model, texts, table_hints=hints,
-                                         device=cuda_device)
+    if not fused:
+        # The session's slab route on this table: the threshold lowered.
+        monkeypatch.setattr(lat, "VSCAN_MAX_BITS", -1)
+    sess = DeviceTrainSession(model, texts, None, device=cuda_device)
+    assert sess._fused() == fused
+    counts = sess.count_frequencies(model)
+    sess.close()
     np.testing.assert_array_equal(counts, np.bincount(
         np.concatenate([np.asarray(r, np.int64) for r in want if r]),
         minlength=model.vocab_size()))
@@ -1111,13 +1134,14 @@ def test_cuda_f64_encode_and_estep_match_cpu(cuda_device):
     assert got == ed.encode_corpus_device(model, mixed, dtype=f64,
                                           max_width=1024, device="cpu")
     assert got == [model.oracle.encode(s) for s in mixed]
-    est = ed.run_e_step_device(model, samples[:80], 0.0, 81920, dtype=f64,
-                               device=cuda_device)
-    want = ed.run_e_step_device(model, samples[:80], 0.0, 81920, dtype=f64,
-                                device="cpu")
-    np.testing.assert_allclose(est, want, rtol=1e-8, atol=1e-9)
     sess = DeviceTrainSession(model, samples[:80], 81920, dtype=f64,
                               device=cuda_device)
+    cpu = DeviceTrainSession(model, samples[:80], 81920, dtype=f64,
+                             device="cpu")
+    want = cpu.e_step(model, 0.0, 0)
+    np.testing.assert_allclose(sess.e_step(model, 0.0, 0), want, rtol=1e-8,
+                               atol=1e-9)
+    # A second pass probes afresh and counts the same.
     np.testing.assert_allclose(sess.e_step(model, 0.0, 0), want, rtol=1e-8,
                                atol=1e-9)
     after = (lc.viterbi_scan.launches_f64, lc.forward_scan.launches_f64,

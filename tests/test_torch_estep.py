@@ -1,14 +1,18 @@
 """The port's EM E-step against the JAX package's, on the CPU.
 
 The plain twins of `forward_chunk` and `backward_chunk` are held against
-the Pallas kernels in interpret mode; `forward`, `backward_expected` and
-`fold_expected` against `lattice_jax` on the same batch, tables and
-dropout words; `run_e_step_device(device="cpu")` against the JAX E-step
-on the tests/test_estep_device.py corpus. tests/test_torch_cuda.py holds
-the CUDA kernels against the twins on a GPU.
+the Pallas kernels in interpret mode; `forward` and `backward_expected`,
+folded as the session folds (slots remapped to a dense rank space,
+`fold_expected_rank`), against `lattice_jax` on the same batch, tables
+and dropout words; the port's E-step, `DeviceTrainSession.e_step` on
+device="cpu" on the fused and the slab route, and its frequency pass
+against the JAX E-step and frequency counts on the
+tests/test_estep_device.py corpus. tests/test_torch_cuda.py holds the
+CUDA kernels against the twins on a GPU.
 """
 
 import random
+import types
 
 import numpy as np
 import pytest
@@ -24,7 +28,9 @@ from tokengeex_tpu.train import estep_device as jed
 import tokengeex_tpu_torch as tg
 from tokengeex_tpu_torch.ops import lattice as lat
 from tokengeex_tpu_torch.ops import lattice_cuda as lc
+from tokengeex_tpu_torch.ops import lattice_cuda_fused as lcf
 from tokengeex_tpu_torch.train import estep_device as ed
+from tokengeex_tpu_torch.train.device_session import DeviceTrainSession
 
 from test_torch_kernels import (_drop_u, _hist_from_groups, _random_slab,
                                 _rows_from_groups, _setup, _slab_to_port)
@@ -92,6 +98,32 @@ def test_chunk_wrappers_reject_bad_input():
         lc.backward_chunk(s, row, row.double(), row, torch.zeros((3, 128)))
 
 
+def e_step(model, samples, max_snippet, dropout=0.0, seed=0, **kw):
+    """The port's E-step: one pass of a DeviceTrainSession on the CPU,
+    closed after use."""
+    sess = DeviceTrainSession(model, samples, max_snippet, device="cpu",
+                              **kw)
+    try:
+        return sess.e_step(model, dropout, seed)
+    finally:
+        sess.close()
+
+
+def rank_fold(slot_to_id):
+    """The session's fold over a probe's slot map: (lut, rank_ids, n_pad)
+    of `lattice.build_rank_space` over it (the lut maps each slot, and the
+    miss past the last, to its rank; `remap_slots` applies it), with
+    `rank_to_ids`' map of each rank to its token. build_rank_space reads a
+    table's bucket layout, 8 slots a bucket; a cuckoo slot map (2^(bits +
+    1) slots) fits it as well."""
+    bk_bits = int(slot_to_id.size // 8).bit_length() - 1
+    assert 8 << bk_bits == slot_to_id.size
+    host = types.SimpleNamespace(bk=True, bk_bits=bk_bits, bk_ids=slot_to_id)
+    rank = lat.build_rank_space(host)
+    return (torch.as_tensor(rank.lut), lat.rank_to_ids(rank, host),
+            rank.n_pad)
+
+
 # -- forward / backward_expected against lattice_jax on one batch --
 
 
@@ -146,15 +178,22 @@ def test_estep_ops_match_jax(estep_setup, probe, dropout):
     assert (np.isfinite(A.numpy()) == fin).all()
     np.testing.assert_allclose(A.numpy()[fin], A_j[fin], rtol=2e-5, atol=1e-5)
 
-    acc = lat.backward_expected(tbl, pb, A, cache, C=C, drop_u=pdu,
-                                dropout=dropout, probe=probe)
-    assert acc.shape[0] == miss
-    e = lat.fold_expected(tbl, acc)
+    # Folded as the session folds: the slots remapped to dense ranks, the
+    # marginals added into rank bins, the ranks folded to token ids.
+    lut, rank_ids, n_pad = rank_fold(
+        tbl.bk_slot_to_id if probe == "bucket" else tbl.slot_to_id)
+    assert lut.shape[0] == miss + 1
+    acc = lat.backward_expected(tbl, pb, A,
+                                (cache[0], lat.remap_slots(lut, cache[1])),
+                                C=C, drop_u=pdu, dropout=dropout,
+                                probe=probe, nbins=n_pad)
+    assert acc.shape[0] == n_pad
+    e = lat.fold_expected_rank(acc, rank_ids, tbl.vocab_size)
     assert e.sum() > 100
     np.testing.assert_allclose(e, e_j, rtol=1e-4, atol=1e-4)
 
 
-# -- run_e_step_device against the JAX E-step --
+# -- the session's E-step and frequency pass against the JAX package's --
 
 
 @pytest.fixture(scope="module")
@@ -178,32 +217,43 @@ def corpus():
     return jmodel, model, samples
 
 
-@pytest.mark.parametrize("probe", [None, "fast"])
-def test_run_e_step_matches_jax(corpus, monkeypatch, probe):
+@pytest.mark.parametrize("route,probe", [("fused", None), ("slab", "fast")])
+def test_run_e_step_matches_jax(corpus, monkeypatch, route, probe):
+    """The session's first pass on each route (the small table takes the
+    fused kernels unless the has_vscan threshold is lowered below it)
+    against the JAX E-step (its probe: the default, or the fast one)."""
     jmodel, model, samples = corpus
     # Force several row groups on both sides.
-    monkeypatch.setattr(jed, "GROUP_BYTES", 1 << 14)
-    monkeypatch.setattr(ed, "GROUP_BYTES", 1 << 14)
+    monkeypatch.setattr(jed, "GROUP_BYTES", 1 << 13)
+    monkeypatch.setattr(ed, "GROUP_BYTES", 1 << 13)
+    if route == "slab":
+        monkeypatch.setattr(lat, "VSCAN_MAX_BITS", -1)
     want = jed.run_e_step_device(jmodel, samples, dropout=0.0,
                                  max_snippet=256, dtype=jnp.float32,
                                  probe=probe)
-    counts = (lc.forward_chunk.launches, lc.backward_chunk.launches)
-    got = ed.run_e_step_device(model, samples, dropout=0.0, max_snippet=256,
-                               probe=probe, device="cpu")
+    counts = (lcf.fused_forward_chunk.launches,
+              lcf.fused_backward_chunk.launches, lc.forward_scan.launches,
+              lc.backward_betas_scan.launches)
+    sess = DeviceTrainSession(model, samples, 256, device="cpu")
+    assert sess._fused() == (route == "fused")
+    assert len(sess._groups()) > 1
+    got = sess.e_step(model, 0.0, 0)
+    sess.close()
     # CPU tensors take the plain twins: no kernel launch is counted.
-    assert counts == (lc.forward_chunk.launches, lc.backward_chunk.launches)
+    assert counts == (lcf.fused_forward_chunk.launches,
+                      lcf.fused_backward_chunk.launches,
+                      lc.forward_scan.launches,
+                      lc.backward_betas_scan.launches)
     assert got.dtype == np.float64 and got.shape == (model.vocab_size(),)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
 def test_run_e_step_dropout_is_seeded(corpus):
     _, model, samples = corpus
-    kw = dict(dropout=0.3, max_snippet=256, device="cpu")
-    a = ed.run_e_step_device(model, samples[:8], seed=7, **kw)
-    assert np.array_equal(a, ed.run_e_step_device(model, samples[:8], seed=7,
-                                                  **kw))
-    e0 = ed.run_e_step_device(model, samples[:8], dropout=0.0,
-                              max_snippet=256, device="cpu")
+    a = e_step(model, samples[:8], 256, dropout=0.3, seed=7)
+    assert np.array_equal(a, e_step(model, samples[:8], 256, dropout=0.3,
+                                    seed=7))
+    e0 = e_step(model, samples[:8], 256)
     assert not np.array_equal(a, e0)
     assert abs(a.sum() - e0.sum()) / e0.sum() < 0.5
 
@@ -212,8 +262,10 @@ def test_run_e_step_snippet_cap(corpus):
     """max_snippet above DEVICE_EM_SNIPPET packs at the f32 cap."""
     _, model, samples = corpus
     long = b"".join(samples)[: ed.DEVICE_EM_SNIPPET * 2 + 100]
-    got = ed.run_e_step_device(model, [long], dropout=0.0,
-                               max_snippet=81920, device="cpu")
+    sess = DeviceTrainSession(model, [long], 81920, device="cpu")
+    assert sess.max_snippet == ed.DEVICE_EM_SNIPPET
+    got = sess.e_step(model, 0.0, 0)
+    sess.close()
     want = [0.0] * model.vocab_size()
     for off in range(0, len(long), ed.DEVICE_EM_SNIPPET):
         lattice = tg.Lattice(long[off : off + ed.DEVICE_EM_SNIPPET])
@@ -228,23 +280,26 @@ def test_run_e_step_no_path_raises(corpus):
     bad = samples[0][:100] + b"zzz" + samples[1][:50]  # 'z' not in vocab
     with pytest.raises(ValueError, match="normalization constant is not "
                                          "finite"):
-        ed.run_e_step_device(model, [samples[2], bad], dropout=0.0,
-                             max_snippet=256, device="cpu")
+        e_step(model, [samples[2], bad], 256)
 
 
 def test_run_e_step_needs_a_device_without_cuda(corpus, monkeypatch):
+    """Without a GPU and without `device`, the session (the E-step and
+    the frequency pass) and encode (the pair count's and the
+    alternatives') raise."""
     _, model, samples = corpus
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        ed.run_e_step_device(model, samples[:2], dropout=0.0,
-                             max_snippet=256)
+        DeviceTrainSession(model, samples[:2], 256)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        ed.count_frequencies_device(model, samples[:2])
+        ed.encode_corpus_device(model, samples[:2])
 
 
 def test_count_frequencies_matches_jax(corpus):
     jmodel, model, samples = corpus
     want = jed.count_frequencies_device(jmodel, samples)
-    got = ed.count_frequencies_device(model, samples, device="cpu")
+    sess = DeviceTrainSession(model, samples, 256, device="cpu")
+    got = sess.count_frequencies(model)
+    sess.close()
     assert got.dtype == np.int64
     np.testing.assert_array_equal(got, want)

@@ -6,7 +6,10 @@ chip_smoke.py holds the card's E-step total on its configuration (b), a
 first 64 samples. This test is the second witness for that bound, on the
 CPU: the JAX package's f32 E-step lies as far from the oracle as the
 port's, and its f64 E-step does not, so the gap belongs to the f32
-recurrence and not to the port. `pytest -s` prints the gaps.
+recurrence and not to the port. The port's E-step is the session's
+(`DeviceTrainSession.e_step`): with no cache budget it probes, scans and
+scatters as the JAX E-step does, and its default route (the fused
+kernels and the segsum, which this table takes) keeps the same bound. `pytest -s` prints the gaps.
 """
 
 import importlib.util
@@ -22,6 +25,8 @@ from tokengeex_tpu.train import estep_device as jed
 
 import tokengeex_tpu_torch as tg
 from tokengeex_tpu_torch.train import estep_device as ed
+
+from test_torch_estep import e_step
 
 torch.set_num_threads(1)
 
@@ -46,8 +51,9 @@ def test_f32_estep_gap_to_oracle_is_the_jax_packages():
     snip = ed.DEVICE_EM_SNIPPET
 
     want = cs.oracle_total(model, head, snip)
-    port = ed.run_e_step_device(model, head, 0.0, snip, device="cpu").sum()
-    totals = {"port f32": port}
+    port = e_step(model, head, snip, cache_budget=0).sum()
+    totals = {"port f32": port,
+              "port f32 default": e_step(model, head, snip).sum()}
     for name, dtype in (("jax f32", jnp.float32), ("jax f64", jnp.float64)):
         totals[name] = jed.run_e_step_device(
             jmodel, head, dropout=0.0, max_snippet=snip, dtype=dtype).sum()
@@ -63,6 +69,7 @@ def test_f32_estep_gap_to_oracle_is_the_jax_packages():
     # within chip_smoke.py's bound.
     assert 1e-4 < abs(gaps["jax f32"]) <= 2e-3
     assert abs(gaps["port f32"]) <= 2e-3
+    assert abs(gaps["port f32 default"]) <= 2e-3
 
     # Shorter snippets: the gap is not a random walk's, it changes sign
     # with the length. A likely cause: each frequent token's score rounds
@@ -70,7 +77,7 @@ def test_f32_estep_gap_to_oracle_is_the_jax_packages():
     # changing size, so its errors add up in one direction.
     for n in (256, 512):
         want_n = cs.oracle_total(model, head, n)
-        got_n = ed.run_e_step_device(model, head, 0.0, n, device="cpu").sum()
+        got_n = e_step(model, head, n, cache_budget=0).sum()
         gap = (got_n - want_n) / want_n
         print(f"{n}-byte snippets: oracle {want_n!r}, port f32 {got_n!r}, "
               f"relative gap {gap!r}")

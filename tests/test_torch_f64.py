@@ -5,7 +5,9 @@ float64) and through the reference: the pure-Python f64 `OracleModel`
 id for id, and the JAX package's f64 device route
 (`encode_corpus_device(dtype=jnp.float64)`, `run_e_step_device(dtype=
 jnp.float64)`, `VocabularyPruner(device_dtype=jnp.float64)`), at the
-tolerance of tests/test_estep_device.py (rtol 1e-8, atol 1e-9). The
+tolerance of tests/test_estep_device.py (rtol 1e-8, atol 1e-9); the
+port's E-step is the f64 session's (`DeviceTrainSession(dtype=
+torch.float64).e_step`). The
 double kernels are held against their f64 twins on the card in
 tests/test_torch_cuda.py.
 """
@@ -187,21 +189,29 @@ def _estep_setup():
     return vocab, samples
 
 
-@pytest.mark.parametrize("probe", [None, "exact"])
-def test_f64_estep_matches_jax(monkeypatch, probe):
-    """dropout 0 and several groups (the JAX test's CHUNK and
-    GROUP_BYTES), against the JAX package's f64 E-step."""
+@pytest.mark.parametrize("bound", [False, True])
+def test_f64_estep_matches_jax(monkeypatch, bound):
+    """dropout 0 and the JAX test's CHUNK and GROUP_BYTES (the port's
+    groups smaller, so that the session has several), the f64 session's
+    E-step against the JAX package's f64 E-step: a session made from the
+    model, and one made from a larger vocabulary (other ids) with the
+    model bound to it."""
     vocab, samples = _estep_setup()
     for mod in (ed, jed):
         monkeypatch.setattr(mod, "CHUNK", 128)
         monkeypatch.setattr(mod, "GROUP_BYTES", 1 << 14)
+    monkeypatch.setattr(ed, "GROUP_BYTES", 1 << 12)
     want = jed.run_e_step_device(
         jtg.Model([jtg.ScoredToken(v, s) for v, s in vocab]), samples,
         dropout=0.0, max_snippet=256, dtype=jnp.float64)
+    model = tg.Model([tg.ScoredToken(v, s) for v, s in vocab])
+    extra = [tg.ScoredToken(v, -4.0) for v in (b"zz", b"abcabc", b"( )")]
+    base = tg.Model(extra + model.vocab) if bound else model
     launches = lc.forward_scan.launches
-    got = ed.run_e_step_device(
-        tg.Model([tg.ScoredToken(v, s) for v, s in vocab]), samples,
-        dropout=0.0, max_snippet=256, dtype=F64, probe=probe, device="cpu")
+    sess = DeviceTrainSession(base, samples, 256, dtype=F64, device="cpu")
+    assert sess.exact and len(sess._groups()) > 1
+    got = sess.e_step(model, 0.0, 0)
+    sess.close()
     assert lc.forward_scan.launches == launches  # the CPU runs the twins
     assert got.dtype == np.float64 and got.sum() > 0
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
@@ -215,25 +225,29 @@ def test_f64_snippet_cap_keeps_the_callers():
 
 def test_f64_session_counts_match_the_per_pass_estep():
     """The f64 session probes afresh each pass (no rank space, no slot
-    cache) and counts as the f64 per-pass E-step does; its frequency
-    pass, walked on the device, equals the host backtrack's counts."""
+    cache) and counts as the JAX package's f64 per-pass E-step does, also
+    after a rebind; its frequency pass, walked on the device, equals the
+    host backtrack's counts."""
     vocab, samples = _estep_setup()
     model = tg.Model([tg.ScoredToken(v, s) for v, s in vocab])
     sess = DeviceTrainSession(model, samples, 256, dtype=F64, device="cpu")
     assert sess.exact and sess.rank is None and sess.max_snippet == 256
-    want = ed.run_e_step_device(model, samples, 0.0, 256, dtype=F64,
-                                device="cpu")
+
+    def jax_e_step(vocab_):
+        return jed.run_e_step_device(
+            jtg.Model([jtg.ScoredToken(v, s) for v, s in vocab_]), samples,
+            dropout=0.0, max_snippet=256, dtype=jnp.float64)
+
+    want = jax_e_step(vocab)
     got = sess.e_step(model, 0.0, 0)
     assert not sess.slot_cache and not sess.seg_cache
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
-    # A rescored, shrunk model rebuilds the tables.
-    model2 = tg.Model([tg.ScoredToken(v, s - 0.5)
-                       for i, (v, s) in enumerate(vocab)
-                       if len(v) == 1 or i % 4])
-    np.testing.assert_allclose(
-        sess.e_step(model2, 0.0, 0),
-        ed.run_e_step_device(model2, samples, 0.0, 256, dtype=F64,
-                             device="cpu"), rtol=RTOL, atol=ATOL)
+    # A rescored, shrunk model rebinds the tables.
+    vocab2 = [(v, s - 0.5) for i, (v, s) in enumerate(vocab)
+              if len(v) == 1 or i % 4]
+    model2 = tg.Model([tg.ScoredToken(v, s) for v, s in vocab2])
+    np.testing.assert_allclose(sess.e_step(model2, 0.0, 0),
+                               jax_e_step(vocab2), rtol=RTOL, atol=ATOL)
     freqs = sess.count_frequencies(model2)
     want_f = np.zeros(model2.vocab_size(), np.int64)
     for s in samples:

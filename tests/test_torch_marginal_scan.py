@@ -10,8 +10,9 @@ interpret mode chunk by chunk (the history carried from chunk to chunk);
 the chained twin against one chain per row bit for bit, on rows that pack
 several samples with padding gaps and samples longer than a segment; the
 chunk API walked over the width against the whole-width scan; and
-`backward_expected` with chains against `lattice_jax.backward_expected`,
-with `_dropout_keep_window` off its path. tests/test_torch_cuda.py holds
+`backward_expected` with chains, folded through the session's rank
+space, against `lattice_jax.backward_expected`, with
+`_dropout_keep_window` off its path. tests/test_torch_cuda.py holds
 the kernel against the twin on a GPU.
 """
 
@@ -33,6 +34,7 @@ from tokengeex_tpu_torch.ops.match_table import TokenTable
 from tokengeex_tpu_torch.utils.packing import pack_samples
 
 from test_torch_estep import estep_setup  # noqa: F401 (a fixture)
+from test_torch_estep import rank_fold
 from test_torch_kernels import _drop_u, _hist_from_groups, _slab_to_port
 from test_torch_scan import W as SCAN_W, _case as _scan_case
 
@@ -212,18 +214,21 @@ def test_backward_expected_with_chains_matches_jax(estep_setup, monkeypatch,
     A = lat.forward(tbl, pb, cache, C=C, drop_u=pdu, dropout=dropout)
     chains = lat.chain_bounds(pb, 64)
     assert (chains[1][1:-1] < pb.width).any()
+    # Folded as the session folds: the bucket slots remapped to ranks.
+    lut, rank_ids, n_pad = rank_fold(tbl.bk_slot_to_id)
+    ranked = (cache[0], lat.remap_slots(lut, cache[1]))
     before = (lc.backward_marginal_scan.launches, lc.backward_chunk.launches)
-    acc = lat.backward_expected(tbl, pb, A, cache, C=C, drop_u=pdu,
-                                dropout=dropout, chains=chains)
+    acc = lat.backward_expected(tbl, pb, A, ranked, C=C, drop_u=pdu,
+                                dropout=dropout, nbins=n_pad, chains=chains)
     # CPU tensors take the plain twin: no kernel launch is counted.
     assert before == (lc.backward_marginal_scan.launches,
                       lc.backward_chunk.launches)
-    e = lat.fold_expected(tbl, acc)
+    e = lat.fold_expected_rank(acc, rank_ids, tbl.vocab_size)
     assert e.sum() > 100
     np.testing.assert_allclose(e, e_j, rtol=1e-4, atol=1e-4)
     # The chains change no count.
-    whole = lat.backward_expected(tbl, pb, A, cache, C=C, drop_u=pdu,
-                                  dropout=dropout)
+    whole = lat.backward_expected(tbl, pb, A, ranked, C=C, drop_u=pdu,
+                                  dropout=dropout, nbins=n_pad)
     assert torch.equal(whole, acc)
 
 

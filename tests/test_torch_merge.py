@@ -1,8 +1,9 @@
 """The port's merge and filter against the JAX package's, on the CPU.
 
-`count_pairs_device` (the device encode over a DeviceCorpus packed once,
-its ids walked on the device, then one vectorised pair count) against the
-JAX package's, as a dict and in order; `VocabularyMerger` on the device
+`count_pairs_arrays` (the device encode over a DeviceCorpus packed once,
+its ids walked on the device and their pairs counted there), in order as
+the merger reads it, against the JAX package's `count_pairs_device`, as a
+dict and in order; `VocabularyMerger` on the device
 backend (the kernels' plain versions) and on the oracle backend against
 the JAX package's merger on the same samples and allow pattern;
 `VocabularyFilter`, the allow-DFA and the pattern helpers against their
@@ -28,6 +29,7 @@ from tokengeex_tpu_torch.train import patterns
 from tokengeex_tpu_torch.train.filter import VocabularyFilter
 from tokengeex_tpu_torch.train.merge import VocabularyMerger
 
+from test_torch_pairs import pair_list
 from test_torch_session import _models, one_jax_device  # noqa: F401
 
 # The suite runs in several worker processes at once; torch's default
@@ -61,7 +63,7 @@ def test_count_pairs_match_jax(merge_corpus, one_jax_device, hints):
     vocab, samples = merge_corpus
     jm, m = _models(vocab)
     want = jed.count_pairs_device(jm, samples, table_hints=hints)
-    got = ed.count_pairs_device(m, samples, table_hints=hints, device="cpu")
+    got = pair_list(m, samples, table_hints=hints, device="cpu")
     assert got == want  # in order: descending counts, ties by key
     assert dict(got) == dict(want) and len(got) > 20
     assert any(c > 10 for _, c in got)
@@ -92,8 +94,8 @@ def test_device_corpus_reuse_and_mismatch(merge_corpus, monkeypatch):
     other = samples[10:20]
     assert ed.encode_corpus_device(m, other, device="cpu", corpus=corpus) \
         == ed.encode_corpus_device(m, other, device="cpu")
-    pairs = ed.count_pairs_device(m, samples, corpus=corpus)
-    assert pairs == ed.count_pairs_device(m, samples, device="cpu")
+    pairs = pair_list(m, samples, corpus=corpus)
+    assert pairs == pair_list(m, samples, device="cpu")
 
 
 def test_device_corpus_is_single_process(merge_corpus, tmp_path):
@@ -105,7 +107,7 @@ def test_device_corpus_is_single_process(merge_corpus, tmp_path):
 
     vocab, samples = merge_corpus
     _, m = _models(vocab)
-    want = ed.count_pairs_device(m, samples, device="cpu")
+    want = pair_list(m, samples, device="cpu")
     merger = dict(allow=ALLOW, num_merges=6, step=3, device="cpu")
     merged = VocabularyMerger(**merger).merge(_models(vocab)[1], samples)
     mesh.distributed_initialize("cpu", init_method=f"file://{tmp_path}/pg",
@@ -114,7 +116,7 @@ def test_device_corpus_is_single_process(merge_corpus, tmp_path):
         corpus = ed.DeviceCorpus(samples, device="cpu")
         assert [sub.rows for _, sub in corpus.groups] == \
             [rows for rows, lo in corpus.blocks.values()]
-        assert ed.count_pairs_device(m, samples, corpus=corpus) == want
+        assert pair_list(m, samples, corpus=corpus) == want
         got = VocabularyMerger(**merger).merge(_models(vocab)[1], samples)
     finally:
         mesh.shutdown()
@@ -151,7 +153,7 @@ def test_device_and_oracle_pairs_agree(merge_corpus):
     merger = VocabularyMerger(allow=ALLOW, backend="oracle")
     task = ed.Task("pairs", len(samples))
     want = merger._count_pairs(m, samples, task)
-    got = ed.count_pairs_device(m, samples, device="cpu")
+    got = pair_list(m, samples, device="cpu")
     assert dict(got) == dict(want)
     assert [c for _, c in got] == [c for _, c in want]
 

@@ -8,7 +8,8 @@ and holds what they return against the port at world size 1 and the JAX
 package, both run in this process on the same seeded data with the same
 small row groups (several a corpus, each split over the ranks):
 
-  - the f64 E-step, replicated corpus, dropout 0 and 0.05 (2 and 4 ranks):
+  - the f64 session's E-step, replicated corpus, dropout 0 and 0.05 (2
+    and 4 ranks):
     rtol 1e-12 per token against world 1 (only the summation order
     differs), and at dropout 0 rtol 1e-8 / atol 1e-9 against the JAX
     package's f64 E-step (tests/test_torch_f64.py's tolerance);
@@ -147,10 +148,9 @@ def test_estep_replicated_equals_one_process(tmp_path, small_groups,
     ranks = _launch(tmp_path, "estep", world)
     vocab, samples = W.corpus()
     jm, m = _models(vocab)
-    for d in (0.0, 0.05):
-        want = ed.run_e_step_device(m, samples, d, W.SNIPPET,
-                                    dtype=torch.float64, seed=3,
-                                    device="cpu")
+    dropouts = (0.0, 0.05)
+    for d, want in zip(dropouts, W.e_steps(vocab, samples, dropouts, 3,
+                                           dtype=torch.float64)):
         assert want.sum() > 100
         for r in ranks:
             np.testing.assert_allclose(r[f"estep_{d}"], want, rtol=1e-12,
@@ -167,22 +167,22 @@ def test_session_and_encode_replicated(tmp_path, small_groups):
     a, b = _launch(tmp_path, "session_encode", 2)
     vocab, samples = W.corpus()
     m = W.model(vocab)
-    for kernel in ("slab", None):
-        sess = DeviceTrainSession(m, samples, W.SNIPPET, kernel=kernel,
-                                  device="cpu")
-        want = [sess.e_step(m, 0.0, 0), sess.e_step(m, 0.0, 0),
-                sess.e_step(m, 0.05, 5), sess.count_frequencies(m)]
+    for route in ("slab", "fused"):
+        with W.use_route(route):
+            sess = DeviceTrainSession(m, samples, W.SNIPPET, device="cpu")
+            want = [sess.e_step(m, 0.0, 0), sess.e_step(m, 0.0, 0),
+                    sess.e_step(m, 0.05, 5), sess.count_frequencies(m)]
+            rows = [sub.rows for _, sub in sess._groups()]
         assert not np.allclose(want[2], want[0], rtol=1e-3)
-        rows = [sub.rows for _, sub in sess._groups()]
         assert len(rows) > 1
         for r in (a, b):
-            assert r[f"fused_{kernel}"] == (kernel is None)
-            assert r[f"rows_{kernel}"] == [n // 2 for n in rows]
+            assert r[f"fused_{route}"] == (route == "fused")
+            assert r[f"rows_{route}"] == [n // 2 for n in rows]
             # Dropout 0.05 draws each group's coins whole, then slices
             # the rank's rows: the single-process coins.
-            for got, w in zip(r[f"session_{kernel}"][:3], want[:3]):
+            for got, w in zip(r[f"session_{route}"][:3], want[:3]):
                 _close_counts(got, w)
-            np.testing.assert_array_equal(r[f"session_{kernel}"][3],
+            np.testing.assert_array_equal(r[f"session_{route}"][3],
                                           want[3])
     both = samples + [W.long_sample(samples)]
     assert len(both[-1]) > ed.MAX_ENCODE_WIDTH
@@ -224,7 +224,7 @@ def test_merge_and_generate(tmp_path, small_groups):
                               device="cpu")
     merged = W.vocab_rows(merger.merge(W.model(vocab), samples).vocab)
     assert len(merged) == 66
-    pairs = ed.count_pairs_device(W.model(vocab), samples, device="cpu")
+    pairs = W.pairs(W.model(vocab), samples)
     g = VocabularyGenerator(max_token_length=6, insert_probability=1.0,
                             added_tokens=["absent"], seed=0, device="cpu")
     g.feed([s.decode() for s in samples])
@@ -312,9 +312,8 @@ def test_world_one_group_is_the_plain_run(small_groups, world_one_group):
     m = W.model(vocab)
     assert mesh.process_count() == 1 and mesh.initialized()
     got = ed.encode_corpus_device(m, samples, device="cpu")
-    est = ed.run_e_step_device(m, samples, 0.05, W.SNIPPET, seed=1,
-                               device="cpu")
+    est = W.e_steps(vocab, samples, [0.05], 1)[0]
     mesh.shutdown()
     assert got == ed.encode_corpus_device(m, samples, device="cpu")
-    np.testing.assert_array_equal(est, ed.run_e_step_device(
-        m, samples, 0.05, W.SNIPPET, seed=1, device="cpu"))
+    np.testing.assert_array_equal(est, W.e_steps(vocab, samples, [0.05],
+                                                 1)[0])

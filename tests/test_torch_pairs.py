@@ -1,13 +1,13 @@
 """Merge's pair count on the device route against the JAX package's.
 
-`count_pairs_device` / `count_pairs_arrays` keep each row group's walked
-ids on the device (`lattice.walk_ids_device`) and count their adjacent
-pairs in a hash table (ops/pair_count.py `PairTable`, csrc/pair_count.cu;
-on the CPU the kernels' plain twin, `pair_count_plain`). Held here on the
-CPU:
+`count_pairs_arrays` keeps each row group's walked ids on the device
+(`lattice.walk_ids_device`) and counts their adjacent pairs in a hash
+table (ops/pair_count.py `PairTable`, csrc/pair_count.cu; on the CPU the
+kernels' plain twin, `pair_count_plain`). Held here on the CPU:
 
-  - the pair list against the JAX package's `count_pairs_device`, list
-    for list in order (descending count, ties by key), on a code-like
+  - the pair list (the arrays in order, as the merger reads them:
+    `pair_list`) against the JAX package's `count_pairs_device`, list for
+    list in order (descending count, ties by key), on a code-like
     corpus and on one with many tied counts, and against its native
     `count_pairs` as a dict where that runtime builds;
   - samples past the pack cap (chained windows, their pairs inserted as
@@ -41,7 +41,7 @@ import tokengeex_tpu_torch as tg
 from tokengeex_tpu_torch.ops import lattice as lat
 from tokengeex_tpu_torch.ops import pair_count as pc
 from tokengeex_tpu_torch.train import estep_device as ed
-from tokengeex_tpu_torch.train.merge import VocabularyMerger
+from tokengeex_tpu_torch.train.merge import VocabularyMerger, _pairs_in_order
 
 # The suite runs in several worker processes at once; torch's default
 # intra-op thread pool per worker would oversubscribe the cores.
@@ -119,6 +119,12 @@ def _via_lists(encoded):
             for k, c in zip(uniq[order], cnt[order])]
 
 
+def pair_list(*args, **kwargs):
+    """`count_pairs_arrays` as the merger reads it: ((a, b), count) by
+    descending count, equal counts in ascending key order."""
+    return list(_pairs_in_order(*ed.count_pairs_arrays(*args, **kwargs)))
+
+
 def _as_list(keys, counts):
     return [((int(k) >> 32, int(k) & 0xFFFFFFFF), int(c))
             for k, c in zip(keys, counts)]
@@ -130,7 +136,7 @@ def test_count_pairs_match_jax(jax_pkg, kind, hints):
     vocab, samples = _corpus(kind)
     want = jax_pkg.ed.count_pairs_device(_jmodel(jax_pkg, vocab), samples,
                                          table_hints=hints)
-    got = ed.count_pairs_device(_model(vocab), samples, table_hints=hints,
+    got = pair_list(_model(vocab), samples, table_hints=hints,
                                 device="cpu")
     assert got == want  # in order: descending counts, ties by key
     counts = [c for _, c in got]
@@ -152,7 +158,7 @@ def test_count_pairs_match_native(jax_pkg):
     if native is None:
         pytest.skip("the JAX package's native runtime is not built here")
     want = {(a, b): n for a, b, n in native.count_pairs(samples)}
-    got = ed.count_pairs_device(_model(vocab), samples, device="cpu")
+    got = pair_list(_model(vocab), samples, device="cpu")
     assert dict(got) == want
 
 
@@ -171,10 +177,10 @@ def test_chained_samples_counted():
     assert corpus.long_idx == [20, 32]
     want = _via_lists(ed.encode_corpus_device(m, mixed, max_width=512,
                                               device="cpu"))
-    got = ed.count_pairs_device(m, mixed, corpus=corpus)
+    got = pair_list(m, mixed, corpus=corpus)
     assert got == want
     # The long samples' pairs are in it.
-    short = dict(ed.count_pairs_device(m, samples[:30], device="cpu"))
+    short = dict(pair_list(m, samples[:30], device="cpu"))
     assert sum(c for _, c in got) > sum(short.values()) + 400
 
 
@@ -182,12 +188,12 @@ def test_empty_and_one_token_samples(jax_pkg):
     vocab, samples = _corpus("code")
     mixed = [b"", samples[0], b"a", b"", b"(", samples[1], b"d"]
     want = jax_pkg.ed.count_pairs_device(_jmodel(jax_pkg, vocab), mixed)
-    assert ed.count_pairs_device(_model(vocab), mixed, device="cpu") == want
+    assert pair_list(_model(vocab), mixed, device="cpu") == want
     for only in ([b"a", b"", b"("], [b""], []):
         keys, counts = ed.count_pairs_arrays(_model(vocab), only,
                                              device="cpu")
         assert keys.shape == counts.shape == (0,)
-        assert ed.count_pairs_device(_model(vocab), only, device="cpu") == []
+        assert pair_list(_model(vocab), only, device="cpu") == []
 
 
 @pytest.mark.parametrize("where", ["first", "last"])
@@ -199,7 +205,7 @@ def test_no_path_raises_like_jax(jax_pkg, where):
     with pytest.raises(jax_pkg.tg.NoPathError) as want:
         jax_pkg.ed.count_pairs_device(_jmodel(jax_pkg, vocab), mixed)
     with pytest.raises(tg.NoPathError) as got:
-        ed.count_pairs_device(_model(vocab), mixed, device="cpu")
+        pair_list(_model(vocab), mixed, device="cpu")
     assert (got.value.pos, got.value.length) == \
         (want.value.pos, want.value.length)
     assert want.value.length in (len(bad), 3)
@@ -218,7 +224,7 @@ def test_table_mismatch_raises_key_error(monkeypatch):
 
     monkeypatch.setattr(lat, "_walk_tables", emptied)
     with pytest.raises(KeyError, match="mismatch"):
-        ed.count_pairs_device(_model(vocab), samples, device="cpu")
+        pair_list(_model(vocab), samples, device="cpu")
 
 
 def test_pair_route_builds_no_lists(monkeypatch):
@@ -226,7 +232,7 @@ def test_pair_route_builds_no_lists(monkeypatch):
     `walk_ids` raise here, and the merger's device backend still merges."""
     vocab, samples = _corpus("code")
     m = _model(vocab)
-    want = ed.count_pairs_device(m, samples, device="cpu")
+    want = pair_list(m, samples, device="cpu")
     merged = VocabularyMerger(allow=".*", num_merges=4, step=2,
                               device="cpu").merge(_model(vocab), samples)
 
@@ -235,7 +241,7 @@ def test_pair_route_builds_no_lists(monkeypatch):
 
     monkeypatch.setattr(ed, "_place_ids", refuse)
     monkeypatch.setattr(lat, "walk_ids", refuse)
-    assert ed.count_pairs_device(m, samples, device="cpu") == want
+    assert pair_list(m, samples, device="cpu") == want
     got = VocabularyMerger(allow=".*", num_merges=4, step=2,
                            device="cpu").merge(_model(vocab), samples)
     assert [(t.value, t.score) for t in got.vocab] == \
@@ -522,6 +528,6 @@ def test_table_reused(cuda_device):
 def test_count_pairs_on_card_match_cpu(cuda_device):
     vocab, samples = _corpus("code")
     before = pc.PairTable.launches
-    got = ed.count_pairs_device(_model(vocab), samples, device=cuda_device)
+    got = pair_list(_model(vocab), samples, device=cuda_device)
     assert pc.PairTable.launches > before
-    assert got == ed.count_pairs_device(_model(vocab), samples, device="cpu")
+    assert got == pair_list(_model(vocab), samples, device="cpu")

@@ -260,12 +260,14 @@ def test_forward_scan_equals_chunked_views():
 # -- the session caches each group's bounds --
 
 
-def test_session_caches_chain_bounds():
+def test_session_caches_chain_bounds(monkeypatch):
     case = _case(0, 8)
     samples = [d for placed in case["rows"] for _, d in placed]
     model = Model([ScoredToken(v, s) for v, s in case["vocab"]])
-    sess = DeviceTrainSession(model, samples, 256, kernel="slab",
-                              device="cpu")
+    # The slab route on this small table: the has_vscan threshold lowered.
+    monkeypatch.setattr(lat, "VSCAN_MAX_BITS", -1)
+    sess = DeviceTrainSession(model, samples, 256, device="cpu")
+    assert not sess._fused()
     first = sess.e_step(model, 0.0, 0)
     groups = sess._groups()
     assert set(sess.chain_cache) == set(range(len(groups)))

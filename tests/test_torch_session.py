@@ -1,12 +1,15 @@
 """The port's DeviceTrainSession against the JAX package's, on the CPU.
 
-The port's session on the CPU (the kernels' plain versions), with
-kernel=None (the fused probe kernels on small tables) and kernel="slab"
-(cached ranks, probed slabs), is held against the JAX session on one
-device with kernel="pallas" (interpret mode) and kernel="xla": the first
-pass, a pass after a rescored and shrunk rebind, the over-budget route,
-the frequency pass, dropout seeding, rare tokens beside large-weight
-neighbours, and the pruner's use of the session.
+The port's session on the CPU (the kernels' plain versions), on the
+fused route (the fused probe kernels, which small tables take) and on the
+slab route (cached ranks, probed slabs; the tests lower the has_vscan
+threshold, lattice.VSCAN_MAX_BITS, below the small tables' bits), is held
+against the JAX session on one device with kernel="pallas" (interpret
+mode) and kernel="xla": the first pass, a pass after a rescored and
+shrunk rebind, the over-budget route, the frequency pass, dropout
+seeding, rare tokens beside large-weight neighbours, the f64 and the
+default route against the JAX E-step, and the pruner's use of the
+session.
 """
 
 import random
@@ -16,8 +19,10 @@ import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
 
 import tokengeex_tpu as jtg
+from tokengeex_tpu.train import estep_device as jed
 from tokengeex_tpu.train.device_session import (
     DeviceTrainSession as JDeviceTrainSession)
 
@@ -36,8 +41,15 @@ from test_torch_prune import KW, _corpus as _prune_corpus, _model
 # intra-op thread pool per worker would oversubscribe the cores.
 torch.set_num_threads(1)
 
-# Port kernel mode -> the JAX session's kernel mode of the same route.
-ROUTES = [(None, "pallas"), ("slab", "xla")]
+# The port's route -> the JAX session's kernel mode of the same route.
+ROUTES = [("fused", "pallas"), ("slab", "xla")]
+
+
+def use_route(monkeypatch, route):
+    """Route "slab" keeps the small tables off the fused kernels: the
+    has_vscan threshold lowered below every table's bits."""
+    if route == "slab":
+        monkeypatch.setattr(lat, "VSCAN_MAX_BITS", -1)
 
 
 @pytest.fixture(scope="module")
@@ -83,14 +95,16 @@ def _close(got, want):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("kernel,jkernel", ROUTES)
-def test_session_passes_match_jax(corpus, one_jax_device, kernel, jkernel):
+@pytest.mark.parametrize("route,jkernel", ROUTES)
+def test_session_passes_match_jax(corpus, one_jax_device, monkeypatch,
+                                  route, jkernel):
     vocab, vocab2, samples = corpus
     (jm1, m1), (jm2, m2) = _models(vocab), _models(vocab2)
     jsess = JDeviceTrainSession(jm1, samples, max_snippet=256,
                                 kernel=jkernel)
-    sess = DeviceTrainSession(m1, samples, 256, kernel=kernel, device="cpu")
-    assert sess._fused() == (kernel is None) == jsess._fused()
+    use_route(monkeypatch, route)
+    sess = DeviceTrainSession(m1, samples, 256, device="cpu")
+    assert sess._fused() == (route == "fused") == jsess._fused()
     launches = (lcf.fused_forward_chunk.launches,
                 lcf.fused_backward_chunk.launches,
                 lc.backward_betas_chunk.launches, lcs.seg_weights.launches)
@@ -100,7 +114,7 @@ def test_session_passes_match_jax(corpus, one_jax_device, kernel, jkernel):
     # no slots once its SegStruct exists, the cached route keeps them.
     groups = len(sess._groups())
     assert len(sess.seg_cache) == groups
-    assert len(sess.slot_cache) == (0 if kernel is None else groups)
+    assert len(sess.slot_cache) == (0 if route == "fused" else groups)
     # The steady state repeats the first pass exactly.
     assert np.array_equal(sess.e_step(m1, 0.0, 0), e1)
     # A rescored, shrunk vocabulary rebinds onto the cached structures.
@@ -112,24 +126,25 @@ def test_session_passes_match_jax(corpus, one_jax_device, kernel, jkernel):
                         lcs.seg_weights.launches)
 
 
-@pytest.mark.parametrize("kernel,jkernel", ROUTES)
-def test_session_over_budget_matches_jax(corpus, one_jax_device, kernel,
-                                         jkernel):
+@pytest.mark.parametrize("route,jkernel", ROUTES)
+def test_session_over_budget_matches_jax(corpus, one_jax_device, monkeypatch,
+                                         route, jkernel):
     vocab, _, samples = corpus
     jm, m = _models(vocab)
     want = JDeviceTrainSession(jm, samples, max_snippet=256,
                                kernel=jkernel).e_step(jm, 0.0, 0)
-    sess = DeviceTrainSession(m, samples, 256, kernel=kernel,
-                              cache_budget=0, device="cpu")
+    use_route(monkeypatch, route)
+    sess = DeviceTrainSession(m, samples, 256, cache_budget=0, device="cpu")
+    assert sess._fused() == (route == "fused")
     _close(sess.e_step(m, 0.0, 0), want)
     _close(sess.e_step(m, 0.0, 0), want)
     assert not sess.slot_cache and sess.cache_used == 0
     assert all(seg is None for seg in sess.seg_cache.values())
 
 
-@pytest.mark.parametrize("kernel,jkernel", ROUTES)
+@pytest.mark.parametrize("route,jkernel", ROUTES)
 def test_session_over_budget_dropout_matches_jax(corpus, one_jax_device,
-                                                 monkeypatch, kernel,
+                                                 monkeypatch, route,
                                                  jkernel):
     """The over-budget route at dropout 0.05 (the marginal scan draws the
     coins itself) against the JAX session's budgeted route, both fed the
@@ -155,8 +170,9 @@ def test_session_over_budget_dropout_matches_jax(corpus, one_jax_device,
             dtype=jax.numpy.int32)), device=device)
 
     monkeypatch.setattr(ed, "_drop_words", words)
-    sess = DeviceTrainSession(m, samples, 256, kernel=kernel,
-                              cache_budget=0, device="cpu")
+    use_route(monkeypatch, route)
+    sess = DeviceTrainSession(m, samples, 256, cache_budget=0, device="cpu")
+    assert sess._fused() == (route == "fused")
     before = lc.backward_marginal_scan.launches
     _close(sess.e_step(m, 0.05, seed), want)
     assert not sess.slot_cache
@@ -164,8 +180,8 @@ def test_session_over_budget_dropout_matches_jax(corpus, one_jax_device,
     assert lc.backward_marginal_scan.launches == before
 
 
-@pytest.mark.parametrize("kernel,jkernel", ROUTES)
-def test_session_count_frequencies_match(corpus, one_jax_device, kernel,
+@pytest.mark.parametrize("route,jkernel", ROUTES)
+def test_session_count_frequencies_match(corpus, one_jax_device, route,
                                          jkernel, monkeypatch):
     vocab, vocab2, samples = corpus
     # The frequency pass walks the backpointers on the device (the walk's
@@ -187,19 +203,23 @@ def test_session_count_frequencies_match(corpus, one_jax_device, kernel,
     # the frequency pass pack again at the encode width.
     rng = random.Random(9)
     extra = "".join(rng.choice("abcdef ()") for _ in range(1500)).encode()
+    use_route(monkeypatch, route)
     for smp, shared in (([s[:256] for s in samples], True),
                         (samples + [extra], False)):
         jm, m = _models(vocab2)
-        sess = DeviceTrainSession(_models(vocab)[1], smp, 256, kernel=kernel,
-                                  device="cpu")
+        sess = DeviceTrainSession(_models(vocab)[1], smp, 256, device="cpu")
+        assert sess._fused() == (route == "fused")
         sess.e_step(m, 0.0, 0)  # warms the slot cache
         before = len(walks)
         got = sess.count_frequencies(m)
         assert len(walks) - before == len(sess._freq_groups())
         assert got.dtype == np.int64 and got.sum() > 0
         assert sess._freq_shared == shared
-        np.testing.assert_array_equal(
-            got, ed.count_frequencies_device(m, smp, device="cpu"))
+        # The encode route's ids, counted on the host.
+        ids = ed.encode_corpus_device(m, smp, device="cpu")
+        np.testing.assert_array_equal(got, np.bincount(
+            np.concatenate([np.asarray(r, np.int64) for r in ids if r]),
+            minlength=m.vocab_size()))
         jsess = JDeviceTrainSession(_models(vocab)[0], smp, max_snippet=256,
                                     kernel=jkernel)
         np.testing.assert_array_equal(got, jsess.count_frequencies(jm))
@@ -310,14 +330,16 @@ def test_session_needs_a_device_without_cuda(corpus, monkeypatch):
 
 @pytest.mark.parametrize("kw,exc", [
     ({"local_shard": True}, NotImplementedError),
-    ({"probe": "fast"}, ValueError),
-    ({"kernel": "pallas"}, ValueError),
+    ({"probe": "fast"}, TypeError),
+    ({"kernel": "pallas"}, TypeError),
 ])
 def test_session_unported_options_raise(corpus, kw, exc):
-    """Probe and kernel overrides raise. local_shard, refused until
-    multi-GPU was ported, is the plain session at world size 1 (the shard
-    is the corpus): the same counts and frequencies
-    (tests/test_torch_multigpu.py runs shards on four ranks)."""
+    """Probe and kernel overrides are no options of the session (the
+    table's size picks the route, the dtype the exact mode): they raise
+    TypeError. local_shard, refused until multi-GPU was ported, is the
+    plain session at world size 1 (the shard is the corpus): the same
+    counts and frequencies (tests/test_torch_multigpu.py runs shards on
+    four ranks)."""
     vocab, _, samples = corpus
     _, m = _models(vocab)
     if "local_shard" not in kw:
@@ -333,20 +355,21 @@ def test_session_unported_options_raise(corpus, kw, exc):
                                   want.count_frequencies(m))
 
 
-@pytest.mark.parametrize("kw", [{"dtype": torch.float64},
-                                {"probe": "exact"}])
+@pytest.mark.parametrize("kw", [{"dtype": torch.float64}, {}])
 def test_session_f64_and_exact_probe_run(corpus, kw):
-    """dtype=float64 and probe="exact", refused until the f64 / exact mode
-    was ported, take the session's conformance mode: counts equal the
-    per-pass E-step's at the same type and probe, at the type's
-    tolerance (rtol 1e-8 at f64, 1e-5 at f32)."""
+    """dtype=float64, refused until the f64 / exact mode was ported, takes
+    the session's conformance mode (the exact probe); the default f32
+    route (the fused kernels on this table) is the pruner's. Each pass's
+    counts at dropout 0 equal the JAX package's E-step at the same type,
+    at the type's tolerance (rtol 1e-8 at f64, 1e-4 at f32)."""
     vocab, _, samples = corpus
-    _, m = _models(vocab)
+    jm, m = _models(vocab)
+    f64 = kw.get("dtype") == torch.float64
     sess = DeviceTrainSession(m, samples, 256, device="cpu", **kw)
-    assert sess.exact and not sess._fused()
+    assert sess.exact == f64 and sess._fused() == (not f64)
     got = sess.e_step(m, 0.0, 0)
-    want = ed.run_e_step_device(m, samples, 0.0, 256, device="cpu",
-                                dtype=kw.get("dtype"), probe="exact")
-    rtol = 1e-8 if kw.get("dtype") == torch.float64 else 1e-5
+    want = jed.run_e_step_device(jm, samples, dropout=0.0, max_snippet=256,
+                                 dtype=jnp.float64 if f64 else jnp.float32)
+    rtol = 1e-8 if f64 else 1e-4
     np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol)
-    assert got.sum() > 0 and not sess.slot_cache
+    assert got.sum() > 100 and (not f64 or not sess.slot_cache)

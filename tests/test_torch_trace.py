@@ -198,15 +198,16 @@ def test_upload_counts_each_copy():
     assert rec.counter("h2d.copies") == 6
 
 
-def test_phase_timer_wins_and_keeps_flat_seconds():
+def test_phase_timer_wins_and_keeps_flat_seconds(monkeypatch):
     """An explicit PhaseTimer gets the phases, keyed flat, and the
     ambient record gets none of them, also while recording; a subclass
     that wraps `__call__` (as a benchmark's annotating timer does) still
     works through encode_batch."""
     vocab, samples = _corpus()
     model = tg.Model([tg.ScoredToken(v, s, len(v) == 1) for v, s in vocab])
-    session = ds.DeviceTrainSession(model, samples, 1024, kernel="slab",
-                                    device="cpu")
+    # The slab route on this small table: the has_vscan threshold lowered.
+    monkeypatch.setattr(lat, "VSCAN_MAX_BITS", -1)
+    session = ds.DeviceTrainSession(model, samples, 1024, device="cpu")
     timer = lat.PhaseTimer(CPU)
     with trace.recording() as rec:
         session.e_step(model, 0.05, 1, timer=timer)

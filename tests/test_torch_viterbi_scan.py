@@ -51,7 +51,8 @@ from tokengeex_tpu_torch.ops.match_table import TokenTable
 from tokengeex_tpu_torch.train.device_session import DeviceTrainSession
 from tokengeex_tpu_torch.utils.packing import PackedBatch
 
-from test_torch_session import ROUTES, _models, corpus, one_jax_device  # noqa: F401
+from test_torch_session import (  # noqa: F401
+    ROUTES, _models, corpus, one_jax_device, use_route)
 
 # The suite runs in several worker processes at once; torch's default
 # intra-op thread pool per worker would oversubscribe the cores.
@@ -381,9 +382,9 @@ def test_carried_windows_match_jax(backend, dropout):
 # -- the session's frequency pass makes each group's bounds once --
 
 
-@pytest.mark.parametrize("kernel,jkernel", ROUTES)
+@pytest.mark.parametrize("route,jkernel", ROUTES)
 def test_session_frequencies_make_chains_once(corpus, one_jax_device,
-                                              monkeypatch, kernel, jkernel):
+                                              monkeypatch, route, jkernel):
     vocab, vocab2, samples = corpus
     rng = random.Random(9)
     extra = "".join(rng.choice("abcdef ()") for _ in range(1500)).encode()
@@ -396,10 +397,12 @@ def test_session_frequencies_make_chains_once(corpus, one_jax_device,
 
     monkeypatch.setattr(lat, "chain_bounds", counted)
     jm, m = _models(vocab2)
+    use_route(monkeypatch, route)
     # Samples longer than the 256-byte snippet: the frequency pass packs
     # again at the encode width, under keys of its own.
     sess = DeviceTrainSession(_models(vocab)[1], samples + [extra], 256,
-                              kernel=kernel, device="cpu")
+                              device="cpu")
+    assert sess._fused() == (route == "fused")
     first = sess.count_frequencies(m)
     keys = {("freq", gi) for gi, _ in sess._freq_groups()}
     assert not sess._freq_shared and set(sess.chain_cache) == keys
@@ -411,8 +414,7 @@ def test_session_frequencies_make_chains_once(corpus, one_jax_device,
     np.testing.assert_array_equal(first, jsess.count_frequencies(jm))
     # Where the packings agree, the E-step's bounds serve the frequencies.
     short = [s[:256] for s in samples]
-    sess = DeviceTrainSession(_models(vocab)[1], short, 256, kernel=kernel,
-                              device="cpu")
+    sess = DeviceTrainSession(_models(vocab)[1], short, 256, device="cpu")
     sess.e_step(m, 0.0, 0)
     made = len(built)
     sess.count_frequencies(m)

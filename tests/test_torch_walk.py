@@ -49,7 +49,8 @@ from tokengeex_tpu_torch.train import estep_device as ed
 from tokengeex_tpu_torch.train.device_session import DeviceTrainSession
 from tokengeex_tpu_torch.utils.packing import PackedBatch
 
-from test_torch_session import _models, corpus, one_jax_device  # noqa: F401
+from test_torch_session import (  # noqa: F401
+    ROUTES, _models, corpus, one_jax_device, use_route)
 from test_torch_viterbi_scan import W, _packed, _rows
 
 # The suite runs in several worker processes at once; torch's default
@@ -339,17 +340,17 @@ def test_encode_no_path_and_long_sample(enc_corpus, one_jax_device):
     assert got == want and len(got[-1]) > 5000
 
 
-@pytest.mark.parametrize("kernel,jkernel", [(None, "pallas"),
-                                            ("slab", "xla")])
+@pytest.mark.parametrize("route,jkernel", ROUTES)
 def test_session_frequencies_walk_on_the_device(corpus, one_jax_device,
-                                                monkeypatch, kernel,
+                                                monkeypatch, route,
                                                 jkernel):
     """Every frequency group walks once, in count mode; no host backtrack
     runs; the counts equal the JAX session's device counts."""
     vocab, vocab2, samples = corpus
     jm, m = _models(vocab2)
-    sess = DeviceTrainSession(_models(vocab)[1], samples, 256, kernel=kernel,
-                              device="cpu")
+    use_route(monkeypatch, route)
+    sess = DeviceTrainSession(_models(vocab)[1], samples, 256, device="cpu")
+    assert sess._fused() == (route == "fused")
     calls = []
     walk = lat.walk_counts
 

@@ -11,6 +11,7 @@ same seeded data (`corpus`, `small_groups`).
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import random
@@ -82,6 +83,16 @@ def prune_kw():
                 dropout=0.0, device="cpu", device_dtype=torch.float64)
 
 
+def pairs(m, samples):
+    """The pair count as the merger reads it: `count_pairs_arrays` in
+    order, ((a, b), count) by descending count, ties by key."""
+    from tokengeex_tpu_torch.train import estep_device as ed
+    from tokengeex_tpu_torch.train.merge import _pairs_in_order
+
+    return list(_pairs_in_order(*ed.count_pairs_arrays(m, samples,
+                                                       device="cpu")))
+
+
 def vocab_rows(tokens):
     return [(t.value, t.score, t.keep) for t in tokens]
 
@@ -99,14 +110,38 @@ def raises(fn, exc) -> str:
 # -- Modes -------------------------------------------------------------------
 
 
-def run_estep(rank, world):
-    from tokengeex_tpu_torch.train import estep_device as ed
+def e_steps(vocab, samples, dropouts, seed, **kw):
+    """One session's E-step at each dropout (`seed`), closed after."""
+    from tokengeex_tpu_torch.train.device_session import DeviceTrainSession
 
-    vocab, samples = corpus()
     m = model(vocab)
-    return {f"estep_{d}": ed.run_e_step_device(
-        m, samples, d, SNIPPET, dtype=torch.float64, seed=3, device="cpu")
-        for d in (0.0, 0.05)}
+    sess = DeviceTrainSession(m, samples, SNIPPET, device="cpu", **kw)
+    try:
+        return [sess.e_step(m, d, seed) for d in dropouts]
+    finally:
+        sess.close()
+
+
+def run_estep(rank, world):
+    vocab, samples = corpus()
+    dropouts = (0.0, 0.05)
+    return {f"estep_{d}": e for d, e in zip(dropouts, e_steps(
+        vocab, samples, dropouts, 3, dtype=torch.float64))}
+
+
+@contextlib.contextmanager
+def use_route(route: str):
+    """Route "slab" keeps the small tables off the fused kernels: the
+    has_vscan threshold lowered below every table's bits while it runs."""
+    from tokengeex_tpu_torch.ops import lattice as lat
+
+    kept = lat.VSCAN_MAX_BITS
+    if route == "slab":
+        lat.VSCAN_MAX_BITS = -1
+    try:
+        yield
+    finally:
+        lat.VSCAN_MAX_BITS = kept
 
 
 def run_session_encode(rank, world):
@@ -117,16 +152,16 @@ def run_session_encode(rank, world):
     vocab, samples = corpus()
     m = model(vocab)
     out = {}
-    for kernel in ("slab", None):
-        sess = DeviceTrainSession(m, samples, SNIPPET, kernel=kernel,
-                                  device="cpu")
-        out[f"session_{kernel}"] = [sess.e_step(m, 0.0, 0),
-                                    sess.e_step(m, 0.0, 0),
-                                    sess.e_step(m, 0.05, 5),
-                                    sess.count_frequencies(m)]
-        out[f"fused_{kernel}"] = sess._fused()
-        out[f"rows_{kernel}"] = [sub.rows for _, sub in sess._groups()]
-        sess.close()
+    for route in ("slab", "fused"):
+        with use_route(route):
+            sess = DeviceTrainSession(m, samples, SNIPPET, device="cpu")
+            out[f"session_{route}"] = [sess.e_step(m, 0.0, 0),
+                                       sess.e_step(m, 0.0, 0),
+                                       sess.e_step(m, 0.05, 5),
+                                       sess.count_frequencies(m)]
+            out[f"fused_{route}"] = sess._fused()
+            out[f"rows_{route}"] = [sub.rows for _, sub in sess._groups()]
+            sess.close()
     both = samples + [long_sample(samples)]
     out["encode"] = ed.encode_corpus_device(m, both, device="cpu")
     out["encode_dropout"] = ed.encode_corpus_device(m, both, dropout=0.3,
@@ -140,9 +175,8 @@ def run_session_encode(rank, world):
                            for _, sub in corpus_.groups for sp in sub.spans)
     out["nopath"] = raises(
         lambda: ed.encode_corpus_device(m, bad, device="cpu"), NoPathError)
-    out["estep_fail"] = raises(
-        lambda: ed.run_e_step_device(m, bad, 0.0, SNIPPET, device="cpu"),
-        ValueError)
+    out["estep_fail"] = raises(lambda: e_steps(vocab, bad, [0.0], 0),
+                               ValueError)
     return out
 
 
@@ -176,7 +210,6 @@ def run_prune(rank, world):
 
 
 def run_merge_generate(rank, world):
-    from tokengeex_tpu_torch.train import estep_device as ed
     from tokengeex_tpu_torch.train.generate import VocabularyGenerator
     from tokengeex_tpu_torch.train.merge import VocabularyMerger
 
@@ -186,8 +219,7 @@ def run_merge_generate(rank, world):
                               device="cpu")
     out = {"merge": vocab_rows(merger.merge(model(vocab), samples).vocab)}
     out["corpus_rows"] = [sub.rows for _, sub in merger._corpus.groups]
-    out["pairs"] = ed.count_pairs_device(model(vocab), samples,
-                                         device="cpu")
+    out["pairs"] = pairs(model(vocab), samples)
     g = VocabularyGenerator(max_token_length=6, insert_probability=1.0,
                             added_tokens=["absent"], seed=0, device="cpu")
     g.feed([s.decode() for s in shard(samples, rank, world)])

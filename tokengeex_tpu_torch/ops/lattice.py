@@ -51,7 +51,9 @@ draws the dropout coins itself, each row cut into independent chains at
 sample starts and padding by `chain_bounds`), then the backward DP with
 the token marginals over it in one whole-width launch as well
 (`backward_marginal_scan`, cut at sample ends and padding), and adds the
-marginals into probe-slot bins that the host folds to token ids.
+marginals into bins that the host folds to token ids: token-id bins in
+the exact mode (`fold_expected`), dense-rank bins otherwise
+(`fold_expected_rank`).
 
 The session (train/device_session.py) keeps each group's probe slots,
 remapped once to a dense rank space, and a `SegStruct` that sorts the
@@ -1125,8 +1127,9 @@ def backward_expected(
     kernel lays the marginals out, (position, row, length). Returns a
     (nbins,) slot-indexed tensor at the cache's float type (bucket slots
     in "bucket" mode, cuckoo slots in "fast" mode, token ids in "exact"
-    mode, the f64 route's); fold it to per-token counts with
-    `fold_expected`."""
+    mode, the f64 route's; the session passes slots remapped to ranks and
+    nbins the rank space's). Fold token ids to per-token counts with
+    `fold_expected`, ranks with `fold_expected_rank`."""
     B = batch.p1.shape[0]
     W = batch.width
     L = tbl.max_len
@@ -1569,26 +1572,11 @@ def pick_span_values_device(A: torch.Tensor, rows_idx,
     return A[r, e]
 
 
-def fold_expected(tbl: DeviceTables, acc: torch.Tensor,
-                  mode: Optional[str] = None) -> np.ndarray:
-    """Fold a `backward_expected` accumulator to per-token counts (V,)
-    f64 on the host, through the table's slot maps (bucket slots when
-    the accumulator has the bucket table's length, else cuckoo slots).
-    An "exact" mode accumulator is indexed by token id already."""
-    acc = acc.detach().cpu().numpy().astype(np.float64)
-    if mode == "exact":
-        return acc
-    if tbl.bk_slot_to_id is not None and \
-            acc.shape[0] == tbl.bk_slot_to_id.shape[0]:
-        mapping = tbl.bk_slot_to_id
-    else:
-        mapping = tbl.slot_to_id
-    if mapping is None or mapping.shape[0] != acc.shape[0]:
-        raise ValueError("the tables carry no slot map for an accumulator "
-                         f"of {acc.shape[0]} bins")
-    valid = mapping >= 0
-    return np.bincount(mapping[valid], weights=acc[valid],
-                       minlength=tbl.vocab_size)
+def fold_expected(acc: torch.Tensor) -> np.ndarray:
+    """An exact-mode `backward_expected` accumulator, indexed by token id
+    already, as per-token counts (V,) f64 on the host (the f64 session's
+    fold; a rank-indexed accumulator folds by `fold_expected_rank`)."""
+    return acc.detach().cpu().numpy().astype(np.float64)
 
 
 # ---------------------------------------------------------------------------

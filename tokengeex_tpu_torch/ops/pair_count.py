@@ -4,8 +4,9 @@ plain twin.
 Counterpart of the JAX package's native `count_pairs`
 (tokengeex_tpu/utils/nativelib.py over native/tokengeex_native.cpp
 `tg_count_pairs`, a threaded hash count of (a << 32) | b keys) and of the
-np.unique count of its device route (tokengeex_tpu/train/estep_device.py
-`count_pairs_device`). The kernel is csrc/pair_count.cu, an open-addressing
+np.unique count of its device route (tokengeex_tpu/train/estep_device.py),
+as the port's `count_pairs_arrays` runs it (train/estep_device.py). The
+kernel is csrc/pair_count.cu, an open-addressing
 hash table of 16-byte {key, count - 1} slots in device memory with three
 entries: insert a row group's walked ids (each block folds its range's
 pairs in a table in shared memory first and sends each distinct row once),

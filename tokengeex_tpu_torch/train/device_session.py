@@ -24,8 +24,11 @@ rounds. The session therefore:
     dropout coins per pass, and turns the betas into counts through the
     scatter-free segsum.
 
-A group whose slots do not fit the budget takes the per-pass route of
-train/estep_device.py (probe, forward, marginals scattered into bins).
+It is the port's one E-step (`e_step`) and one frequency pass
+(`count_frequencies`). The fused or slab choice is the table's size
+alone (`lattice.has_vscan`: table bits <= VSCAN_MAX_BITS). A group whose
+slots do not fit the budget probes on every pass, runs the forward scan
+and the marginal scan, and scatters the marginals into rank bins.
 
 Multi-GPU (parallel/mesh.py, one rank a GPU): every rank holds the whole
 corpus and keeps its block of each group's rows (the caches hold blocks),
@@ -34,13 +37,13 @@ adds the rank's groups locally, agrees on failures, then sums the (V,)
 counts with one all_reduce; the routes (budgets, over-budget groups)
 may differ between ranks, the collectives never do.
 
-The f64 / exact conformance mode (dtype=torch.float64, or probe="exact")
-follows the JAX session's f64 branches: no rank space and no slot
-cache (exact probes yield token ids, which change on every rebind), so
-every pass probes each group afresh with the exact probe, runs the
-double scans (at f64) and scatters the marginals into token-id bins; its
-tables bind per model as the default mode's do. Its frequency pass walks
-on the card too, over the exact probe's double Viterbi scan.
+The f64 / exact conformance mode (dtype=torch.float64) follows the JAX
+session's f64 branches: no rank space and no slot cache (exact probes
+yield token ids, which change on every rebind), so every pass probes each
+group afresh with the exact probe, runs the double scans (at f64) and
+scatters the marginals into token-id bins; its tables bind per model as
+the default mode's do. Its frequency pass walks on the card too, over the
+exact probe's double Viterbi scan.
 """
 
 from __future__ import annotations
@@ -81,24 +84,23 @@ def _group_seed(seed: int, gi: int) -> int:
 
 
 class DeviceTrainSession:
+    """One corpus, probed once, for every E-step and frequency pass of a
+    prune run (see the module docstring)."""
+
     def __init__(self, model: Model, samples: Sequence[bytes],
-                 max_snippet: Optional[int], kernel: Optional[str] = None,
-                 dtype=None, probe: Optional[str] = None,
+                 max_snippet: Optional[int], dtype=None,
                  cache_budget: Optional[int] = None,
                  local_shard: bool = False, device=None,
                  timer: Optional[lat.PhaseTimer] = None):
         """`samples` is the whole corpus, or with local_shard under a
-        process group of several ranks this rank's shard of it. kernel=None
-        lets tables small enough (has_vscan) take the fused probe kernels;
-        "slab" keeps every group on the probed-slab kernels. device: a CUDA
-        device by default, "cpu" for the kernels' plain versions; without a
-        GPU and without `device` this raises. `timer` collects the
-        construction's phases (tables, pack); each pass takes its own.
-        dtype=torch.float64 or probe="exact" takes the f64 / exact
-        conformance mode (see the module docstring); snippets then keep the
-        caller's cap at f64."""
-        if kernel not in (None, "slab"):
-            raise ValueError(f"unknown kernel {kernel!r}")
+        process group of several ranks this rank's shard of it. Tables
+        small enough (has_vscan) take the fused probe kernels, larger ones
+        the probed-slab kernels. device: a CUDA device by default, "cpu"
+        for the kernels' plain versions; without a GPU and without
+        `device` this raises. `timer` collects the construction's phases
+        (tables, pack); each pass takes its own. dtype=torch.float64 takes
+        the f64 / exact conformance mode (see the module docstring);
+        snippets then keep the caller's cap."""
         if dtype not in (None, torch.float32, torch.float64):
             raise ValueError(f"unsupported dtype {dtype}")
         self.dev = resolve_device(device)
@@ -106,10 +108,8 @@ class DeviceTrainSession:
         # At world size 1 a shard is the corpus: the plain session.
         self.local_shard = bool(local_shard) and pmesh.process_count() > 1
         self.dtype = dtype or torch.float32
-        self.exact = self.dtype == torch.float64 or probe == "exact"
+        self.exact = self.dtype == torch.float64
         self.max_snippet = ed._em_snippet_cap(max_snippet, self.dtype)
-        self.kernel = kernel
-        self.probe = probe
         self.chunk = ed.CHUNK
         with lat.phase(timer, "tables"):
             self.base_tbl = TokenTable.build(model.vocab)
@@ -129,17 +129,6 @@ class DeviceTrainSession:
                                                       self.base_tbl)
             self._set_binding(model, self.layout.base,
                               self.base_tbl.scores_f64, None)
-        # The count structures are sized for the probe the table resolves
-        # by default; another slot space would misattribute counts.
-        default_mode = lat._probe_mode(self.dt, self.dtype)
-        requested = {"em": "fast"}.get(probe, probe)
-        if requested not in (None, "exact") and requested != default_mode:
-            raise ValueError(
-                f"DeviceTrainSession count structures are sized for the "
-                f"'{default_mode}' probe this table resolves to; "
-                f"probe={probe!r} would use a different slot space. Pass "
-                f"probe=None (per-probe overrides are supported by "
-                f"encode_corpus_device only).")
         with lat.phase(timer, "pack"):
             self.width = ed._pick_width(samples, self.max_snippet)
             if PACK_WIDTH > self.width and \
@@ -392,10 +381,9 @@ class DeviceTrainSession:
         return score, slots
 
     def _fused(self) -> bool:
-        """Whether this binding takes the fused probe kernels (never in
-        the f64 / exact mode)."""
-        return (self.kernel is None and not self.exact
-                and lat.has_vscan(self.dt))
+        """Whether this binding takes the fused probe kernels: a table
+        small enough (has_vscan), never in the f64 / exact mode."""
+        return not self.exact and lat.has_vscan(self.dt)
 
     def _fused_seg(self, gi: int, batch: lat.DeviceBatch, timer=None):
         """SegStruct for the fused E-step (probing the group once to build
@@ -521,7 +509,7 @@ class DeviceTrainSession:
         trace.count("groups.cached", cached)
         trace.count("groups.probed", len(self._groups()) - cached)
         with lat.phase(timer, "fold"):
-            expected = (lat.fold_expected(self.dt, acc, "exact")
+            expected = (lat.fold_expected(acc)
                         if self.exact and acc is not None
                         else self._fold(acc))
             z = (torch.cat(z_parts).cpu().numpy() if z_parts

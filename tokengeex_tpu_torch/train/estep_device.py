@@ -1,6 +1,8 @@
-"""Device-backed corpus passes: batched Viterbi encode, the EM E-step,
-Viterbi frequency counts, merge's pair counts and the prune round's
-nbest(2) alternatives.
+"""Device-backed corpus passes: batched Viterbi encode, merge's pair
+counts and the prune round's nbest(2) alternatives, with the row-group
+machinery (packing widths, row groups, dropout words) that the training
+session (train/device_session.py), the one E-step and frequency pass,
+shares with them.
 
 Counterpart of tokengeex_tpu/train/estep_device.py: samples are packed
 into fixed-shape (rows x width) byte batches
@@ -10,10 +12,7 @@ ids on the device (`lattice.walk_ids`) and reads back one flat id buffer
 per group; samples longer than MAX_ENCODE_WIDTH chain fixed-width windows
 with a carried dp tail, their backpointers kept on the device, and are
 walked across their windows there once the last is scanned
-(_encode_chained, `lattice.chained_walk`). The E-step
-probes each group once, runs the forward and the backward DP over the
-whole width in one scan each, and adds the token marginals into slot bins
-that the host folds to expected counts per token. The merge loop
+(_encode_chained, `lattice.chained_walk`). The merge loop
 re-encodes one DeviceCorpus, packed and uploaded once, and counts
 adjacent id pairs on the device, the walk's ids never leaving it
 (count_pairs_arrays: a hash table, ops/pair_count.py). The pruner's
@@ -22,9 +21,9 @@ each token's whole-token entry masked (prune_alternatives_device).
 
 Under a process group (parallel/mesh.py, one rank a GPU) the corpus is
 replicated: every rank packs every sample the same way and runs its block
-of each row group's rows (`rank_groups`); the E-step's counts are summed
-by one all_reduce a pass and encode's ids all_gathered, so every rank
-returns the whole corpus's result.
+of each row group's rows (`rank_groups`); encode's ids are all_gathered
+and the pair tables' rows gathered, so every rank returns the whole
+corpus's result.
 """
 
 from __future__ import annotations
@@ -716,130 +715,6 @@ def _chained_batch(dt: lat.DeviceTables,
     return ChainedIds(flat, ntok, bad, ntok_h, np.nonzero(bad_h)[0].tolist())
 
 
-def run_e_step_device(
-    model: Model,
-    samples: Sequence[bytes],
-    dropout: float,
-    max_snippet: Optional[int],
-    task: Optional[Task] = None,
-    dtype=None,
-    seed: int = 0,
-    probe: Optional[str] = None,
-    table_hints: Optional[Tuple[int, int]] = None,
-    device=None,
-    timer: Optional[lat.PhaseTimer] = None,
-) -> np.ndarray:
-    """Expected token counts over the corpus (reference:
-    src/prune.rs:64-120), as (V,) float64.
-
-    Samples are chopped into snippets of at most
-    min(max_snippet, DEVICE_EM_SNIPPET) bytes (max_snippet itself at
-    dtype float64, the f64 / exact conformance route: the exact probe,
-    f64 scores, the double scans and an f64 scatter into token-id bins)
-    and packed; each row group
-    is probed once (`match_cache`), then runs the forward DP and the
-    backward DP with the token marginals (one whole-width scan each, over
-    the group's chain bounds, made once per group) and adds the marginals
-    into slot bins on the device. dropout > 0 skips multi-byte candidates
-    with coins from a torch.Generator seeded with `seed`, which both scans
-    draw in their kernels from the dropout-free cache. Every snippet's
-    normaliser is checked once, after the pass: a non-finite one (a
-    snippet no token sequence covers) raises
-    ValueError. device: a CUDA device by default, "cpu" for the kernels'
-    plain versions; without a GPU and without `device` this raises.
-    `timer` collects the seconds per phase (tables, pack, prep, probe,
-    forward, backward, scatter, fold). Under a process group
-    (parallel/mesh.py) the corpus is replicated: every rank runs its block
-    of each group's rows (its coins sliced from the group's, so the counts
-    equal one process's up to the summation order), and one
-    all_reduce(SUM) of the folded counts ends the pass on every rank (the
-    JAX package's sharded E-step and psum)."""
-    dtype = dtype or torch.float32
-    dev = resolve_device(device)
-    with lat.phase(timer, "tables"):
-        hb, hl = table_hints or (None, None)
-        table = TokenTable.build(model.vocab, min_bits=hb, min_len=hl)
-        dt = lat.DeviceTables.from_table(table, dev, dtype)
-    L = dt.max_len
-    mode = probe or lat._probe_mode(dt, dtype)
-    with lat.phase(timer, "pack"):
-        max_snippet = _em_snippet_cap(max_snippet, dtype)
-        width = _pick_width(samples, max_snippet)
-        packed = count_packing(pack_samples(
-            samples, width=width, max_snippet=max_snippet), samples)
-    gen = (torch.Generator(device=dev).manual_seed(seed)
-           if dropout > 0.0 else None)
-
-    acc = None
-    z_parts: List[torch.Tensor] = []
-    z_spans: list = []
-    for _, rows, lo, sub in rank_groups(packed, width):
-        with lat.phase(timer, "prep"):
-            batch = lat.prepare_batch(sub, L, dev)
-            drop_u = (block_drop_words(gen, rows, lo, sub,
-                                       batch.sid.shape[1], dev)
-                      if gen is not None else None)
-        # Probe once per group; forward and backward share the cache,
-        # rows * width * L * 8 bytes: 512 MiB at L = 16.
-        with lat.phase(timer, "probe"):
-            cache = lat.match_cache(dt, batch, C=CHUNK, probe=mode,
-                                    dtype=dtype)
-            chains = lat.chain_bounds(batch)
-        A = lat.forward(dt, batch, cache, C=CHUNK, drop_u=drop_u,
-                        dropout=dropout, timer=timer, chains=chains)
-        exp_g = lat.backward_expected(dt, batch, A, cache, C=CHUNK,
-                                      drop_u=drop_u, dropout=dropout,
-                                      probe=mode, timer=timer,
-                                      chains=chains)
-        acc = exp_g if acc is None else acc.add_(exp_g)
-        del cache
-        if sub.spans:
-            z_parts.append(lat.pick_span_values_device(
-                A, [sp[0] for sp in sub.spans], [sp[2] for sp in sub.spans]))
-            z_spans.extend(sub.spans)
-        if task is not None:
-            task.record(sum(e - s for (_, s, e, _, _) in sub.spans),
-                        len({sp[3] for sp in sub.spans}))
-
-    with lat.phase(timer, "fold"):
-        expected = (lat.fold_expected(dt, acc, mode) if acc is not None
-                    else np.zeros(dt.vocab_size, dtype=np.float64))
-        z = (torch.cat(z_parts).cpu().numpy() if z_parts
-             else np.zeros(0, np.float32))
-    # Per-snippet normaliser check (reference: src/prune.rs:90-96), read
-    # back once for the whole pass and agreed by every rank before any
-    # raises.
-    bad = np.nonzero(~np.isfinite(z))[0]
-    si, zk = ((z_spans[int(bad[0])][3], float(z[bad[0]])) if bad.size
-              else (-1, 0.0))
-    si, zk = pmesh.allgather_fail(si, zk)
-    if si >= 0:
-        raise ValueError(
-            f"normalization constant is not finite "
-            f"(z={zk}, sample={si}, len={len(samples[si])})")
-    return pmesh.all_reduce_counts(expected)
-
-
-def count_frequencies_device(
-    model: Model,
-    samples: Sequence[bytes],
-    task: Optional[Task] = None,
-    table_hints: Optional[Tuple[int, int]] = None,
-    device=None,
-) -> np.ndarray:
-    """Viterbi token frequencies (reference: src/prune.rs:205-246):
-    `encode_corpus_device`, then the ids counted on the host."""
-    encoded = encode_corpus_device(model, samples, table_hints=table_hints,
-                                   device=device)
-    ids = [np.asarray(r, dtype=np.int64) for r in encoded if r]
-    freqs = np.bincount(np.concatenate(ids) if ids
-                        else np.zeros(0, np.int64),
-                        minlength=model.vocab_size())
-    if task is not None:
-        task.record(sum(len(s) for s in samples), len(samples))
-    return freqs.astype(np.int64)
-
-
 def _chained_pair_keys(ids: Sequence[List[int]]) -> np.ndarray:
     """The int64 keys (a << 32) | b of the adjacent ids of each list."""
     keys = [(a[:-1] << 32) | a[1:]
@@ -1040,23 +915,6 @@ def _insert_pairs(table, ids: Sequence[List[int]], dev,
         keys = torch.from_numpy(_chained_pair_keys(ids)).to(dev)
         table.reserve(keys.numel())
         table.insert_weighted(keys, torch.ones_like(keys))
-
-
-def count_pairs_device(model: Model, samples: Sequence[bytes],
-                       task: Optional[Task] = None,
-                       table_hints: Optional[Tuple[int, int]] = None,
-                       corpus: Optional[DeviceCorpus] = None,
-                       device=None, timer: Optional[lat.PhaseTimer] = None
-                       ) -> List[Tuple[Tuple[int, int], int]]:
-    """Adjacent id pair counts of the device encode (reference:
-    src/merge.rs:53-84), [((a, b), count)] by descending count, equal
-    counts in ascending (a, b) order: `count_pairs_arrays`, then the list
-    built once (`timer`: its phases and list)."""
-    keys, counts = count_pairs_arrays(model, samples, task, table_hints,
-                                      corpus, device, timer)
-    with lat.phase(timer, "list"):
-        return list(zip(zip((keys >> 32).tolist(),
-                            (keys & 0xFFFFFFFF).tolist()), counts.tolist()))
 
 
 # Chain length of the alternatives' Viterbi scan: every token of the
